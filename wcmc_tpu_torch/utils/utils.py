@@ -1,0 +1,38 @@
+"""Small shared helpers: channels-last crops and device selection."""
+
+from __future__ import annotations
+
+import torch
+
+
+def crop_like(src, tgt):
+    """Center-crop ``src`` spatially to match ``tgt``.
+
+    Spatial dims are the two axes *before* the channel axis
+    (channels-last layout: ``(..., H, W, C)``); the top/left margin is
+    ``d // 2``, as in the reference."""
+    sh, sw = src.shape[-3], src.shape[-2]
+    th, tw = tgt.shape[-3], tgt.shape[-2]
+    dh, dw = sh - th, sw - tw
+    if dh == 0 and dw == 0:
+        return src
+    if dh < 0 or dw < 0:
+        raise ValueError(f"crop_like: src {tuple(src.shape)} smaller than "
+                         f"tgt {tuple(tgt.shape)}")
+    top, left = dh // 2, dw // 2
+    return src[..., top:sh - (dh - top), left:sw - (dw - left), :]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    names another device.  Without a card and without an explicit
+    device this raises — the port never falls back to the CPU
+    silently."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (or "
+            "--device cpu) to run on the CPU"
+        )
+    return torch.device("cuda")
