@@ -1,6 +1,7 @@
 """The port stands alone: no module of wcmc_tpu_torch, and not
-chip_smoke.py, imports JAX, flax, optax or wcmc_tpu; and its entry
-points refuse to fall back to the CPU silently."""
+chip_smoke.py, imports JAX, flax, optax or wcmc_tpu, while serving a
+batch and taking a train step; and its entry points refuse to fall back
+to the CPU silently."""
 
 import os
 import subprocess
@@ -51,6 +52,17 @@ _CHILD = textwrap.dedent("""
     rad, pb = iface.validate_batch(batch)
     assert rad.shape == (1, 8, 8, 3) and bool(torch.isfinite(rad).all())
     assert pb["diffuse"].shape == (1, 2, p, p, 3)
+
+    from wcmc_tpu_torch.data.batches import synthetic_batch
+    cfg = TrainConfig(kpcn_ksize=5, use_llpm_buf=True, manif_learn=True,
+                      manif_loss="FMSE", compute_dtype="float32", finite_check_every=1)
+    trainer = init_interfaces(cfg, device="cpu")[0]
+    tbatch = synthetic_batch(rng, "kpcn", batch_size=1, patch=48, spp=2, use_llpm_buf=True)
+    trainer.to_train_mode()
+    trainer.preprocess(tbatch)
+    losses = trainer.train_batch(tbatch)
+    assert {"l_diffuse", "l_manif_diffuse", "l_total"} <= set(losses)
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))

@@ -1,12 +1,21 @@
 """Each hand-written CUDA kernel against its plain PyTorch version, on the
-card (marked ``gpu``; skips without one).  Runs without JAX:
+card (marked ``gpu``; skips without one), and one train step on the card
+against the same step on the CPU.  Runs without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 
-Tolerances (of max |plain|): K1 1e-5 — both read the same logits and
-run the softmax in f32, only the summation order differs; K4/K5 2e-2 —
-bf16 hidden layers summed in another order can round to a neighbouring
-bf16 value.  TF32 is off for every f32 product compared here."""
+Tolerances (of max |plain|): K1, K3 and K2 with f32 logits 1e-5 — the
+same f32 math, only the summation order differs; K2 with bf16 logits
+1e-2 — one rounding of an f32 value to bf16, which another summation
+order can move by one bf16 step (2^-8 relative); K4/K5 forward and
+backward 2e-2 — bf16 hidden layers and cotangents summed in another
+order can round to a neighbouring bf16 value.  K5-bwd's per-row outputs
+(d e, d ctx) are held in relative L2 norm, 1e-2: each recomputes the
+hidden layer, and where a pre-activation lies within rounding of zero the
+two versions can disagree on its relu, which moves that element's
+gradient by its full size (a few such rows in 10^6 reach 9% of max |d e|
+at the training shape).  TF32 is off for every f32 product compared
+here."""
 
 import pytest
 import torch
@@ -17,7 +26,7 @@ from wcmc_tpu_torch.ops import pathnet_fused as pf
 
 pytestmark = pytest.mark.gpu
 
-K1_TOL, BF16_TOL = 1e-5, 2e-2
+K1_TOL, K2_BF16_TOL, BF16_TOL = 1e-5, 1e-2, 2e-2
 
 
 @pytest.fixture
@@ -34,6 +43,13 @@ def _close(got, want, tol):
     assert got.shape == want.shape
     err = (got - want).abs().max().item()
     assert err <= tol * want.abs().max().item(), err
+
+
+def _close_l2(got, want, tol):
+    got, want = got.double(), want.double()
+    assert got.shape == want.shape
+    err = ((got - want).norm() / want.norm()).item()
+    assert err <= tol, err
 
 
 def _gen(seed=0):
@@ -102,3 +118,147 @@ def test_kernels_refuse_what_they_do_not_compute(cuda):
         pf.pathnet_embed(x, ws, bs)
     with pytest.raises(ValueError):
         pf.pathnet_embed(x.to(torch.bfloat16), ws, bs, ("relu", "relu", "relu"))
+
+
+def _crop_logits(cuda, g, b, h, w, ksize, dtype):
+    full = 2 * torch.randn((b, ksize * ksize, h + 4, w + 6), device=cuda, generator=g)
+    full = full.to(dtype).contiguous(memory_format=torch.channels_last).requires_grad_()
+    return full.permute(0, 2, 3, 1)[:, 2:2 + h, 3:3 + w]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,ksize", [(2, 11, 13, 5), (8, 72, 72, 21)])
+def test_gather_softmax_backward(cuda, b, h, w, ksize, dtype):
+    """K2 (d logits) and K3 (d buf) through autograd, as the train step
+    and a buffer that requires grad reach them."""
+    g = _gen(3)
+    buf = torch.rand((b, h + ksize - 1, w + ksize - 1, 3), device=cuda, generator=g)
+    logits = _crop_logits(cuda, g, b, h, w, ksize, dtype)
+    buf.requires_grad_()
+    cot = torch.randn((b, h, w, 3), device=cuda, generator=g)
+    out = ka.kernel_gather_softmax(buf, logits, ksize)
+    _build.reset_counts()
+    dbuf, dlogits = torch.autograd.grad(out, [buf, logits], cot)
+    assert dict(_build.launches) == {"outer_softmax": 1, "scatter_softmax": 1}
+    assert not _build.plain_calls
+    assert dlogits.dtype == dtype and dbuf.dtype == torch.float32
+    _close(dlogits, ka.outer_softmax_plain(cot, buf.detach(), logits.detach(), ksize),
+           K1_TOL if dtype == torch.float32 else K2_BF16_TOL)
+    _close(dbuf, ka.scatter_softmax_plain(cot, logits.detach(), ksize), K1_TOL)
+    # data buffers (the KPCN case): only K2 runs
+    out = ka.kernel_gather_softmax(buf.detach(), logits, ksize)
+    _build.reset_counts()
+    torch.autograd.grad(out, logits, cot)
+    assert dict(_build.launches) == {"outer_softmax": 1}
+
+
+def _embed_case(cuda, b, s, hw, seed):
+    g = _gen(seed)
+    dims = (36, 128, 128, 128)
+    x = torch.randn((b, s, hw, dims[0]), device=cuda, generator=g).to(torch.bfloat16)
+    ws = [torch.randn((ci, co), device=cuda, generator=g) / ci**0.5
+          for ci, co in zip(dims[:-1], dims[1:])]
+    bs = [0.1 * torch.randn(co, device=cuda, generator=g) for co in dims[1:]]
+    ge = torch.randn((b, s, hw, dims[-1]), device=cuda, generator=g).to(torch.bfloat16)
+    gmean = torch.randn((b, hw, dims[-1]), device=cuda, generator=g)
+    return x, ws, bs, ge, gmean
+
+
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 11, 40), (8, 8, 16384)])
+def test_pathnet_embed_backward(cuda, b, s, hw):
+    x, ws, bs, ge, gmean = _embed_case(cuda, b, s, hw, 4)
+    _build.reset_counts()
+    _, dws, dbs = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs)
+    assert _build.launches["pathnet_embed_bwd"] == 1 and not _build.plain_calls
+    _, wdws, wdbs = pf._embed_bwd_plain(x, ge, gmean, ws, bs, pf.EMBED_ACTS)
+    for got, want in zip(dws + dbs, wdws + wdbs):
+        assert got.dtype == torch.float32
+        _close(got, want, BF16_TOL)
+    # through autograd: weights that require grad launch K4-bwd
+    params = [w.clone().requires_grad_() for w in ws + bs]
+    e, mean = pf.pathnet_embed(x, params[:3], params[3:])
+    _build.reset_counts()
+    grads = torch.autograd.grad([e, mean], params, [ge, gmean])
+    assert _build.launches["pathnet_embed_bwd"] == 1
+    for got, want in zip(grads, dws + dbs):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _head_case(cuda, b, s, hw, seed):
+    g = _gen(seed)
+    ce = cc = 128
+    e = torch.randn((b, s, hw, ce), device=cuda, generator=g).to(torch.bfloat16)
+    ctx = torch.randn((b, hw, cc), device=cuda, generator=g).to(torch.bfloat16)
+    ws = [torch.randn((ce + cc, 256), device=cuda, generator=g) / 16.0,
+          torch.randn((256, 6), device=cuda, generator=g) / 16.0]
+    bs = [0.1 * torch.randn(256, device=cuda, generator=g),
+          0.1 * torch.randn(6, device=cuda, generator=g)]
+    cot = [torch.randn((b, s, 6, hw), device=cuda, generator=g),
+           torch.randn((b, hw, 6), device=cuda, generator=g),
+           0.1 * torch.randn((b, hw, 6), device=cuda, generator=g)]
+    return e, ctx, ws, bs, cot
+
+
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 11, 40), (8, 8, 16384)])
+def test_pathnet_head_backward(cuda, b, s, hw):
+    e, ctx, ws, bs, (g, gsum, gsq) = _head_case(cuda, b, s, hw, 5)
+    _build.reset_counts()
+    got = pf.pathnet_head_bwd(e, ctx, g, gsum, gsq, ws, bs, cmajor=True)
+    assert _build.launches["pathnet_head_bwd"] == 1 and not _build.plain_calls
+    want = pf._head_bwd_plain(e, ctx, g, gsum, gsq, ws, bs, pf.HEAD_ACTS, cmajor=True)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    _close_l2(got[0], want[0], 1e-2)
+    _close_l2(got[1], want[1], 1e-2)
+    for gt, wt in zip([*got[2], *got[3]], [*want[2], *want[3]]):
+        _close(gt, wt, BF16_TOL)
+    # the channels-last cotangent gives the same gradients
+    flat = pf.pathnet_head_bwd(e, ctx, g.transpose(2, 3).contiguous(), gsum, gsq, ws, bs)
+    for gt, wt in zip(flat[2] + flat[3], got[2] + got[3]):
+        torch.testing.assert_close(gt, wt, rtol=0, atol=0)
+
+
+def test_train_batch_on_the_card_matches_the_cpu(cuda):
+    """One bf16 KPCN + manifold train step on the card (every kernel)
+    against the same fresh weights, batch (2 patches of 128 px, 8 spp)
+    and draws on the CPU (every plain version): bf16 convolutions in
+    cuDNN and on the CPU round differently, and a rounding can take a
+    value to the other side of a relu.  Measured on an H100: losses within
+    8.7e-6 relative, each model's flattened gradient within cosine
+    0.99716 and norm ratio 1 +- 0.0175; held to about 2.5x: 2.5e-5,
+    0.993 and 0.045."""
+    import numpy as np
+
+    from wcmc_tpu_torch import convert
+    from wcmc_tpu_torch.data.batches import synthetic_batch
+    from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
+
+    cfg = TrainConfig(kpcn_ksize=21, use_llpm_buf=True, manif_learn=True, manif_loss="FMSE")
+    card = init_interfaces(cfg, device=cuda)[0]
+    cpu = init_interfaces(cfg, device="cpu")[0]
+    for name, m in card.models.items():
+        convert.load_flax_params(cpu.models[name], convert.to_flax(m))
+    batch = synthetic_batch(np.random.default_rng(0), "kpcn", 2, 128, 8, True)
+    card.to_train_mode()
+    cpu.to_train_mode()
+    card.preprocess(batch)
+    cpu.preprocess(batch)
+    draws = card.draw_pairings((2, 8, 3, 72, 72))
+    _build.reset_counts()
+    ld_card = card.train_batch(batch, grad_hook_mode=True, draws=draws)
+    launched = dict(_build.launches)
+    assert not _build.plain_calls
+    for name in ("gather_softmax", "outer_softmax", "pathnet_embed", "pathnet_embed_bwd",
+                 "pathnet_head", "pathnet_head_bwd"):
+        assert launched.get(name, 0) >= 1, (name, launched)
+    ld_cpu = cpu.train_batch(batch, grad_hook_mode=True, draws=draws)
+    measured = {k: abs(float(ld_card[k]) - float(v)) / abs(float(v)) for k, v in ld_cpu.items()}
+    for name, m in card.models.items():
+        a = torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
+        b = torch.cat([p.grad.flatten().double() for p in cpu.models[name].parameters()])
+        measured[name] = (float(a @ b / (a.norm() * b.norm())), float(a.norm() / b.norm()))
+    print(measured)
+    for k in ld_cpu:
+        assert measured[k] <= 2.5e-5, (k, measured)
+    for name in card.models:
+        cos, ratio = measured[name]
+        assert cos >= 0.993 and abs(ratio - 1) <= 0.045, (name, measured)

@@ -38,17 +38,28 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def to_flax(module: torch.nn.Module) -> dict:
-    """The module's parameters as a flax-layout nested dict of f32 numpy
-    arrays."""
+def _tree(module: torch.nn.Module, value) -> dict:
     tree: dict = {}
     for name, p in module.named_parameters():
         path = _flax_path(name)
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = _to_flax_layout(p.detach().float().cpu().numpy())
+        node[path[-1]] = _to_flax_layout(value(p).detach().float().cpu().numpy())
     return tree
+
+
+def to_flax(module: torch.nn.Module) -> dict:
+    """The module's parameters as a flax-layout nested dict of f32 numpy
+    arrays."""
+    return _tree(module, lambda p: p)
+
+
+def grads_to_flax(module: torch.nn.Module) -> dict:
+    """The module's gradients (``.grad``; zeros where there is none) in
+    the same flax layout as :func:`to_flax`, so they compare tree to
+    tree with ``jax.grad`` of the reference's params."""
+    return _tree(module, lambda p: torch.zeros_like(p) if p.grad is None else p.grad)
 
 
 def load_flax_params(module: torch.nn.Module, tree: Mapping):

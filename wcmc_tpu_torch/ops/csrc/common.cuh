@@ -12,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <type_traits>
+
 namespace wcmc {
 
 using bf16 = __nv_bfloat16;
@@ -19,6 +21,8 @@ namespace wmma = nvcuda::wmma;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+// most radiance channels the per-pixel kernel-application kernels take
+constexpr int kMaxChannels = 8;
 
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
@@ -43,6 +47,12 @@ struct SmemCarver {
 };
 
 inline size_t smem_bytes(size_t count, size_t elem) { return (count * elem + 127) / 128 * 128; }
+
+// Loads and stores of f32 or bf16 values, with the math in f32.
+__device__ inline float to_f32(float v) { return v; }
+__device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ inline void store_f32(float* p, float v) { *p = v; }
+__device__ inline void store_f32(bf16* p, float v) { *p = __float2bfloat16(v); }
 
 __device__ inline float warp_sum(float v) {
 #pragma unroll
@@ -102,6 +112,73 @@ __device__ inline void tile_mma(const bf16* A, int lda, const bf16* W, int ldw, 
     for (int i = lane; i < 256; i += 32) epi(r0 + i / 16, c0 + i % 16, st[i]);
     __syncwarp();
   }
+}
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// acc += A[r0 : r0 + 16, 0 : K] . B[0 : K, c0 : c0 + 16] on the tensor
+// cores (bf16 in, f32 accumulate), for one warp.  A is stored row-major
+// (LA = wmma::row_major, A(r, k) = A[r * lda + k]) or as its transpose
+// (LA = wmma::col_major, A(r, k) = A[k * lda + r]); likewise B
+// (row_major: B(k, c) = B[k * ldb + c]; col_major: B(k, c) = B[c * ldb +
+// k]).  So a backward pass reads X^T, W^T and friends straight from the
+// stored X and W, in shared or device memory.  r0, c0 and K are
+// multiples of 16; lda and ldb multiples of 8, with 16 rows of either
+// spanning a multiple of 32 bytes (pitch_bf16 rows and unpadded widths
+// that are multiples of 16 both do).
+template <typename LA, typename LB>
+__device__ inline void frag_mma(Acc& acc, const bf16* A, int lda, const bf16* B, int ldb, int r0,
+                                int c0, int K) {
+  constexpr bool a_rows = std::is_same<LA, wmma::row_major>::value;
+  constexpr bool b_rows = std::is_same<LB, wmma::row_major>::value;
+  for (int k = 0; k < K; k += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
+    wmma::load_matrix_sync(a, a_rows ? A + (size_t)r0 * lda + k : A + (size_t)k * lda + r0, lda);
+    wmma::load_matrix_sync(b, b_rows ? B + (size_t)k * ldb + c0 : B + (size_t)c0 * ldb + k, ldb);
+    wmma::mma_sync(acc, a, b, acc);
+  }
+}
+
+// Stage a finished fragment in this warp's 16x16 f32 scratch (row-major)
+// so that its lanes can read any element of it.
+__device__ inline float* stage_frag(const Acc& acc, float* stage) {
+  float* st = stage + (threadIdx.x / 32) * 256;
+  wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
+  __syncwarp();
+  return st;
+}
+
+// Column sums of a staged 16x16 fragment, lane j < 16 getting column j's
+// (rows in order: the sum is deterministic).
+__device__ inline float stage_col_sum(const float* st) {
+  const int lane = threadIdx.x % 32;
+  float v = 0.0f;
+  if (lane < 16) {
+    for (int r = 0; r < 16; ++r) v += st[r * 16 + lane];
+  }
+  return v;
+}
+
+// out[j] = sum_{k < n_parts} parts[k * n + j], summed in the order of k:
+// the deterministic second pass that reduces the per-block partial weight
+// gradients of the backward kernels (no float atomics anywhere).
+static __global__ void __launch_bounds__(kThreads)
+    reduce_parts_kernel(const float* __restrict__ parts, float* __restrict__ out, int n_parts,
+                        long long n) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  float v = 0.0f;
+  for (int k = 0; k < n_parts; ++k) v += parts[(size_t)k * n + j];
+  out[j] = v;
+}
+
+static inline cudaError_t reduce_parts(const float* parts, float* out, int n_parts, long long n,
+                                cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  reduce_parts_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      parts, out, n_parts, n);
+  return cudaGetLastError();
 }
 
 // Makes `device` the calling thread's current device for the guard's

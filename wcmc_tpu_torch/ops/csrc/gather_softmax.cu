@@ -27,11 +27,6 @@
 
 namespace wcmc {
 
-constexpr int kMaxChannels = 8;
-
-__device__ inline float to_f32(float v) { return v; }
-__device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gather_softmax_kernel(const float* __restrict__ buf, const T* __restrict__ logits,

@@ -1,7 +1,7 @@
 """Row-wise MLP helpers shared by the PathNet plain versions.
 
-Counterpart of the activation table and the plain chain (``_mlp_xla``)
-of ``wcmc_tpu/ops/mlp_fused.py``.  The fused LBMC MLP kernel (K10) comes
+Counterpart of the activation table, its gradient (``_act_grad``) and
+the plain chain (``_mlp_xla``) of ``wcmc_tpu/ops/mlp_fused.py``.  The fused LBMC MLP kernel (K10) comes
 with the LBMC port.
 """
 
@@ -17,6 +17,20 @@ def _act(name: str, z):
         return torch.where(z >= 0, z, 0.01 * z)
     if name == "linear":
         return z
+    raise ValueError(f"unsupported activation {name!r}")
+
+
+def _act_grad(name: str, h, g):
+    """Activation gradient through the POST-activation value ``h``, as
+    the reference's backward kernels take it: for relu and leaky_relu
+    the sign of ``h`` says what the sign of the pre-activation says."""
+    hf = h.float()
+    if name == "relu":
+        return torch.where(hf > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    if name == "leaky_relu":
+        return torch.where(hf >= 0, g, 0.01 * g)
+    if name == "linear":
+        return g
     raise ValueError(f"unsupported activation {name!r}")
 
 

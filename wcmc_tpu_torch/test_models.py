@@ -31,11 +31,18 @@ def kpcn_config(args) -> TrainConfig:
     ``train_kpcn.make_config``)."""
     return TrainConfig(
         base_model="kpcn",
+        model_name=args.model_name,
+        batch_size=args.batch_size,
+        lr_dncnn=args.lr_dncnn,
         lr_pnet=tuple(args.lr_pnet),
         pnet_out_size=tuple(args.pnet_out_size),
         w_manif=tuple(args.w_manif),
         use_llpm_buf=args.use_llpm_buf,
+        manif_learn=args.manif_learn,
+        manif_loss=args.manif_loss,
+        local=args.local,
         disentangle=args.disentangle,
+        train_branches=args.train_branches,
         kpcn_ref=args.kpcn_ref,
         kpcn_pre=args.kpcn_pre,
         seed=args.seed,

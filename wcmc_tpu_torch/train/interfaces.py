@@ -1,20 +1,28 @@
 """Model interfaces: the contract between entry points and models.
 
-Counterpart of the forward (validation / serving) part of
-``wcmc_tpu/train/interfaces.py`` for KPCN: ``preprocess``,
-``validate_batch`` and ``to_eval_mode`` with the same batch-dict keys,
-the dual PathNet with its fused sample moments, the ddof=1 variance
-feature and the disentanglement modes.  The models hold their own
-parameters (``restore_interface`` loads checkpoints into them).  The
-train step, the optimizers and the SBMC/LBMC interfaces come with later
-parts of the port.
+Counterpart of the KPCN part of ``wcmc_tpu/train/interfaces.py``:
+``preprocess``, ``to_train_mode``, ``train_batch``, ``validate_batch``,
+``to_eval_mode`` and ``get_epoch_summary`` with the same batch-dict and
+loss-dict keys, the dual PathNet with its fused sample moments, the
+detached ddof=1 variance feature, the disentanglement modes and the
+fail-fast non-finite-loss check.  The models hold their own parameters
+(``restore_interface`` loads checkpoints into them); each model has its
+own optimizer (``train/state.py``).
 
-Layouts are channels-last: pixel ``(B,H,W,C)``, sample ``(B,S,H,W,C)``.
+The reference draws the manifold losses' pairings from a ``jax.random``
+key per step; here they come from a ``torch.Generator`` seeded with the
+config's seed, or are passed to ``train_batch`` (``draws``), so a test
+can replay the reference's.  The SBMC and LBMC interfaces come with
+their ports.
+
+Layouts are channels-last: pixel ``(B,H,W,C)``, sample ``(B,S,H,W,C)``;
+the manifold buffers of the train step are channel-major
+``(B,S,C,H,W)``, the layout the losses take with ``cmajor``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -24,6 +32,24 @@ from wcmc_tpu_torch.utils.utils import crop_like
 Batch = Dict[str, torch.Tensor]
 
 DISENTANGLE_MODES = ("m11r11", "m10r01", "m11r01", "m10r11")
+
+
+def crop_hw(x, h_t: int, w_t: int):
+    """Center-crop the LAST TWO (spatial) dims — the channel-major
+    counterpart of ``crop_like``."""
+    dh = (x.shape[-2] - h_t) // 2
+    dw = (x.shape[-1] - w_t) // 2
+    return x[..., dh:dh + h_t, dw:dw + w_t]
+
+
+def p_buffer_variance(p_buffer):
+    """Detached per-pixel embedding variance / spp, (B,S,H,W,C) ->
+    (B,H,W,1): the unbiased (ddof=1) sample variance, averaged over
+    channels.  The golden definition the interface's moment-based
+    variance feature is held to."""
+    s = p_buffer.shape[1]
+    v = p_buffer.var(dim=1, unbiased=True).mean(dim=-1, keepdim=True) / s
+    return v.detach()
 
 
 def split_disentangle(p_buffer, mode: str, axis: int = -1):
@@ -44,8 +70,8 @@ def split_disentangle(p_buffer, mode: str, axis: int = -1):
 
 
 class KPCNInterface:
-    """Diffuse/specular KPCN with the optional dual PathNet, forward
-    only."""
+    """Diffuse/specular KPCN with the optional dual PathNet and the
+    optional path-manifold loss."""
 
     REQUIRED_KEYS = (
         "target_total", "target_diffuse", "target_specular",
@@ -55,25 +81,41 @@ class KPCNInterface:
 
     def __init__(self, models: Dict[str, torch.nn.Module],
                  loss_funcs: Dict[str, Callable], device, args=None,
-                 use_llpm_buf: bool = False,
-                 disentanglement_option: str = "m11r11"):
+                 optims: Optional[Dict[str, Any]] = None,
+                 use_llpm_buf: bool = False, manif_learn: bool = False,
+                 w_manif: float = 0.1, train_branches: bool = True,
+                 disentanglement_option: str = "m11r11", seed: int = 0,
+                 finite_check_every: int = 100):
         if "dncnn" not in models:
             raise ValueError("KPCNInterface needs a 'dncnn' model")
         if use_llpm_buf and not {"backbone_diffuse", "backbone_specular"} <= set(models):
             raise ValueError("use_llpm_buf needs backbone_diffuse/backbone_specular")
+        if manif_learn and not use_llpm_buf:
+            raise ValueError("manif_learn needs use_llpm_buf")
+        if manif_learn and "l_manif" not in loss_funcs:
+            raise ValueError("manif_learn needs an 'l_manif' loss")
         if "l_test" not in loss_funcs:
             raise ValueError("KPCNInterface needs an 'l_test' loss")
         if disentanglement_option not in DISENTANGLE_MODES:
             raise ValueError(f"unknown disentangle mode {disentanglement_option!r}")
         self.models = models
+        self.optims = optims or {}
         self.loss_funcs = loss_funcs
         self.device = torch.device(device)
         self.args = args
         self.use_llpm_buf = use_llpm_buf
+        self.manif_learn = manif_learn
+        self.w_manif = w_manif
+        self.train_branches = train_branches
         self.disentanglement_option = disentanglement_option
+        self.finite_check_every = finite_check_every
         self.iters = 0
         self.best_err = 1e10
         self.m_losses: Dict[str, torch.Tensor] = {}
+        # p-buffer PNG dumps (wcmc_tpu's pbuf_dump_dir) come with the
+        # image utilities; setting it makes train_batch raise
+        self.pbuf_dump_dir: Optional[str] = None
+        self.generator = torch.Generator().manual_seed(seed)
         self._val_step = self._make_val_step()
 
     def __str__(self):
@@ -112,9 +154,134 @@ class KPCNInterface:
 
     @staticmethod
     def _variance_feature(var_slice, s):
-        """(B,H,W,C) per-channel sample variance -> the (B,H,W,1)
-        variance/spp input feature."""
-        return var_slice.mean(dim=-1, keepdim=True) / s
+        """(B,H,W,C) per-channel sample variance -> the detached
+        (B,H,W,1) variance/spp input feature: no gradient flows back
+        through the sum of squares, as in the reference."""
+        return (var_slice.mean(dim=-1, keepdim=True) / s).detach()
+
+    def _forward_with_paths(self, batch, for_training=True):
+        """PathNet forward + disentangle + input concat.  Returns
+        (augmented batch, p-buffers {'diffuse','specular'}): for
+        training the manifold halves in (B,S,C,H,W), else the
+        reconstruction halves in (B,S,H,W,C), the validation output."""
+        p_d, p_s, mean_d, mean_s, var_d, var_s = (
+            self._dual_pathnet_with_moments(batch, cmajor=for_training))
+        s = p_d.shape[1]
+        opt = self.disentanglement_option
+        if for_training:
+            buffers = {"diffuse": split_disentangle(p_d, opt, axis=2)[0],
+                       "specular": split_disentangle(p_s, opt, axis=2)[0]}
+        else:
+            buffers = {"diffuse": split_disentangle(p_d, opt)[1],
+                       "specular": split_disentangle(p_s, opt)[1]}
+        new_batch = dict(batch)
+        for name, mean, var in (("diffuse", mean_d, var_d), ("specular", mean_s, var_s)):
+            _, mean_recon = split_disentangle(mean, opt)
+            _, var_recon = split_disentangle(var, opt)
+            new_batch[f"kpcn_{name}_in"] = torch.cat(
+                [batch[f"kpcn_{name}_in"], mean_recon,
+                 self._variance_feature(var_recon, s)], dim=-1)
+        return new_batch, buffers
+
+    def draw_pairings(self, p_shape):
+        """One train step's manifold-loss draws for p-buffers of
+        ``p_shape`` (B,S,C,H,W), from this interface's generator:
+        {'diffuse': ..., 'specular': ...}."""
+        l_manif = self.loss_funcs["l_manif"]
+        return {name: l_manif.draw(self.generator, p_shape, cmajor=True)
+                for name in ("diffuse", "specular")}
+
+    def _train_loss(self, batch, draws=None):
+        """(loss to differentiate, loss dict of detached scalars)."""
+        lf = self.loss_funcs
+        loss_dict = {}
+        net_batch, out_manif = batch, None
+        if self.use_llpm_buf:
+            net_batch, out_manif = self._forward_with_paths(batch)
+        out = self.models["dncnn"](net_batch)
+        total, diffuse, specular = out["radiance"], out["diffuse"], out["specular"]
+        tgt_total = crop_like(batch["target_total"], total)
+        if self.train_branches:
+            tgt_diffuse = crop_like(batch["target_diffuse"], diffuse)
+            tgt_specular = crop_like(batch["target_specular"], specular)
+            l_diffuse = lf["l_diffuse"](diffuse, tgt_diffuse)
+            l_specular = lf["l_specular"](specular, tgt_specular)
+            loss_dict["l_diffuse"] = l_diffuse.detach()
+            loss_dict["l_specular"] = l_specular.detach()
+            loss = l_diffuse + l_specular
+            if self.manif_learn:
+                h_t, w_t = diffuse.shape[1], diffuse.shape[2]
+                p_d = crop_hw(out_manif["diffuse"], h_t, w_t)
+                p_s = crop_hw(out_manif["specular"], h_t, w_t)
+                if draws is None:
+                    draws = self.draw_pairings(tuple(p_d.shape))
+                l_md = lf["l_manif"](p_d, tgt_diffuse, draws["diffuse"], cmajor=True)
+                l_ms = lf["l_manif"](p_s, tgt_specular, draws["specular"], cmajor=True)
+                loss = loss + self.w_manif * (l_md + l_ms)
+                loss_dict["l_manif_diffuse"] = l_md.detach()
+                loss_dict["l_manif_specular"] = l_ms.detach()
+            with torch.no_grad():
+                loss_dict["l_total"] = lf["l_recon"](total, tgt_total)
+        else:  # post-training the joint system
+            loss = lf["l_recon"](total, tgt_total)
+            loss_dict["l_total"] = loss.detach()
+        with torch.no_grad():
+            loss_dict["rmse"] = lf["l_test"](total, tgt_total)
+        return loss, loss_dict
+
+    def to_train_mode(self):
+        for name, m in self.models.items():
+            if "optim_" + name not in self.optims:
+                raise ValueError(f"`optim_{name}`: an optimization algorithm is not defined.")
+            m.train()
+
+    def train_batch(self, batch, grad_hook_mode: bool = False, draws=None):
+        """One train step: forward, losses, backward and each model's
+        optimizer step.  Returns the loss dict (0-dim tensors on the
+        device).  ``grad_hook_mode`` runs forward and backward and leaves
+        the gradients in ``.grad`` without updating.  ``draws`` replaces
+        the step's manifold-loss draws (see :meth:`draw_pairings`)."""
+        if self.pbuf_dump_dir is not None:
+            raise NotImplementedError("p-buffer dumps are not ported yet")
+        batch = self.to_device(batch)
+        for opt in self.optims.values():
+            opt.zero_grad()
+        loss, loss_dict = self._train_loss(batch, draws)
+        loss.backward()
+        if grad_hook_mode:
+            return loss_dict
+        for name in self.models:
+            self.optims["optim_" + name].step()
+        self._logging(loss_dict)
+        return loss_dict
+
+    def _logging(self, loss_dict):
+        for key, val in loss_dict.items():
+            acc = self.m_losses.get("m_" + key, torch.zeros((), device=self.device))
+            self.m_losses["m_" + key] = acc + val
+        if self.iters <= 1 or self.iters % self.finite_check_every == 0:
+            for key, val in loss_dict.items():
+                if not bool(torch.isfinite(val).all()):
+                    raise RuntimeError(f"{key}: Non-finite loss at train time.")
+
+    def get_epoch_summary(self, mode: str, norm: int) -> float:
+        """Train: print and reset the accumulated losses, return -1.
+        Otherwise the mean validation loss.  Both divide by ``norm * 2``,
+        the reference's two-branch accounting."""
+        if mode == "train":
+            parts = []
+            for key in list(self.m_losses):
+                if key == "m_val":
+                    continue
+                val = float(self.m_losses[key]) / (norm * 2) * 1000
+                parts.append(f"{key}: {val:.3f}E-3")
+                self.m_losses[key] = torch.zeros((), device=self.device)
+            print("[][][] " + "\t".join(parts))
+            return -1.0
+        return float(self.m_losses["m_val"]) / (norm * 2)
+
+    def to_mesh(self, mesh):
+        raise NotImplementedError("multi-device training is not ported yet")
 
     def _make_val_step(self):
         lf = self.loss_funcs
@@ -125,25 +292,7 @@ class KPCNInterface:
             p_buffers = None
             net_batch = batch
             if self.use_llpm_buf:
-                p_d, p_s, mean_d, mean_s, var_d, var_s = (
-                    self._dual_pathnet_with_moments(batch)
-                )
-                s = p_d.shape[1]
-                if self.disentanglement_option in ("m10r01", "m11r01"):
-                    c = p_d.shape[-1]
-                    p_d, p_s = p_d[..., :c // 2], p_s[..., :c // 2]
-                    mean_d, mean_s = mean_d[..., :c // 2], mean_s[..., :c // 2]
-                    var_d, var_s = var_d[..., :c // 2], var_s[..., :c // 2]
-                p_buffers = {"diffuse": p_d, "specular": p_s}
-                net_batch = dict(batch)
-                net_batch["kpcn_diffuse_in"] = torch.cat(
-                    [batch["kpcn_diffuse_in"], mean_d,
-                     self._variance_feature(var_d, s)], dim=-1,
-                )
-                net_batch["kpcn_specular_in"] = torch.cat(
-                    [batch["kpcn_specular_in"], mean_s,
-                     self._variance_feature(var_s, s)], dim=-1,
-                )
+                net_batch, p_buffers = self._forward_with_paths(batch, for_training=False)
             out = dncnn(net_batch)
             tgt_total = crop_like(batch["target_total"], out["radiance"])
             l_test = lf["l_test"](out["radiance"], tgt_total)

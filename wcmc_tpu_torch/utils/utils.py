@@ -1,4 +1,5 @@
-"""Small shared helpers: channels-last crops and device selection."""
+"""Small shared helpers: channels-last crops, device selection and the
+FeatureMSE tonemap."""
 
 from __future__ import annotations
 
@@ -36,3 +37,11 @@ def resolve_device(device=None) -> torch.device:
             "--device cpu) to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def tonemap_gamma(img):
+    """FeatureMSE's radiance transform: Reinhard then gamma 2.2
+    (0.454545 = 1/2.2).  The clamp at zero splits its gradient at a tie
+    as ``jnp.maximum`` does."""
+    img = torch.maximum(img, img.new_zeros(()))
+    return (img / (1.0 + img)) ** 0.454545
