@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and its training step on one
-NVIDIA card and check them.
+"""Drive the PyTorch port's serving paths and training steps on one
+NVIDIA card and check them: KPCN with the dual PathNet, and LBMC
+(LayerNet) with the single PathNet.
 
     python3 chip_smoke.py
 
@@ -11,40 +12,48 @@ Phases (one JSON line each):
 2. build: the hand-written kernels of ``wcmc_tpu_torch/ops/csrc``
    compiled from the repository's sources (``-Xptxas -v`` registers,
    shared memory and spills per kernel).
-3. kernels: K1 (softmax gather), K4-fwd (PathNet embedding) and K5-fwd
-   (PathNet head) at the serving shapes (8 tiles of 128 px, 8 spp,
-   K = 21, both branches), and the backward kernels K2 (softmax-gather
-   d logits), K3 (softmax-gather d buffer), K4-bwd and K5-bwd at the
-   training shapes (the same sizes), each held against its plain PyTorch
-   version on the same inputs; CUDA-event times (median of repeats after
-   warm-up, L2 flushed before each launch) beside the least time the
-   card could take (bytes over 3.35 TB/s or operations over the peak
-   rate of their type, whichever is larger).  K2 and K3 are first
-   driven through ``torch.autograd.grad`` of ``kernel_gather_softmax``
-   with a buffer that requires grad (the only path that reaches K3: the
-   KPCN buffers are data).
-4. serve: a synthetic 512x512, 8-spp scene is written, preprocessed on
-   the card and denoised through ``wcmc_tpu_torch.test_models.main`` —
-   the full-width KPCN (K 21, depth 9, width 100) + dual PathNet in
-   bf16 from seeded weights, 49 tiles in 7 batches of 8.  Every kernel
-   must have launched and no plain version may have run.  One tile is
-   checked against the same weights run on the CPU in bf16 and in f32,
-   and the frame is timed again in steady state (five runs, then one
-   under ``torch.profiler`` for the device busy time and the host
-   stages).
-5. train: the flagship KPCN + manifold training step (FMSE with roll
-   pairing, Adam with value clip 1.0, bf16 compute, f32 parameters) on
-   a synthetic batch of 8 patches of 128 px at 8 spp, through
-   ``init_interfaces`` -> ``to_train_mode`` -> ``preprocess`` ->
-   ``train_batch``: 3 warm-up steps, 10 timed steps (step ms, MP/s, peak
-   memory, launches per step), 2 more under ``torch.profiler``.  Every
-   kernel of the step must launch, no plain version may run, every loss
-   must be finite and every model's parameters must change.  One step on
-   the card is then held against the same step (weights, batch, draws)
-   on the CPU in bf16 and in f32: the loss dict, and each model's
-   flattened gradient by cosine and norm ratio.
+3. kernels: every kernel held against its plain PyTorch version on the
+   same inputs at the shapes of each path that runs it, with CUDA-event
+   times (median of repeats after warm-up, L2 flushed before each launch)
+   beside the least time the card could take (bytes over 3.35 TB/s or
+   operations over the peak rate of their type, whichever is larger).
+   KPCN (8 tiles or patches of 128 px, 8 spp, K = 21, both branches): K1
+   (softmax gather), K4-fwd (PathNet embedding), K5-fwd (PathNet head),
+   K2 (softmax-gather d logits), K3 (softmax-gather d buffer), K4-bwd and
+   K5-bwd; K2 and K3 are first driven through ``torch.autograd.grad`` of
+   ``kernel_gather_softmax`` with a buffer that requires grad (KPCN's
+   buffers are data, so its step runs no K3).  LBMC (the same sizes):
+   K10-fwd and K10-bwd (the fused per-pixel MLP, 32 -> 32 -> 32 -> 32,
+   d(x) on), K1, K2 and K3 at K = 13 on a layer's slice of the kernel
+   head, and K4 and K5 forward and backward at the single PathNet's
+   widths.
+4. serve, serve_lbmc: a synthetic 512x512, 8-spp scene is written,
+   preprocessed on the card and denoised through
+   ``wcmc_tpu_torch.test_models.main`` — the full-width KPCN (K 21,
+   depth 9, width 100) + dual PathNet, then the LayerNet (K 13, 2
+   layers, widths 96 / 32) + single PathNet, in bf16 from seeded
+   weights, 49 tiles in 7 batches of 8.  Each kernel of the path must
+   have launched its count per batch and no plain version may have run.
+   One tile is checked against the same weights run on the CPU in bf16
+   and in f32, and the frame is timed again in steady state (five runs,
+   then one under ``torch.profiler`` for the device busy time and the
+   host stages).
+5. train, train_lbmc: the flagship training step of each (FMSE with roll
+   pairing, bf16 compute, f32 parameters; Adam with value clip 1.0 for
+   KPCN, with global-norm clip 250 for LBMC) on a synthetic batch of 8
+   patches of 128 px at 8 spp, through ``init_interfaces`` ->
+   ``to_train_mode`` -> ``preprocess`` -> ``train_batch``: 3 warm-up
+   steps, 10 timed steps (step ms, MP/s, peak memory, launches per step),
+   2 more under ``torch.profiler``.  Each kernel of the step must launch
+   its count per step, no plain version may run, every loss must be
+   finite and every model's parameters must change.  One step on the card
+   is then held against the same step (weights, batch, draws) on the CPU
+   in bf16 and in f32: the loss dict, and each model's flattened gradient
+   by cosine and norm ratio.
 
-Then the kernel table, the card's ``nvidia-smi`` line and, last,
+Then the kernel table (a row per kernel and path, its ``launches`` from
+that path's run: per served frame for a forward kernel, per 10 train
+steps for a backward one), the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
 script exits non-zero without that line.  TF32 is off throughout, so
 the f32 reference products are full f32.
@@ -80,6 +89,25 @@ ROW_L2_TOL = 1e-2
 # of max |ref|.
 SERVE_BF16_TOL = 1e-2
 SERVE_F32_TOL = 3e-2
+# the same for one served LBMC tile (radiance and p-buffer).  Measured on
+# an H100 (NVIDIA H100 80GB HBM3, 700 W): bf16 6.1e-5 and 2.2e-3, f32
+# 7.3e-5 and 8.0e-3 of max |ref| (refs 1.44 and 0.38); held to about 2.5x.
+LBMC_SERVE_TOLS = {"bfloat16": 6e-3, "float32": 2e-2}
+# one bf16 train step on the card (flagship weights after the timed steps,
+# first two patches of the batch) against the same step on the CPU in
+# bf16 and in f32: each loss's relative error, and per model the cosine
+# of the flattened gradients and |norm ratio - 1|.  KPCN measured on an
+# H100 (NVIDIA H100 80GB HBM3, 700 W): bf16 5.0e-4, 0.99483, 0.0135; f32
+# 7.0e-4, 0.99890, 0.0106.  LBMC, the worse of two calls: bf16 1.3e-3
+# (rmse), 0.99984, 0.0119; f32 1.6e-3 (rmse), 0.99990, 0.0172 (0.0016 in
+# the other call: the weights after 13 steps differ from call to call, as
+# cuDNN picks its algorithms).  Limits about 2.5x those errors.
+XCHECK_LIMITS = {
+    "kpcn": {"bfloat16": {"loss_rel": 1.25e-3, "cos": 0.987, "norm_ratio": 0.034},
+             "float32": {"loss_rel": 1.75e-3, "cos": 0.9973, "norm_ratio": 0.027}},
+    "lbmc": {"bfloat16": {"loss_rel": 3.2e-3, "cos": 0.9996, "norm_ratio": 0.03},
+             "float32": {"loss_rel": 4e-3, "cos": 0.9997, "norm_ratio": 0.043}},
+}
 SEED = 0
 
 
@@ -165,6 +193,126 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def kernel_row(name, counter, replaces, err, ms, plain_ms, bound, shape, **extra):
+    """One row of the kernel table (``counter``: the launch counter whose
+    main-path count becomes ``launches``)."""
+    bms, by = bound
+    return {"name": name, "route": "cuda", "source": f"wcmc_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": replaces, "counter": counter, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            **extra, "shape": shape}
+
+
+def weight_bytes(ws):
+    return sum(2 * w.numel() + 4 * w.shape[1] for w in ws)   # bf16 weights, f32 biases
+
+
+def rand_mlp(torch, dev, g, dims):
+    ws = [torch.randn((ci, co), device=dev, generator=g) / ci**0.5
+          for ci, co in zip(dims[:-1], dims[1:])]
+    bs = [0.1 * torch.randn(co, device=dev, generator=g) for co in dims[1:]]
+    return ws, bs
+
+
+def embed_fwd_row(torch, pf, dev, g, flush, b, s, hw, dims):
+    """K4-fwd at (B, S, HW) rows of ``dims``; returns (the embedding, row)."""
+    x = torch.randn((b, s, hw, dims[0]), device=dev, generator=g).to(torch.bfloat16)
+    ws, bs = rand_mlp(torch, dev, g, dims)
+    e, mean = pf.pathnet_embed(x, ws, bs)
+    err = max_err(torch, [e, mean], list(pf._embed_plain(x, ws, bs, pf.EMBED_ACTS)), BF16_TOL)
+    flops = 2 * b * s * hw * sum(ci * co for ci, co in zip(dims[:-1], dims[1:]))
+    return e, kernel_row(
+        "pathnet_embed", "pathnet_embed", "wcmc_tpu/ops/pathnet_fused.py:155", err,
+        time_ms(torch, lambda: pf.pathnet_embed(x, ws, bs), 20, flush),
+        time_ms(torch, lambda: pf._embed_plain(x, ws, bs, pf.EMBED_ACTS), 3, flush),
+        bound_ms(nbytes(x, e, mean) + weight_bytes(ws), [(flops, BF16_FLOPS)]),
+        {"x": list(x.shape), "dims": list(dims)})
+
+
+def head_fwd_row(torch, pf, dev, g, flush, e, c1, cout, moments):
+    """K5-fwd over the embedding ``e`` and a context of its width, [C | C]
+    -> c1 -> cout; channels-last.  Returns (the context, row)."""
+    b, s, hw, ce = e.shape
+    ctx = torch.randn((b, hw, ce), device=dev, generator=g).to(torch.bfloat16)
+    hws, hbs = rand_mlp(torch, dev, g, (2 * ce, c1, cout))
+    got = pf.pathnet_head(e, ctx, hws, hbs, pf.HEAD_ACTS, moments)
+    want = pf._head_plain(e, ctx, hws, hbs, pf.HEAD_ACTS, moments)
+    got, want = (list(got), list(want)) if moments else ([got], [want])
+    err = max_err(torch, got, want, BF16_TOL)
+    # the context product is done once per pixel, not once per sample
+    flops = 2 * b * s * hw * (ce * c1 + c1 * cout) + 2 * b * hw * ce * c1
+    return ctx, kernel_row(
+        "pathnet_head", "pathnet_head", "wcmc_tpu/ops/pathnet_fused.py:457", err,
+        time_ms(torch, lambda: pf.pathnet_head(e, ctx, hws, hbs, pf.HEAD_ACTS, moments), 20,
+                flush),
+        time_ms(torch, lambda: pf._head_plain(e, ctx, hws, hbs, pf.HEAD_ACTS, moments), 3,
+                flush),
+        bound_ms(nbytes(e, ctx, *got) + weight_bytes(hws), [(flops, BF16_FLOPS)]),
+        {"e": list(e.shape), "ctx": list(ctx.shape), "w1": [2 * ce, c1], "w2": [c1, cout],
+         "moments": moments})
+
+
+def embed_bwd_row(torch, pf, dev, g, flush, b, s, hw, dims):
+    """K4-bwd for cotangents of the embedding and of its mean."""
+    x = torch.randn((b, s, hw, dims[0]), device=dev, generator=g).to(torch.bfloat16)
+    ws, bs = rand_mlp(torch, dev, g, dims)
+    ge = torch.randn((b, s, hw, dims[-1]), device=dev, generator=g).to(torch.bfloat16)
+    gmean = torch.randn((b, hw, dims[-1]), device=dev, generator=g)
+    _, dws, dbs = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs)
+    _, pws, pbs = pf._embed_bwd_plain(x, ge, gmean, ws, bs, pf.EMBED_ACTS)
+    err = max_err(torch, dws + dbs, pws + pbs, BF16_TOL)
+    c0, c1, c2, c3 = dims
+    # recompute two layers (the output layer is linear: not needed), then
+    # dW2, g2, dW1, g1, dW0
+    macs = b * s * hw * (c0 * c1 + c1 * c2 + 2 * c2 * c3 + 2 * c1 * c2 + c0 * c1)
+    return kernel_row(
+        "pathnet_embed_bwd", "pathnet_embed_bwd", "wcmc_tpu/ops/pathnet_fused.py:188", err,
+        time_ms(torch, lambda: pf.pathnet_embed_bwd(x, ge, gmean, ws, bs), 10, flush),
+        time_ms(torch, lambda: pf._embed_bwd_plain(x, ge, gmean, ws, bs, pf.EMBED_ACTS), 3,
+                flush),
+        bound_ms(nbytes(x, ge, gmean, *dws, *dbs) + weight_bytes(ws), [(2 * macs, BF16_FLOPS)]),
+        {"x": list(x.shape), "ge": list(ge.shape), "gmean": list(gmean.shape),
+         "dims": list(dims)},
+        library_note="no single PyTorch call computes a fused MLP's backward")
+
+
+def head_bwd_row(torch, pf, dev, g, flush, b, s, hw, ce, c1, cout, moments, cmajor):
+    """K5-bwd for a per-sample cotangent of the output (channel-major
+    with ``cmajor``) and, with ``moments``, of the two sample moments."""
+    e = torch.randn((b, s, hw, ce), device=dev, generator=g).to(torch.bfloat16)
+    ctx = torch.randn((b, hw, ce), device=dev, generator=g).to(torch.bfloat16)
+    hws, hbs = rand_mlp(torch, dev, g, (2 * ce, c1, cout))
+    gshape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
+    gout = torch.randn(gshape, device=dev, generator=g)
+    gsum = gsq = None
+    if moments:
+        gsum = torch.randn((b, hw, cout), device=dev, generator=g)
+        gsq = 0.1 * torch.randn((b, hw, cout), device=dev, generator=g)
+    de, dctx, dws, dbs = pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq, hws, hbs, cmajor=cmajor)
+    pde, pdctx, pws, pbs = pf._head_bwd_plain(e, ctx, gout, gsum, gsq, hws, hbs,
+                                              pf.HEAD_ACTS, cmajor=cmajor)
+    max_err(torch, dws + dbs, pws + pbs, BF16_TOL)
+    row_l2 = {"de": rel_l2(torch, de, pde), "dctx": rel_l2(torch, dctx, pdctx)}
+    if max(row_l2.values()) > ROW_L2_TOL:
+        raise AssertionError(f"K5-bwd per-row outputs off by {row_l2} (relative L2)")
+    err = max((a.double() - w.double()).abs().max().item()
+              for a, w in zip([de, dctx, *dws, *dbs], [pde, pdctx, *pws, *pbs]))
+    # per row: recompute e.W1e and h1.W2, then dW2, g1, dW1e, de; per
+    # pixel (the context is shared by the S samples): ctx.W1c, dW1c, dctx
+    macs = b * s * hw * (3 * ce * c1 + 3 * c1 * cout) + b * hw * 3 * ce * c1
+    return kernel_row(
+        "pathnet_head_bwd", "pathnet_head_bwd", "wcmc_tpu/ops/pathnet_fused.py:511", err,
+        time_ms(torch, lambda: pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq, hws, hbs,
+                                                   cmajor=cmajor), 10, flush),
+        time_ms(torch, lambda: pf._head_bwd_plain(e, ctx, gout, gsum, gsq, hws, hbs,
+                                                  pf.HEAD_ACTS, cmajor=cmajor), 3, flush),
+        bound_ms(nbytes(e, ctx, gout, gsum, gsq, de, dctx, *dws, *dbs) + weight_bytes(hws),
+                 [(2 * macs, BF16_FLOPS)]),
+        {"e": list(e.shape), "ctx": list(ctx.shape), "g": list(gout.shape),
+         "w1": [2 * ce, c1], "w2": [c1, cout], "moments": moments},
+        library_note="no single PyTorch call computes a fused MLP's backward", row_rel_l2=row_l2)
+
+
 def kernel_phase(torch, ka, pf, dev):
     """K1, K4-fwd, K5-fwd at the serving shapes against their plain
     versions; returns the kernel table's rows (without launches)."""
@@ -205,58 +353,11 @@ def kernel_phase(torch, ka, pf, dev):
                   "logits_dtype": "bfloat16", "launches_per_batch": 2},
     })
 
-    # K4-fwd: dual PathNet embedding, 36 -> 128 -> 128 -> 128
-    s, hw = 8, 128 * 128
-    dims = (36, 128, 128, 128)
-    x = torch.randn((b, s, hw, dims[0]), device=dev, generator=g).to(torch.bfloat16)
-    ws = [torch.randn((ci, co), device=dev, generator=g) / ci**0.5
-          for ci, co in zip(dims[:-1], dims[1:])]
-    bs = [0.1 * torch.randn(co, device=dev, generator=g) for co in dims[1:]]
-    e, mean = pf.pathnet_embed(x, ws, bs)
-    err = max_err(torch, [e, mean], list(pf._embed_plain(x, ws, bs, pf.EMBED_ACTS)),
-                  BF16_TOL)
-    n_rows = b * s * hw
-    flops = 2 * n_rows * sum(ci * co for ci, co in zip(dims[:-1], dims[1:]))
-    bms, by = bound_ms(nbytes(x, e, mean) + sum(2 * w.numel() + 4 * w.shape[1] for w in ws),
-                       [(flops, BF16_FLOPS)])
-    rows.append({
-        "name": "pathnet_embed", "route": "cuda",
-        "source": "wcmc_tpu_torch/ops/csrc/pathnet_embed.cu",
-        "replaces": "wcmc_tpu/ops/pathnet_fused.py:155",
-        "counter": "pathnet_embed", "max_abs_err": err,
-        "ms": time_ms(torch, lambda: pf.pathnet_embed(x, ws, bs), 20, flush),
-        "plain_ms": time_ms(torch, lambda: pf._embed_plain(x, ws, bs, pf.EMBED_ACTS), 3, flush),
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "shape": {"x": list(x.shape), "dims": list(dims)},
-    })
-    del x
-
-    # K5-fwd: dual PathNet head with moments, [128 | 128] -> 256 -> 6
-    # the context is the UNet's output in the compute dtype
-    ctx = torch.randn((b, hw, 128), device=dev, generator=g).to(torch.bfloat16)
-    hws = [torch.randn((256, 256), device=dev, generator=g) / 16.0,
-           torch.randn((256, 6), device=dev, generator=g) / 16.0]
-    hbs = [0.1 * torch.randn(256, device=dev, generator=g),
-           0.1 * torch.randn(6, device=dev, generator=g)]
-    got = pf.pathnet_head(e, ctx, hws, hbs, pf.HEAD_ACTS, True)
-    err = max_err(torch, list(got),
-                  list(pf._head_plain(e, ctx, hws, hbs, pf.HEAD_ACTS, True)), BF16_TOL)
-    # the context product is done once per pixel, not once per sample
-    flops = 2 * n_rows * (128 * 256 + 256 * 6) + 2 * b * hw * 128 * 256
-    bms, by = bound_ms(nbytes(e, ctx, *got) + sum(2 * w.numel() + 4 * w.shape[1] for w in hws),
-                       [(flops, BF16_FLOPS)])
-    rows.append({
-        "name": "pathnet_head", "route": "cuda",
-        "source": "wcmc_tpu_torch/ops/csrc/pathnet_head.cu",
-        "replaces": "wcmc_tpu/ops/pathnet_fused.py:457",
-        "counter": "pathnet_head", "max_abs_err": err,
-        "ms": time_ms(torch, lambda: pf.pathnet_head(e, ctx, hws, hbs, pf.HEAD_ACTS, True),
-                      20, flush),
-        "plain_ms": time_ms(torch, lambda: pf._head_plain(e, ctx, hws, hbs, pf.HEAD_ACTS, True),
-                            3, flush),
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "shape": {"e": list(e.shape), "ctx": list(ctx.shape), "w1": [256, 256], "w2": [256, 6]},
-    })
+    # K4-fwd and K5-fwd: the dual PathNet, 36 -> 128 -> 128 -> 128 and,
+    # with moments and the context in the compute dtype, [128 | 128] -> 256 -> 6
+    e, row = embed_fwd_row(torch, pf, dev, g, flush, b, 8, 128 * 128, (36, 128, 128, 128))
+    rows.append(row)
+    rows.append(head_fwd_row(torch, pf, dev, g, flush, e, 256, 6, moments=True)[1])
     torch.cuda.synchronize()
     return rows
 
@@ -339,80 +440,116 @@ def backward_kernel_phase(torch, ka, pf, dev):
     })
     del conv_out, logits, lg, dconv, dlogits, out, data_out
 
-    # K4-bwd: dual PathNet embedding, 36 -> 128 -> 128 -> 128
-    s, hw = 8, 128 * 128
-    dims = (36, 128, 128, 128)
-    x = torch.randn((b, s, hw, dims[0]), device=dev, generator=g).to(torch.bfloat16)
-    ws = [torch.randn((ci, co), device=dev, generator=g) / ci**0.5
-          for ci, co in zip(dims[:-1], dims[1:])]
-    bs = [0.1 * torch.randn(co, device=dev, generator=g) for co in dims[1:]]
-    ge = torch.randn((b, s, hw, dims[-1]), device=dev, generator=g).to(torch.bfloat16)
-    gmean = torch.randn((b, hw, dims[-1]), device=dev, generator=g)
-    _, dws, dbs = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs)
-    _, pws, pbs = pf._embed_bwd_plain(x, ge, gmean, ws, bs, pf.EMBED_ACTS)
-    err = max_err(torch, dws + dbs, pws + pbs, BF16_TOL)
-    n_rows = b * s * hw
-    # recompute two layers (the output layer is linear: not needed), then
-    # dW2, g2, dW1, g1, dW0
-    macs = n_rows * (36 * 128 + 128 * 128 + 4 * 128 * 128 + 36 * 128)
-    bms, by = bound_ms(nbytes(x, ge, gmean, *dws, *dbs)
-                       + sum(2 * w.numel() + 4 * w.shape[1] for w in ws),
-                       [(2 * macs, BF16_FLOPS)])
-    rows.append({
-        "name": "pathnet_embed_bwd", "route": "cuda",
-        "source": "wcmc_tpu_torch/ops/csrc/pathnet_embed_bwd.cu",
-        "replaces": "wcmc_tpu/ops/pathnet_fused.py:188", "counter": "pathnet_embed_bwd",
-        "max_abs_err": err,
-        "ms": time_ms(torch, lambda: pf.pathnet_embed_bwd(x, ge, gmean, ws, bs), 10, flush),
-        "plain_ms": time_ms(torch, lambda: pf._embed_bwd_plain(x, ge, gmean, ws, bs,
-                                                               pf.EMBED_ACTS), 3, flush),
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "library_note": "no single PyTorch call computes a fused MLP's backward",
-        "shape": {"x": list(x.shape), "ge": list(ge.shape), "gmean": list(gmean.shape),
-                  "dims": list(dims)},
-    })
-    del x, ge, gmean, pws, pbs
+    # K4-bwd and K5-bwd: the dual PathNet, the head with moments and a
+    # channel-major cotangent
+    rows.append(embed_bwd_row(torch, pf, dev, g, flush, b, 8, 128 * 128, (36, 128, 128, 128)))
+    rows.append(head_bwd_row(torch, pf, dev, g, flush, b, 8, 128 * 128, 128, 256, 6,
+                             moments=True, cmajor=True))
+    torch.cuda.synchronize()
+    return rows
 
-    # K5-bwd: dual PathNet head with moments, channel-major cotangent
-    e = torch.randn((b, s, hw, 128), device=dev, generator=g).to(torch.bfloat16)
-    ctx = torch.randn((b, hw, 128), device=dev, generator=g).to(torch.bfloat16)
-    hws = [torch.randn((256, 256), device=dev, generator=g) / 16.0,
-           torch.randn((256, 6), device=dev, generator=g) / 16.0]
-    hbs = [0.1 * torch.randn(256, device=dev, generator=g),
-           0.1 * torch.randn(6, device=dev, generator=g)]
-    gout = torch.randn((b, s, 6, hw), device=dev, generator=g)
-    gsum = torch.randn((b, hw, 6), device=dev, generator=g)
-    gsq = 0.1 * torch.randn((b, hw, 6), device=dev, generator=g)
-    de, dctx, dws, dbs = pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq, hws, hbs, cmajor=True)
-    pde, pdctx, pws, pbs = pf._head_bwd_plain(e, ctx, gout, gsum, gsq, hws, hbs,
-                                              pf.HEAD_ACTS, cmajor=True)
-    max_err(torch, dws + dbs, pws + pbs, BF16_TOL)
-    row_l2 = {"de": rel_l2(torch, de, pde), "dctx": rel_l2(torch, dctx, pdctx)}
-    if max(row_l2.values()) > ROW_L2_TOL:
-        raise AssertionError(f"K5-bwd per-row outputs off by {row_l2} (relative L2)")
+
+def lbmc_kernel_phase(torch, ka, pf, mf, dev):
+    """The kernels of the LBMC path at its shapes (8 tiles or patches of
+    128 px at 8 spp) against their plain versions: K10-fwd and K10-bwd
+    (1,048,576 rows, 32 -> 32 -> 32 -> 32 leaky, d(x) on); K1, K2 and K3
+    at K = 13 on the second layer's slice of a channels-last kernel head,
+    with a buffer that requires grad; K4 and K5, forward and backward, at
+    the single PathNet's widths (36 -> 64 -> 64 -> 64; [64 | 64] -> 128
+    -> 3, channels-last, no moments, a per-sample cotangent)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = []
+    b, s, p = 8, 8, 128
+    n, dims, acts = b * s * p * p, (32, 32, 32, 32), ("leaky_relu",) * 3
+    mac = sum(ci * co for ci, co in zip(dims[:-1], dims[1:]))
+    shape = {"x": [n, dims[0]], "dims": list(dims), "acts": list(acts)}
+    note = "no single PyTorch call computes a fused MLP"
+
+    # K10-fwd and K10-bwd
+    x = torch.randn((n, dims[0]), device=dev, generator=g).to(torch.bfloat16)
+    ws, bs = rand_mlp(torch, dev, g, dims)
+    y = mf.fused_mlp(x, ws, bs, acts)
+    err = max_err(torch, [y], [mf._mlp_fwd_plain(x, ws, bs, acts)], BF16_TOL)
+    rows.append(kernel_row(
+        "mlp_fused", "mlp_fused", "wcmc_tpu/ops/mlp_fused.py:165", err,
+        time_ms(torch, lambda: mf.fused_mlp(x, ws, bs, acts), 20, flush),
+        time_ms(torch, lambda: mf._mlp_fwd_plain(x, ws, bs, acts), 3, flush),
+        bound_ms(nbytes(x, y) + weight_bytes(ws), [(2 * n * mac, BF16_FLOPS)]), shape,
+        library_note=note))
+    cot = torch.randn((n, dims[-1]), device=dev, generator=g).to(torch.bfloat16)
+    dx, dws, dbs = mf.mlp_fused_bwd(x, cot, ws, bs, acts, True)
+    pdx, pdws, pdbs = mf._mlp_bwd_plain(x, cot, ws, bs, acts, True)
+    max_err(torch, dws + dbs, pdws + pdbs, BF16_TOL)
+    # d(x) per row: a recomputed pre-activation within rounding of zero can
+    # take the other slope of its leaky relu (1 or 0.01)
+    row_l2 = {"dx": rel_l2(torch, dx, pdx)}
+    if row_l2["dx"] > ROW_L2_TOL:
+        raise AssertionError(f"K10-bwd d(x) off by {row_l2} (relative L2)")
     err = max((a.double() - w.double()).abs().max().item()
-              for a, w in zip([de, dctx, *dws, *dbs], [pde, pdctx, *pws, *pbs]))
-    pixels = b * hw
-    # per row: recompute e.W1e and h1.W2, then dW2, g1, dW1e, de; per
-    # pixel (the context is shared by the S samples): ctx.W1c, dW1c, dctx
-    macs = n_rows * (3 * 128 * 256 + 3 * 256 * 6) + pixels * 3 * 128 * 256
-    bms, by = bound_ms(nbytes(e, ctx, gout, gsum, gsq, de, dctx, *dws, *dbs)
-                       + sum(2 * w.numel() + 4 * w.shape[1] for w in hws),
-                       [(2 * macs, BF16_FLOPS)])
-    rows.append({
-        "name": "pathnet_head_bwd", "route": "cuda",
-        "source": "wcmc_tpu_torch/ops/csrc/pathnet_head_bwd.cu",
-        "replaces": "wcmc_tpu/ops/pathnet_fused.py:511", "counter": "pathnet_head_bwd",
-        "max_abs_err": err, "row_rel_l2": row_l2,
-        "ms": time_ms(torch, lambda: pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq, hws, hbs,
-                                                         cmajor=True), 10, flush),
-        "plain_ms": time_ms(torch, lambda: pf._head_bwd_plain(
-            e, ctx, gout, gsum, gsq, hws, hbs, pf.HEAD_ACTS, cmajor=True), 3, flush),
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "library_note": "no single PyTorch call computes a fused MLP's backward",
-        "shape": {"e": list(e.shape), "ctx": list(ctx.shape), "g": list(gout.shape),
-                  "w1": [256, 256], "w2": [256, 6]},
-    })
+              for a, w in zip([dx, *dws, *dbs], [pdx, *pdws, *pdbs]))
+    # recompute the chain, then dW and the next cotangent (d(x) last) per layer
+    rows.append(kernel_row(
+        "mlp_fused_bwd", "mlp_fused_bwd", "wcmc_tpu/ops/mlp_fused.py:191", err,
+        time_ms(torch, lambda: mf.mlp_fused_bwd(x, cot, ws, bs, acts, True), 20, flush),
+        time_ms(torch, lambda: mf._mlp_bwd_plain(x, cot, ws, bs, acts, True), 3, flush),
+        bound_ms(nbytes(x, cot, dx, *dws, *dbs) + weight_bytes(ws),
+                 [(3 * 2 * n * mac, BF16_FLOPS)]),
+        dict(shape, g=[n, dims[-1]], compute_dx=True),
+        library_note="no single PyTorch call computes a fused MLP's backward",
+        row_rel_l2=row_l2))
+    del x, y, cot, dx, pdx
+
+    # K1, K2, K3 at K = 13: bf16 logits, the layer's slice of the kernel head
+    k = 13
+    k2 = k * k
+    buf = torch.rand((b, p + k - 1, p + k - 1, 3), device=dev, generator=g)
+    head = 2 * torch.randn((b, 2 * k2, p, p), device=dev, generator=g)
+    head = head.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    head.requires_grad_()
+    logits = head.permute(0, 2, 3, 1)[..., k2:]
+    lg = logits.detach()
+    out = ka.kernel_gather_softmax(buf, lg, k)
+    err1 = max_err(torch, [out], [ka.gather_softmax_plain(buf, lg, k)], K1_TOL)
+    cot = torch.randn((b, p, p, 3), device=dev, generator=g)
+    src = buf.clone().requires_grad_()
+    dbuf, dhead = torch.autograd.grad(ka.kernel_gather_softmax(src, logits, k), [src, head], cot)
+    dlogits = dhead.permute(0, 2, 3, 1)[..., k2:]
+    err2 = max_err(torch, [dlogits], [ka.outer_softmax_plain(cot, buf, lg, k)], K2_BF16_TOL)
+    err3 = max_err(torch, [dbuf], [ka.scatter_softmax_plain(cot, lg, k)], K1_TOL)
+    taps = b * p * p * k2
+    shape = {"buf": list(buf.shape), "logits": [b, p, p, k2], "logits_dtype": "bfloat16",
+             "logits_view": f"layer 1 of a channels-last ({b}, {2 * k2}, {p}, {p}) kernel head"}
+    rows.append(kernel_row(
+        "gather_softmax", "gather_softmax", "wcmc_tpu/ops/pallas_kernels.py:185", err1,
+        time_ms(torch, lambda: ka.kernel_gather_softmax(buf, lg, k), 20, flush),
+        time_ms(torch, lambda: ka.gather_softmax_plain(buf, lg, k), 3, flush),
+        # softmax ~5 f32 ops per tap (max, sub, exp, add, scale), 2 per channel
+        bound_ms(2 * taps + nbytes(buf, out), [(taps * (5 + 2 * 3), F32_FLOPS)]), shape))
+    rows.append(kernel_row(
+        "outer_softmax", "outer_softmax", "wcmc_tpu/ops/pallas_kernels.py:410", err2,
+        time_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k), 20, flush),
+        time_ms(torch, lambda: ka.outer_softmax_plain(cot, buf, lg, k), 3, flush),
+        bound_ms(2 * 2 * taps + nbytes(cot, buf), [(taps * (2 * 3 + 8), F32_FLOPS)]),
+        dict(shape, g=[b, p, p, 3]),
+        library_note="no single PyTorch call computes the softmax-gather VJP"))
+    rows.append(kernel_row(
+        "scatter_softmax", "scatter_softmax", "wcmc_tpu/ops/pallas_kernels.py:297", err3,
+        time_ms(torch, lambda: ka.scatter_softmax(cot, lg, k), 20, flush),
+        time_ms(torch, lambda: ka.scatter_softmax_plain(cot, lg, k), 3, flush),
+        bound_ms(2 * taps + nbytes(cot, dbuf), [(taps * (3 + 2 * 3), F32_FLOPS)]),
+        dict(shape, g=[b, p, p, 3]),
+        library_note="no single PyTorch call computes the softmax-weighted splat"))
+    del head, logits, lg, dhead, dlogits, out, dbuf
+
+    # K4 and K5 at the single PathNet's widths
+    e, row = embed_fwd_row(torch, pf, dev, g, flush, b, s, p * p, (36, 64, 64, 64))
+    rows.append(row)
+    rows.append(head_fwd_row(torch, pf, dev, g, flush, e, 128, 3, moments=False)[1])
+    del e
+    rows.append(embed_bwd_row(torch, pf, dev, g, flush, b, s, p * p, (36, 64, 64, 64)))
+    rows.append(head_bwd_row(torch, pf, dev, g, flush, b, s, p * p, 64, 128, 3,
+                             moments=False, cmajor=False))
     torch.cuda.synchronize()
     return rows
 
@@ -449,9 +586,36 @@ def profile_frame(torch, evaluate, iface, ds):
     }
 
 
-def serve_phase(torch, dev, work):
-    """The serving path through the port's entry point; returns the
-    phase record, the launch counts and the interface."""
+# How each served model is driven and checked: its name on the entry
+# point, its caches, the kernel launches per batch of 8 tiles (K1 twice:
+# once per KPCN branch, once per LBMC layer), the CPU config of the
+# tile check and the tile's limits (of max |ref|; the bf16 card path
+# against the port's bf16 CPU path, whose parity with wcmc_tpu in bf16 is
+# a CPU test, and against its f32 CPU path).  KPCN measured on an H100:
+# at most 1.0e-3 and 3.2e-3 absolute over refs of 0.24 to 1.68, so under
+# 4.3e-3 and 1.4e-2 of max |ref|.  LBMC: see LBMC_SERVE_TOLS.
+SERVE = {
+    "kpcn": {"model_name": "KPCN_smoke", "preprocess": {"test_spps": (8,)},
+             "launches": {"gather_softmax": 2, "pathnet_embed": 1, "pathnet_head": 1},
+             "cpu_config": {"base_model": "kpcn", "kpcn_ksize": 21, "use_llpm_buf": True},
+             "tols": {"bfloat16": SERVE_BF16_TOL, "float32": SERVE_F32_TOL}},
+    "lbmc": {"model_name": "LBMC_smoke", "preprocess": {"sbmc": True, "kpcn": False},
+             "launches": {"mlp_fused": 1, "gather_softmax": 2, "pathnet_embed": 1,
+                          "pathnet_head": 1},
+             "cpu_config": {"base_model": "lbmc", "use_llpm_buf": True},
+             "tols": LBMC_SERVE_TOLS},
+}
+
+
+def p_buffer_list(p):
+    """KPCN's two p-buffers (diffuse, specular) or the sample-space one."""
+    return [p["diffuse"], p["specular"]] if isinstance(p, dict) else [p]
+
+
+def serve_phase(torch, dev, work, family, size=512):
+    """The serving path of ``family`` through the port's entry point, on a
+    synthetic ``size`` x ``size`` 8-spp frame; returns the phase record and
+    the launch counts of the served frame."""
     from wcmc_tpu_torch import convert, evaluate, test_models
     from wcmc_tpu_torch.data.dataset import offline_preprocess
     from wcmc_tpu_torch.data.full_image import FullImageDataset
@@ -459,80 +623,81 @@ def serve_phase(torch, dev, work):
     from wcmc_tpu_torch.ops import _build
     from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
 
-    root = os.path.join(work, "data")
+    spec = SERVE[family]
+    root = os.path.join(work, family)
     t0 = time.perf_counter()
-    build_synthetic_dataset(root, n_train=0, n_val=0, n_test=1, size=512, spp=8,
+    build_synthetic_dataset(root, n_train=0, n_val=0, n_test=1, size=size, spp=8,
                             test_extra_parts=0, seed=SEED)
     t_data = time.perf_counter() - t0
     t0 = time.perf_counter()
-    offline_preprocess(root, mode="test", spp=8, test_spps=(8,), device=dev)
+    offline_preprocess(root, mode="test", spp=8, device=dev, **spec["preprocess"])
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
+    fn = os.path.join(root, "test", "input", "scene0.npy")
+    ds = FullImageDataset(fn, 8, family, use_llpm_buf=True)
+    n_batches = -(-len(ds) // 8)
 
     args = test_models.parse_args([
-        "--model_name", "KPCN_smoke", "--save", os.path.join(work, "weights"),
+        "--model_name", spec["model_name"], "--save", os.path.join(work, "weights"),
         "--data_dir", root, "--spps", "8", "--use_llpm_buf",
-        "--output_dir", os.path.join(work, "eval"), "--device", str(dev),
+        "--output_dir", os.path.join(root, "eval"), "--device", str(dev),
         "--seed", str(SEED)])
     _build.reset_counts()
     results, iface = test_models.main(args)
     torch.cuda.synchronize()
     launches, plain = dict(_build.launches), dict(_build.plain_calls)
-    for name in ("gather_softmax", "pathnet_embed", "pathnet_head"):
-        if launches.get(name, 0) < 1:
-            raise AssertionError(f"kernel {name} was not launched on the serving path")
+    want = {k: n_batches * v for k, v in spec["launches"].items()}
+    if launches != want:
+        raise AssertionError(f"the {family} serving path launched {launches}, not {want}")
     if plain:
-        raise AssertionError(f"plain versions ran on the serving path: {plain}")
+        raise AssertionError(f"plain versions ran on the {family} serving path: {plain}")
     res = results[("scene0", 8)]["output"]
     bad = [k for k, v in res.items() if v != v or abs(v) == float("inf")]
     if bad:
         raise AssertionError(f"non-finite metrics: {bad}")
-    csv_path = os.path.join(work, "eval", "results_8.csv")
-    if not os.path.isfile(csv_path):
+    if not os.path.isfile(os.path.join(root, "eval", "results_8.csv")):
         raise AssertionError("denoise wrote no CSV")
 
     # steady state: the same frame again, five times
-    fn = os.path.join(root, "test", "input", "scene0.npy")
-    ds = FullImageDataset(fn, 8, "kpcn", use_llpm_buf=True)
     secs = []
     for _ in range(5):
         out_rad, out_path, dt = evaluate.inference(iface, ds, batch_size=8)
         secs.append(dt)
-    if out_rad.shape != (512, 512, 3) or not bool(torch.isfinite(
+    if out_rad.shape != (size, size, 3) or not bool(torch.isfinite(
             torch.from_numpy(out_rad)).all()):
         raise AssertionError(f"bad frame {out_rad.shape}")
-    for k, v in out_path.items():
-        if v.shape != (8, 512, 512, 3):
-            raise AssertionError(f"bad p-buffer {k} {v.shape}")
+    for v in p_buffer_list(out_path):
+        if v.shape != (8, size, size, 3):
+            raise AssertionError(f"bad p-buffer {v.shape}")
 
     profiled = profile_frame(torch, evaluate, iface, ds)
 
     # one tile against the same weights on the CPU (plain versions), in
-    # bf16 and in f32; errors and max |ref| of (radiance, diffuse and
-    # specular p-buffers)
+    # bf16 and in f32; errors and max |ref| of the radiance and p-buffers
     tile = {k: v[None] for k, v in ds[0][0].items()}
     card_rad, card_p = iface.validate_batch(tile)
-    card = [card_rad.cpu(), card_p["diffuse"].cpu(), card_p["specular"].cpu()]
+    card = [card_rad.cpu()] + [t.cpu() for t in p_buffer_list(card_p)]
     tile_check = {}
-    for dtype, tol in (("bfloat16", SERVE_BF16_TOL), ("float32", SERVE_F32_TOL)):
-        ref_if = init_interfaces(TrainConfig(kpcn_ksize=21, use_llpm_buf=True,
-                                             compute_dtype=dtype), device="cpu")[0]
+    for dtype, tol in spec["tols"].items():
+        ref_if = init_interfaces(TrainConfig(compute_dtype=dtype, **spec["cpu_config"]),
+                                 device="cpu")[0]
         for name, m in iface.models.items():
             convert.load_flax_params(ref_if.models[name], convert.to_flax(m))
         t0 = time.perf_counter()
         ref_rad, ref_p = ref_if.validate_batch(tile)
         pairs = []
-        err = max_err(torch, card, [ref_rad, ref_p["diffuse"], ref_p["specular"]],
-                      tol, pairs)
-        tile_check[dtype] = {"max_abs_err": err, "radiance_diffuse_specular": pairs,
+        err = max_err(torch, card, [ref_rad] + p_buffer_list(ref_p), tol, pairs)
+        tile_check[dtype] = {"max_abs_err": err, "radiance_and_p_buffers": pairs,
                              "tol": tol, "cpu_s": time.perf_counter() - t0}
 
     frame_ms = 1e3 * statistics.median(secs)
     record = {
-        "phase": "serve", "frame": [512, 512], "spp": 8, "tiles": len(ds),
-        "batches": -(-len(ds) // 8), "data_s": t_data, "preprocess_s": t_pre,
+        "phase": "serve" if family == "kpcn" else f"serve_{family}",
+        "model": str(iface.models["dncnn"]), "frame": [size, size], "spp": 8,
+        "tiles": len(ds), "batches": n_batches, "data_s": t_data, "preprocess_s": t_pre,
         "first_frame_ms": 1e3 * res["inference_sec"], "frame_ms": frame_ms,
-        "frame_ms_runs": [1e3 * t for t in secs], "mp_per_s": 512 * 512 / 1e6 / (frame_ms / 1e3),
+        "frame_ms_runs": [1e3 * t for t in secs],
+        "mp_per_s": size * size / 1e6 / (frame_ms / 1e3),
         "launches": launches, "plain_calls": plain,
         "linear_RelMSE": res["linear_RelMSE"], "tile_vs_cpu": tile_check,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -541,25 +706,28 @@ def serve_phase(torch, dev, work):
     return record, launches
 
 
-TRAIN_KERNELS = ("gather_softmax", "outer_softmax", "pathnet_embed", "pathnet_embed_bwd",
-                 "pathnet_head", "pathnet_head_bwd")
-# one bf16 step on the card (flagship weights after the timed steps,
-# first two patches of the batch) against the same step on the CPU in
-# bf16 and in f32: each loss's relative error, and per model the cosine
-# of the flattened gradients and |norm ratio - 1|.  Measured on an H100
-# (NVIDIA H100 80GB HBM3, 700 W): bf16 5.0e-4, 0.99483, 0.0135; f32
-# 7.0e-4, 0.99890, 0.0106.  Limits about 2.5x those errors.
-XCHECK_LIMITS = {
-    "bfloat16": {"loss_rel": 1.25e-3, "cos": 0.987, "norm_ratio": 0.034},
-    "float32": {"loss_rel": 1.75e-3, "cos": 0.9973, "norm_ratio": 0.027},
-}
-
-
-def train_config(**kw):
+def train_config(family, **kw):
+    """The flagship training config of ``family``: the PathNet, FMSE with
+    roll pairing (non-local), w_manif 0.1, lr 1e-4 for each model, bf16
+    compute over f32 parameters; KPCN with 21x21 kernels and value clip
+    1.0, LBMC (LayerNet k13) with global-norm clip 250."""
     from wcmc_tpu_torch.train.factory import TrainConfig
 
-    return TrainConfig(base_model="kpcn", use_llpm_buf=True, manif_learn=True,
+    if family == "kpcn":
+        kw.setdefault("kpcn_ksize", 21)
+    return TrainConfig(base_model=family, use_llpm_buf=True, manif_learn=True,
                        manif_loss="FMSE", seed=SEED, **kw)
+
+
+# Launches per train step: KPCN's K1 and K2 once per branch (its buffers
+# are data, so no K3); LBMC's K1, K2 and K3 once per layer.
+TRAIN_LAUNCHES = {
+    "kpcn": {"gather_softmax": 2, "outer_softmax": 2, "pathnet_embed": 1,
+             "pathnet_embed_bwd": 1, "pathnet_head": 1, "pathnet_head_bwd": 1},
+    "lbmc": {"mlp_fused": 1, "mlp_fused_bwd": 1, "gather_softmax": 2, "outer_softmax": 2,
+             "scatter_softmax": 2, "pathnet_embed": 1, "pathnet_embed_bwd": 1,
+             "pathnet_head": 1, "pathnet_head_bwd": 1},
+}
 
 
 def profile_steps(torch, iface, batch, n):
@@ -589,7 +757,20 @@ def profile_steps(torch, iface, batch, n):
     }
 
 
-def cross_check(torch, card_if, batch, dev):
+def step_draws(iface, batch, family):
+    """The manifold-loss draws of one step for ``batch``: KPCN's p-buffers
+    are channel-major over its 21x21 / depth-9 output, LBMC's channels-last
+    over the whole patch."""
+    b, s, h = batch["paths"].shape[:3]
+    if family == "kpcn":
+        kpcn = iface.models["dncnn"]
+        out_hw = h - 4 * kpcn.depth - (kpcn.ksize - 1)
+        return iface.draw_pairings((b, s, 3, out_hw, out_hw))
+    return iface.draw_pairings((b, s, h, batch["paths"].shape[3],
+                                iface.models["backbone"].outc))
+
+
+def cross_check(torch, card_if, batch, family):
     """One step of ``card_if``'s weights on the card against the same
     step on the CPU in bf16 and in f32 (same batch and draws): relative
     error of each loss, and each model's flattened gradient by cosine
@@ -597,19 +778,15 @@ def cross_check(torch, card_if, batch, dev):
     from wcmc_tpu_torch import convert
     from wcmc_tpu_torch.train.factory import init_interfaces
 
-    b, s, h = batch["paths"].shape[:3]
-    kpcn = card_if.models["dncnn"]
-    out_hw = h - 4 * kpcn.depth - (kpcn.ksize - 1)
-    draws = card_if.draw_pairings((b, s, 3, out_hw, out_hw))
+    draws = step_draws(card_if, batch, family)
     card_if.preprocess(batch)
     card_loss = card_if.train_batch(batch, grad_hook_mode=True, draws=draws)
     card_grads = {n: torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
                   for n, m in card_if.models.items()}
     host = {k: v.cpu() for k, v in batch.items()}
     result = {}
-    for dtype, lim in XCHECK_LIMITS.items():
-        ref = init_interfaces(train_config(compute_dtype=dtype, kpcn_ksize=kpcn.ksize),
-                              device="cpu")[0]
+    for dtype, lim in XCHECK_LIMITS[family].items():
+        ref = init_interfaces(train_config(family, compute_dtype=dtype), device="cpu")[0]
         for name, m in card_if.models.items():
             convert.load_flax_params(ref.models[name], convert.to_flax(m))
         ref.to_train_mode()
@@ -630,13 +807,14 @@ def cross_check(torch, card_if, batch, dev):
         bad += [n for n, v in grads.items()
                 if v["cos"] < lim["cos"] or abs(v["norm_ratio"] - 1) > lim["norm_ratio"]]
         if bad:
-            raise AssertionError(f"card step off the CPU step in {dtype}: {bad}: {result}")
+            raise AssertionError(f"{family} card step off the CPU step in {dtype}: {bad}: "
+                                 f"{result}")
     return result
 
 
-def train_phase(torch, dev, b=8, patch=128, spp=8, ksize=21):
-    """The flagship training step through the port's entry points;
-    returns the phase record and the launches of the timed steps."""
+def train_phase(torch, dev, family, b=8, patch=128, spp=8):
+    """The flagship training step of ``family`` through the port's entry
+    points; returns the phase record and the launches of the timed steps."""
     import numpy as np
 
     from wcmc_tpu_torch.data.batches import synthetic_batch
@@ -645,10 +823,10 @@ def train_phase(torch, dev, b=8, patch=128, spp=8, ksize=21):
 
     n_warm, n_timed, n_prof = 3, 10, 2
     t0 = time.perf_counter()
-    batch = synthetic_batch(np.random.default_rng(SEED), "kpcn", b, patch, spp, True)
+    batch = synthetic_batch(np.random.default_rng(SEED), family, b, patch, spp, True)
     batch = {k: v.to(dev) for k, v in batch.items()}
     t_data = time.perf_counter() - t0
-    cfg = train_config(kpcn_ksize=ksize)
+    cfg = train_config(family)
     iface = init_interfaces(cfg, device=dev)[0]
     before = {n: [p.detach().clone() for p in m.parameters()]
               for n, m in iface.models.items()}
@@ -673,11 +851,12 @@ def train_phase(torch, dev, b=8, patch=128, spp=8, ksize=21):
         step_ms.append(1e3 * (time.perf_counter() - t0))
     launches, plain = dict(_build.launches), dict(_build.plain_calls)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    for name in TRAIN_KERNELS:
-        if launches.get(name, 0) < 1:
-            raise AssertionError(f"kernel {name} was not launched on the train step")
+    want = {k: n_timed * v for k, v in TRAIN_LAUNCHES[family].items()}
+    if launches != want:
+        raise AssertionError(f"the {family} train step launched {launches} in {n_timed} "
+                             f"steps, not {want}")
     if plain:
-        raise AssertionError(f"plain versions ran on the train step: {plain}")
+        raise AssertionError(f"plain versions ran on the {family} train step: {plain}")
     trajectory = [{k: float(v) for k, v in ld.items()} for ld in losses]
     bad = [i for i, ld in enumerate(trajectory)
            if any(v != v or abs(v) == float("inf") for v in ld.values())]
@@ -690,15 +869,16 @@ def train_phase(torch, dev, b=8, patch=128, spp=8, ksize=21):
 
     profiled = profile_steps(torch, iface, batch, n_prof)
     # the cross-check on the first two patches of the batch
-    xbatch = {k: v[:2] for k, v in batch.items()}
-    xcheck = cross_check(torch, iface, xbatch, dev)
+    xcheck = cross_check(torch, iface, {k: v[:2] for k, v in batch.items()}, family)
 
     med = statistics.median(step_ms)
+    config = {"model": str(iface.models["dncnn"]), "batch": b, "patch": patch, "spp": spp,
+              "manif_loss": cfg.manif_loss, "manif_pairing": cfg.manif_pairing,
+              "compute_dtype": cfg.compute_dtype}
+    if family == "kpcn":
+        config["kpcn_ksize"] = cfg.kpcn_ksize
     record = {
-        "phase": "train", "config": {"kpcn_ksize": cfg.kpcn_ksize, "batch": b,
-                                     "patch": patch, "spp": spp, "manif_loss": "FMSE",
-                                     "manif_pairing": cfg.manif_pairing,
-                                     "compute_dtype": cfg.compute_dtype},
+        "phase": "train" if family == "kpcn" else f"train_{family}", "config": config,
         "data_s": t_data, "step_ms": med, "step_ms_runs": step_ms,
         "mp_per_s": b * patch * patch / 1e6 / (med / 1e3),
         "launches_per_step": {k: v / n_timed for k, v in launches.items()},
@@ -706,6 +886,25 @@ def train_phase(torch, dev, b=8, patch=128, spp=8, ksize=21):
         "loss_trajectory": trajectory, "profile": profiled, "cross_check": xcheck,
     }
     return record, launches
+
+
+FORWARD_KERNELS = ("gather_softmax", "pathnet_embed", "pathnet_head", "mlp_fused")
+
+
+def attach_launches(rows, path, serve, train, autograd=None):
+    """Each row's ``launches``: the count from its path's run, per served
+    frame for a forward kernel and per 10 train steps for a backward one
+    (KPCN's K3, which its step does not run, from its autograd drive)."""
+    for row in rows:
+        name = row.pop("counter")
+        row["path"] = path
+        if autograd is not None and name in autograd:
+            row["launches"] = autograd[name]
+        else:
+            row["launches"] = (serve if name in FORWARD_KERNELS else train)[name]
+        row["launches_by_path"] = {"serve_frame": serve.get(name, 0),
+                                   "train_10_steps": train.get(name, 0)}
+    return rows
 
 
 def main() -> int:
@@ -716,6 +915,7 @@ def main() -> int:
         return 2
     from wcmc_tpu_torch.ops import _build
     from wcmc_tpu_torch.ops import kernel_apply as ka
+    from wcmc_tpu_torch.ops import mlp_fused as mf
     from wcmc_tpu_torch.ops import pathnet_fused as pf
 
     t_start = time.perf_counter()
@@ -732,30 +932,25 @@ def main() -> int:
     emit({"phase": "build", "seconds": info["seconds"], "library": info["path"],
           "ptxas": parse_ptxas(info["ptxas"])})
 
-    rows = kernel_phase(torch, ka, pf, dev)
+    kpcn_rows = kernel_phase(torch, ka, pf, dev)
     bwd_rows = backward_kernel_phase(torch, ka, pf, dev)
-    emit({"phase": "kernels", "rows": rows + bwd_rows})
+    lbmc_rows = lbmc_kernel_phase(torch, ka, pf, mf, dev)
+    emit({"phase": "kernels", "rows": kpcn_rows + bwd_rows + lbmc_rows})
 
     with tempfile.TemporaryDirectory() as work:
-        record, serve_launches = serve_phase(torch, dev, work)
+        record, kpcn_serve = serve_phase(torch, dev, work, "kpcn")
+        emit(record)
+        record, lbmc_serve = serve_phase(torch, dev, work, "lbmc")
+        emit(record)
+    record, kpcn_train = train_phase(torch, dev, "kpcn")
     emit(record)
-    record, train_launches = train_phase(torch, dev)
+    record, lbmc_train = train_phase(torch, dev, "lbmc")
     emit(record)
 
-    # launches: the serving kernels count one served frame, the backward
-    # kernels the ten timed train steps, K3 its autograd drive
-    for row in rows:
-        name = row.pop("counter")
-        row["launches"] = serve_launches[name]
-        row["launches_by_path"] = {"serve_frame": serve_launches[name],
-                                   "train_10_steps": train_launches.get(name, 0)}
-    for row in bwd_rows:
-        name = row.pop("counter")
-        row["launches"] = (row.pop("autograd_launches") if name == "scatter_softmax"
-                           else train_launches[name])
-        row["launches_by_path"] = {"serve_frame": 0,
-                                   "train_10_steps": train_launches.get(name, 0)}
-    rows += bwd_rows
+    autograd = {"scatter_softmax": next(r.pop("autograd_launches") for r in bwd_rows
+                                        if r["name"] == "scatter_softmax")}
+    rows = attach_launches(kpcn_rows + bwd_rows, "kpcn", kpcn_serve, kpcn_train, autograd)
+    rows += attach_launches(lbmc_rows, "lbmc", lbmc_serve, lbmc_train)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}))
     print(smi)

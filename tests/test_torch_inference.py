@@ -201,9 +201,37 @@ def test_split_disentangle(mode):
 
 
 def test_unported_families_raise(tmp_path):
+    """SBMC (slice E) raises by name and by config; LBMC is ported."""
     args = ttm.parse_args(["--model_name", "SBMC_x", "--data_dir", str(tmp_path),
                            "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="slice E"):
         ttm.build_interface(args)
-    with pytest.raises(NotImplementedError):
-        tinit(TConfig(base_model="lbmc"), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice E"):
+        tinit(TConfig(base_model="sbmc"), device="cpu")
+    assert str(tinit(TConfig(base_model="lbmc"), device="cpu")[0]) == "LBMCInterface"
+
+
+@pytest.mark.parametrize("base", ["kpcn", "lbmc"])
+def test_model_names_build_the_reference_config(tmp_path, base):
+    """A KPCN or LBMC model name builds the config the reference's
+    ``train_kpcn.make_config`` / ``train_lbmc.make_config`` builds from the
+    same flags."""
+    import dataclasses
+
+    import train_kpcn
+    import train_lbmc
+
+    argv = ["--model_name", f"{base.upper()}_x", "--data_dir", str(tmp_path),
+            "--device", "cpu", "--use_llpm_buf", "--manif_learn", "--manif_loss", "FMSE",
+            "--compute_dtype", "float32", "--lr_pnet", "3e-4", "--seed", "4",
+            "--kpcn_ksize", "5"]
+    args = ttm.parse_args(argv)
+    want = {"kpcn": train_kpcn, "lbmc": train_lbmc}[base].make_config(args)
+    got = ttm.model_config(args, base)
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+    iface, got_base = ttm.build_interface(args)
+    assert got_base == base
+    if base == "lbmc":
+        assert set(iface.models) == {"dncnn", "backbone"}
+        assert iface.models["dncnn"].n_in == 29

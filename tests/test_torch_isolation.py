@@ -1,7 +1,7 @@
 """The port stands alone: no module of wcmc_tpu_torch, and not
 chip_smoke.py, imports JAX, flax, optax or wcmc_tpu, while serving a
-batch and taking a train step; and its entry points refuse to fall back
-to the CPU silently."""
+batch and taking a train step of KPCN and of LBMC; and its entry points
+refuse to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -63,6 +63,20 @@ _CHILD = textwrap.dedent("""
     losses = trainer.train_batch(tbatch)
     assert {"l_diffuse", "l_manif_diffuse", "l_total"} <= set(losses)
     assert all(bool(torch.isfinite(v)) for v in losses.values())
+
+    from wcmc_tpu_torch.models.lbmc import LayerNet  # noqa: F401
+    from wcmc_tpu_torch.ops.mlp_fused import fused_mlp  # noqa: F401
+    cfg = TrainConfig(base_model="lbmc", use_llpm_buf=True, manif_learn=True,
+                      manif_loss="FMSE", compute_dtype="float32", finite_check_every=1)
+    lbmc = init_interfaces(cfg, device="cpu")[0]
+    lb = synthetic_batch(rng, "lbmc", batch_size=1, patch=16, spp=2, use_llpm_buf=True)
+    lbmc.to_train_mode()
+    lbmc.preprocess(lb)
+    losses = lbmc.train_batch(lb)
+    assert {"l_manif", "l_recon", "l_total"} <= set(losses)
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    rad, pb = lbmc.validate_batch(lb)
+    assert rad.shape == (1, 16, 16, 3) and pb.shape == (1, 2, 16, 16, 3)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))
@@ -75,7 +89,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 20
+    assert n_modules >= 22
 
 
 def test_entry_points_need_a_card_or_an_explicit_device(tmp_path, monkeypatch):

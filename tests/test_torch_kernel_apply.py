@@ -80,7 +80,7 @@ def test_reference_api_matches_jax():
     _close(got.numpy(), want, TOL["float32"])
     got2 = tka.kernel_apply(torch.from_numpy(buf), lt, 5)
     _close(got2.numpy(), want, TOL["float32"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="slice E"):
         tka.kernel_apply(torch.from_numpy(buf), lt, 5, softmax=False)
 
 

@@ -1,8 +1,8 @@
 """Parity of the port's preprocessing and offline cache with wcmc_tpu.
 
 Tolerances are the README golden-table bounds: 1e-5 relative for the
-LLPM descriptor, 2e-4 relative for the KPCN statistics (f32 variance
-math summed in another order)."""
+LLPM descriptor and the SBMC buffers, 2e-4 relative for the KPCN
+statistics (f32 variance math summed in another order)."""
 
 import os
 
@@ -58,6 +58,29 @@ def test_preprocess_kpcn(raw):
     _rel_close(got, want, KPCN_RTOL)
 
 
+def test_preprocess_sbmc(raw):
+    x = np.array(jpp.sanitize(jnp.asarray(raw[0])))
+    want = jpp.preprocess_sbmc(jnp.asarray(x))
+    got = tpp.preprocess_sbmc(torch.from_numpy(x))
+    assert [g.shape for g in got] == [(24, 20, 4, 27), (24, 20, 4, 66)]
+    for g, w in zip(got, want):
+        _rel_close(g.numpy(), np.asarray(w), LLPM_RTOL)
+
+
+@pytest.mark.parametrize("use_g_buf,use_sbmc_buf", [(True, True), (True, False), (False, False)])
+def test_sbmc_features(raw, use_g_buf, use_sbmc_buf):
+    x = np.array(jpp.sanitize(jnp.asarray(raw[0])))
+    s_buf, p_buf = (np.array(b) for b in jpp.preprocess_sbmc(jnp.asarray(x)))
+    want = jpp.sbmc_features(jnp.asarray(s_buf), jnp.asarray(p_buf), use_g_buf, use_sbmc_buf)
+    got = tpp.sbmc_features(torch.from_numpy(s_buf), torch.from_numpy(p_buf), use_g_buf,
+                            use_sbmc_buf)
+    assert set(got) == set(want) == {"radiance", "features"}
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    with pytest.raises(ValueError):
+        tpp.sbmc_features(torch.from_numpy(s_buf), None, use_sbmc_buf=True)
+
+
 def test_spatial_gradients(raw):
     buf = raw[1]
     want = np.asarray(jpp._spatial_gradients(jnp.asarray(buf)))
@@ -92,9 +115,9 @@ def cache_trees(tmp_path_factory):
                                 spp=2, test_extra_parts=1, seed=5,
                                 nan_fraction=1e-3)
         trees[name] = root
-    jds.offline_preprocess(trees["jax"], mode="test", spp=2, sbmc=False,
+    jds.offline_preprocess(trees["jax"], mode="test", spp=2, sbmc=True,
                            test_spps=(2, 4))
-    tds.offline_preprocess(trees["torch"], mode="test", spp=2,
+    tds.offline_preprocess(trees["torch"], mode="test", spp=2, sbmc=True,
                            test_spps=(2, 4), device="cpu")
     return trees
 
@@ -102,6 +125,8 @@ def cache_trees(tmp_path_factory):
 @pytest.mark.parametrize("rel", [
     "test/input/scene0_llpm.npy", "test/input/scene0_llpm_1.npy",
     "test/input/scene0_kpcn_2.npy", "test/input/scene0_kpcn_4.npy",
+    "test/input/scene0_sbmc_s.npy", "test/input/scene0_sbmc_p.npy",
+    "test/input/scene0_sbmc_s_1.npy", "test/input/scene0_sbmc_p_1.npy",
     "test/gt/scene0.npy",
 ])
 def test_offline_cache_matches_jax(cache_trees, rel):
@@ -139,7 +164,8 @@ def test_synthetic_dataset_matches_script(tmp_path):
 
 
 def test_offline_preprocess_unported_modes_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        tds.offline_preprocess(str(tmp_path), mode="train", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tds.offline_preprocess(str(tmp_path), mode="test", sbmc=True, device="cpu")
+    """The train/val caches (they need the importance map) raise; the
+    test split's SBMC caches are ported (``test_offline_cache_matches_jax``)."""
+    for sbmc in (False, True):
+        with pytest.raises(NotImplementedError):
+            tds.offline_preprocess(str(tmp_path), mode="train", sbmc=sbmc, device="cpu")

@@ -14,8 +14,8 @@ Convolutions run internally in NCHW logical order with channels-last
 memory (a permuted view of the NHWC tensors, no copy), which is also the
 layout cuDNN prefers for bf16.
 
-The TPU kernels of the ported paths (serving, and the KPCN + manifold
-training step) are hand-written CUDA C++ for ``sm_90a`` under
+The TPU kernels of the ported paths (serving and the manifold training
+step of KPCN and of LBMC) are hand-written CUDA C++ for ``sm_90a`` under
 ``ops/csrc`` (built at first use by ``ops/_build.py``); each has a plain
 PyTorch version beside it that runs for CPU tensors.
 Entry points run on the card unless the caller passes ``device="cpu"``.

@@ -2,8 +2,9 @@
 
 Counterpart of ``wcmc_tpu/data/dataset.py`` for what full-frame serving
 needs: the cache file names, the sanitizing loader, the extra-spp part
-concatenation, and ``offline_preprocess`` for the test split (LLPM
-caches, per-spp KPCN caches, GT sanitizing).  The preprocessing runs on
+concatenation, and ``offline_preprocess`` for the test split (LLPM and
+SBMC caches with their extra-spp parts, per-spp KPCN caches, GT
+sanitizing).  The preprocessing runs on
 the given device; the cache files are the reference's (same names,
 shapes and float32 dtype), so either package reads the other's caches.
 
@@ -14,6 +15,7 @@ Directory layout: ``<root>/<mode>/gt/<scene>.npy`` and
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -60,11 +62,26 @@ def load_all_spp(in_fn: str, spp: int) -> np.ndarray:
     return arr[:, :, :spp, :]
 
 
-def _on_device(fn, arr: np.ndarray, device) -> np.ndarray:
-    """Run one preprocessing transform on ``device``; numpy in and out."""
+def _on_device(fn, arr: np.ndarray, device):
+    """Run one preprocessing transform on ``device``; numpy in and out
+    (a tuple of arrays for a transform that returns a tuple)."""
     with torch.inference_mode():
         out = fn(torch.from_numpy(arr).to(device))
+        if isinstance(out, tuple):
+            return tuple(o.cpu().numpy() for o in out)
         return out.cpu().numpy()
+
+
+def _write_caches(in_fn: str, suffix: str, load, jobs, overwrite: bool, device):
+    """For each ``(tags, transform)`` job whose caches ``<base>_<tag><suffix>.npy``
+    are not all there (or with ``overwrite``), run the transform on
+    ``load()`` and save its outputs, in order, under those tags."""
+    for tags, fn in jobs:
+        names = [_cache_name(in_fn, tag + suffix) for tag in tags]
+        if overwrite or not all(os.path.isfile(n) for n in names):
+            out = _on_device(fn, load(), device)
+            for name, buf in zip(names, out if isinstance(out, tuple) else (out,)):
+                np.save(name, buf)
 
 
 def offline_preprocess(
@@ -81,21 +98,23 @@ def offline_preprocess(
 ):
     """One-time cache builder for the test split.
 
-    Writes ``*_llpm.npy`` (and ``*_llpm_<i>.npy`` for extra-spp parts),
-    ``*_kpcn_<spp>.npy`` for each of ``test_spps`` the scene has samples
-    for, and sanitizes the GT files in place.  ``device`` is where the
-    transforms run (the card unless given).
+    Writes ``*_llpm.npy``, and with ``sbmc`` ``*_sbmc_s.npy`` and
+    ``*_sbmc_p.npy`` (from the first ``spp`` samples), each extra-spp part
+    ``<scene>_<i>.npy`` into ``*_llpm_<i>.npy`` (and ``*_sbmc_s_<i>.npy``,
+    ``*_sbmc_p_<i>.npy``), ``*_kpcn_<spp>.npy`` for each of ``test_spps``
+    the scene has samples for, and sanitizes the GT files in place.
+    ``device`` is where the transforms run (the card unless given).
 
-    The SBMC caches and the train/val importance maps come with the
-    SBMC port and raise ``NotImplementedError`` until then.
+    The train/val caches need the importance map, which comes with the
+    disk pipeline, and raise ``NotImplementedError`` until then.
     """
-    if sbmc:
-        raise NotImplementedError("SBMC caches are not ported yet")
     if mode != "test":
         raise NotImplementedError(
             "train/val caches need the importance map, which is not ported yet"
         )
     device = resolve_device(device)
+    jobs = ([(("llpm",), preprocess.preprocess_llpm)] if llpm else []) + (
+        [(("sbmc_s", "sbmc_p"), preprocess.preprocess_sbmc)] if sbmc else [])
 
     gt_dir = os.path.join(gt_base_dir, mode, "gt")
     gt_files = sorted(
@@ -107,25 +126,23 @@ def offline_preprocess(
         if verbose:
             print("[preprocess]", in_fn)
 
-        if llpm:
-            fn = _cache_name(in_fn, "llpm")
-            if overwrite or not os.path.isfile(fn):
-                raw = _load_sanitized(in_fn, spp)
-                if raw.shape[-1] != schema.RAW_CHANNELS:
-                    raise ValueError(f"{in_fn} is not an OptaGen dump")
-                np.save(fn, _on_device(preprocess.preprocess_llpm, raw, device))
-            # extra-spp parts get their own caches so FullImageDataset can
-            # assemble arbitrary spp from cached buffers
-            i = 0
-            while True:
-                i += 1
-                part = f"{os.path.splitext(in_fn)[0]}_{i}.npy"
-                if not os.path.isfile(part):
-                    break
-                fn_i = _cache_name(in_fn, f"llpm_{i}")
-                if overwrite or not os.path.isfile(fn_i):
-                    np.save(fn_i, _on_device(preprocess.preprocess_llpm,
-                                             _load_sanitized(part), device))
+        def load_raw():
+            raw = _load_sanitized(in_fn, spp)
+            if raw.shape[-1] != schema.RAW_CHANNELS:
+                raise ValueError(f"{in_fn} is not an OptaGen dump")
+            return raw
+
+        _write_caches(in_fn, "", functools.cache(load_raw), jobs, overwrite, device)
+        # extra-spp parts get their own caches so FullImageDataset can
+        # assemble arbitrary spp from cached buffers
+        i = 0
+        while True:
+            i += 1
+            part = f"{os.path.splitext(in_fn)[0]}_{i}.npy"
+            if not os.path.isfile(part):
+                break
+            _write_caches(in_fn, f"_{i}", functools.cache(lambda p=part: _load_sanitized(p)),
+                          jobs, overwrite, device)
 
         if kpcn:
             for s_ in test_spps:

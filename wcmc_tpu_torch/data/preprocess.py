@@ -6,8 +6,7 @@ ops so the whole pass runs on the card.  Constants (log scalings,
 epsilons, the ``/19`` bounce normalization, the sqrt-roughness
 linearization, the 1e10 clip) are the reference's, in float32.
 
-All outputs are channels-last.  SBMC preprocessing comes with the SBMC
-port.
+All outputs are channels-last.
 """
 
 from __future__ import annotations
@@ -46,6 +45,28 @@ def preprocess_llpm(sample: torch.Tensor) -> torch.Tensor:
         [path_weight, rad_wo_w, light, throughputs, bounce_types, roughnesses],
         dim=-1,
     )
+
+
+def preprocess_sbmc(sample: torch.Tensor):
+    """Raw ``(..., 104)`` samples -> (27-ch sample buffer, 66-ch path
+    buffer): [total, log total, log specular, subpixel, g-buffer] and
+    [log probabilities, light directions, five bounce-type bits].  The
+    linear radiance is clipped to [0, 1e10] so squared errors of capped
+    outliers stay finite."""
+    total = _rng(sample, schema.RADIANCE).clamp(0.0, 1e10)
+    diffuse = _rng(sample, schema.DIFFUSE).clamp(0.0, 1e10)
+    specular = torch.log1p((total - diffuse).clamp(min=0.0)) / 10.0
+    subpixel = _rng(sample, schema.SUBPIXEL)
+    g_buffer = sample[..., schema.ALBEDO_AT_FIRST[0]:schema.HAS_HIT[1]]
+    probabilities = torch.log(_rng(sample, schema.PROBABILITIES).clamp(min=0.0) + 1e-5) / 30.0
+    light_dirs = _rng(sample, schema.LIGHT_DIRECTIONS).clamp(-1.0, 1.0)
+    bounce = _rng(sample, schema.BOUNCE_TYPES).to(torch.int32)
+    # reflection, transmission, diffuse, glossy, specular
+    bits = [((bounce & (1 << b)) != 0).to(sample.dtype) for b in range(5)]
+    s_buffer = torch.cat(
+        [total, torch.log1p(total) / 10.0, specular, subpixel, g_buffer], dim=-1)
+    p_buffer = torch.cat([probabilities, light_dirs] + bits, dim=-1)
+    return s_buffer, p_buffer
 
 
 def _spatial_gradients(buf: torch.Tensor) -> torch.Tensor:
@@ -140,3 +161,17 @@ def kpcn_targets(gt: torch.Tensor) -> dict:
         # clamp keeps log1p finite when MC noise makes diffuse > total
         "target_specular": torch.log1p((total - diffuse).clamp(min=-0.9999)),
     }
+
+
+def sbmc_features(s_buffer, p_buffer=None, use_g_buf: bool = True,
+                  use_sbmc_buf: bool = True) -> dict:
+    """Cached SBMC buffers -> the sample-space keys {'radiance',
+    'features'}: the g-buffer features (24 channels) or only the log
+    total (3), then the path buffer when ``use_sbmc_buf``."""
+    radiance = s_buffer[..., :3]
+    feats = s_buffer[..., 3:27] if use_g_buf else s_buffer[..., 3:6]
+    if use_sbmc_buf:
+        if p_buffer is None:
+            raise ValueError("use_sbmc_buf needs the path buffer")
+        feats = torch.cat([feats, p_buffer], dim=-1)
+    return {"radiance": radiance, "features": feats}

@@ -71,7 +71,9 @@ def _upload(batch: dict, device: torch.device) -> dict:
 def inference(interface, dataset: FullImageDataset, batch_size: int = 8):
     """Tiled full-frame inference with interior-crop assembly.
 
-    Returns (out_rad (H, W, 3), out_path or None, elapsed_seconds)."""
+    Returns (out_rad (H, W, 3), out_path or None, elapsed_seconds):
+    ``out_path`` is the assembled (S, H, W, C) p-buffer, a dict of them
+    for KPCN's two branches."""
     interface.to_eval_mode()
     device = interface.device
     H, W = dataset.h, dataset.w
@@ -89,7 +91,9 @@ def inference(interface, dataset: FullImageDataset, batch_size: int = 8):
                              getattr(dataset, "tile_w", PATCH_SIZE))
         pbs = None
         if use_paths:
-            pbs = {k: v.float().cpu().numpy() for k, v in p_buffers.items()}
+            # KPCN: a dict of branches; the sample-space models: one array
+            items = p_buffers.items() if isinstance(p_buffers, dict) else [(None, p_buffers)]
+            pbs = {k: v.float().cpu().numpy() for k, v in items}
             if out_path is None:
                 out_path = {k: np.zeros((v.shape[1], H, W, v.shape[-1]), np.float32)
                             for k, v in pbs.items()}
@@ -129,6 +133,8 @@ def inference(interface, dataset: FullImageDataset, batch_size: int = 8):
     out_rad = out_rad[:oh, :ow]
     if out_path is not None:
         out_path = {k: v[:, :oh, :ow] for k, v in out_path.items()}
+        if None in out_path:
+            out_path = out_path[None]
     return out_rad, out_path, time.time() - t0
 
 
@@ -174,7 +180,8 @@ def denoise(
     ``tile_h``/``tile_w`` select the device tile size (see
     FullImageDataset).  KPCN without paths defaults to 256-px tiles (its
     assembled output is exactly the untiled forward either way); models
-    with paths keep 128, since the PathNet context is tile-global.  With
+    with paths, and the sample-space models, keep 128, since the PathNet
+    context is tile-global.  With
     ``rhf`` the first frame's p-buffer is saved and the sweep returns
     ``{}`` right away, as the reference does."""
     if tile_h is None and tile_w is None and base_model == "kpcn" \
@@ -207,8 +214,8 @@ def denoise(
             out_rad, out_path, dt = inference(interface, ds, batch_size_fn(spp))
             if rhf and out_path is not None:
                 # p-buffer export for RHF-style visualization
-                np.save(os.path.join(output_dir, f"p_buffer_{scene}_{spp}.npy"),
-                        out_path["diffuse"])
+                pb = out_path["diffuse"] if isinstance(out_path, dict) else out_path
+                np.save(os.path.join(output_dir, f"p_buffer_{scene}_{spp}.npy"), pb)
                 return {}
             oh, ow = ds.orig_h, ds.orig_w
             res, res_in = evaluate_frame(

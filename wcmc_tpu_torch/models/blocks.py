@@ -1,4 +1,5 @@
-"""Reusable building blocks: a plain convolution chain and a U-Net.
+"""Reusable building blocks: a plain convolution chain, the per-pixel
+MLP and a U-Net.
 
 Counterpart of ``wcmc_tpu/models/blocks.py``.  Modules take and return
 NCHW tensors (the models pass channels-last memory, i.e. permuted views
@@ -17,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wcmc_tpu_torch.ops.mlp_fused import fused_mlp
 
 # stddev of a unit normal truncated to [-2, 2] (flax's lecun_normal)
 _TRUNC_STD = 0.87962566103423978
@@ -66,6 +69,39 @@ class ConvChain(nn.Module):
             if i < self.depth - 1:
                 x = F.relu(x)
         return x
+
+
+class PixelMLP(nn.Module):
+    """Per-pixel MLP, a ``ConvChain(ksize=1)`` computed by the fused
+    kernel K10 (``ops/mlp_fused.py``), so the hidden activations never
+    reach device memory.  Parameters ``w{i}`` (C_{i-1}, C_i) and ``b{i}``
+    stay f32 with flax's init; the chain computes in ``dtype``.  Takes and
+    returns channels-last ``(..., C)``.  ``compute_dx`` is False when the
+    input is data, which skips d(x) in the backward kernel."""
+
+    def __init__(self, in_channels: int, features, acts, compute_dx: bool = True,
+                 dtype=None, generator=None):
+        super().__init__()
+        if len(features) != len(acts):
+            raise ValueError("PixelMLP: features and acts differ in length")
+        self.features, self.acts = tuple(features), tuple(acts)
+        self.compute_dx, self.dtype = compute_dx, dtype
+        cin = in_channels
+        for i, f in enumerate(self.features):
+            w = nn.Parameter(torch.empty(cin, f))
+            lecun_normal_(w, cin, generator)
+            self.register_parameter(f"w{i}", w)
+            self.register_parameter(f"b{i}", nn.Parameter(torch.zeros(f)))
+            cin = f
+
+    def forward(self, x):
+        n = len(self.features)
+        flat = x.reshape(-1, x.shape[-1])
+        if self.dtype is not None:
+            flat = flat.to(self.dtype)
+        y = fused_mlp(flat, [getattr(self, f"w{i}") for i in range(n)],
+                      [getattr(self, f"b{i}") for i in range(n)], self.acts, self.compute_dx)
+        return y.reshape(x.shape[:-1] + (self.features[-1],))
 
 
 class UNet(nn.Module):

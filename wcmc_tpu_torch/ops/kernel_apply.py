@@ -228,12 +228,13 @@ def kernel_apply(buf, kernels, ksize: int, softmax: bool = True):
       kernels: (B, h, w, K*K) per-pixel kernel logits, h = H - K + 1.
       softmax: normalize each pixel's K*K window with a softmax.  Only
         the softmax form is ported; the plain weighted gather (kernel K9)
-        comes with the SBMC port.
+        comes with the SBMC port (slice E).
     Returns:
       (B, h, w, C) reconstruction.
     """
     if not softmax:
-        raise NotImplementedError("kernel_apply(softmax=False) is not ported yet")
+        raise NotImplementedError("kernel_apply(softmax=False) needs kernel K9, which "
+                                  "comes with the SBMC port (slice E)")
     return kernel_gather_softmax(buf, kernels, ksize)
 
 

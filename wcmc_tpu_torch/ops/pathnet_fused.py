@@ -30,7 +30,9 @@ from __future__ import annotations
 import torch
 
 from wcmc_tpu_torch.ops import _build
-from wcmc_tpu_torch.ops.mlp_fused import _act, _act_grad, _mlp_plain, matmul_f32
+from wcmc_tpu_torch.ops.mlp_fused import (
+    _act, _act_grad, _mlp_bwd_rows, _mlp_plain, matmul_f32,
+)
 
 EMBED_ACTS = ("relu", "relu", "linear")
 HEAD_ACTS = ("relu", "relu")
@@ -157,29 +159,16 @@ def _head_fwd(e, ctx, ws, bs, acts, moments, cmajor):
 def _embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx=False):
     """Plain version of K4-bwd: (dx or None, dWs, dbs), all f32 but dx."""
     _build.plain_calls["pathnet_embed_bwd"] += 1
-    dt = x.dtype
     b, s, hw, c0 = x.shape
     cout = ws[-1].shape[1]
-    hs = [x.reshape(-1, c0)]
-    for w, bb, a in zip(ws, bs, acts):
-        hs.append(_act(a, matmul_f32(hs[-1], w) + bb.float()).to(dt))
     g = torch.zeros((b, s, hw, cout), dtype=torch.float32, device=x.device)
     if ge is not None:
-        g = g + ge.to(dt).float()
+        g = g + ge.to(x.dtype).float()
     if gmean is not None:
         g = g + (gmean.float() / s)[:, None]
-    g = g.reshape(-1, cout)
-    n = len(ws)
-    dws, dbs = [None] * n, [None] * n
-    for i in reversed(range(n)):
-        gz = _act_grad(acts[i], hs[i + 1], g)
-        gz_c = gz.to(dt)
-        dws[i] = hs[i].float().t() @ gz_c.float()
-        dbs[i] = gz.sum(dim=0)
-        if i > 0 or compute_dx:
-            g = gz_c.float() @ ws[i].to(dt).float().t()
-    dx = g.to(dt).reshape(x.shape) if compute_dx else None
-    return dx, dws, dbs
+    dx, dws, dbs = _mlp_bwd_rows(x.reshape(-1, c0), g.reshape(-1, cout), ws, bs, acts,
+                                 compute_dx)
+    return (dx.reshape(x.shape) if compute_dx else None), dws, dbs
 
 
 def _head_bwd_plain(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False):

@@ -12,8 +12,8 @@ Usage:
         --save ./weights --data_dir <root> --spps 8 --use_llpm_buf \
         [--device cuda] [--save_figures]
 
-Only KPCN is ported so far; SBMC and LBMC names raise
-``NotImplementedError``.
+KPCN and LBMC names are ported; SBMC names raise
+``NotImplementedError`` until the SBMC slice.
 """
 
 from __future__ import annotations
@@ -26,11 +26,17 @@ from wcmc_tpu_torch.train.checkpoint import load_checkpoint, restore_interface
 from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
 
 
-def kpcn_config(args) -> TrainConfig:
-    """The KPCN model config from the CLI flags (the reference's
-    ``train_kpcn.make_config``)."""
+def model_config(args, base: str) -> TrainConfig:
+    """The model config of the ``base`` family ("kpcn" or "lbmc") from the
+    CLI flags: the reference's ``train_kpcn.make_config`` /
+    ``train_lbmc.make_config``."""
+    if base == "kpcn":
+        extra = dict(train_branches=args.train_branches, kpcn_ref=args.kpcn_ref,
+                     kpcn_pre=args.kpcn_pre, kpcn_ksize=args.kpcn_ksize)
+    else:
+        extra = dict(warmup_steps=getattr(args, "warmup_steps", 0))
     return TrainConfig(
-        base_model="kpcn",
+        base_model=base,
         model_name=args.model_name,
         batch_size=args.batch_size,
         lr_dncnn=args.lr_dncnn,
@@ -41,23 +47,28 @@ def kpcn_config(args) -> TrainConfig:
         manif_learn=args.manif_learn,
         manif_loss=args.manif_loss,
         local=args.local,
+        manif_pairing=getattr(args, "manif_pairing", "roll"),
         disentangle=args.disentangle,
-        train_branches=args.train_branches,
-        kpcn_ref=args.kpcn_ref,
-        kpcn_pre=args.kpcn_pre,
         seed=args.seed,
         compute_dtype=args.compute_dtype,
-        kpcn_ksize=args.kpcn_ksize,
+        **extra,
     )
 
 
 def build_interface(args):
-    if "SBMC" in args.model_name or "LBMC" in args.model_name:
-        raise NotImplementedError("only KPCN models are ported so far")
-    if "KPCN" not in args.model_name:
+    """The interface of the family named in ``--model_name`` (SBMC, then
+    LBMC, then KPCN, as the reference checks), with the checkpoint
+    restored when there is one; returns (interface, base model)."""
+    if "SBMC" in args.model_name:
+        raise NotImplementedError("SBMC models are slice E of the port and not ported yet")
+    if "LBMC" in args.model_name:
+        base = "lbmc"
+    elif "KPCN" in args.model_name:
+        base = "kpcn"
+    else:
         raise ValueError("model_name must contain KPCN, SBMC, or LBMC: "
                          f"{args.model_name!r}")
-    iface = init_interfaces(kpcn_config(args), args, device=args.device)[0]
+    iface = init_interfaces(model_config(args, base), args, device=args.device)[0]
     name = args.model_name
     p_model = os.path.join(args.save, name if name.endswith(".ckpt") else name + ".ckpt")
     if os.path.isfile(p_model):
@@ -65,7 +76,7 @@ def build_interface(args):
         print(f"Loaded checkpoint {p_model}")
     else:
         print(f"WARNING: no checkpoint at {p_model}; evaluating random init")
-    return iface, "kpcn"
+    return iface, base
 
 
 def main(args):
