@@ -201,37 +201,48 @@ def test_split_disentangle(mode):
 
 
 def test_unported_families_raise(tmp_path):
-    """SBMC (slice E) raises by name and by config; LBMC is ported."""
-    args = ttm.parse_args(["--model_name", "SBMC_x", "--data_dir", str(tmp_path),
+    """The KPCN ref / pre variants (slice D) raise by config, a name of no
+    family raises; SBMC (slice E1) and LBMC are ported."""
+    with pytest.raises(NotImplementedError):
+        tinit(TConfig(kpcn_ksize=5, kpcn_ref=True), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tinit(TConfig(kpcn_ksize=5, kpcn_pre=True), device="cpu")
+    args = ttm.parse_args(["--model_name", "DNCNN_x", "--data_dir", str(tmp_path),
                            "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice E"):
+    with pytest.raises(ValueError, match="KPCN, SBMC, or LBMC"):
         ttm.build_interface(args)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tinit(TConfig(base_model="sbmc"), device="cpu")
+    assert str(tinit(TConfig(base_model="sbmc", sbmc_ksize=5), device="cpu")[0]) == \
+        "SBMCInterface"
     assert str(tinit(TConfig(base_model="lbmc"), device="cpu")[0]) == "LBMCInterface"
 
 
-@pytest.mark.parametrize("base", ["kpcn", "lbmc"])
+@pytest.mark.parametrize("base", ["kpcn", "lbmc", "sbmc"])
 def test_model_names_build_the_reference_config(tmp_path, base):
-    """A KPCN or LBMC model name builds the config the reference's
-    ``train_kpcn.make_config`` / ``train_lbmc.make_config`` builds from the
-    same flags."""
+    """A KPCN, LBMC or SBMC model name builds the config the reference's
+    ``train_kpcn.make_config`` / ``train_lbmc.make_config`` /
+    ``train_sbmc.make_config`` builds from the same flags."""
     import dataclasses
 
     import train_kpcn
     import train_lbmc
+    import train_sbmc
 
     argv = ["--model_name", f"{base.upper()}_x", "--data_dir", str(tmp_path),
             "--device", "cpu", "--use_llpm_buf", "--manif_learn", "--manif_loss", "FMSE",
             "--compute_dtype", "float32", "--lr_pnet", "3e-4", "--seed", "4",
-            "--kpcn_ksize", "5"]
+            "--kpcn_ksize", "5", "--sbmc_ksize", "5"]
+    if base == "sbmc":
+        argv.append("--use_sbmc_buf")
     args = ttm.parse_args(argv)
-    want = {"kpcn": train_kpcn, "lbmc": train_lbmc}[base].make_config(args)
+    want = {"kpcn": train_kpcn, "lbmc": train_lbmc,
+            "sbmc": train_sbmc}[base].make_config(args)
     got = ttm.model_config(args, base)
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     iface, got_base = ttm.build_interface(args)
     assert got_base == base
-    if base == "lbmc":
+    if base != "kpcn":
         assert set(iface.models) == {"dncnn", "backbone"}
-        assert iface.models["dncnn"].n_in == 29
+        assert iface.models["dncnn"].n_in == (29 if base == "lbmc" else 95)
+    if base == "sbmc":
+        assert str(iface.models["dncnn"]) == "Multisteps i95 k5 s3 w128"

@@ -1,7 +1,7 @@
 """The port stands alone: no module of wcmc_tpu_torch, and not
 chip_smoke.py, imports JAX, flax, optax or wcmc_tpu, while serving a
-batch and taking a train step of KPCN and of LBMC; and its entry points
-refuse to fall back to the CPU silently."""
+batch and taking a train step of KPCN, of LBMC and of SBMC; and its entry
+points refuse to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -76,6 +76,20 @@ _CHILD = textwrap.dedent("""
     assert {"l_manif", "l_recon", "l_total"} <= set(losses)
     assert all(bool(torch.isfinite(v)) for v in losses.values())
     rad, pb = lbmc.validate_batch(lb)
+    assert rad.shape == (1, 16, 16, 3) and pb.shape == (1, 2, 16, 16, 3)
+
+    from wcmc_tpu_torch.models.sbmc import Multisteps  # noqa: F401
+    from wcmc_tpu_torch.ops.splat import splat_normalized_logits  # noqa: F401
+    cfg = TrainConfig(base_model="sbmc", sbmc_ksize=5, use_llpm_buf=True, manif_learn=True,
+                      manif_loss="FMSE", compute_dtype="float32", finite_check_every=1)
+    sbmc = init_interfaces(cfg, device="cpu")[0]
+    sb = synthetic_batch(rng, "sbmc", batch_size=1, patch=16, spp=2, use_llpm_buf=True)
+    sbmc.to_train_mode()
+    sbmc.preprocess(sb)
+    losses = sbmc.train_batch(sb)
+    assert {"l_manif", "l_recon", "l_total"} <= set(losses)
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    rad, pb = sbmc.validate_batch(sb)
     assert rad.shape == (1, 16, 16, 3) and pb.shape == (1, 2, 16, 16, 3)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked

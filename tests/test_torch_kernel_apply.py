@@ -73,15 +73,17 @@ def test_plain_matches_pallas_interpret(ksize, h, w, dtype):
 
 def test_reference_api_matches_jax():
     """kernel_apply_reference (softmax in the logits' dtype) and
-    kernel_apply agree with their wcmc_tpu counterparts."""
+    kernel_apply, with and without the softmax, agree with their wcmc_tpu
+    counterparts."""
     buf, logits, lt = _inputs(5, 7, 9, "float32", seed=2)
     want = jka.kernel_apply_reference(jnp.asarray(buf), jnp.asarray(logits), 5)
     got = tka.kernel_apply_reference(torch.from_numpy(buf), lt, 5)
     _close(got.numpy(), want, TOL["float32"])
     got2 = tka.kernel_apply(torch.from_numpy(buf), lt, 5)
     _close(got2.numpy(), want, TOL["float32"])
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tka.kernel_apply(torch.from_numpy(buf), lt, 5, softmax=False)
+    want3 = jka.kernel_apply(jnp.asarray(buf), jnp.asarray(logits), 5, softmax=False)
+    got3 = tka.kernel_apply(torch.from_numpy(buf), lt, 5, softmax=False)
+    _close(got3.numpy(), want3, TOL["float32"])
 
 
 def test_strided_logits_view():

@@ -121,7 +121,7 @@ def test_kernels_refuse_what_they_do_not_compute(cuda):
     with pytest.raises(TypeError):
         pf.pathnet_embed(x, ws, bs)
     with pytest.raises(ValueError):
-        pf.pathnet_embed(x.to(torch.bfloat16), ws, bs, ("relu", "relu", "relu"))
+        pf.pathnet_embed(x.to(torch.bfloat16), ws, bs, ("relu", "gelu", "relu"))
 
 
 def _crop_logits(cuda, g, b, h, w, ksize, dtype):
@@ -468,3 +468,131 @@ def test_lbmc_train_batch_on_the_card_matches_the_cpu(cuda):
     for name in card.models:
         cos, ratio = measured[name]
         assert cos >= 0.9997 and abs(ratio - 1) <= 0.005, (name, measured)
+
+
+def test_lbmc_train_batch_repeats_bit_for_bit(cuda):
+    """The same LBMC step three times from the same weights, batch and
+    draws gives the same gradients bit for bit: every kernel sums in a
+    fixed order, and the LayerNet's edge padding has no atomic backward."""
+    import numpy as np
+
+    from wcmc_tpu_torch.data.batches import synthetic_batch
+    from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
+
+    cfg = TrainConfig(base_model="lbmc", use_llpm_buf=True, manif_learn=True,
+                      manif_loss="FMSE")
+    iface = init_interfaces(cfg, device=cuda)[0]
+    batch = synthetic_batch(np.random.default_rng(0), "lbmc", 4, 64, 8, True)
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    iface.to_train_mode()
+    draws = iface.draw_pairings((4, 8, 64, 64, 3))
+    grads = []
+    for _ in range(3):
+        iface.preprocess(batch)
+        iface.train_batch(batch, grad_hook_mode=True, draws=draws)
+        grads.append([p.grad.clone() for m in iface.models.values() for p in m.parameters()])
+    for other in grads[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(grads[0], other))
+
+
+# ---------------------------------------------------------------------------
+# SBMC shapes: K7, K4-fwd with leaky relu, K5-fwd wide with a bf16 output
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,w,c,ksize", [(2, 11, 13, 4, 5), (3, 20, 17, 3, 21),
+                                           (64, 128, 128, 4, 21)])
+def test_scatter(cuda, b, h, w, c, ksize):
+    """K7 at small shapes and at the SBMC serving shape (8 tiles x 8 spp,
+    radiance and a ones channel, 441 f32 weights per sample)."""
+    g = _gen(20)
+    x = torch.randn((b, h, w, c), device=cuda, generator=g)
+    wt = torch.rand((b, h, w, ksize * ksize), device=cuda, generator=g)
+    _build.reset_counts()
+    got = ka.scatter(x, wt, ksize)
+    assert dict(_build.launches) == {"scatter": 1} and not _build.plain_calls
+    assert got.shape == (b, h + ksize - 1, w + ksize - 1, c)
+    _close(got, ka.scatter_plain(x, wt, ksize), K1_TOL)
+
+
+def test_scatter_strided_weights_and_splat(cuda):
+    """The weights may be a view with contiguous taps; ``kernel_splat``
+    launches K7 once and its backward raises until K8 and K9."""
+    from wcmc_tpu_torch.ops import splat
+
+    g = _gen(21)
+    x = torch.randn((2, 9, 10, 4), device=cuda, generator=g)
+    big = torch.rand((2, 12, 14, 25), device=cuda, generator=g)
+    view = big[:, 2:11, 3:13]
+    assert not view.is_contiguous() and view.stride(-1) == 1
+    torch.testing.assert_close(ka.scatter(x, view, 5), ka.scatter(x, view.contiguous(), 5),
+                               rtol=0, atol=0)
+    xg = x.clone().requires_grad_()
+    _build.reset_counts()
+    out = splat.kernel_splat(xg, view, 5)
+    assert dict(_build.launches) == {"scatter": 1} and out.shape == x.shape
+    with pytest.raises(NotImplementedError, match="K9.*K8"):
+        out.sum().backward()
+    with pytest.raises(TypeError):
+        ka.scatter(x, view.to(torch.bfloat16), 5)
+
+
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (8, 8, 16384)])
+def test_pathnet_embed_sbmc(cuda, b, s, hw):
+    """K4-fwd in Multisteps' form: 95 -> 128 -> 128 -> 128, leaky relu."""
+    g = _gen(22)
+    dims = (95, 128, 128, 128)
+    x = torch.randn((b, s, hw, 95), device=cuda, generator=g).to(torch.bfloat16)
+    ws = [torch.randn((ci, co), device=cuda, generator=g) / ci**0.5
+          for ci, co in zip(dims[:-1], dims[1:])]
+    bs = [0.1 * torch.randn(co, device=cuda, generator=g) for co in dims[1:]]
+    _build.reset_counts()
+    e, mean = pf.pathnet_embed(x, ws, bs, LEAKY3)
+    assert dict(_build.launches) == {"pathnet_embed": 1} and not _build.plain_calls
+    we, wm = pf._embed_plain(x, ws, bs, LEAKY3)
+    _close(e, we, BF16_TOL)
+    _close(mean, wm, BF16_TOL)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("moments", [True, False])
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (8, 8, 16384)])
+def test_pathnet_head_sbmc(cuda, b, s, hw, moments, out_dtype):
+    """K5-fwd in Multisteps' update form: [128 | 128] -> 128 -> 128, leaky
+    relu; the moments are summed from the unrounded f32 output."""
+    g = _gen(23)
+    e = torch.randn((b, s, hw, 128), device=cuda, generator=g).to(torch.bfloat16)
+    ctx = torch.randn((b, hw, 128), device=cuda, generator=g).to(torch.bfloat16)
+    ws = [torch.randn((256, 128), device=cuda, generator=g) / 16.0,
+          torch.randn((128, 128), device=cuda, generator=g) / 128**0.5]
+    bs = [0.1 * torch.randn(128, device=cuda, generator=g) for _ in range(2)]
+    _build.reset_counts()
+    got = pf.pathnet_head(e, ctx, ws, bs, LEAKY3[:2], moments, out_dtype=out_dtype)
+    assert dict(_build.launches) == {"pathnet_head": 1} and not _build.plain_calls
+    want = pf._head_plain(e, ctx, ws, bs, LEAKY3[:2], moments, out_dtype=out_dtype)
+    got, want = (got, want) if moments else ((got,), (want,))
+    assert got[0].dtype == out_dtype and got[0].shape == (b, s, hw, 128)
+    for gt, wt in zip(got, want):
+        _close(gt, wt, BF16_TOL)
+
+
+def test_sbmc_train_step_on_the_card_raises_until_e2(cuda):
+    """The bf16 SBMC + manifold step runs its forward through the kernels
+    (K4-fwd and K5-fwd for the PathNet and Multisteps, K7) and raises
+    NotImplementedError from the splat's backward: K8 and K9 (and the SBMC
+    forms of K4-bwd and K5-bwd) come with the SBMC training slice."""
+    import numpy as np
+
+    from wcmc_tpu_torch.data.batches import synthetic_batch
+    from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
+
+    cfg = TrainConfig(base_model="sbmc", use_llpm_buf=True, manif_learn=True,
+                      manif_loss="FMSE")
+    card = init_interfaces(cfg, device=cuda)[0]
+    batch = synthetic_batch(np.random.default_rng(0), "sbmc", 2, 32, 8, True)
+    card.to_train_mode()
+    card.preprocess(batch)
+    _build.reset_counts()
+    with pytest.raises(NotImplementedError, match="K9.*K8"):
+        card.train_batch(batch)
+    assert dict(_build.launches) == {"pathnet_embed": 2, "pathnet_head": 4, "scatter": 1}
+    assert not _build.plain_calls

@@ -28,7 +28,6 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from wcmc_tpu_torch.models.blocks import PixelMLP, UNet, conv_apply, make_conv
@@ -37,6 +36,17 @@ from wcmc_tpu_torch.ops.kernel_apply import kernel_apply
 
 def _default_tonemap(x):
     return torch.log1p(torch.clamp(x, min=0.0))
+
+
+def _edge_pad(x, r: int):
+    """Replicate-pad the H and W axes of a channels-last (B, H, W, C)
+    tensor by ``r`` (``F.pad``'s replicate mode) from slices and
+    concatenations, whose backward sums in a fixed order: the CUDA
+    backward of replication padding adds with atomics, so the train step
+    would differ in its last bits from run to run."""
+    x = torch.cat([x[:, :1].expand(-1, r, -1, -1), x, x[:, -1:].expand(-1, r, -1, -1)], dim=1)
+    return torch.cat([x[:, :, :1].expand(-1, -1, r, -1), x, x[:, :, -1:].expand(-1, -1, r, -1)],
+                     dim=2)
 
 
 class LayerNet(nn.Module):
@@ -91,8 +101,7 @@ class LayerNet(nn.Module):
         for l in range(self.num_layers):
             wl, wsum = lw[..., l:l + 1], wsums[l]
             lin_rad = (wl * radiance).sum(dim=1) / (wsum + 1e-6)
-            padded = F.pad(lin_rad.permute(0, 3, 1, 2), (r, r, r, r), mode="replicate")
-            filtered = kernel_apply(padded.permute(0, 2, 3, 1), kernels[..., l * k2:(l + 1) * k2],
+            filtered = kernel_apply(_edge_pad(lin_rad, r), kernels[..., l * k2:(l + 1) * k2],
                                     self.ksize, softmax=True)
             out = out + filtered * (wsum / s)
         return out

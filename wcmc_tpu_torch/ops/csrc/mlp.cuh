@@ -1,6 +1,8 @@
 // Shared pieces of K10-fwd and K10-bwd, the fused per-pixel MLP: the
 // layer description passed by value to both kernels, the activations and
 // their gradients, and row-tile copies between device and shared memory.
+// The activation switch (mlp_act, and fixed_act for activations set at
+// compile time) also serves the PathNet-shaped K4-fwd and K5-fwd.
 #pragma once
 
 #include <stdint.h>
@@ -23,6 +25,13 @@ struct MlpLayers {
 
 __device__ inline float mlp_act(int code, float z) {
   return code == 1 ? fmaxf(z, 0.0f) : code == 2 ? (z >= 0.0f ? z : 0.01f * z) : z;
+}
+
+// A layer's activation fixed at compile time (kCode >= 0), or read from
+// `code` at run time (kCode < 0: the kernels' generic instantiation).
+template <int kCode>
+__device__ __forceinline__ float fixed_act(int code, float z) {
+  return mlp_act(kCode >= 0 ? kCode : code, z);
 }
 
 // The activation's gradient through its post-activation value h: for relu

@@ -13,19 +13,14 @@
 // and the per-pixel softmax statistics are each under 1 MB at the
 // training shape.
 //
-// Design: gather form, no atomics.  A first launch computes each source
-// pixel's softmax statistics (max, 1 / sum of exp) into a (B, h, w, 2)
-// f32 scratch, one warp per pixel.  A second launch gives each output
-// pixel Y, X a warp whose lanes walk the K*K taps; tap d reads the one
-// logit logits[Y - dy, X - dx, d] (so over the whole output every logit
-// is read exactly once), its pixel's statistics and cotangent, and the
-// lanes' sums are reduced in the warp.  The TPU kernel's split into a
-// row pass and a y-shift sum is not needed.  Neighbouring output pixels
-// (the warps of one block) read neighbouring taps of the same source
-// pixels, so most 32-byte sectors are shared through L1 and L2.
-#include <math.h>
-
-#include "common.cuh"
+// Design: the gather form of the splat in scatter.cuh, shared with K7.
+// A first launch computes each source pixel's softmax statistics (max,
+// 1 / sum of exp) into a (B, h, w, 2) f32 scratch, one warp per pixel; the
+// second gives each output pixel a warp whose lanes walk its K*K source
+// taps, each turning its one logit into a probability with its source's
+// statistics.  The TPU kernel's split into a row pass and a y-shift sum
+// is not needed.
+#include "scatter.cuh"
 
 namespace wcmc {
 
@@ -49,45 +44,6 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) stats[pix] = make_float2(m, 1.0f / s);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    scatter_softmax_kernel(const float* __restrict__ g, const T* __restrict__ logits,
-                           const float2* __restrict__ stats, float* __restrict__ dbuf, int B,
-                           int H, int W, int C, int h, int w, int K, long long ls_b,
-                           long long ls_y, long long ls_x) {
-  const long long q = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (q >= (long long)B * H * W) return;
-  const int X = (int)(q % W);
-  const int Y = (int)((q / W) % H);
-  const int b = (int)(q / ((long long)W * H));
-  const int K2 = K * K;
-
-  float acc[kMaxChannels];
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) acc[c] = 0.0f;
-  for (int d = lane; d < K2; d += 32) {
-    const int dy = d / K, dx = d - dy * K;
-    const int y = Y - dy, x = X - dx;
-    if (y < 0 || y >= h || x < 0 || x >= w) continue;
-    const long long p = ((long long)b * h + y) * w + x;
-    const float2 st = stats[p];
-    const float prob = expf(to_f32(logits[b * ls_b + y * ls_y + x * ls_x + d]) - st.x) * st.y;
-    const float* gp = g + p * C;
-#pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) {
-      if (c < C) acc[c] += prob * gp[c];
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) {
-    if (c < C) {
-      const float v = warp_sum(acc[c]);
-      if (lane == 0) dbuf[q * C + c] = v;
-    }
-  }
-}
-
 }  // namespace wcmc
 
 using namespace wcmc;
@@ -104,12 +60,10 @@ extern "C" int wcmc_scatter_softmax(const void* g, const void* logits, int logit
   if (C < 1 || C > kMaxChannels || K < 1 || h < 1 || w < 1) return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  const int H = h + K - 1, W = w + K - 1;
-  const long long n_src = (long long)B * h * w, n_out = (long long)B * H * W;
+  const long long n_src = (long long)B * h * w;
   if (n_src == 0) return cudaSuccess;
   const long long blocks_src = (n_src + kWarps - 1) / kWarps;
-  const long long blocks_out = (n_out + kWarps - 1) / kWarps;
-  if (blocks_out > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (blocks_src > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* st = static_cast<float2*>(stats);
   if (logits_bf16) {
@@ -118,18 +72,17 @@ extern "C" int wcmc_scatter_softmax(const void* g, const void* logits, int logit
                                                                           ls_b, ls_y, ls_x);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    scatter_softmax_kernel<bf16><<<(unsigned)blocks_out, kThreads, 0, s>>>(
-        static_cast<const float*>(g), lg, st, static_cast<float*>(dbuf), B, H, W, C, h, w, K,
-        ls_b, ls_y, ls_x);
+    return launch_splat_gather<bf16, true>(static_cast<const float*>(g), lg, st,
+                                           static_cast<float*>(dbuf), B, h, w, C, K, ls_b, ls_y,
+                                           ls_x, s);
   } else {
     const float* lg = static_cast<const float*>(logits);
     softmax_stats_kernel<float><<<(unsigned)blocks_src, kThreads, 0, s>>>(lg, st, B, h, w, K * K,
                                                                            ls_b, ls_y, ls_x);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    scatter_softmax_kernel<float><<<(unsigned)blocks_out, kThreads, 0, s>>>(
-        static_cast<const float*>(g), lg, st, static_cast<float*>(dbuf), B, H, W, C, h, w, K,
-        ls_b, ls_y, ls_x);
+    return launch_splat_gather<float, true>(static_cast<const float*>(g), lg, st,
+                                            static_cast<float*>(dbuf), B, h, w, C, K, ls_b, ls_y,
+                                            ls_x, s);
   }
-  return cudaGetLastError();
 }

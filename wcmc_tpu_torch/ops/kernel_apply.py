@@ -1,7 +1,8 @@
-"""Per-pixel kernel application (gather) — the KPCN hot op — and its
-gradient.
+"""Per-pixel kernel application: the softmax gather (the KPCN and LBMC
+hot op), the plain weighted gather and the splat (the SBMC hot op), and
+their gradients.
 
-Counterpart of ``kernel_gather_softmax`` in ``wcmc_tpu/ops/kernel_apply.py``:
+Counterpart of ``wcmc_tpu/ops/kernel_apply.py``:
 
 * ``kernel_gather_softmax(buf, logits, K)``:
   ``out[p, c] = sum_d softmax_d(logits[p]) * buf[p + d, c]``, an
@@ -14,12 +15,25 @@ Counterpart of ``kernel_gather_softmax`` in ``wcmc_tpu/ops/kernel_apply.py``:
   ``scatter_softmax_plain`` (an f32 softmax, then the shift-sums
   ``_outer_plain`` / ``_scatter_plain``, as the reference's
   ``_gather_sm_bwd`` composes them);
+* ``kernel_scatter(x, w, K)``: the splat
+  ``out[q, c] = sum_d w[q - d, d] * x[q - d, c]`` onto the
+  ``(h + K - 1) x (w + K - 1)`` canvas, an autograd Function.  Forward:
+  the CUDA kernel K7 (``scatter``, ``csrc/scatter.cu``) for CUDA
+  tensors, ``scatter_plain`` for CPU tensors.  Backward, as the
+  reference's ``_scatter_bwd`` composes it: ``dx = gather(g, w)`` and
+  ``dw = outer(x, g)``, the plain versions ``gather_plain`` and
+  ``outer_plain`` on CPU tensors; their kernels K9 and K8 come with the
+  SBMC training slice (E2), so on CUDA tensors the backward raises;
+* ``kernel_apply(..., softmax=False)``: the plain weighted gather
+  ``out[p, c] = sum_d w[p, d] * buf[p + d, c]`` (``gather_plain``) on
+  CPU tensors; its kernel K9 is slice E2's, so it raises on CUDA tensors;
 * ``kernel_apply`` / ``kernel_apply_reference``: the public API.
 
-Geometry (channels-last): ``buf (B, H, W, C)``, logits
-``(B, h, w, K*K)`` with ``h = H - K + 1``; output ``(B, h, w, C)``.
-The logits may be a strided view (the crop of a convolution output) as
-long as the K*K taps of a pixel are contiguous.
+Geometry (channels-last): ``buf (B, H, W, C)``, logits or weights
+``(B, h, w, K*K)`` with ``h = H - K + 1``; gather output ``(B, h, w, C)``,
+splat output ``(B, H, W, C)``.  The logits (and the splat's weights) may
+be a strided view (the crop of a convolution output) as long as the K*K
+taps of a pixel are contiguous.
 """
 
 from __future__ import annotations
@@ -72,6 +86,24 @@ def _outer_plain(g, buf, ksize):
                         for dy in range(ksize) for dx in range(ksize)], dim=-1)
 
 
+def gather_plain(buf, w, ksize):
+    """Plain version of the weighted gather (kernel K9, slice E2)."""
+    _build.plain_calls["gather"] += 1
+    return _gather_plain(buf, w, ksize)
+
+
+def scatter_plain(x, w, ksize):
+    """Plain version of K7, the splat."""
+    _build.plain_calls["scatter"] += 1
+    return _scatter_plain(x, w, ksize)
+
+
+def outer_plain(g, buf, ksize):
+    """Plain version of the tap-wise outer product (kernel K8, slice E2)."""
+    _build.plain_calls["outer"] += 1
+    return _outer_plain(g, buf, ksize)
+
+
 def outer_softmax_plain(g, buf, logits, ksize):
     """Plain PyTorch version of K2: d(logits) of the softmax gather,
     ``P_d (dp_d - sum_e P_e dp_e)`` with ``dp = _outer_plain(g, buf)``,
@@ -98,6 +130,16 @@ def _check_geometry(buf, logits, ksize):
         raise ValueError(f"gather: buffer {H}x{W} and odd ksize {ksize} give no output")
     if tuple(logits.shape) != want:
         raise ValueError(f"logits shape {tuple(logits.shape)} != {want}")
+
+
+def _check_splat_geometry(x, w, ksize):
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError("splat: x and w must be (B, h, w, C) and (B, h, w, K*K)")
+    if ksize < 1 or ksize % 2 == 0:
+        raise ValueError(f"splat: ksize {ksize} is not odd")
+    want = tuple(x.shape[:3]) + (ksize * ksize,)
+    if tuple(w.shape) != want:
+        raise ValueError(f"splat weights shape {tuple(w.shape)} != {want}")
 
 
 def _check_card(name, logits, *tensors):
@@ -190,6 +232,66 @@ def scatter_softmax(g, logits, ksize: int):
     return out
 
 
+def scatter(x, w, ksize: int):
+    """The splat of f32 values ``x`` (B, h, w, C) with f32 weights ``w``
+    (B, h, w, K*K), as f32 (B, h + K - 1, w + K - 1, C): kernel K7 for
+    CUDA tensors, ``scatter_plain`` for CPU tensors."""
+    _check_splat_geometry(x, w, ksize)
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return scatter_plain(x, w, ksize)
+    _check_card("scatter", w, x)
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"scatter kernel takes float32 values and weights, got {x.dtype} "
+                        f"and {w.dtype}")
+    b, h, w_, c = x.shape
+    src = x.contiguous()
+    out = torch.empty((b, h + ksize - 1, w_ + ksize - 1, c), dtype=torch.float32,
+                      device=x.device)
+    fn = _build.kernel(
+        "wcmc_scatter", _build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT,
+        _build.INT, _build.INT, _build.INT, _build.LONG, _build.LONG, _build.LONG,
+        _build.INT, _build.PTR)
+    sb, sy, sx, _ = w.stride()
+    _build.check(fn(src.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, w_, c, ksize,
+                    sb, sy, sx, x.device.index or 0, _build.stream_of(x.device)), "scatter")
+    _build.launches["scatter"] += 1
+    return out
+
+
+def _not_ported(kernel):
+    return NotImplementedError(
+        f"{kernel} on the card comes with the SBMC training slice (E2) and is not "
+        "ported yet")
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, ksize):
+        ctx.ksize = ksize
+        ctx.save_for_backward(x, w)
+        return scatter(x, w, ksize)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if g.device.type != "cpu":
+            raise _not_ported("the splat's backward, kernels K9 (d x) and K8 (d w),")
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gather_plain(g, w, ctx.ksize).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = outer_plain(x, g, ctx.ksize).to(w.dtype)
+        return dx, dw, None
+
+
+def kernel_scatter(x, w, ksize: int):
+    """The splat ``out[q, c] = sum_d w[q - d, d] * x[q - d, c]`` onto the
+    ``(h + K - 1) x (w + K - 1)`` canvas, differentiable in ``x`` and
+    ``w``: K7 forward on the card, the plain versions on the CPU (the
+    backward runs only on the CPU until K8 and K9 are ported)."""
+    return _Scatter.apply(x, w, ksize)
+
+
 class _GatherSoftmax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, buf, logits, ksize):
@@ -225,17 +327,20 @@ def kernel_apply(buf, kernels, ksize: int, softmax: bool = True):
 
     Args:
       buf:     (B, H, W, C) radiance buffer.
-      kernels: (B, h, w, K*K) per-pixel kernel logits, h = H - K + 1.
-      softmax: normalize each pixel's K*K window with a softmax.  Only
-        the softmax form is ported; the plain weighted gather (kernel K9)
-        comes with the SBMC port (slice E).
+      kernels: (B, h, w, K*K) per-pixel kernel logits (weights without
+        ``softmax``), h = H - K + 1.
+      softmax: normalize each pixel's K*K window with a softmax; without
+        it the weighted gather runs, on CPU tensors only until K9 (its
+        gradient is autograd's through the plain shift-sum).
     Returns:
       (B, h, w, C) reconstruction.
     """
-    if not softmax:
-        raise NotImplementedError("kernel_apply(softmax=False) needs kernel K9, which "
-                                  "comes with the SBMC port (slice E)")
-    return kernel_gather_softmax(buf, kernels, ksize)
+    if softmax:
+        return kernel_gather_softmax(buf, kernels, ksize)
+    _check_geometry(buf, kernels, ksize)
+    if buf.device.type != "cpu" or kernels.device.type != "cpu":
+        raise _not_ported("kernel K9 (the weighted gather)")
+    return gather_plain(buf, kernels, ksize)
 
 
 def kernel_apply_reference(buf, kernels, ksize: int, softmax: bool = True):

@@ -13,16 +13,26 @@ Counterpart of ``wcmc_tpu/ops/pathnet_fused.py`` (reference dataflow:
   ``_head_plain``; backward K5-bwd (``csrc/pathnet_head_bwd.cu``), plain
   ``_head_bwd_plain``.
 
+The SBMC ``Multisteps`` model runs the same two forms wider: an
+embedding with leaky relu on every layer (95 -> 128 -> 128 -> 128) and
+an update chain [128 | 128] -> 128 -> 128 with leaky relu and a bf16
+output.  The forward kernels take any per-layer activation of
+``ACTS``; the backward kernels compute PathNet's form only (relu-relu-
+linear and relu-relu with Cout <= 16, without d(x)) and raise
+``NotImplementedError`` for the SBMC form, which comes with the SBMC
+training slice (E2).
+
 CPU tensors run the plain versions; CUDA tensors launch the kernels,
 which compute in bfloat16 with f32 accumulation and raise for other
 dtypes.  The plain versions round where the reference's Pallas kernels
 round: forward, after every embedding layer, after every hidden head
-layer, and NOT after the last head layer, whose f32 value is the output
-and feeds the moments (the reference's XLA head path rounds it too; in
-float32 the two agree); backward, the hiddens are recomputed in the
-compute dtype, each layer's cotangent is rounded to it before its
-products, and dW, db (from the unrounded cotangent) and d(ctx) stay f32.
-A cotangent that autograd passes as ``None`` is a zero.
+layer, and the last head layer only to the output dtype: its unrounded
+f32 value feeds the moments (the reference's XLA head path rounds the
+last layer to the compute dtype and sums the moments from it; in float32
+the two agree); backward, the hiddens are recomputed in the compute
+dtype, each layer's cotangent is rounded to it before its products, and
+dW, db (from the unrounded cotangent) and d(ctx) stay f32.  A cotangent
+that autograd passes as ``None`` is a zero.
 """
 
 from __future__ import annotations
@@ -31,11 +41,12 @@ import torch
 
 from wcmc_tpu_torch.ops import _build
 from wcmc_tpu_torch.ops.mlp_fused import (
-    _act, _act_grad, _mlp_bwd_rows, _mlp_plain, matmul_f32,
+    ACTS, _act, _act_grad, _mlp_bwd_rows, _mlp_plain, matmul_f32,
 )
 
 EMBED_ACTS = ("relu", "relu", "linear")
 HEAD_ACTS = ("relu", "relu")
+HEAD_MAX_OUT = 128   # K5-fwd's widest output (Cout <= 16, or a multiple of 16 up to this)
 
 
 def _embed_plain(x, ws, bs, acts):
@@ -45,7 +56,7 @@ def _embed_plain(x, ws, bs, acts):
     return e, e.float().mean(dim=1)
 
 
-def _head_plain(e, ctx, ws, bs, acts, moments=False, cmajor=False):
+def _head_plain(e, ctx, ws, bs, acts, moments=False, cmajor=False, out_dtype=torch.float32):
     _build.plain_calls["pathnet_head"] += 1
     ce = e.shape[-1]
     w1 = ws[0]
@@ -56,7 +67,8 @@ def _head_plain(e, ctx, ws, bs, acts, moments=False, cmajor=False):
     for w, b, a in zip(ws[1:], bs[1:], acts[1:]):
         h_f32 = _act(a, matmul_f32(h_f32.to(e.dtype), w) + b.float())
     out = h_f32
-    res = out.transpose(2, 3) if cmajor else out
+    res = out.to(out_dtype)
+    res = res.transpose(2, 3) if cmajor else res
     if moments:
         return res, out.sum(dim=1), (out * out).sum(dim=1)
     return res
@@ -70,11 +82,17 @@ def _require_cuda(name, *tensors):
     return dev
 
 
+def _act_codes(name, acts, n):
+    """The kernels' activation codes of ``n`` layers of ``ACTS``."""
+    if len(acts) != n or any(a not in ACTS for a in acts):
+        raise ValueError(f"{name} kernel computes {n} layers of {ACTS}, got {tuple(acts)}")
+    return [ACTS.index(a) for a in acts]
+
+
 def _check_embed_card(x, ws, acts):
-    """What K4-fwd and K4-bwd compute: bf16 rows, relu-relu-linear,
-    widths multiples of 16; returns the layer widths."""
-    if tuple(acts) != EMBED_ACTS:
-        raise ValueError(f"pathnet_embed kernel computes {EMBED_ACTS}, got {tuple(acts)}")
+    """What K4-fwd and K4-bwd compute: bf16 rows through three layers,
+    widths multiples of 16; returns the layer widths and activation codes."""
+    codes = _act_codes("pathnet_embed", acts, 3)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"pathnet_embed kernel computes in bfloat16, got {x.dtype}")
     dims = [x.shape[-1]] + [w.shape[1] for w in ws]
@@ -82,21 +100,27 @@ def _check_embed_card(x, ws, acts):
         if tuple(w.shape) != (ci, co) or co % 16:
             raise ValueError(f"pathnet_embed: weight {tuple(w.shape)} is not "
                              f"({ci}, {co}) with {co} a multiple of 16")
-    return dims
+    return dims, codes
 
 
 def _check_head_card(e, acts):
-    if tuple(acts) != HEAD_ACTS:
-        raise ValueError(f"pathnet_head kernel computes {HEAD_ACTS}, got {tuple(acts)}")
+    codes = _act_codes("pathnet_head", acts, 2)
     if e.dtype != torch.bfloat16:
         raise TypeError(f"pathnet_head kernel computes in bfloat16, got {e.dtype}")
+    return codes
+
+
+def _sbmc_bwd_not_ported(name):
+    return NotImplementedError(
+        f"{name} kernel computes PathNet's form only; the SBMC form (leaky relu, wide "
+        "output, d(x)) comes with the SBMC training slice (E2) and is not ported yet")
 
 
 def _embed_fwd(x, ws, bs, acts):
     if x.device.type == "cpu":
         return _embed_plain(x, ws, bs, acts)
     dev = _require_cuda("pathnet_embed", x, *ws, *bs)
-    dims = _check_embed_card(x, ws, acts)
+    dims, codes = _check_embed_card(x, ws, acts)
     b, s, hw, _ = x.shape
     x = x.contiguous()
     wb = [w.to(torch.bfloat16).contiguous() for w in ws]
@@ -104,50 +128,54 @@ def _embed_fwd(x, ws, bs, acts):
     e = torch.empty((b, s, hw, dims[-1]), dtype=torch.bfloat16, device=dev)
     mean = torch.empty((b, hw, dims[-1]), dtype=torch.float32, device=dev)
     P, INT = _build.PTR, _build.INT
-    fn = _build.kernel("wcmc_pathnet_embed", *([P] * 9), *([INT] * 9), P)
+    fn = _build.kernel("wcmc_pathnet_embed", *([P] * 9), *([INT] * 12), P)
     idx = dev.index or 0
     _build.check(fn(x.data_ptr(), wb[0].data_ptr(), bf[0].data_ptr(),
                     wb[1].data_ptr(), bf[1].data_ptr(), wb[2].data_ptr(),
                     bf[2].data_ptr(), e.data_ptr(), mean.data_ptr(),
-                    b, s, hw, *dims, _build.sm_count(idx), idx,
+                    b, s, hw, *dims, *codes, _build.sm_count(idx), idx,
                     _build.stream_of(dev)), "pathnet_embed")
     _build.launches["pathnet_embed"] += 1
     return e, mean
 
 
-def _head_fwd(e, ctx, ws, bs, acts, moments, cmajor):
+def _head_fwd(e, ctx, ws, bs, acts, moments, cmajor, out_dtype):
     if e.device.type == "cpu":
-        return _head_plain(e, ctx, ws, bs, acts, moments, cmajor)
+        return _head_plain(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
     dev = _require_cuda("pathnet_head", e, ctx, *ws, *bs)
-    _check_head_card(e, acts)
+    codes = _check_head_card(e, acts)
     b, s, hw, ce = e.shape
     cc = ctx.shape[-1]
     c1, cout = ws[0].shape[1], ws[1].shape[1]
     if (tuple(ctx.shape) != (b, hw, cc) or tuple(ws[0].shape) != (ce + cc, c1)
             or tuple(ws[1].shape) != (c1, cout)):
         raise ValueError("pathnet_head: shapes of e, ctx and the weights disagree")
-    if ce % 16 or cc % 16 or c1 % 16 or cout > 16:
-        raise ValueError("pathnet_head kernel needs Ce, Cc, C1 multiples of 16 "
-                         f"and Cout <= 16, got {ce}, {cc}, {c1}, {cout}")
+    if ce % 16 or cc % 16 or c1 % 16 or cout > HEAD_MAX_OUT or (cout > 16 and cout % 16):
+        raise ValueError("pathnet_head kernel needs Ce, Cc, C1 multiples of 16 and Cout "
+                         f"<= 16 or a multiple of 16 up to {HEAD_MAX_OUT}, got {ce}, {cc}, "
+                         f"{c1}, {cout}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pathnet_head kernel writes float32 or bfloat16, got {out_dtype}")
     e = e.contiguous()
     ctx = ctx.to(torch.bfloat16).contiguous()
     w1, w2 = (w.to(torch.bfloat16).contiguous() for w in ws)
     b1, b2 = (bb.float().contiguous() for bb in bs)
     shape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    out = torch.empty(shape, dtype=out_dtype, device=dev)
     ssum = ssq = None
     if moments:
         ssum = torch.empty((b, hw, cout), dtype=torch.float32, device=dev)
         ssq = torch.empty_like(ssum)
     P, INT = _build.PTR, _build.INT
-    fn = _build.kernel("wcmc_pathnet_head", *([P] * 9), *([INT] * 10), P)
+    fn = _build.kernel("wcmc_pathnet_head", *([P] * 9), *([INT] * 13), P)
     idx = dev.index or 0
     _build.check(fn(e.data_ptr(), ctx.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                     w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
                     ssum.data_ptr() if moments else None,
                     ssq.data_ptr() if moments else None,
-                    b, s, hw, ce, cc, c1, cout, int(cmajor), _build.sm_count(idx),
-                    idx, _build.stream_of(dev)), "pathnet_head")
+                    b, s, hw, ce, cc, c1, cout, *codes, int(out_dtype == torch.bfloat16),
+                    int(cmajor), _build.sm_count(idx), idx, _build.stream_of(dev)),
+                 "pathnet_head")
     _build.launches["pathnet_head"] += 1
     return (out, ssum, ssq) if moments else out
 
@@ -219,7 +247,7 @@ def _head_bwd_plain(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False):
 def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts):
     dev = _require_cuda("pathnet_embed_bwd", x, *ws, *bs)
     b, s, hw, c0 = x.shape
-    c1, c2, c3 = _check_embed_card(x, ws, acts)[1:]
+    c1, c2, c3 = _check_embed_card(x, ws, acts)[0][1:]
     if ((ge is not None and tuple(ge.shape) != (b, s, hw, c3))
             or (gmean is not None and tuple(gmean.shape) != (b, hw, c3))):
         raise ValueError("pathnet_embed_bwd: cotangent shapes do not match the embedding")
@@ -311,12 +339,12 @@ def pathnet_embed_bwd(x, ge, gmean, ws, bs, acts=EMBED_ACTS, compute_dx=False):
     """Gradients of :func:`pathnet_embed` for the cotangents ``ge`` of
     the embedding and ``gmean`` of its sample mean (either may be
     None): ``(dx or None, dWs, dbs)``, dW and db in f32.  K4-bwd for
-    CUDA tensors (bf16, ``compute_dx=False`` only), the plain version
-    for CPU tensors."""
+    CUDA tensors (bf16, relu-relu-linear, ``compute_dx=False`` only), the
+    plain version for CPU tensors."""
     if x.device.type == "cpu":
         return _embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx)
-    if compute_dx:
-        raise NotImplementedError("pathnet_embed_bwd kernel does not compute d(x) yet")
+    if compute_dx or tuple(acts) != EMBED_ACTS:
+        raise _sbmc_bwd_not_ported("pathnet_embed_bwd")
     return _embed_bwd_kernel(x, ge, gmean, ws, bs, acts)
 
 
@@ -324,9 +352,12 @@ def pathnet_head_bwd(e, ctx, g, gsum, gsq, ws, bs, acts=HEAD_ACTS, cmajor=False)
     """Gradients of :func:`pathnet_head` for the cotangents of its output
     ``g`` (channel-major with ``cmajor``) and of its moments ``gsum`` and
     ``gsq`` (any may be None): ``(de in e.dtype, dctx f32, dWs, dbs)``.
-    K5-bwd for CUDA tensors (bf16), the plain version for CPU tensors."""
+    K5-bwd for CUDA tensors (bf16, relu-relu, Cout <= 16), the plain
+    version for CPU tensors."""
     if e.device.type == "cpu":
         return _head_bwd_plain(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor)
+    if tuple(acts) != HEAD_ACTS or ws[-1].shape[1] > HEAD_PAD:
+        raise _sbmc_bwd_not_ported("pathnet_head_bwd")
     _check_head_card(e, acts)
     return _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, cmajor)
 
@@ -353,10 +384,11 @@ class _Embed(torch.autograd.Function):
 
 class _Head(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, e, c, acts, moments, cmajor, n, *params):
+    def forward(ctx, e, c, acts, moments, cmajor, out_dtype, n, *params):
         ctx.acts, ctx.moments, ctx.cmajor, ctx.n = acts, moments, cmajor, n
         ctx.save_for_backward(e, c, *params)
-        return _head_fwd(e, c, list(params[:n]), list(params[n:]), acts, moments, cmajor)
+        return _head_fwd(e, c, list(params[:n]), list(params[n:]), acts, moments, cmajor,
+                         out_dtype)
 
     @staticmethod
     def backward(ctx, g, *moment_grads):
@@ -365,7 +397,7 @@ class _Head(torch.autograd.Function):
         ws, bs = params[:n], params[n:]
         gsum, gsq = moment_grads if ctx.moments else (None, None)
         de, dctx, dws, dbs = pathnet_head_bwd(e, c, g, gsum, gsq, ws, bs, ctx.acts, ctx.cmajor)
-        return (de, dctx.to(c.dtype), None, None, None, None,
+        return (de, dctx.to(c.dtype), None, None, None, None, None,
                 *[d.to(w.dtype) for d, w in zip(dws, ws)],
                 *[d.to(bb.dtype) for d, bb in zip(dbs, bs)])
 
@@ -380,14 +412,16 @@ def pathnet_embed(x, ws, bs, acts=EMBED_ACTS, compute_dx=False):
     return _Embed.apply(x, tuple(acts), compute_dx, len(ws), *ws, *bs)
 
 
-def pathnet_head(e, ctx, ws, bs, acts=HEAD_ACTS, moments=False, cmajor=False):
+def pathnet_head(e, ctx, ws, bs, acts=HEAD_ACTS, moments=False, cmajor=False,
+                 out_dtype=torch.float32):
     """Head chain over [e | broadcast_S(ctx)] without materializing the
     concat. e (B, S, HW, Ce) in compute dtype; ctx (B, HW, Cc), cast to
     the compute dtype before its product (a no-op for the UNet's output);
-    ws[0] has shape (Ce + Cc, C1).  Returns (B, S, HW, Cout) f32 — or
-    (B, S, Cout, HW) with ``cmajor`` — and with ``moments`` also the f32
-    sum_S(out) and sum_S(out^2), each (B, HW, Cout).  Differentiable in
-    e, ctx, the weights and the biases."""
+    ws[0] has shape (Ce + Cc, C1).  Returns (B, S, HW, Cout) in
+    ``out_dtype`` — or (B, S, Cout, HW) with ``cmajor`` — and with
+    ``moments`` also the f32 sum_S(out) and sum_S(out^2) of the unrounded
+    output, each (B, HW, Cout).  Differentiable in e, ctx, the weights and
+    the biases."""
     if len(ws) != len(bs) or len(ws) != len(acts):
         raise ValueError("pathnet_head: ws, bs and acts differ in length")
-    return _Head.apply(e, ctx, tuple(acts), moments, cmajor, len(ws), *ws, *bs)
+    return _Head.apply(e, ctx, tuple(acts), moments, cmajor, out_dtype, len(ws), *ws, *bs)

@@ -12,8 +12,8 @@ Usage:
         --save ./weights --data_dir <root> --spps 8 --use_llpm_buf \
         [--device cuda] [--save_figures]
 
-KPCN and LBMC names are ported; SBMC names raise
-``NotImplementedError`` until the SBMC slice.
+The model family comes from the name: SBMC, LBMC or KPCN (checked in
+that order, as the reference does).
 """
 
 from __future__ import annotations
@@ -27,12 +27,17 @@ from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
 
 
 def model_config(args, base: str) -> TrainConfig:
-    """The model config of the ``base`` family ("kpcn" or "lbmc") from the
-    CLI flags: the reference's ``train_kpcn.make_config`` /
-    ``train_lbmc.make_config``."""
+    """The model config of the ``base`` family ("kpcn", "sbmc" or "lbmc")
+    from the CLI flags: the reference's ``train_kpcn.make_config`` /
+    ``train_sbmc.make_config`` / ``train_lbmc.make_config``."""
     if base == "kpcn":
         extra = dict(train_branches=args.train_branches, kpcn_ref=args.kpcn_ref,
                      kpcn_pre=args.kpcn_pre, kpcn_ksize=args.kpcn_ksize)
+    elif base == "sbmc":
+        extra = dict(use_g_buf=args.use_g_buf, use_sbmc_buf=args.use_sbmc_buf,
+                     sbmc_ksize=args.sbmc_ksize,
+                     sbmc_splat=getattr(args, "sbmc_splat", "exp"),
+                     warmup_steps=getattr(args, "warmup_steps", 0))
     else:
         extra = dict(warmup_steps=getattr(args, "warmup_steps", 0))
     return TrainConfig(
@@ -60,8 +65,8 @@ def build_interface(args):
     LBMC, then KPCN, as the reference checks), with the checkpoint
     restored when there is one; returns (interface, base model)."""
     if "SBMC" in args.model_name:
-        raise NotImplementedError("SBMC models are slice E of the port and not ported yet")
-    if "LBMC" in args.model_name:
+        base = "sbmc"
+    elif "LBMC" in args.model_name:
         base = "lbmc"
     elif "KPCN" in args.model_name:
         base = "kpcn"

@@ -3,9 +3,7 @@
 Counterpart of ``wcmc_tpu/train/factory.py``: the config dataclass and
 ``init_interfaces``, which builds the models with flax-style initial
 parameters from ``cfg.seed``, one Adam per model (value clip 1.0 for
-KPCN, global-norm clip 250 for LBMC) and the losses.  SBMC (its
-``Multisteps`` model and splat kernels) is slice E of the port and
-raises ``NotImplementedError`` until then.
+KPCN, global-norm clip 1000 for SBMC and 250 for LBMC) and the losses.
 """
 
 from __future__ import annotations
@@ -18,7 +16,7 @@ import torch
 
 from wcmc_tpu_torch import losses
 from wcmc_tpu_torch.data import schema
-from wcmc_tpu_torch.models import KPCN, LayerNet, PathNet
+from wcmc_tpu_torch.models import KPCN, LayerNet, Multisteps, PathNet
 from wcmc_tpu_torch.train import interfaces as itf
 from wcmc_tpu_torch.train.state import adam_with_clip
 from wcmc_tpu_torch.utils.utils import resolve_device
@@ -26,9 +24,8 @@ from wcmc_tpu_torch.utils.utils import resolve_device
 
 @dataclass
 class TrainConfig:
-    """The reference's model-assembly flags for KPCN and LBMC (same names
-    and defaults as in ``wcmc_tpu.train.factory.TrainConfig``; SBMC's
-    ``sbmc_ksize`` and ``sbmc_splat`` come with the SBMC port)."""
+    """The reference's model-assembly flags (same names and defaults as
+    in ``wcmc_tpu.train.factory.TrainConfig``)."""
 
     base_model: str = "kpcn"              # kpcn | sbmc | lbmc
     model_name: str = "model"
@@ -56,6 +53,8 @@ class TrainConfig:
 
     seed: int = 0
     kpcn_ksize: int = 21
+    sbmc_ksize: int = 21
+    sbmc_splat: str = "exp"               # exp (log-domain weights) | softmax (ablation)
     finite_check_every: int = 100
     compute_dtype: str = "bfloat16"   # activations; params and optimizer stay f32
     warmup_steps: int = 0             # linear update warmup (train/state.py)
@@ -100,9 +99,8 @@ def init_interfaces(cfg: TrainConfig, args=None, device=None):
             iface = _build_lbmc(cfg, lr_pnet, pnet_out, w_manif, cfg.seed + trial,
                                 args, device)
         elif cfg.base_model == "sbmc":
-            raise NotImplementedError(
-                "SBMC (Multisteps and its splat kernels K7, K8, K9) is slice E of the "
-                "port and not ported yet")
+            iface = _build_sbmc(cfg, lr_pnet, pnet_out, w_manif, cfg.seed + trial,
+                                args, device)
         else:
             raise ValueError(cfg.base_model)
         iface.grid_params = {
@@ -175,6 +173,23 @@ def _sbmc_like_build(cfg, lr_pnet, pnet_out, seed, model_ctor, clip_norm, device
         for name, m in models.items()
     }
     return models, optims
+
+
+def _build_sbmc(cfg, lr_pnet, pnet_out, w_manif, seed, args, device):
+    models, optims = _sbmc_like_build(
+        cfg, lr_pnet, pnet_out, seed,
+        lambda n, gen: Multisteps(n_in=n, ksize=cfg.sbmc_ksize, dtype=cfg.model_dtype,
+                                  splat_weighting=cfg.sbmc_splat, generator=gen),
+        clip_norm=1000.0, device=device)
+    loss_funcs = {"l_recon": losses.tonemapped_relative_mse, "l_test": losses.relative_mse}
+    if cfg.manif_learn:
+        loss_funcs["l_manif"] = _manif_loss_fn(cfg)
+    return itf.SBMCInterface(
+        models, loss_funcs, device, args=args, optims=optims,
+        use_llpm_buf=cfg.use_llpm_buf, manif_learn=cfg.manif_learn, w_manif=w_manif,
+        use_sbmc_buf=cfg.use_sbmc_buf, disentangle=cfg.disentangle, seed=cfg.seed,
+        finite_check_every=cfg.finite_check_every,
+    )
 
 
 def _clamped_smape(im, ref):
