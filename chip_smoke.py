@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths and training steps on one
 NVIDIA card and check them: KPCN with the dual PathNet, LBMC (LayerNet)
-with the single PathNet, and the serving path of SBMC (Multisteps) with
-the single PathNet.
+with the single PathNet, and SBMC (Multisteps) with the single PathNet.
 
     python3 chip_smoke.py
 
@@ -31,7 +30,14 @@ Phases (one JSON line each):
    a ones channel, C = 4, over the 64 samples' f32 weights), K4-fwd in
    Multisteps' form (95 -> 128 -> 128 -> 128, leaky relu) and K5-fwd in
    its update form ([128 | 128] -> 128 -> 128, leaky relu, bf16 output,
-   with and without moments).
+   with and without moments); and at the SBMC training shapes K8 (the
+   splat's weight gradient, (64, 128, 128, 441) f32), K9 (the weighted
+   gather, the splat's d(values)), K4-bwd in Multisteps' form (leaky relu,
+   with d(x)) and K5-bwd in its update form (Cout 128, a bf16
+   channels-last cotangent, with the ``gsum`` cotangent and without
+   moments); K9, which the SBMC step does not run (its radiance is data),
+   is driven through ``torch.autograd.grad`` of ``kernel_gather`` and of
+   ``kernel_scatter`` with values that require grad.
 4. serve, serve_lbmc, serve_sbmc: a synthetic 512x512, 8-spp scene is
    written, preprocessed on the card and denoised through
    ``wcmc_tpu_torch.test_models.main`` — the full-width KPCN (K 21,
@@ -45,9 +51,10 @@ Phases (one JSON line each):
    the reference moved by one pixel), and the frame is timed again in
    steady state (five runs, then one under ``torch.profiler`` for the
    device busy time and the host stages).
-5. train, train_lbmc: the flagship training step of each (FMSE with roll
-   pairing, bf16 compute, f32 parameters; Adam with value clip 1.0 for
-   KPCN, with global-norm clip 250 for LBMC) on a synthetic batch of 8
+5. train, train_lbmc, train_sbmc: the flagship training step of each
+   (FMSE with roll pairing, bf16 compute, f32 parameters; Adam with value
+   clip 1.0 for KPCN, with global-norm clip 250 for LBMC and 1000 for
+   SBMC, whose Multisteps is the serving one) on a synthetic batch of 8
    patches of 128 px at 8 spp, through ``init_interfaces`` ->
    ``to_train_mode`` -> ``preprocess`` -> ``train_batch``: 3 warm-up
    steps, 10 timed steps (step ms, MP/s, peak memory, launches per step),
@@ -61,10 +68,12 @@ Phases (one JSON line each):
 
 Then the kernel table (a row per kernel and path, its ``launches`` from
 that path's run: per served frame for a forward kernel, per 10 train
-steps for a backward one), the card's ``nvidia-smi`` line and, last,
+steps for a backward one and for K8; K3 on the KPCN path and K9 from
+their autograd drives), the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
-script exits non-zero without that line.  TF32 is off throughout, so
-the f32 reference products are full f32.
+script exits non-zero without that line; so does a run without CUDA, or
+from a directory without the port's package.  TF32 is off throughout,
+so the f32 reference products are full f32.
 """
 
 from __future__ import annotations
@@ -125,7 +134,9 @@ SERVE_L2_TOLS = {"kpcn": {"bfloat16": 4e-3, "float32": 2.2e-2},
 # of the flattened gradients and |norm ratio - 1|.  KPCN measured on an
 # H100 (NVIDIA H100 80GB HBM3, 700 W): bf16 5.0e-4, 0.99483, 0.0135; f32
 # 7.0e-4, 0.99890, 0.0106.  LBMC: bf16 2.6e-4 (l_manif), 0.99985,
-# 0.0038; f32 1.3e-3 (rmse), 0.99950, 0.0105.  Both steps repeat bit for
+# 0.0038; f32 1.3e-3 (rmse), 0.99950, 0.0105.  SBMC: bf16 6.5e-3 (rmse),
+# 0.99864, 0.0054; f32 3.8e-3 (rmse), 0.99860, 0.0391 (the gain-10 logit
+# standardization amplifies bf16 roundings).  The steps repeat bit for
 # bit, so these are the readings of every call (the weight digest in the
 # record shows it).  Limits about 2.5x those errors.
 XCHECK_LIMITS = {
@@ -133,6 +144,8 @@ XCHECK_LIMITS = {
              "float32": {"loss_rel": 1.75e-3, "cos": 0.9973, "norm_ratio": 0.027}},
     "lbmc": {"bfloat16": {"loss_rel": 3.2e-3, "cos": 0.9996, "norm_ratio": 0.03},
              "float32": {"loss_rel": 4e-3, "cos": 0.9987, "norm_ratio": 0.043}},
+    "sbmc": {"bfloat16": {"loss_rel": 1.6e-2, "cos": 0.9966, "norm_ratio": 0.0135},
+             "float32": {"loss_rel": 9.5e-3, "cos": 0.9965, "norm_ratio": 0.098}},
 }
 SEED = 0
 
@@ -302,45 +315,73 @@ def head_fwd_row(torch, pf, dev, g, flush, e, c1, cout, moments, acts=None,
          "moments": moments}, **extra)
 
 
-def embed_bwd_row(torch, pf, dev, g, flush, b, s, hw, dims):
-    """K4-bwd for cotangents of the embedding and of its mean."""
+def embed_bwd_row(torch, pf, dev, g, flush, b, s, hw, dims, acts=None, compute_dx=False):
+    """K4-bwd for cotangents of the embedding and of its mean (PathNet's
+    activations unless ``acts``; d(x) with ``compute_dx``)."""
+    acts = acts or pf.EMBED_ACTS
     x = torch.randn((b, s, hw, dims[0]), device=dev, generator=g).to(torch.bfloat16)
     ws, bs = rand_mlp(torch, dev, g, dims)
     ge = torch.randn((b, s, hw, dims[-1]), device=dev, generator=g).to(torch.bfloat16)
     gmean = torch.randn((b, hw, dims[-1]), device=dev, generator=g)
-    _, dws, dbs = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs)
-    _, pws, pbs = pf._embed_bwd_plain(x, ge, gmean, ws, bs, pf.EMBED_ACTS)
+
+    def kernel():
+        return pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, acts, compute_dx)
+
+    def plain():
+        return pf._embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx)
+
+    dx, dws, dbs = kernel()
+    pdx, pws, pbs = plain()
     err = max_err(torch, dws + dbs, pws + pbs, BF16_TOL)
+    extra = {}
+    if compute_dx:
+        # d(x) per row: a recomputed pre-activation within rounding of zero
+        # can take the other slope of its leaky relu
+        extra["row_rel_l2"] = {"dx": rel_l2(torch, dx, pdx)}
+        if extra["row_rel_l2"]["dx"] > ROW_L2_TOL:
+            raise AssertionError(f"K4-bwd d(x) off by {extra['row_rel_l2']} (relative L2)")
+        err = max(err, (dx.double() - pdx.double()).abs().max().item())
     c0, c1, c2, c3 = dims
-    # recompute two layers (the output layer is linear: not needed), then
-    # dW2, g2, dW1, g1, dW0
-    macs = b * s * hw * (c0 * c1 + c1 * c2 + 2 * c2 * c3 + 2 * c1 * c2 + c0 * c1)
+    # recompute the hidden layers (and a non-linear output layer), then
+    # dW2, g2, dW1, g1, dW0 and, with d(x), g1 . W0^T
+    fwd = c0 * c1 + c1 * c2 + (c2 * c3 if acts[-1] != "linear" else 0)
+    macs = b * s * hw * (fwd + 2 * c2 * c3 + 2 * c1 * c2 + (2 if compute_dx else 1) * c0 * c1)
     return kernel_row(
         "pathnet_embed_bwd", "pathnet_embed_bwd", "wcmc_tpu/ops/pathnet_fused.py:188", err,
-        time_ms(torch, lambda: pf.pathnet_embed_bwd(x, ge, gmean, ws, bs), 10, flush),
-        time_ms(torch, lambda: pf._embed_bwd_plain(x, ge, gmean, ws, bs, pf.EMBED_ACTS), 3,
-                flush),
-        bound_ms(nbytes(x, ge, gmean, *dws, *dbs) + weight_bytes(ws), [(2 * macs, BF16_FLOPS)]),
+        time_ms(torch, kernel, 10, flush), time_ms(torch, plain, 3, flush),
+        bound_ms(nbytes(x, ge, gmean, dx, *dws, *dbs) + weight_bytes(ws),
+                 [(2 * macs, BF16_FLOPS)]),
         {"x": list(x.shape), "ge": list(ge.shape), "gmean": list(gmean.shape),
-         "dims": list(dims)},
-        library_note="no single PyTorch call computes a fused MLP's backward")
+         "dims": list(dims), "acts": list(acts), "compute_dx": compute_dx},
+        library_note="no single PyTorch call computes a fused MLP's backward", **extra)
 
 
-def head_bwd_row(torch, pf, dev, g, flush, b, s, hw, ce, c1, cout, moments, cmajor):
+def head_bwd_row(torch, pf, dev, g, flush, b, s, hw, ce, c1, cout, moments, cmajor,
+                 acts=None, g_dtype=None, gsq=True):
     """K5-bwd for a per-sample cotangent of the output (channel-major
-    with ``cmajor``) and, with ``moments``, of the two sample moments."""
+    with ``cmajor``; PathNet's activations and an f32 cotangent unless
+    ``acts`` and ``g_dtype``) and, with ``moments``, of the sample sum
+    and (with ``gsq``) of the sum of squares."""
+    acts = acts or pf.HEAD_ACTS
     e = torch.randn((b, s, hw, ce), device=dev, generator=g).to(torch.bfloat16)
     ctx = torch.randn((b, hw, ce), device=dev, generator=g).to(torch.bfloat16)
     hws, hbs = rand_mlp(torch, dev, g, (2 * ce, c1, cout))
     gshape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
-    gout = torch.randn(gshape, device=dev, generator=g)
-    gsum = gsq = None
+    gout = torch.randn(gshape, device=dev, generator=g).to(g_dtype or torch.float32)
+    gsum = gsq_t = None
     if moments:
         gsum = torch.randn((b, hw, cout), device=dev, generator=g)
-        gsq = 0.1 * torch.randn((b, hw, cout), device=dev, generator=g)
-    de, dctx, dws, dbs = pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq, hws, hbs, cmajor=cmajor)
-    pde, pdctx, pws, pbs = pf._head_bwd_plain(e, ctx, gout, gsum, gsq, hws, hbs,
-                                              pf.HEAD_ACTS, cmajor=cmajor)
+        if gsq:
+            gsq_t = 0.1 * torch.randn((b, hw, cout), device=dev, generator=g)
+
+    def kernel():
+        return pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq_t, hws, hbs, acts, cmajor=cmajor)
+
+    def plain():
+        return pf._head_bwd_plain(e, ctx, gout, gsum, gsq_t, hws, hbs, acts, cmajor=cmajor)
+
+    de, dctx, dws, dbs = kernel()
+    pde, pdctx, pws, pbs = plain()
     max_err(torch, dws + dbs, pws + pbs, BF16_TOL)
     row_l2 = {"de": rel_l2(torch, de, pde), "dctx": rel_l2(torch, dctx, pdctx)}
     if max(row_l2.values()) > ROW_L2_TOL:
@@ -352,14 +393,13 @@ def head_bwd_row(torch, pf, dev, g, flush, b, s, hw, ce, c1, cout, moments, cmaj
     macs = b * s * hw * (3 * ce * c1 + 3 * c1 * cout) + b * hw * 3 * ce * c1
     return kernel_row(
         "pathnet_head_bwd", "pathnet_head_bwd", "wcmc_tpu/ops/pathnet_fused.py:511", err,
-        time_ms(torch, lambda: pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq, hws, hbs,
-                                                   cmajor=cmajor), 10, flush),
-        time_ms(torch, lambda: pf._head_bwd_plain(e, ctx, gout, gsum, gsq, hws, hbs,
-                                                  pf.HEAD_ACTS, cmajor=cmajor), 3, flush),
-        bound_ms(nbytes(e, ctx, gout, gsum, gsq, de, dctx, *dws, *dbs) + weight_bytes(hws),
+        time_ms(torch, kernel, 10, flush), time_ms(torch, plain, 3, flush),
+        bound_ms(nbytes(e, ctx, gout, gsum, gsq_t, de, dctx, *dws, *dbs) + weight_bytes(hws),
                  [(2 * macs, BF16_FLOPS)]),
         {"e": list(e.shape), "ctx": list(ctx.shape), "g": list(gout.shape),
-         "w1": [2 * ce, c1], "w2": [c1, cout], "moments": moments},
+         "g_dtype": str(gout.dtype).replace("torch.", ""), "w1": [2 * ce, c1],
+         "w2": [c1, cout], "acts": list(acts), "moments": moments,
+         "gsq": gsq_t is not None},
         library_note="no single PyTorch call computes a fused MLP's backward", row_rel_l2=row_l2)
 
 
@@ -643,6 +683,96 @@ def sbmc_kernel_phase(torch, ka, pf, dev):
     return rows
 
 
+def sbmc_train_kernel_phase(torch, ka, pf, dev):
+    """The kernels of the SBMC training step at its shapes (8 patches of
+    128 px at 8 spp, K = 21) against their plain versions: K8 (d weights
+    of the splat of radiance and a ones channel), K9 (d values of that
+    splat, the weighted gather of the canvas cotangent), K4-bwd in
+    Multisteps' form (95 -> 128 -> 128 -> 128, leaky relu, with d(x)) and
+    K5-bwd in its update form ([128 | 128] -> 128 -> 128, leaky relu, a
+    bf16 channels-last cotangent; with ``gsum`` as in steps 0 and 1, and
+    without moments as in step 2).  K9, which the step does not run (its
+    radiance is data), is driven through ``torch.autograd.grad`` of
+    ``kernel_gather`` and of ``kernel_scatter`` with values that require
+    grad; those launches are K9's count.  Returns the rows and that count."""
+    from wcmc_tpu_torch.ops import _build
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = []
+    b, s, p, k = 8, 8, 128, 21
+    n = b * s
+    canvas = p + k - 1
+
+    # the splat's inputs: f32 values (radiance and a ones channel) and
+    # weights in (0, 1], as exp(logits - shift) gives them; the canvas
+    # cotangent
+    x = torch.cat([2 * torch.rand((n, p, p, 3), device=dev, generator=g),
+                   torch.ones((n, p, p, 1), device=dev)], dim=-1)
+    wt = torch.rand((n, p, p, k * k), device=dev, generator=g)
+    gc = torch.randn((n, canvas, canvas, 4), device=dev, generator=g)
+    # one multiply-add per weight and channel; every weight read (K9) or
+    # written (K8) once, the values and the canvas once
+    flops = [(2 * wt.numel() * x.shape[-1], F32_FLOPS)]
+    shape = {"x": list(x.shape), "w": list(wt.shape), "canvas_g": list(gc.shape)}
+
+    dw = ka.outer(x, gc, k)
+    err = max_err(torch, [dw], [ka.outer_plain(x, gc, k)], K1_TOL)
+    rows.append(kernel_row(
+        "outer", "outer", "wcmc_tpu/ops/pallas_kernels.py:379", err,
+        time_ms(torch, lambda: ka.outer(x, gc, k), 10, flush),
+        time_ms(torch, lambda: ka.outer_plain(x, gc, k), 3, flush),
+        bound_ms(nbytes(x, gc, dw), flops), shape,
+        library_note="no single PyTorch call computes the per-pixel-kernel outer product"))
+    del dw
+    dx = ka.gather(gc, wt, k)
+    err = max_err(torch, [dx], [ka.gather_plain(gc, wt, k)], K1_TOL)
+    rows.append(kernel_row(
+        "gather", "gather", "wcmc_tpu/ops/pallas_kernels.py:185", err,
+        time_ms(torch, lambda: ka.gather(gc, wt, k), 10, flush),
+        time_ms(torch, lambda: ka.gather_plain(gc, wt, k), 3, flush),
+        bound_ms(nbytes(gc, wt, dx), flops), dict(shape, out=list(dx.shape)),
+        library_note="no single PyTorch call computes the per-pixel-kernel weighted gather",
+        launches_from="torch.autograd.grad of kernel_gather and of kernel_scatter with "
+                      "values that require grad (this phase); the SBMC step's radiance is "
+                      "data"))
+    del dx
+
+    # K9 through autograd: kernel_gather (K9 forward; K8 and K7 backward)
+    # and the splat with values that require grad (K7; K9 and K8)
+    _build.reset_counts()
+    buf = gc.clone().requires_grad_()
+    wg = wt.clone().requires_grad_()
+    out = ka.kernel_gather(buf, wg, k)
+    dbuf, dwg = torch.autograd.grad(out, [buf, wg], torch.ones_like(out))
+    del out, dbuf, dwg
+    xg = x.clone().requires_grad_()
+    full = ka.kernel_scatter(xg, wg, k)
+    dxg, dwg = torch.autograd.grad(full, [xg, wg], gc)
+    torch.cuda.synchronize()
+    autograd_launches, autograd_plain = dict(_build.launches), dict(_build.plain_calls)
+    if autograd_launches != {"gather": 2, "outer": 2, "scatter": 2} or autograd_plain:
+        raise AssertionError(f"autograd of kernel_gather and kernel_scatter launched "
+                             f"{autograd_launches}, plain {autograd_plain}")
+    max_err(torch, [dxg], [ka.gather_plain(gc, wt, k)], K1_TOL)
+    rows[-1]["autograd_launches"] = autograd_launches["gather"]
+    del x, wt, gc, buf, wg, xg, full, dxg, dwg
+
+    leaky = ("leaky_relu",) * 3
+    rows.append(embed_bwd_row(torch, pf, dev, g, flush, b, s, p * p, (95, 128, 128, 128),
+                              leaky, compute_dx=True))
+    row = head_bwd_row(torch, pf, dev, g, flush, b, s, p * p, 128, 128, 128, True, False,
+                       leaky[:2], torch.bfloat16, gsq=False)
+    last = head_bwd_row(torch, pf, dev, g, flush, b, s, p * p, 128, 128, 128, False, False,
+                        leaky[:2], torch.bfloat16)
+    row["without_moments"] = {key: last[key] for key in
+                              ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "row_rel_l2")}
+    rows.append(row)
+    torch.cuda.synchronize()
+    return rows
+
+
 def profile_frame(torch, evaluate, iface, ds):
     """One more steady-state frame under torch.profiler: device busy
     time and idle share, the host stages named in
@@ -681,12 +811,22 @@ def profile_frame(torch, evaluate, iface, ds):
 
 
 def device_kind(name):
-    """The group of a device entry in a profile: a hand kernel by its
-    name, the library convolutions and products, copies, or the rest
+    """The group of a device entry in a profile: a hand kernel by the
+    name of its launch counter (the bodies that two kernels share, K1 and
+    K9, K2 and K8, K3 and K7, told apart by their softmax template
+    argument; ``reduce_parts``, the second launch of the backward
+    kernels), the library convolutions and products, copies, or the rest
     (PyTorch's elementwise, reduction and copy kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
     if m:
-        return m.group(1)
+        kind = m.group(1).removesuffix("_kernel")
+        if kind == "softmax_stats":
+            return "scatter_softmax"
+        if kind in ("gather", "outer", "splat_gather"):
+            kind = "scatter" if kind == "splat_gather" else kind
+            if re.search(r"wcmc::\w+<[^>]*\btrue>", name):
+                kind += "_softmax"
+        return kind
     if "Memcpy" in name or "Memset" in name:
         return "memcpy"
     if any(t in name for t in ("xmma", "cutlass", "cudnn", "nhwc", "gemm", "Padding")):
@@ -840,7 +980,9 @@ def train_config(family, **kw):
     """The flagship training config of ``family``: the PathNet, FMSE with
     roll pairing (non-local), w_manif 0.1, lr 1e-4 for each model, bf16
     compute over f32 parameters; KPCN with 21x21 kernels and value clip
-    1.0, LBMC (LayerNet k13) with global-norm clip 250."""
+    1.0, LBMC (LayerNet k13) with global-norm clip 250, SBMC (Multisteps
+    k21, 3 steps, width 128, exp splat, 95 input channels) with
+    global-norm clip 1000 and the tonemapped relative MSE."""
     from wcmc_tpu_torch.train.factory import TrainConfig
 
     if family == "kpcn":
@@ -850,13 +992,18 @@ def train_config(family, **kw):
 
 
 # Launches per train step: KPCN's K1 and K2 once per branch (its buffers
-# are data, so no K3); LBMC's K1, K2 and K3 once per layer.
+# are data, so no K3); LBMC's K1, K2 and K3 once per layer; SBMC's K4
+# forward and backward for the PathNet and for Multisteps, K5 forward and
+# backward for the PathNet and each Multisteps step, the splat (K7) and
+# its weights' gradient (K8), but not K9: the splatted radiance is data.
 TRAIN_LAUNCHES = {
     "kpcn": {"gather_softmax": 2, "outer_softmax": 2, "pathnet_embed": 1,
              "pathnet_embed_bwd": 1, "pathnet_head": 1, "pathnet_head_bwd": 1},
     "lbmc": {"mlp_fused": 1, "mlp_fused_bwd": 1, "gather_softmax": 2, "outer_softmax": 2,
              "scatter_softmax": 2, "pathnet_embed": 1, "pathnet_embed_bwd": 1,
              "pathnet_head": 1, "pathnet_head_bwd": 1},
+    "sbmc": {"pathnet_embed": 2, "pathnet_embed_bwd": 2, "pathnet_head": 4,
+             "pathnet_head_bwd": 4, "scatter": 1, "outer": 1},
 }
 
 
@@ -879,9 +1026,14 @@ def profile_steps(torch, iface, batch, n):
               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:20]
+    by_kind = {}
+    for e in device:
+        kind = device_kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3 / n
     return {
         "steps": n, "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_ms_per_step_by_kind": by_kind,
         "top_device": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
                         "count": e.count} for e in top],
     }
@@ -1013,6 +1165,8 @@ def train_phase(torch, dev, family, b=8, patch=128, spp=8):
               "compute_dtype": cfg.compute_dtype}
     if family == "kpcn":
         config["kpcn_ksize"] = cfg.kpcn_ksize
+    if family == "sbmc":
+        config["sbmc_ksize"] = cfg.sbmc_ksize
     record = {
         "phase": "train" if family == "kpcn" else f"train_{family}", "config": config,
         "data_s": t_data, "step_ms": med, "step_ms_runs": step_ms,
@@ -1049,10 +1203,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from wcmc_tpu_torch.ops import _build
-    from wcmc_tpu_torch.ops import kernel_apply as ka
-    from wcmc_tpu_torch.ops import mlp_fused as mf
-    from wcmc_tpu_torch.ops import pathnet_fused as pf
+    try:
+        from wcmc_tpu_torch.ops import _build
+        from wcmc_tpu_torch.ops import kernel_apply as ka
+        from wcmc_tpu_torch.ops import mlp_fused as mf
+        from wcmc_tpu_torch.ops import pathnet_fused as pf
+    except ImportError as exc:
+        print(f"chip_smoke: the port's package is not importable ({exc}); run this script "
+              "from the root of a checkout of the repository", file=sys.stderr)
+        return 3
 
     t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
@@ -1072,6 +1231,7 @@ def main() -> int:
     bwd_rows = backward_kernel_phase(torch, ka, pf, dev)
     lbmc_rows = lbmc_kernel_phase(torch, ka, pf, mf, dev)
     sbmc_rows = sbmc_kernel_phase(torch, ka, pf, dev)
+    sbmc_rows += sbmc_train_kernel_phase(torch, ka, pf, dev)
     emit({"phase": "kernels", "rows": kpcn_rows + bwd_rows + lbmc_rows + sbmc_rows})
 
     with tempfile.TemporaryDirectory() as work:
@@ -1085,12 +1245,16 @@ def main() -> int:
     emit(record)
     record, lbmc_train = train_phase(torch, dev, "lbmc")
     emit(record)
+    record, sbmc_train = train_phase(torch, dev, "sbmc")
+    emit(record)
 
     autograd = {"scatter_softmax": next(r.pop("autograd_launches") for r in bwd_rows
                                         if r["name"] == "scatter_softmax")}
     rows = attach_launches(kpcn_rows + bwd_rows, "kpcn", kpcn_serve, kpcn_train, autograd)
     rows += attach_launches(lbmc_rows, "lbmc", lbmc_serve, lbmc_train)
-    rows += attach_launches(sbmc_rows, "sbmc", sbmc_serve, {})
+    autograd = {"gather": next(r.pop("autograd_launches") for r in sbmc_rows
+                               if r["name"] == "gather")}
+    rows += attach_launches(sbmc_rows, "sbmc", sbmc_serve, sbmc_train, autograd)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -36,7 +36,8 @@ _CHILD = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
 
     from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
     cfg = TrainConfig(kpcn_ksize=5, use_llpm_buf=True, compute_dtype="float32")
@@ -91,6 +92,20 @@ _CHILD = textwrap.dedent("""
     assert all(bool(torch.isfinite(v)) for v in losses.values())
     rad, pb = sbmc.validate_batch(sb)
     assert rad.shape == (1, 16, 16, 3) and pb.shape == (1, 2, 16, 16, 3)
+
+    # the bf16 SBMC step, as the card runs it: its plain versions are
+    # called exactly where the card launches chip_smoke's kernel counts
+    from wcmc_tpu_torch.ops import _build
+    cfg = TrainConfig(base_model="sbmc", sbmc_ksize=5, use_llpm_buf=True, manif_learn=True,
+                      manif_loss="FMSE", finite_check_every=1)
+    sbmc = init_interfaces(cfg, device="cpu")[0]
+    sbmc.to_train_mode()
+    sbmc.preprocess(sb)
+    _build.reset_counts()
+    losses = sbmc.train_batch(sb)
+    assert dict(_build.plain_calls) == chip_smoke.TRAIN_LAUNCHES["sbmc"], _build.plain_calls
+    assert not _build.launches
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("OK", len(names))
@@ -135,3 +150,25 @@ def test_chip_smoke_refuses_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_refuses(tmp_path):
+    """chip_smoke.py copied alone into a directory exits non-zero, prints
+    no result and says on stderr that the port is missing, even where
+    torch reports a card (faked here)."""
+    import shutil
+
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    child = textwrap.dedent("""
+        import runpy, sys
+        import torch
+        torch.cuda.is_available = lambda: True
+        sys.argv = ["chip_smoke.py"]
+        runpy.run_path("chip_smoke.py", run_name="__main__")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", child], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 3, proc.stdout + proc.stderr
+    assert proc.stdout == ""
+    assert "not importable" in proc.stderr

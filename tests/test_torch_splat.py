@@ -6,8 +6,9 @@ gather, and the normalized splats of ``ops/splat.py``.
   reference ``_scatter_xla`` / ``jax.vjp(kernel_scatter)``, and the
   forward against the Pallas kernel ``scatter_tpu`` in interpret mode: f32,
   within 1e-5 of max |ref| (the same products summed in another order).
-* ``kernel_apply(softmax=False)`` (the plain weighted gather) and its
-  autograd VJP against ``jax.vjp(kernel_gather)``: 1e-5.
+* ``kernel_apply(softmax=False)`` (the plain weighted gather,
+  ``kernel_gather``) and its VJP against ``jax.vjp(kernel_gather)``:
+  1e-5.
 * ``kernel_splat``, ``splat_normalized`` and ``splat_normalized_logits``
   (outputs and the VJP in values and logits) against
   ``wcmc_tpu.ops.splat``, with ordinary logits, large ones (one spike
@@ -103,7 +104,8 @@ def test_weighted_gather_and_its_vjp_match_jax():
     _build.reset_counts()
     out = tka.kernel_apply(bt, wtt, K, softmax=False)
     db, dw = torch.autograd.grad(out, [bt, wtt], torch.from_numpy(g))
-    assert dict(_build.plain_calls) == {"gather": 1}
+    # kernel_gather's VJP: d(buf) by the splat, d(w) by the outer product
+    assert dict(_build.plain_calls) == {"gather": 1, "scatter": 1, "outer": 1}
     _close(out, want)
     _close(db, want_db)
     _close(dw, want_dw)

@@ -1,78 +1,93 @@
-// K5-bwd: the gradients of the PathNet head over [e | broadcast_S(ctx)],
-// from the cotangents of its output (channel-major) and of its two
-// sample moments.
+// K5-bwd: the gradients of the per-sample head over [e | broadcast_S(ctx)]
+// (K5-fwd), from the cotangents of its output and of its two sample
+// moments.
 //
-//   h1 = bf16(relu(e . W1e + ctx . W1c + b1)),  h2 = relu(h1 . W2 + b2)      (h2 f32)
-//   gz2 = [h2 > 0] * (g + gsum + 2 h2 gsq)
-//   g1  = [h1 > 0] * (bf16(gz2) . W2^T)
+//   h1 = bf16(a1(e . W1e + ctx . W1c + b1)),  h2 = a2(h1 . W2 + b2)          (h2 f32)
+//   gz2 = a2'(h2, g + gsum + 2 h2 gsq)
+//   g1  = a1'(h1, bf16(gz2) . W2^T)
 //   de  = bf16(bf16(g1) . W1e^T)                 per sample
 //   dctx = sum_s bf16(g1) . W1c^T                f32, summed over S
 //   dW2 = h1^T . bf16(gz2), dW1e = e^T . bf16(g1), dW1c = ctx^T . bf16(g1)   f32, over all rows
 //   db2 = sum gz2, db1 = sum g1                  f32, unrounded
 //
+// a' is taken through the post-activation value (mlp_act_grad of
+// mlp.cuh).  A cotangent passed as null is zero.  Two forms, each a
+// template instantiation with the activations, W2's staged width, the
+// cotangent's type and the samples per chunk fixed at compile time:
+// PathNet's relu-relu head with Cout <= 16 (zero-padded to 16) and an f32
+// cotangent, channel-major for the KPCN training head, channels-last for
+// LBMC's; and Multisteps' update chain, leaky-leaky with Cout 128, its
+// bf16 channels-last cotangent read as it is, the `gsum` cotangent for
+// the two chains with moments (steps 0 and 1) and no moments for the last.
 // Replaces wcmc_tpu/ops/pathnet_fused.py::_head_bwd_pallas (Pallas body
-// _head_bwd_kernel) with moments=True and cmajor=True, the training
-// head: g is (B, S, cout, HW) f32.
+// _head_bwd_kernel).
 //
-// What bounds it on the H100: operations, closely followed by bytes.  At
-// the training shape (8 patches x 8 spp x 128^2 px, Ce = Cc = 128, 256 ->
-// 256 -> 6, both branches merged) it reads the bf16 embedding (268 MB)
-// and writes its bf16 gradient (268 MB) and the f32 context gradient
-// (134 MB), ~730 MB, for ~232 GFLOP with the context terms taken once per
-// pixel.
+// What bounds it on the H100.  PathNet at the KPCN training shape (8
+// patches x 8 spp x 128^2 px, Ce = Cc = 128, 256 -> 256 -> 6, both
+// branches merged): operations, closely followed by bytes; it reads the
+// bf16 embedding (268 MB) and writes its bf16 gradient (268 MB) and the
+// f32 context gradient (134 MB), ~730 MB, for ~232 GFLOP with the context
+// terms taken once per pixel.  Multisteps ([128 | 128] -> 128 -> 128):
+// bytes, ~0.97 GB per launch (e, g and de in bf16, ~268 MB each, the
+// context, its gradient and gsum) for ~1.1e11 MACs.
 //
 // Design: as in K4-bwd, each persistent block adds its weight gradients
 // into its own f32 partials in a workspace and a second launch sums them
 // in block order (deterministic, no float atomics); a block owns a tile
-// of 16 pixels of one image and takes its samples in chunks of up to 8
-// (128 rows per weight-gradient product).  The context is the same for
-// all samples of a pixel, so, as in K5-fwd, ctx . W1c + b1 is computed
-// once per tile and starts each sample's layer-1 accumulator; and the
-// context's gradients are formed from G = sum_s bf16(g1) per pixel, once
-// rather than S times: dctx = G . W1c^T and dW1c = ctx^T . G.  G is an
-// f32 sum, so it enters the bf16 tensor cores as two terms, G = hi + lo
-// with hi = bf16(G) and lo = bf16(G - hi) (relative error ~2^-16).  W2's
-// cout <= 16 columns come zero-padded to 16.  Weights are read through
-// L1/L2 by the fragment loads; the tile's e, hiddens and cotangents stay
-// in shared memory.  No TMA, wgmma or pipelining yet.
-#include "common.cuh"
+// of 16 pixels of one image and takes its samples in chunks (8 for the
+// PathNet form, 128 rows per weight-gradient product; 4 for the
+// Multisteps form, whose 128 output columns would take ~225 KB of shared
+// memory at 8 samples, at the 227 KB a block may opt into, and take ~153
+// KB at 4).  The context is the same for all samples of a pixel, so, as
+// in K5-fwd, ctx . W1c + b1 is computed once per tile and starts each
+// sample's layer-1 accumulator; and the context's gradients are formed
+// from G = sum_s bf16(g1) per pixel, once rather than S times: dctx = G .
+// W1c^T and dW1c = ctx^T . G.  G is an f32 sum, so it enters the bf16
+// tensor cores as two terms, G = hi + lo with hi = bf16(G) and lo =
+// bf16(G - hi) (relative error ~2^-16).  The output cotangent is read in
+// its own layout and type (no transposed or f32 copy in device memory)
+// into an f32 tile, which then holds gz2.  Weights are read through L1/L2
+// by the fragment loads; the tile's e, hiddens and cotangents stay in
+// shared memory.  No TMA, wgmma or pipelining yet.
+#include "mlp.cuh"
 
 namespace wcmc {
 
 constexpr int kBwdPix = 16;
-constexpr int kBwdChunk = 8;
-constexpr int kBwdRows = kBwdPix * kBwdChunk;
-constexpr int kOut = 16;  // padded output width
 
 struct HeadBwdDims {
   int ce, cc, c1, cout;
 };
 
-__host__ __device__ inline long long head_bwd_parts(const HeadBwdDims& d) {
-  return (long long)d.ce * d.c1 + (long long)d.cc * d.c1 + (long long)d.c1 * kOut + d.c1 + kOut;
+__host__ __device__ inline long long head_bwd_parts(const HeadBwdDims& d, int kout) {
+  return (long long)d.ce * d.c1 + (long long)d.cc * d.c1 + (long long)d.c1 * kout + d.c1 + kout;
 }
 
-inline size_t head_bwd_smem(const HeadBwdDims& d) {
+inline size_t head_bwd_smem(const HeadBwdDims& d, int kout, int chunk) {
+  const int rows = kBwdPix * chunk;
   return smem_bytes((size_t)kBwdPix * pitch_bf16(d.cc), 2) +
          smem_bytes((size_t)kBwdPix * pitch_f32(d.c1), 4) +
-         smem_bytes((size_t)kBwdRows * pitch_bf16(d.ce), 2) +
-         smem_bytes((size_t)kBwdRows * pitch_bf16(d.c1), 2) +
-         smem_bytes((size_t)kBwdRows * pitch_bf16(kOut), 2) +
-         smem_bytes((size_t)kBwdRows * kOut, 4) + 2 * smem_bytes((size_t)kBwdPix * kOut, 4) +
-         smem_bytes((size_t)kBwdPix * d.c1, 4) +
+         smem_bytes((size_t)rows * pitch_bf16(d.ce), 2) +
+         smem_bytes((size_t)rows * pitch_bf16(d.c1), 2) +
+         smem_bytes((size_t)rows * pitch_bf16(kout), 2) + smem_bytes((size_t)rows * kout, 4) +
+         2 * smem_bytes((size_t)kBwdPix * kout, 4) + smem_bytes((size_t)kBwdPix * d.c1, 4) +
          2 * smem_bytes((size_t)kBwdPix * pitch_bf16(d.c1), 2) +
-         smem_bytes((size_t)kWarps * 256, 4) + smem_bytes((size_t)kBwdChunk * d.c1, 4) +
-         2 * smem_bytes(d.c1, 4) + 2 * smem_bytes(kOut, 4);
+         smem_bytes((size_t)kWarps * 256, 4) + smem_bytes((size_t)chunk * d.c1, 4) +
+         2 * smem_bytes(d.c1, 4) + 2 * smem_bytes(kout, 4);
 }
 
+// TG: the output cotangent's type; kA1, kA2: the layers' activation codes;
+// kOut: W2's staged width (Cout zero-padded); kChunk: samples per chunk.
+template <typename TG, int kA1, int kA2, int kOut, int kChunk>
 __global__ void __launch_bounds__(kThreads)
     pathnet_head_bwd_kernel(const bf16* __restrict__ e, const bf16* __restrict__ ctx,
-                            const float* __restrict__ g, const float* __restrict__ gsum,
+                            const TG* __restrict__ g, const float* __restrict__ gsum,
                             const float* __restrict__ gsq, const bf16* __restrict__ w1,
                             const float* __restrict__ b1, const bf16* __restrict__ w2,
                             const float* __restrict__ b2, bf16* __restrict__ de,
                             float* __restrict__ dctx, float* __restrict__ parts, int B, int S,
-                            int HW, HeadBwdDims d) {
+                            int HW, HeadBwdDims d, int cmajor) {
+  constexpr int kRows = kBwdPix * kChunk;
   extern __shared__ __align__(128) unsigned char smem[];
   using row = wmma::row_major;
   using col = wmma::col_major;
@@ -81,17 +96,17 @@ __global__ void __launch_bounds__(kThreads)
   SmemCarver carve{smem, 0};
   bf16* s_ctx = carve.take<bf16>((size_t)kBwdPix * p_ctx);
   float* s_ctxz = carve.take<float>((size_t)kBwdPix * p_z);
-  bf16* s_e = carve.take<bf16>((size_t)kBwdRows * p_e);
-  bf16* s_h = carve.take<bf16>((size_t)kBwdRows * p_h);   // h1, then g1
-  bf16* s_gz = carve.take<bf16>((size_t)kBwdRows * p_gz);  // bf16(gz2)
-  float* s_gf = carve.take<float>((size_t)kBwdRows * kOut);  // g, then gz2 in f32
+  bf16* s_e = carve.take<bf16>((size_t)kRows * p_e);
+  bf16* s_h = carve.take<bf16>((size_t)kRows * p_h);   // h1, then g1
+  bf16* s_gz = carve.take<bf16>((size_t)kRows * p_gz);  // bf16(gz2)
+  float* s_gf = carve.take<float>((size_t)kRows * kOut);  // g, then gz2 in f32
   float* s_gsum = carve.take<float>((size_t)kBwdPix * kOut);
   float* s_gsq = carve.take<float>((size_t)kBwdPix * kOut);
   float* s_gacc = carve.take<float>((size_t)kBwdPix * d.c1);  // sum_s bf16(g1)
   bf16* s_ghi = carve.take<bf16>((size_t)kBwdPix * p_h);
   bf16* s_glo = carve.take<bf16>((size_t)kBwdPix * p_h);
   float* s_stage = carve.take<float>((size_t)kWarps * 256);
-  float* s_dbpart = carve.take<float>((size_t)kBwdChunk * d.c1);
+  float* s_dbpart = carve.take<float>((size_t)kChunk * d.c1);
   float* s_db1 = carve.take<float>(d.c1);
   float* s_b1 = carve.take<float>(d.c1);
   float* s_db2 = carve.take<float>(kOut);
@@ -99,7 +114,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const bf16* w1e = w1;
   const bf16* w1c = w1 + (size_t)d.ce * d.c1;
-  const long long n_parts = head_bwd_parts(d);
+  const long long n_parts = head_bwd_parts(d, kOut);
   float* part = parts + (size_t)blockIdx.x * n_parts;
   float* p_dw1e = part;
   float* p_dw1c = p_dw1e + (size_t)d.ce * d.c1;
@@ -113,7 +128,7 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tiles_per_image = (HW + kBwdPix - 1) / kBwdPix;
   const int n_tiles = B * tiles_per_image;
-  const int n_col1 = d.c1 / 16;
+  const int n_col1 = d.c1 / 16, n_colo = kOut / 16;
   const bf16 zero = __float2bfloat16(0.0f);
 
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -128,8 +143,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = threadIdx.x; i < kBwdPix * kOut; i += blockDim.x) {
       const int r = i / kOut, c = i % kOut;
       const bool ok = r < rows && c < d.cout;
-      s_gsum[i] = ok ? gsum[(pix0 + r) * d.cout + c] : 0.0f;
-      s_gsq[i] = ok ? gsq[(pix0 + r) * d.cout + c] : 0.0f;
+      s_gsum[i] = ok && gsum != nullptr ? gsum[(pix0 + r) * d.cout + c] : 0.0f;
+      s_gsq[i] = ok && gsq != nullptr ? gsq[(pix0 + r) * d.cout + c] : 0.0f;
     }
     for (int i = threadIdx.x; i < kBwdPix * d.c1; i += blockDim.x) s_gacc[i] = 0.0f;
     __syncthreads();
@@ -146,23 +161,32 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();
     }
 
-    for (int s0 = 0; s0 < S; s0 += kBwdChunk) {
-      const int sc = min(kBwdChunk, S - s0), n_rows = kBwdPix * sc;
+    for (int s0 = 0; s0 < S; s0 += kChunk) {
+      const int sc = min(kChunk, S - s0), n_rows = kBwdPix * sc;
       for (int i = threadIdx.x; i < n_rows * d.ce; i += blockDim.x) {
         const int r = i / d.ce, c = i % d.ce, pr = r % kBwdPix;
         const size_t rw = ((size_t)b * S + s0 + r / kBwdPix) * HW + row0 + pr;
         s_e[r * p_e + c] = pr < rows ? e[rw * d.ce + c] : zero;
       }
-      // g is channel-major: pixels fastest, so the loads are contiguous
-      for (int i = threadIdx.x; i < n_rows * kOut; i += blockDim.x) {
-        const int pr = i % kBwdPix, c = (i / kBwdPix) % kOut, si = i / (kBwdPix * kOut);
-        s_gf[(si * kBwdPix + pr) * kOut + c] =
-            (pr < rows && c < d.cout)
-                ? g[(((size_t)b * S + s0 + si) * d.cout + c) * HW + row0 + pr]
-                : 0.0f;
+      // the output cotangent in its own layout, the loads along its
+      // contiguous axis: pixels for channel-major, channels otherwise
+      if (cmajor) {
+        for (int i = threadIdx.x; i < n_rows * kOut; i += blockDim.x) {
+          const int pr = i % kBwdPix, c = (i / kBwdPix) % kOut, si = i / (kBwdPix * kOut);
+          s_gf[(si * kBwdPix + pr) * kOut + c] =
+              (g != nullptr && pr < rows && c < d.cout)
+                  ? to_f32(g[(((size_t)b * S + s0 + si) * d.cout + c) * HW + row0 + pr])
+                  : 0.0f;
+        }
+      } else {
+        for (int i = threadIdx.x; i < n_rows * kOut; i += blockDim.x) {
+          const int r = i / kOut, c = i % kOut, pr = r % kBwdPix;
+          const size_t rw = ((size_t)b * S + s0 + r / kBwdPix) * HW + row0 + pr;
+          s_gf[i] = (g != nullptr && pr < rows && c < d.cout) ? to_f32(g[rw * d.cout + c]) : 0.0f;
+        }
       }
       __syncthreads();  // s_ctxz, s_e, s_gf
-      // h1 = relu(e . W1e + ctx . W1c + b1)
+      // h1 = a1(e . W1e + ctx . W1c + b1)
       for (int f = warp; f < sc * n_col1; f += kWarps) {
         const int r0 = (f / n_col1) * 16, c0 = (f % n_col1) * 16;
         Acc acc;
@@ -170,23 +194,23 @@ __global__ void __launch_bounds__(kThreads)
         frag_mma<row, row>(acc, s_e, p_e, w1e, d.c1, r0, c0, d.ce);
         float* st = stage_frag(acc, s_stage);
         for (int i = lane; i < 256; i += 32)
-          s_h[(r0 + i / 16) * p_h + c0 + i % 16] = __float2bfloat16(fmaxf(st[i], 0.0f));
+          s_h[(r0 + i / 16) * p_h + c0 + i % 16] = __float2bfloat16(mlp_act(kA1, st[i]));
         __syncwarp();
       }
       __syncthreads();
       // h2 (f32) and the output cotangent with the moments folded in
-      for (int f = warp; f < sc; f += kWarps) {
-        const int r0 = f * 16;
+      for (int f = warp; f < sc * n_colo; f += kWarps) {
+        const int r0 = (f / n_colo) * 16, c0 = (f % n_colo) * 16;
         Acc acc;
         wmma::fill_fragment(acc, 0.0f);
-        frag_mma<row, row>(acc, s_h, p_h, w2, kOut, r0, 0, d.c1);
+        frag_mma<row, row>(acc, s_h, p_h, w2, kOut, r0, c0, d.c1);
         float* st = stage_frag(acc, s_stage);
         for (int i = lane; i < 256; i += 32) {
-          const int r = r0 + i / 16, c = i % 16, pr = r % kBwdPix;
-          const float h2 = fmaxf(st[i] + s_b2[c], 0.0f);
+          const int r = r0 + i / 16, c = c0 + i % 16, pr = r % kBwdPix;
+          const float h2 = mlp_act(kA2, st[i] + s_b2[c]);
           const float gg = s_gf[r * kOut + c] + s_gsum[pr * kOut + c] +
                            2.0f * h2 * s_gsq[pr * kOut + c];
-          const float gz = (c < d.cout && h2 > 0.0f) ? gg : 0.0f;
+          const float gz = c < d.cout ? mlp_act_grad(kA2, h2, gg) : 0.0f;
           s_gf[r * kOut + c] = gz;
           s_gz[r * p_gz + c] = __float2bfloat16(gz);
         }
@@ -199,15 +223,16 @@ __global__ void __launch_bounds__(kThreads)
         s_db2[c] += sum;
       }
       // dW2 += h1^T . bf16(gz2)
-      for (int f = warp; f < n_col1; f += kWarps) {
+      for (int f = warp; f < n_col1 * n_colo; f += kWarps) {
+        const int r0 = (f / n_colo) * 16, c0 = (f % n_colo) * 16;
         Acc acc;
-        float* p = p_dw2 + (size_t)f * 16 * kOut;
+        float* p = p_dw2 + (size_t)r0 * kOut + c0;
         wmma::load_matrix_sync(acc, p, kOut, wmma::mem_row_major);
-        frag_mma<col, row>(acc, s_h, p_h, s_gz, p_gz, f * 16, 0, n_rows);
+        frag_mma<col, row>(acc, s_h, p_h, s_gz, p_gz, r0, c0, n_rows);
         wmma::store_matrix_sync(p, acc, kOut, wmma::mem_row_major);
       }
       __syncthreads();  // h1 is read; g1 overwrites it
-      // g1 = [h1 > 0] * (bf16(gz2) . W2^T), with its column sums
+      // g1 = a1'(h1, bf16(gz2) . W2^T), with its column sums
       for (int f = warp; f < sc * n_col1; f += kWarps) {
         const int r0 = (f / n_col1) * 16, c0 = (f % n_col1) * 16;
         Acc acc;
@@ -216,7 +241,7 @@ __global__ void __launch_bounds__(kThreads)
         float* st = stage_frag(acc, s_stage);
         for (int i = lane; i < 256; i += 32) {
           bf16* h = s_h + (r0 + i / 16) * p_h + c0 + i % 16;
-          const float v = __bfloat162float(*h) > 0.0f ? st[i] : 0.0f;
+          const float v = mlp_act_grad(kA1, __bfloat162float(*h), st[i]);
           st[i] = v;
           *h = __float2bfloat16(v);
         }
@@ -307,39 +332,64 @@ __global__ void __launch_bounds__(kThreads)
 
 using namespace wcmc;
 
-// e (B, S, HW, ce) bf16; ctx (B, HW, cc) bf16; g (B, S, cout, HW) f32;
-// gsum, gsq (B, HW, cout) f32; w1 (ce + cc, c1) bf16 with the e rows
-// first; b1 (c1) f32; w2 (c1, 16) bf16 and b2 (16) f32, zero-padded from
-// cout <= 16 columns.  de (B, S, HW, ce) bf16 and dctx (B, HW, cc) f32
-// out.  parts: n_blocks partials of head_bwd_parts floats (scratch); out:
-// their sum, laid out as dW1e (ce, c1) | dW1c (cc, c1) | dW2 (c1, 16) |
-// db1 (c1) | db2 (16), f32.  All contiguous; ce, cc, c1 multiples of 16.
+template <typename TG, int kA1, int kA2, int kOut, int kChunk>
+static cudaError_t launch_head_bwd(const void* e, const void* ctx, const void* g,
+                                   const void* gsum, const void* gsq, const void* w1,
+                                   const void* b1, const void* w2, const void* b2, void* de,
+                                   void* dctx, void* parts, void* out, int B, int S, int HW,
+                                   const HeadBwdDims& d, int cmajor, int n_blocks, int device,
+                                   cudaStream_t stream) {
+  if (d.cout > kOut) return cudaErrorInvalidValue;
+  const size_t smem = head_bwd_smem(d, kOut, kChunk);
+  cudaError_t err =
+      set_smem(pathnet_head_bwd_kernel<TG, kA1, kA2, kOut, kChunk>, smem, device);
+  if (err != cudaSuccess) return err;
+  const long long n_tiles = (long long)B * ((HW + kBwdPix - 1) / kBwdPix);
+  const int grid = (int)(n_tiles < n_blocks ? (n_tiles > 0 ? n_tiles : 1) : n_blocks);
+  pathnet_head_bwd_kernel<TG, kA1, kA2, kOut, kChunk><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(e), static_cast<const bf16*>(ctx), static_cast<const TG*>(g),
+      static_cast<const float*>(gsum), static_cast<const float*>(gsq),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<bf16*>(de), static_cast<float*>(dctx),
+      static_cast<float*>(parts), B, S, HW, d, cmajor);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_parts(static_cast<const float*>(parts), static_cast<float*>(out), grid,
+                      head_bwd_parts(d, kOut), stream);
+}
+
+// e (B, S, HW, ce) bf16; ctx (B, HW, cc) bf16; g the output cotangent,
+// (B, S, cout, HW) with cmajor, else (B, S, HW, cout); gsum, gsq (B, HW,
+// cout) f32; any of g, gsum, gsq may be null (zero).  w1 (ce + cc, c1)
+// bf16 with the e rows first; b1 (c1) f32; w2 (c1, kout) bf16 and b2
+// (kout) f32, zero-padded from cout columns.  The two forms: act1 = act2
+// = relu (1), kout 16, g f32 (PathNet); act1 = act2 = leaky relu (2),
+// kout 128, g bf16 (Multisteps); others are refused.  de (B, S, HW, ce)
+// bf16 and dctx (B, HW, cc) f32 out.  parts: n_blocks partials of
+// head_bwd_parts floats (scratch); out: their sum, laid out as dW1e (ce,
+// c1) | dW1c (cc, c1) | dW2 (c1, kout) | db1 (c1) | db2 (kout), f32.  All
+// contiguous; ce, cc, c1 multiples of 16.
 extern "C" int wcmc_pathnet_head_bwd(const void* e, const void* ctx, const void* g,
                                      const void* gsum, const void* gsq, const void* w1,
                                      const void* b1, const void* w2, const void* b2, void* de,
                                      void* dctx, void* parts, void* out, int B, int S, int HW,
-                                     int ce, int cc, int c1, int cout, int n_blocks, int device,
+                                     int ce, int cc, int c1, int cout, int act1, int act2,
+                                     int kout, int cmajor, int n_blocks, int device,
                                      void* stream) {
-  if (ce % 16 || cc % 16 || c1 % 16 || ce < 16 || cc < 16 || c1 < 16 || cout < 1 ||
-      cout > kOut || S < 1 || n_blocks < 1)
+  if (ce % 16 || cc % 16 || c1 % 16 || ce < 16 || cc < 16 || c1 < 16 || cout < 1 || S < 1 ||
+      n_blocks < 1)
     return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
   const HeadBwdDims d{ce, cc, c1, cout};
-  const size_t smem = head_bwd_smem(d);
-  cudaError_t err = set_smem(pathnet_head_bwd_kernel, smem, device);
-  if (err != cudaSuccess) return err;
-  const long long n_tiles = (long long)B * ((HW + kBwdPix - 1) / kBwdPix);
-  const int grid = (int)(n_tiles < n_blocks ? (n_tiles > 0 ? n_tiles : 1) : n_blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pathnet_head_bwd_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const bf16*>(e), static_cast<const bf16*>(ctx), static_cast<const float*>(g),
-      static_cast<const float*>(gsum), static_cast<const float*>(gsq),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<bf16*>(de), static_cast<float*>(dctx),
-      static_cast<float*>(parts), B, S, HW, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_parts(static_cast<const float*>(parts), static_cast<float*>(out), grid,
-                      head_bwd_parts(d), s);
+  if (act1 == 1 && act2 == 1 && kout == 16)  // PathNet: relu, relu, Cout <= 16, f32 g
+    return launch_head_bwd<float, 1, 1, 16, 8>(e, ctx, g, gsum, gsq, w1, b1, w2, b2, de, dctx,
+                                               parts, out, B, S, HW, d, cmajor, n_blocks,
+                                               device, s);
+  if (act1 == 2 && act2 == 2 && kout == 128)  // Multisteps: leaky x 2, Cout 128, bf16 g
+    return launch_head_bwd<bf16, 2, 2, 128, 4>(e, ctx, g, gsum, gsq, w1, b1, w2, b2, de, dctx,
+                                               parts, out, B, S, HW, d, cmajor, n_blocks,
+                                               device, s);
+  return cudaErrorInvalidValue;
 }

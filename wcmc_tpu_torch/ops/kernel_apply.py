@@ -18,22 +18,27 @@ Counterpart of ``wcmc_tpu/ops/kernel_apply.py``:
 * ``kernel_scatter(x, w, K)``: the splat
   ``out[q, c] = sum_d w[q - d, d] * x[q - d, c]`` onto the
   ``(h + K - 1) x (w + K - 1)`` canvas, an autograd Function.  Forward:
-  the CUDA kernel K7 (``scatter``, ``csrc/scatter.cu``) for CUDA
-  tensors, ``scatter_plain`` for CPU tensors.  Backward, as the
-  reference's ``_scatter_bwd`` composes it: ``dx = gather(g, w)`` and
-  ``dw = outer(x, g)``, the plain versions ``gather_plain`` and
-  ``outer_plain`` on CPU tensors; their kernels K9 and K8 come with the
-  SBMC training slice (E2), so on CUDA tensors the backward raises;
-* ``kernel_apply(..., softmax=False)``: the plain weighted gather
-  ``out[p, c] = sum_d w[p, d] * buf[p + d, c]`` (``gather_plain``) on
-  CPU tensors; its kernel K9 is slice E2's, so it raises on CUDA tensors;
+  the CUDA kernel K7 (``scatter``, ``csrc/scatter.cu``).  Backward, as the
+  reference's ``_scatter_bwd`` composes it: ``dw = outer(x, g)`` with K8
+  (``outer``, ``csrc/outer.cu``) and, only when ``x`` requires grad,
+  ``dx = gather(g, w)`` with K9 (``gather``, ``csrc/gather.cu``);
+* ``kernel_gather(buf, w, K)``: the plain weighted gather
+  ``out[p, c] = sum_d w[p, d] * buf[p + d, c]``, an autograd Function.
+  Forward: K9.  Backward, as the reference's ``_gather_bwd`` composes it:
+  ``dw = outer(g, buf)`` with K8 and, only when the buffer requires grad,
+  ``dbuf = scatter(g, w)`` with K7.  ``kernel_apply(..., softmax=False)``
+  runs it;
 * ``kernel_apply`` / ``kernel_apply_reference``: the public API.
+
+Every kernel runs for CUDA tensors and its plain version
+(``*_plain``) for CPU tensors; gradients come back in the inputs'
+dtypes.
 
 Geometry (channels-last): ``buf (B, H, W, C)``, logits or weights
 ``(B, h, w, K*K)`` with ``h = H - K + 1``; gather output ``(B, h, w, C)``,
-splat output ``(B, H, W, C)``.  The logits (and the splat's weights) may
-be a strided view (the crop of a convolution output) as long as the K*K
-taps of a pixel are contiguous.
+splat output ``(B, H, W, C)``.  The logits and the weights may be a
+strided view (the crop of a convolution output) as long as the K*K taps
+of a pixel are contiguous.
 """
 
 from __future__ import annotations
@@ -87,9 +92,11 @@ def _outer_plain(g, buf, ksize):
 
 
 def gather_plain(buf, w, ksize):
-    """Plain version of the weighted gather (kernel K9, slice E2)."""
+    """Plain version of K9, the weighted gather: f32 math, returned in
+    ``promote_types(buf.dtype, w.dtype)``."""
     _build.plain_calls["gather"] += 1
-    return _gather_plain(buf, w, ksize)
+    return _gather_plain(buf.float(), w.float(), ksize).to(
+        torch.promote_types(buf.dtype, w.dtype))
 
 
 def scatter_plain(x, w, ksize):
@@ -99,7 +106,7 @@ def scatter_plain(x, w, ksize):
 
 
 def outer_plain(g, buf, ksize):
-    """Plain version of the tap-wise outer product (kernel K8, slice E2)."""
+    """Plain version of K8, the tap-wise outer product."""
     _build.plain_calls["outer"] += 1
     return _outer_plain(g, buf, ksize)
 
@@ -258,10 +265,55 @@ def scatter(x, w, ksize: int):
     return out
 
 
-def _not_ported(kernel):
-    return NotImplementedError(
-        f"{kernel} on the card comes with the SBMC training slice (E2) and is not "
-        "ported yet")
+def gather(buf, w, ksize: int):
+    """The weighted gather of ``buf`` (B, H, W, C) with f32 or bf16
+    weights ``w`` (B, h, w, K*K), in ``promote_types(buf.dtype,
+    w.dtype)``: kernel K9 for CUDA tensors (f32 math), ``gather_plain``
+    for CPU tensors."""
+    _check_geometry(buf, w, ksize)
+    if buf.device.type == "cpu" and w.device.type == "cpu":
+        return gather_plain(buf, w, ksize)
+    _check_card("gather", w, buf)
+    b, H, W, c = buf.shape
+    src = buf.float().contiguous()
+    out = torch.empty((b, H - ksize + 1, W - ksize + 1, c), dtype=torch.float32,
+                      device=buf.device)
+    fn = _build.kernel(
+        "wcmc_gather", _build.PTR, _build.PTR, _build.INT, _build.PTR,
+        _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+        _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.PTR)
+    sb, sy, sx, _ = w.stride()
+    _build.check(fn(src.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16),
+                    out.data_ptr(), b, H, W, c, ksize, sb, sy, sx, buf.device.index or 0,
+                    _build.stream_of(buf.device)), "gather")
+    _build.launches["gather"] += 1
+    return out.to(torch.promote_types(buf.dtype, w.dtype))
+
+
+def outer(g, buf, ksize: int):
+    """``dw[p, d] = sum_c g[p, c] * buf[p + d, c]`` for ``g`` (B, h, w, C)
+    and ``buf`` (B, h + K - 1, w + K - 1, C), as f32 (B, h, w, K*K):
+    kernel K8 for CUDA tensors, ``outer_plain`` for CPU tensors."""
+    b, h, w, c = g.shape
+    if buf.dim() != 4 or tuple(buf.shape) != (b, h + ksize - 1, w + ksize - 1, c):
+        raise ValueError(f"outer: buffer shape {tuple(buf.shape)} does not match "
+                         f"{tuple(g.shape)} and ksize {ksize}")
+    if g.device.type == "cpu" and buf.device.type == "cpu":
+        return outer_plain(g.float(), buf.float(), ksize)
+    _check_card("outer", g, buf)
+    if ksize * ksize > 448:
+        raise ValueError(f"outer kernel takes K*K <= 448, got K={ksize}")
+    gf = g.float().contiguous()
+    src = buf.float().contiguous()
+    out = torch.empty((b, h, w, ksize * ksize), dtype=torch.float32, device=g.device)
+    fn = _build.kernel(
+        "wcmc_outer", _build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT, _build.INT,
+        _build.INT, _build.INT, _build.INT, _build.PTR)
+    _build.check(fn(gf.data_ptr(), src.data_ptr(), out.data_ptr(), b, h + ksize - 1,
+                    w + ksize - 1, c, ksize, g.device.index or 0, _build.stream_of(g.device)),
+                 "outer")
+    _build.launches["outer"] += 1
+    return out
 
 
 class _Scatter(torch.autograd.Function):
@@ -274,22 +326,47 @@ class _Scatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        if g.device.type != "cpu":
-            raise _not_ported("the splat's backward, kernels K9 (d x) and K8 (d w),")
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = gather_plain(g, w, ctx.ksize).to(x.dtype)
+            dx = gather(g, w, ctx.ksize).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = outer_plain(x, g, ctx.ksize).to(w.dtype)
+            dw = outer(x, g, ctx.ksize).to(w.dtype)
         return dx, dw, None
 
 
 def kernel_scatter(x, w, ksize: int):
     """The splat ``out[q, c] = sum_d w[q - d, d] * x[q - d, c]`` onto the
     ``(h + K - 1) x (w + K - 1)`` canvas, differentiable in ``x`` and
-    ``w``: K7 forward on the card, the plain versions on the CPU (the
-    backward runs only on the CPU until K8 and K9 are ported)."""
+    ``w``: K7 forward, K8 (d w) and K9 (d x) backward on the card, the
+    plain versions on the CPU."""
     return _Scatter.apply(x, w, ksize)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, w, ksize):
+        ctx.ksize = ksize
+        ctx.save_for_backward(buf, w)
+        return gather(buf, w, ksize)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, w = ctx.saved_tensors
+        dbuf = dw = None
+        if ctx.needs_input_grad[1]:
+            dw = outer(g, buf, ctx.ksize).to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            # K7 splats f32 values with f32 weights
+            dbuf = scatter(g.float(), w.float(), ctx.ksize).to(buf.dtype)
+        return dbuf, dw, None
+
+
+def kernel_gather(buf, w, ksize: int):
+    """The weighted gather ``out[p, c] = sum_d w[p, d] * buf[p + d, c]``,
+    differentiable in ``buf`` and ``w``: K9 forward, K8 (d w) and K7
+    (d buf) backward on the card, the plain versions on the CPU."""
+    _check_geometry(buf, w, ksize)
+    return _Gather.apply(buf, w, ksize)
 
 
 class _GatherSoftmax(torch.autograd.Function):
@@ -329,18 +406,15 @@ def kernel_apply(buf, kernels, ksize: int, softmax: bool = True):
       buf:     (B, H, W, C) radiance buffer.
       kernels: (B, h, w, K*K) per-pixel kernel logits (weights without
         ``softmax``), h = H - K + 1.
-      softmax: normalize each pixel's K*K window with a softmax; without
-        it the weighted gather runs, on CPU tensors only until K9 (its
-        gradient is autograd's through the plain shift-sum).
+      softmax: normalize each pixel's K*K window with a softmax
+        (:func:`kernel_gather_softmax`); without it the weighted gather
+        :func:`kernel_gather` runs.
     Returns:
       (B, h, w, C) reconstruction.
     """
     if softmax:
         return kernel_gather_softmax(buf, kernels, ksize)
-    _check_geometry(buf, kernels, ksize)
-    if buf.device.type != "cpu" or kernels.device.type != "cpu":
-        raise _not_ported("kernel K9 (the weighted gather)")
-    return gather_plain(buf, kernels, ksize)
+    return kernel_gather(buf, kernels, ksize)
 
 
 def kernel_apply_reference(buf, kernels, ksize: int, softmax: bool = True):

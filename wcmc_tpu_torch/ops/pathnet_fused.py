@@ -17,10 +17,11 @@ The SBMC ``Multisteps`` model runs the same two forms wider: an
 embedding with leaky relu on every layer (95 -> 128 -> 128 -> 128) and
 an update chain [128 | 128] -> 128 -> 128 with leaky relu and a bf16
 output.  The forward kernels take any per-layer activation of
-``ACTS``; the backward kernels compute PathNet's form only (relu-relu-
-linear and relu-relu with Cout <= 16, without d(x)) and raise
-``NotImplementedError`` for the SBMC form, which comes with the SBMC
-training slice (E2).
+``ACTS``; the backward kernels compute the two forms the models run
+(``EMBED_BWD_FORMS``: relu-relu-linear without d(x) and leaky x 3 with
+it; ``HEAD_BWD_FORMS``: relu-relu with Cout <= 16 and an f32
+output cotangent, leaky-leaky with Cout <= 128 and a bf16 one) and raise
+``ValueError`` for any other chain.
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels,
 which compute in bfloat16 with f32 accumulation and raise for other
@@ -47,6 +48,14 @@ from wcmc_tpu_torch.ops.mlp_fused import (
 EMBED_ACTS = ("relu", "relu", "linear")
 HEAD_ACTS = ("relu", "relu")
 HEAD_MAX_OUT = 128   # K5-fwd's widest output (Cout <= 16, or a multiple of 16 up to this)
+LEAKY = ("leaky_relu",) * 3
+# the chains K4-bwd computes -> whether it writes d(x): PathNet's embedding
+# (its paths are data) and Multisteps' (its features carry the PathNet's
+# output under use_llpm_buf)
+EMBED_BWD_FORMS = {EMBED_ACTS: False, LEAKY: True}
+# the forms K5-bwd computes: activations -> (W2's staged width, the widest
+# Cout; the output cotangent's dtype): PathNet's head, Multisteps' update chain
+HEAD_BWD_FORMS = {HEAD_ACTS: (16, torch.float32), LEAKY[:2]: (128, torch.bfloat16)}
 
 
 def _embed_plain(x, ws, bs, acts):
@@ -108,12 +117,6 @@ def _check_head_card(e, acts):
     if e.dtype != torch.bfloat16:
         raise TypeError(f"pathnet_head kernel computes in bfloat16, got {e.dtype}")
     return codes
-
-
-def _sbmc_bwd_not_ported(name):
-    return NotImplementedError(
-        f"{name} kernel computes PathNet's form only; the SBMC form (leaky relu, wide "
-        "output, d(x)) comes with the SBMC training slice (E2) and is not ported yet")
 
 
 def _embed_fwd(x, ws, bs, acts):
@@ -244,9 +247,39 @@ def _head_bwd_plain(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False):
     return de, dctx, dws, dbs
 
 
-def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts):
+def _embed_bwd_form(acts, compute_dx):
+    """(the activation codes, whether the kernel writes d(x)) of a chain
+    K4-bwd computes: Multisteps' form always writes d(x) (the wrapper
+    drops what was not asked for), PathNet's never; ValueError for any
+    other chain, and for PathNet's with d(x)."""
+    with_dx = EMBED_BWD_FORMS.get(tuple(acts))
+    if with_dx is None or (compute_dx and not with_dx):
+        raise ValueError("pathnet_embed_bwd kernel computes the chains (activations: "
+                         f"d(x)) {EMBED_BWD_FORMS}, got {tuple(acts)} with "
+                         f"compute_dx={compute_dx}")
+    return tuple(ACTS.index(a) for a in acts), with_dx
+
+
+def _head_bwd_form(acts, cout, g_dtype):
+    """(W2's staged width, the output cotangent's dtype on the card) of
+    the K5-bwd form of ``acts`` for ``cout`` outputs and a cotangent of
+    ``g_dtype`` (None: no cotangent); ValueError for what neither form
+    computes.  PathNet's f32 cotangent may come in any float dtype;
+    Multisteps' is read as bf16 and is not rounded to it here."""
+    form = HEAD_BWD_FORMS.get(tuple(acts))
+    if form is None or cout > form[0] or (g_dtype is not None and form[1] == torch.bfloat16
+                                          and g_dtype != torch.bfloat16):
+        raise ValueError(
+            "pathnet_head_bwd kernel computes the forms (activations: W2's width, the widest "
+            f"Cout; output cotangent dtype) {HEAD_BWD_FORMS}, got {tuple(acts)}, Cout {cout}, "
+            f"{g_dtype}")
+    return form
+
+
+def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx):
     dev = _require_cuda("pathnet_embed_bwd", x, *ws, *bs)
     b, s, hw, c0 = x.shape
+    codes, with_dx = _embed_bwd_form(acts, compute_dx)
     c1, c2, c3 = _check_embed_card(x, ws, acts)[0][1:]
     if ((ge is not None and tuple(ge.shape) != (b, s, hw, c3))
             or (gmean is not None and tuple(gmean.shape) != (b, hw, c3))):
@@ -261,37 +294,39 @@ def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts):
     w0 = torch.zeros((k0, c1), dtype=bf, device=dev)
     w0[:c0] = ws[0]
     w1, w2 = (w.to(bf).contiguous() for w in ws[1:])
-    b0, b1 = (bb.float().contiguous() for bb in bs[:2])
+    b0, b1, b2 = (bb.float().contiguous() for bb in bs)
+    # d(x) goes straight into (B, S, HW, C0): the kernel stores its columns
+    # one by one, so a row width that is not a multiple of 8 needs no pad
+    dx = torch.empty_like(x) if with_dx else None
     n_parts = k0 * c1 + c1 * c2 + c2 * c3 + c1 + c2 + c3
     idx = dev.index or 0
     n_blocks = _build.sm_count(idx)
     parts = torch.empty(n_blocks * n_parts, dtype=torch.float32, device=dev)
     out = torch.empty(n_parts, dtype=torch.float32, device=dev)
     P, INT = _build.PTR, _build.INT
-    fn = _build.kernel("wcmc_pathnet_embed_bwd", *([P] * 10), *([INT] * 9), P)
+    fn = _build.kernel("wcmc_pathnet_embed_bwd", *([P] * 12), *([INT] * 12), P)
     _build.check(fn(x.data_ptr(), ge.data_ptr(), gmean.data_ptr(),
                     w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    w2.data_ptr(), parts.data_ptr(), out.data_ptr(),
-                    b, s, hw, c0, c1, c2, c3, n_blocks, idx,
-                    _build.stream_of(dev)), "pathnet_embed_bwd")
+                    w2.data_ptr(), b2.data_ptr(), dx.data_ptr() if with_dx else None,
+                    parts.data_ptr(), out.data_ptr(), b, s, hw, c0, c1, c2, c3, *codes,
+                    n_blocks, idx, _build.stream_of(dev)), "pathnet_embed_bwd")
     _build.launches["pathnet_embed_bwd"] += 1
     sizes = [k0 * c1, c1 * c2, c2 * c3, c1, c2, c3]
     dw0, dw1, dw2, db0, db1, db2 = torch.split(out, sizes)
     dws = [dw0.view(k0, c1)[:c0], dw1.view(c1, c2), dw2.view(c2, c3)]
-    return None, dws, [db0, db1, db2]
+    return (dx if compute_dx else None), dws, [db0, db1, db2]
 
 
-HEAD_PAD = 16   # K5-bwd's output width (Cout <= 16, zero-padded)
-
-
-def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, cmajor):
+def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor):
     dev = _require_cuda("pathnet_head_bwd", e, ctx, *ws, *bs)
+    codes = _check_head_card(e, acts)
     b, s, hw, ce = e.shape
     cc = ctx.shape[-1]
     c1, cout = ws[0].shape[1], ws[1].shape[1]
-    if ce % 16 or cc % 16 or c1 % 16 or cout > HEAD_PAD:
-        raise ValueError("pathnet_head_bwd kernel needs Ce, Cc, C1 multiples of 16 "
-                         f"and Cout <= {HEAD_PAD}, got {ce}, {cc}, {c1}, {cout}")
+    kout, g_dtype = _head_bwd_form(acts, cout, None if g is None else g.dtype)
+    if ce % 16 or cc % 16 or c1 % 16:
+        raise ValueError("pathnet_head_bwd kernel needs Ce, Cc, C1 multiples of 16, got "
+                         f"{ce}, {cc}, {c1}")
     g_shape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
     if (tuple(ctx.shape) != (b, hw, cc) or tuple(ws[0].shape) != (ce + cc, c1)
             or tuple(ws[1].shape) != (c1, cout)
@@ -300,66 +335,60 @@ def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, cmajor):
         raise ValueError("pathnet_head_bwd: shapes of e, ctx, the weights and the "
                          "cotangents disagree")
     f32, bf = torch.float32, torch.bfloat16
-    if g is None:
-        g = torch.zeros((b, s, cout, hw), dtype=f32, device=dev)
-    else:   # the kernel reads the cotangent channel-major
-        g = (g if cmajor else g.transpose(2, 3)).float().contiguous()
-    zeros = torch.zeros((b, hw, cout), dtype=f32, device=dev)
-    gsum = zeros if gsum is None else gsum.float().contiguous()
-    gsq = zeros if gsq is None else gsq.float().contiguous()
+    # the cotangents as they come (the kernel reads either layout); None is zero
+    g = None if g is None else g.to(g_dtype).contiguous()
+    gsum, gsq = (None if t is None else t.float().contiguous() for t in (gsum, gsq))
     w1 = ws[0].to(bf).contiguous()
-    w2 = torch.zeros((c1, HEAD_PAD), dtype=bf, device=dev)
+    w2 = torch.zeros((c1, kout), dtype=bf, device=dev)
     w2[:, :cout] = ws[1]
-    b2 = torch.zeros(HEAD_PAD, dtype=f32, device=dev)
+    b2 = torch.zeros(kout, dtype=f32, device=dev)
     b2[:cout] = bs[1]
     b1 = bs[0].float().contiguous()
     e = e.contiguous()
     ctx = ctx.to(bf).contiguous()
     de = torch.empty_like(e)
     dctx = torch.empty((b, hw, cc), dtype=f32, device=dev)
-    n_parts = ce * c1 + cc * c1 + c1 * HEAD_PAD + c1 + HEAD_PAD
+    n_parts = ce * c1 + cc * c1 + c1 * kout + c1 + kout
     idx = dev.index or 0
     n_blocks = _build.sm_count(idx)
     parts = torch.empty(n_blocks * n_parts, dtype=f32, device=dev)
     out = torch.empty(n_parts, dtype=f32, device=dev)
     P, INT = _build.PTR, _build.INT
-    fn = _build.kernel("wcmc_pathnet_head_bwd", *([P] * 13), *([INT] * 9), P)
-    _build.check(fn(e.data_ptr(), ctx.data_ptr(), g.data_ptr(), gsum.data_ptr(),
-                    gsq.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                    b2.data_ptr(), de.data_ptr(), dctx.data_ptr(), parts.data_ptr(),
-                    out.data_ptr(), b, s, hw, ce, cc, c1, cout, n_blocks, idx,
+    fn = _build.kernel("wcmc_pathnet_head_bwd", *([P] * 13), *([INT] * 13), P)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    _build.check(fn(e.data_ptr(), ctx.data_ptr(), ptr(g), ptr(gsum), ptr(gsq),
+                    w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                    de.data_ptr(), dctx.data_ptr(), parts.data_ptr(), out.data_ptr(),
+                    b, s, hw, ce, cc, c1, cout, *codes, kout, int(cmajor), n_blocks, idx,
                     _build.stream_of(dev)), "pathnet_head_bwd")
     _build.launches["pathnet_head_bwd"] += 1
-    dw1, dw2, db1, db2 = torch.split(out, [(ce + cc) * c1, c1 * HEAD_PAD, c1, HEAD_PAD])
-    dws = [dw1.view(ce + cc, c1), dw2.view(c1, HEAD_PAD)[:, :cout]]
+    dw1, dw2, db1, db2 = torch.split(out, [(ce + cc) * c1, c1 * kout, c1, kout])
+    dws = [dw1.view(ce + cc, c1), dw2.view(c1, kout)[:, :cout]]
     return de, dctx, dws, [db1, db2[:cout]]
 
 
 def pathnet_embed_bwd(x, ge, gmean, ws, bs, acts=EMBED_ACTS, compute_dx=False):
     """Gradients of :func:`pathnet_embed` for the cotangents ``ge`` of
     the embedding and ``gmean`` of its sample mean (either may be
-    None): ``(dx or None, dWs, dbs)``, dW and db in f32.  K4-bwd for
-    CUDA tensors (bf16, relu-relu-linear, ``compute_dx=False`` only), the
-    plain version for CPU tensors."""
+    None): ``(dx or None, dWs, dbs)``, dx in x.dtype, dW and db in f32.
+    K4-bwd for CUDA tensors (bf16; PathNet's relu-relu-linear chain
+    without d(x) or Multisteps' leaky x 3), the plain version for CPU
+    tensors."""
     if x.device.type == "cpu":
         return _embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx)
-    if compute_dx or tuple(acts) != EMBED_ACTS:
-        raise _sbmc_bwd_not_ported("pathnet_embed_bwd")
-    return _embed_bwd_kernel(x, ge, gmean, ws, bs, acts)
+    return _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx)
 
 
 def pathnet_head_bwd(e, ctx, g, gsum, gsq, ws, bs, acts=HEAD_ACTS, cmajor=False):
     """Gradients of :func:`pathnet_head` for the cotangents of its output
     ``g`` (channel-major with ``cmajor``) and of its moments ``gsum`` and
     ``gsq`` (any may be None): ``(de in e.dtype, dctx f32, dWs, dbs)``.
-    K5-bwd for CUDA tensors (bf16, relu-relu, Cout <= 16), the plain
-    version for CPU tensors."""
+    K5-bwd for CUDA tensors (bf16; PathNet's relu-relu head with Cout <=
+    16 and an f32 ``g``, or Multisteps' leaky-leaky update chain with
+    Cout <= 128 and a bf16 ``g``), the plain version for CPU tensors."""
     if e.device.type == "cpu":
         return _head_bwd_plain(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor)
-    if tuple(acts) != HEAD_ACTS or ws[-1].shape[1] > HEAD_PAD:
-        raise _sbmc_bwd_not_ported("pathnet_head_bwd")
-    _check_head_card(e, acts)
-    return _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, cmajor)
+    return _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor)
 
 
 class _Embed(torch.autograd.Function):
@@ -387,6 +416,9 @@ class _Head(torch.autograd.Function):
     def forward(ctx, e, c, acts, moments, cmajor, out_dtype, n, *params):
         ctx.acts, ctx.moments, ctx.cmajor, ctx.n = acts, moments, cmajor, n
         ctx.save_for_backward(e, c, *params)
+        # an unused output (Multisteps' sum of squares) gets None, not a
+        # zero tensor, and K5-bwd reads nothing for it
+        ctx.set_materialize_grads(False)
         return _head_fwd(e, c, list(params[:n]), list(params[n:]), acts, moments, cmajor,
                          out_dtype)
 

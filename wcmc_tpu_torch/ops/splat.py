@@ -3,9 +3,11 @@
 Counterpart of ``wcmc_tpu/ops/splat.py``: each sample predicts a K x K
 kernel that scatters its radiance into the image, and the result is
 normalized by the total weight splatted to each pixel.  Built on the
-differentiable ``kernel_scatter`` (kernel K7 on the card, ``scatter_plain``
-on the CPU); the kernel is centred, so the full ``h + K - 1`` canvas is
-centre-cropped back to ``h x w``.  The sample-parallel collectives of
+differentiable ``kernel_scatter``: on the card kernel K7 forward and,
+backward, K8 for the weights' gradient and K9 for the values' (only
+when they require grad: the radiance of a train step is data); on the
+CPU their plain versions.  The kernel is centred, so the full
+``h + K - 1`` canvas is centre-cropped back to ``h x w``.  The sample-parallel collectives of
 the reference (``sample_axis_name``) come with the multi-device slice.
 """
 
