@@ -37,7 +37,12 @@ Phases (one JSON line each):
    channels-last cotangent, with the ``gsum`` cotangent and without
    moments); K9, which the SBMC step does not run (its radiance is data),
    is driven through ``torch.autograd.grad`` of ``kernel_gather`` and of
-   ``kernel_scatter`` with values that require grad.
+   ``kernel_scatter`` with values that require grad.  The fused KPCN
+   inference: K6 (the fused 5x5 convolution) at layers 1, 5 and 9 of the
+   chain with paths (8 tiles of 128 px, n_in 39) and layer 1 without paths
+   (8 tiles of 256 px, n_in 34), each with cuDNN's channels-last bf16
+   ``F.conv2d`` + activation as ``library_ms`` and two launches compared
+   bit for bit, and one branch's whole 9-layer chain, K6 against cuDNN.
 4. serve, serve_lbmc, serve_sbmc: a synthetic 512x512, 8-spp scene is
    written, preprocessed on the card and denoised through
    ``wcmc_tpu_torch.test_models.main`` — the full-width KPCN (K 21,
@@ -50,7 +55,12 @@ Phases (one JSON line each):
    and in f32 (max error of each output, and relative L2 beside that of
    the reference moved by one pixel), and the frame is timed again in
    steady state (five runs, then one under ``torch.profiler`` for the
-   device busy time and the host stages).
+   device busy time and the host stages).  Then serve_kpcn_fused (the
+   KPCN flagship with ``WCMC_FUSED_INFERENCE=1``: K6 18 times per batch),
+   serve_kpcn_nopath and serve_kpcn_nopath_fused (KPCN without paths at
+   its default 256-px tiles, 9 tiles in 2 batches, unfused and fused), the
+   same way, the fused legs' CPU references fused too; and
+   fused_vs_default, each fused frame beside its default one of this run.
 5. train, train_lbmc, train_sbmc: the flagship training step of each
    (FMSE with roll pairing, bf16 compute, f32 parameters; Adam with value
    clip 1.0 for KPCN, with global-norm clip 250 for LBMC and 1000 for
@@ -78,6 +88,7 @@ so the f32 reference products are full f32.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -94,6 +105,10 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 K1_TOL = 1e-5          # of max |plain|: same logits, f32 softmax, other order
+# of max |plain|: K6's bf16 products summed in f32 in another order and
+# rounded once; a sum on a rounding boundary can take the neighbouring
+# bf16 value, one step being at most 2^-7 of a value
+CONV_TOL = 8e-3
 K2_BF16_TOL = 1e-2     # of max |plain|: one bf16 rounding of an f32 gradient
 BF16_TOL = 2e-2        # of max |plain|: bf16 hidden layers summed in another order
 # relative L2 of K5-bwd's per-row outputs (d e, d ctx): a recomputed
@@ -773,6 +788,117 @@ def sbmc_train_kernel_phase(torch, ka, pf, dev):
     return rows
 
 
+# the shapes of K6 per branch and batch of 8 tiles on the fused KPCN
+# serving paths: 9 layers of 5x5, n_in -> 100 -> ... -> 100 -> 441, relu
+# between them; with paths (n_in 39) on 128-px tiles, without (n_in 34)
+# on 256-px tiles
+def conv_chain(n_in, tile, depth=9, width=100, logits=441, k=5):
+    """[(input (B, H, W, Cin), Cout, activation)] of one fused chain."""
+    layers, h, cin = [], tile, n_in
+    for i in range(depth):
+        last = i == depth - 1
+        layers.append(((8, h, h, cin), logits if last else width, None if last else "relu"))
+        h, cin = h - k + 1, width
+    return layers
+
+
+def conv_flops_bytes(xshape, cout, k=5):
+    """K6's operations (2 per multiply-add of the VALID convolution) and
+    bytes (bf16 x and y once, the weights in bf16 and the f32 bias once)
+    for an input of ``xshape`` (B, H, W, Cin)."""
+    b, h, w, cin = xshape
+    ho, wo = h - k + 1, w - k + 1
+    return (2 * b * ho * wo * k * k * cin * cout,
+            2 * (b * h * w * cin + b * ho * wo * cout + k * k * cin * cout) + 4 * cout)
+
+
+def conv_kernel_phase(torch, dev):
+    """K6 (the fused convolution) at the fused KPCN serving shapes against
+    its plain version: layer 1, a middle layer and layer 9 of the chain
+    with paths (128-px tiles), and layer 1 without paths (256-px tiles);
+    each row with cuDNN's channels-last bf16 ``F.conv2d`` + the in-place
+    activation (``library_ms``), two launches compared bit for bit, and
+    on the first row the whole 9-layer chain of one branch (K6 against
+    cuDNN).  Returns the kernel table's rows (without launches)."""
+    import torch.nn.functional as F
+
+    from wcmc_tpu_torch.ops import conv5
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    in_place = {"relu": torch.relu_, None: lambda y: y}
+
+    def case(xshape, cout):
+        x = torch.randn(xshape, device=dev, generator=g).to(torch.bfloat16)
+        w = torch.randn((5, 5, xshape[-1], cout), device=dev, generator=g)
+        w = w / (25 * xshape[-1]) ** 0.5
+        bias = 0.1 * torch.randn(cout, device=dev, generator=g)
+        # cuDNN's operands: a channels-last NCHW view of x, OIHW bf16
+        # weights in channels-last memory, the bias in bf16
+        lib = (x.permute(0, 3, 1, 2),
+               w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+                   memory_format=torch.channels_last), bias.to(torch.bfloat16))
+        return x, w, bias, lib
+
+    def library(lib, act):
+        return in_place[act](F.conv2d(*lib))
+
+    rows = []
+    with_paths, no_paths = conv_chain(39, 128), conv_chain(34, 256)
+    for name, (xshape, cout, act) in (("layer 1", with_paths[0]), ("layer 5", with_paths[4]),
+                                      ("layer 9", with_paths[8]),
+                                      ("layer 1, no paths", no_paths[0])):
+        x, w, bias, lib = case(xshape, cout)
+        y = conv5.conv2d(x, w, bias, 5, act)
+        err = max_err(torch, [y], [conv5.conv2d_plain(x, w, bias, 5, act)], CONV_TOL)
+        if not torch.equal(conv5.conv2d(x, w, bias, 5, act), y):
+            raise AssertionError(f"K6 {name}: two launches gave different bits")
+        lib_y = library(lib, act).permute(0, 2, 3, 1)
+        flops, n_bytes = conv_flops_bytes(xshape, cout)
+        rows.append(kernel_row(
+            "conv5", "conv5", "wcmc_tpu/ops/conv5.py:137", err,
+            time_ms(torch, lambda: conv5.conv2d(x, w, bias, 5, act), 20, flush),
+            time_ms(torch, lambda: conv5.conv2d_plain(x, w, bias, 5, act), 3, flush),
+            bound_ms(n_bytes, [(flops, BF16_FLOPS)]),
+            {"layer": name, "x": list(x.shape), "w": list(w.shape), "act": act,
+             "out": list(y.shape)},
+            library_ms=time_ms(torch, lambda: library(lib, act), 20, flush),
+            library_call="F.conv2d(x, w, b) in bf16, channels-last, then the in-place "
+                         "activation (cuDNN)",
+            library_max_abs_err=(lib_y.double() - y.double()).abs().max().item(),
+            bitwise_repeat=True))
+        del x, w, bias, lib, y, lib_y
+
+    # one branch's whole chain per batch of 8 tiles (with paths): K6
+    # layer by layer against cuDNN layer by layer on the same weights
+    cases = [case(xshape, cout) + (act,) for xshape, cout, act in with_paths]
+    x0 = cases[0][0]
+
+    def chain_k6():
+        h = x0
+        for _, w, bias, _, act in cases:
+            h = conv5.conv2d(h, w, bias, 5, act)
+        return h
+
+    def chain_library():
+        h = x0.permute(0, 3, 1, 2)
+        for _, _, _, (_, wl, bl), act in cases:
+            h = in_place[act](F.conv2d(h, wl, bl))
+        return h
+
+    out = chain_k6()
+    flops, n_bytes = (sum(v) for v in zip(*(conv_flops_bytes(xs, co)
+                                            for xs, co, _ in with_paths)))
+    bms, by = bound_ms(n_bytes, [(flops, BF16_FLOPS)])
+    rows[0]["branch_chain"] = {
+        "layers": len(cases), "out": list(out.shape), "flops": flops, "bytes": n_bytes,
+        "ms": time_ms(torch, chain_k6, 10, flush),
+        "library_ms": time_ms(torch, chain_library, 10, flush),
+        "bound_ms": bms, "bound_by": by}
+    torch.cuda.synchronize()
+    return rows
+
+
 def profile_frame(torch, evaluate, iface, ds):
     """One more steady-state frame under torch.profiler: device busy
     time and idle share, the host stages named in
@@ -863,17 +989,57 @@ SERVE = {
              "tols": SBMC_SERVE_TOLS,
              "l2_tols": SERVE_L2_TOLS["sbmc"]},
 }
+# The opt-in fused KPCN inference (WCMC_FUSED_INFERENCE=1: each chain's 9
+# convolutions through K6, 18 launches per batch) beside the default: the
+# flagship with paths, held to KPCN's limits, and KPCN without paths at
+# its default 256-px tiles (n_in 34; 9 tiles of the 512^2 frame, 2
+# batches), unfused and fused.  The fused legs' CPU references are fused
+# the same way.  Without paths, measured on an H100 (NVIDIA H100 80GB
+# HBM3, 700 W), unfused and fused: bf16 1.1e-3 and 1.7e-3, f32 3.4e-3 and
+# 3.3e-3 of max |ref| (ref 3.3), relative L2 bf16 3.6e-5 and 4.1e-5, f32
+# 5.8e-5 and 5.9e-5 (the one-pixel shift gives 0.13); held to about 3x.
+FUSED = {"WCMC_FUSED_INFERENCE": "1"}
+NOPATH = {"model_name": "KPCN_nopath_smoke", "family": "kpcn", "llpm": False, "tile": 256,
+          "preprocess": {"test_spps": (8,)}, "launches": {"gather_softmax": 2},
+          "cpu_config": {"base_model": "kpcn", "kpcn_ksize": 21, "use_llpm_buf": False},
+          "tols": {"bfloat16": 5e-3, "float32": 1e-2},
+          "l2_tols": {"bfloat16": 1.5e-4, "float32": 2e-4}}
+SERVE["kpcn_fused"] = dict(SERVE["kpcn"], family="kpcn", env=FUSED,
+                           launches=dict(SERVE["kpcn"]["launches"], conv5=18))
+SERVE["kpcn_nopath"] = NOPATH
+SERVE["kpcn_nopath_fused"] = dict(NOPATH, env=FUSED,
+                                  launches=dict(NOPATH["launches"], conv5=18))
+
+
+@contextlib.contextmanager
+def environment(values):
+    """Set the environment variables ``values`` for the block, and restore
+    each one's earlier state after it, whatever happens inside."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def p_buffer_list(p):
-    """KPCN's two p-buffers (diffuse, specular) or the sample-space one."""
+    """KPCN's two p-buffers (diffuse, specular), the sample-space one, or
+    none (KPCN without paths)."""
+    if p is None:
+        return []
     return [p["diffuse"], p["specular"]] if isinstance(p, dict) else [p]
 
 
-def serve_phase(torch, dev, work, family, size=512):
-    """The serving path of ``family`` through the port's entry point, on a
-    synthetic ``size`` x ``size`` 8-spp frame; returns the phase record and
-    the launch counts of the served frame."""
+def serve_phase(torch, dev, work, name, size=512):
+    """The serving path ``name`` (a key of ``SERVE``) through the port's
+    entry point, on a synthetic ``size`` x ``size`` 8-spp frame (written and
+    preprocessed once per model family); returns the phase record and the
+    launch counts of the served frame."""
     from wcmc_tpu_torch import convert, evaluate, test_models
     from wcmc_tpu_torch.data.dataset import offline_preprocess
     from wcmc_tpu_torch.data.full_image import FullImageDataset
@@ -881,89 +1047,100 @@ def serve_phase(torch, dev, work, family, size=512):
     from wcmc_tpu_torch.ops import _build
     from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
 
-    spec = SERVE[family]
+    spec = SERVE[name]
+    family = spec.get("family", name)
+    llpm = spec.get("llpm", True)
     root = os.path.join(work, family)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    build_synthetic_dataset(root, n_train=0, n_val=0, n_test=1, size=size, spp=8,
-                            test_extra_parts=0, seed=SEED)
-    t_data = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    offline_preprocess(root, mode="test", spp=8, device=dev, **spec["preprocess"])
-    torch.cuda.synchronize()
-    t_pre = time.perf_counter() - t0
+    t_data = t_pre = 0.0
+    if not os.path.isdir(root):
+        t0 = time.perf_counter()
+        build_synthetic_dataset(root, n_train=0, n_val=0, n_test=1, size=size, spp=8,
+                                test_extra_parts=0, seed=SEED)
+        t_data = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        offline_preprocess(root, mode="test", spp=8, device=dev, **spec["preprocess"])
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
     fn = os.path.join(root, "test", "input", "scene0.npy")
-    ds = FullImageDataset(fn, 8, family, use_llpm_buf=True)
+    # the tiling denoise picks: 128-px tiles, 256 for KPCN without paths
+    ds = FullImageDataset(fn, 8, family, use_llpm_buf=llpm, tile_h=spec.get("tile"),
+                          tile_w=spec.get("tile"))
     n_batches = -(-len(ds) // 8)
 
     args = test_models.parse_args([
         "--model_name", spec["model_name"], "--save", os.path.join(work, "weights"),
-        "--data_dir", root, "--spps", "8", "--use_llpm_buf", *spec.get("args", ()),
-        "--output_dir", os.path.join(root, "eval"), "--device", str(dev),
-        "--seed", str(SEED)])
-    _build.reset_counts()
-    results, iface = test_models.main(args)
-    torch.cuda.synchronize()
-    launches, plain = dict(_build.launches), dict(_build.plain_calls)
-    want = {k: n_batches * v for k, v in spec["launches"].items()}
-    if launches != want:
-        raise AssertionError(f"the {family} serving path launched {launches}, not {want}")
-    if plain:
-        raise AssertionError(f"plain versions ran on the {family} serving path: {plain}")
-    res = results[("scene0", 8)]["output"]
-    bad = [k for k, v in res.items() if v != v or abs(v) == float("inf")]
-    if bad:
-        raise AssertionError(f"non-finite metrics: {bad}")
-    if not os.path.isfile(os.path.join(root, "eval", "results_8.csv")):
-        raise AssertionError("denoise wrote no CSV")
+        "--data_dir", root, "--spps", "8", *(["--use_llpm_buf"] if llpm else []),
+        *spec.get("args", ()), "--output_dir", os.path.join(root, "eval_" + name),
+        "--device", str(dev), "--seed", str(SEED)])
+    with environment(spec.get("env", {})):
+        _build.reset_counts()
+        results, iface = test_models.main(args)
+        torch.cuda.synchronize()
+        launches, plain = dict(_build.launches), dict(_build.plain_calls)
+        want = {k: n_batches * v for k, v in spec["launches"].items()}
+        if launches != want:
+            raise AssertionError(f"the {name} serving path launched {launches}, not {want}")
+        if plain:
+            raise AssertionError(f"plain versions ran on the {name} serving path: {plain}")
+        res = results[("scene0", 8)]["output"]
+        bad = [k for k, v in res.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"non-finite metrics: {bad}")
+        if not os.path.isfile(os.path.join(root, "eval_" + name, "results_8.csv")):
+            raise AssertionError("denoise wrote no CSV")
 
-    # steady state: the same frame again, five times
-    secs = []
-    for _ in range(5):
-        out_rad, out_path, dt = evaluate.inference(iface, ds, batch_size=8)
-        secs.append(dt)
-    if out_rad.shape != (size, size, 3) or not bool(torch.isfinite(
-            torch.from_numpy(out_rad)).all()):
-        raise AssertionError(f"bad frame {out_rad.shape}")
-    for v in p_buffer_list(out_path):
-        if v.shape != (8, size, size, 3):
-            raise AssertionError(f"bad p-buffer {v.shape}")
+        # steady state: the same frame again, five times
+        secs = []
+        for _ in range(5):
+            out_rad, out_path, dt = evaluate.inference(iface, ds, batch_size=8)
+            secs.append(dt)
+        if out_rad.shape != (size, size, 3) or not bool(torch.isfinite(
+                torch.from_numpy(out_rad)).all()):
+            raise AssertionError(f"bad frame {out_rad.shape}")
+        if (out_path is None) == llpm:
+            raise AssertionError(f"p-buffers {type(out_path)} with use_llpm_buf={llpm}")
+        for v in p_buffer_list(out_path):
+            if v.shape != (8, size, size, 3):
+                raise AssertionError(f"bad p-buffer {v.shape}")
 
-    profiled = profile_frame(torch, evaluate, iface, ds)
+        profiled = profile_frame(torch, evaluate, iface, ds)
 
-    # one tile against the same weights on the CPU (plain versions), in
-    # bf16 and in f32; errors and max |ref| of the radiance and p-buffers
-    tile = {k: v[None] for k, v in ds[0][0].items()}
-    card_rad, card_p = iface.validate_batch(tile)
-    card = [card_rad.cpu()] + [t.cpu() for t in p_buffer_list(card_p)]
-    tile_check = {}
-    for dtype, tol in spec["tols"].items():
-        ref_if = init_interfaces(TrainConfig(compute_dtype=dtype, **spec["cpu_config"]),
-                                 device="cpu")[0]
-        for name, m in iface.models.items():
-            convert.load_flax_params(ref_if.models[name], convert.to_flax(m))
-        t0 = time.perf_counter()
-        ref_rad, ref_p = ref_if.validate_batch(tile)
-        refs, pairs = [ref_rad] + p_buffer_list(ref_p), []
-        err = max_err(torch, card, refs, tol, pairs)
-        # the whole tile by relative L2, beside the same measure of the
-        # reference radiance moved by one pixel (what an off-by-one crop
-        # would give): a limit under that shift's error catches it
-        l2 = [rel_l2(torch, c, r) for c, r in zip(card, refs)]
-        shift_l2 = rel_l2(torch, torch.roll(refs[0], 1, dims=-2), refs[0])
-        l2_tol = spec["l2_tols"][dtype]
-        tile_check[dtype] = {"max_abs_err": err, "radiance_and_p_buffers": pairs,
-                             "tol": tol, "rel_l2": l2, "l2_tol": l2_tol,
-                             "shift1_rel_l2": shift_l2, "cpu_s": time.perf_counter() - t0}
+        # one tile against the same weights on the CPU (plain versions), in
+        # bf16 and in f32; errors and max |ref| of the radiance and p-buffers
+        tile = {k: v[None] for k, v in ds[0][0].items()}
+        card_rad, card_p = iface.validate_batch(tile)
+        card = [card_rad.cpu()] + [t.cpu() for t in p_buffer_list(card_p)]
+        tile_check = {}
+        for dtype, tol in spec["tols"].items():
+            ref_if = init_interfaces(TrainConfig(compute_dtype=dtype, **spec["cpu_config"]),
+                                     device="cpu")[0]
+            for model, m in iface.models.items():
+                convert.load_flax_params(ref_if.models[model], convert.to_flax(m))
+            t0 = time.perf_counter()
+            ref_rad, ref_p = ref_if.validate_batch(tile)
+            refs, pairs = [ref_rad] + p_buffer_list(ref_p), []
+            err = max_err(torch, card, refs, tol, pairs)
+            # the whole tile by relative L2, beside the same measure of the
+            # reference radiance moved by one pixel (what an off-by-one crop
+            # would give): a limit under that shift's error catches it
+            l2 = [rel_l2(torch, c, r) for c, r in zip(card, refs)]
+            shift_l2 = rel_l2(torch, torch.roll(refs[0], 1, dims=-2), refs[0])
+            l2_tol = spec["l2_tols"][dtype]
+            tile_check[dtype] = {"max_abs_err": err, "radiance_and_p_buffers": pairs,
+                                 "tol": tol, "rel_l2": l2, "l2_tol": l2_tol,
+                                 "shift1_rel_l2": shift_l2,
+                                 "cpu_s": time.perf_counter() - t0}
     bad = {d: v for d, v in tile_check.items()
            if max(v["rel_l2"]) > v["l2_tol"] or v["l2_tol"] >= v["shift1_rel_l2"]}
     if bad:
-        raise AssertionError(f"{family} tile off the CPU path by relative L2: {bad}")
+        raise AssertionError(f"{name} tile off the CPU path by relative L2: {bad}")
 
     frame_ms = 1e3 * statistics.median(secs)
     record = {
-        "phase": "serve" if family == "kpcn" else f"serve_{family}",
-        "model": str(iface.models["dncnn"]), "frame": [size, size], "spp": 8,
+        "phase": "serve" if name == "kpcn" else f"serve_{name}",
+        "model": str(iface.models["dncnn"]), "env": spec.get("env", {}),
+        "frame": [size, size], "spp": 8, "tile": spec.get("tile") or 128,
         "tiles": len(ds), "batches": n_batches, "data_s": t_data, "preprocess_s": t_pre,
         "first_frame_ms": 1e3 * res["inference_sec"], "frame_ms": frame_ms,
         "frame_ms_runs": [1e3 * t for t in secs],
@@ -974,6 +1151,26 @@ def serve_phase(torch, dev, work, family, size=512):
         "profile": profiled,
     }
     return record, launches
+
+
+def fused_vs_default(records):
+    """The fused legs beside the default ones of the same run: frame ms,
+    device busy ms and the device ms of the chains' convolutions (cuDNN
+    and the rest of the library calls unfused, K6 fused)."""
+    out = {}
+    for default, fused in (("kpcn", "kpcn_fused"), ("kpcn_nopath", "kpcn_nopath_fused")):
+        legs = {}
+        for leg, name in (("default", default), ("fused", fused)):
+            r = records[name]
+            kinds = r["profile"]["device_ms_by_kind"]
+            legs[leg] = {"frame_ms": r["frame_ms"],
+                         "device_busy_ms": r["profile"]["device_busy_ms"],
+                         "cudnn_cublas_ms": kinds.get("cudnn_cublas", 0.0),
+                         "conv5_ms": kinds.get("conv5", 0.0)}
+        legs["fused_over_default"] = {k: legs["fused"][k] / legs["default"][k]
+                                      for k in ("frame_ms", "device_busy_ms")}
+        out[default] = legs
+    return out
 
 
 def train_config(family, **kw):
@@ -1178,7 +1375,8 @@ def train_phase(torch, dev, family, b=8, patch=128, spp=8):
     return record, launches
 
 
-FORWARD_KERNELS = ("gather_softmax", "pathnet_embed", "pathnet_head", "mlp_fused", "scatter")
+FORWARD_KERNELS = ("gather_softmax", "pathnet_embed", "pathnet_head", "mlp_fused", "scatter",
+                   "conv5")
 
 
 def attach_launches(rows, path, serve, train, autograd=None):
@@ -1232,15 +1430,17 @@ def main() -> int:
     lbmc_rows = lbmc_kernel_phase(torch, ka, pf, mf, dev)
     sbmc_rows = sbmc_kernel_phase(torch, ka, pf, dev)
     sbmc_rows += sbmc_train_kernel_phase(torch, ka, pf, dev)
-    emit({"phase": "kernels", "rows": kpcn_rows + bwd_rows + lbmc_rows + sbmc_rows})
+    conv_rows = conv_kernel_phase(torch, dev)
+    emit({"phase": "kernels", "rows": kpcn_rows + bwd_rows + lbmc_rows + sbmc_rows + conv_rows})
 
+    records, served = {}, {}
     with tempfile.TemporaryDirectory() as work:
-        record, kpcn_serve = serve_phase(torch, dev, work, "kpcn")
-        emit(record)
-        record, lbmc_serve = serve_phase(torch, dev, work, "lbmc")
-        emit(record)
-        record, sbmc_serve = serve_phase(torch, dev, work, "sbmc")
-        emit(record)
+        for name in ("kpcn", "lbmc", "sbmc", "kpcn_fused", "kpcn_nopath",
+                     "kpcn_nopath_fused"):
+            records[name], served[name] = serve_phase(torch, dev, work, name)
+            emit(records[name])
+    emit({"phase": "fused_vs_default", **fused_vs_default(records)})
+    kpcn_serve, lbmc_serve, sbmc_serve = served["kpcn"], served["lbmc"], served["sbmc"]
     record, kpcn_train = train_phase(torch, dev, "kpcn")
     emit(record)
     record, lbmc_train = train_phase(torch, dev, "lbmc")
@@ -1255,6 +1455,8 @@ def main() -> int:
     autograd = {"gather": next(r.pop("autograd_launches") for r in sbmc_rows
                                if r["name"] == "gather")}
     rows += attach_launches(sbmc_rows, "sbmc", sbmc_serve, sbmc_train, autograd)
+    rows += attach_launches(conv_rows[:3], "kpcn_fused", served["kpcn_fused"], {})
+    rows += attach_launches(conv_rows[3:], "kpcn_nopath_fused", served["kpcn_nopath_fused"], {})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,7 +1,7 @@
 """The port stands alone: no module of wcmc_tpu_torch, and not
 chip_smoke.py, imports JAX, flax, optax or wcmc_tpu, while serving a
-batch and taking a train step of KPCN, of LBMC and of SBMC; and its entry
-points refuse to fall back to the CPU silently."""
+batch (unfused and fused) and taking a train step of KPCN, of LBMC and of
+SBMC; and its entry points refuse to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -54,6 +54,18 @@ _CHILD = textwrap.dedent("""
     assert rad.shape == (1, 8, 8, 3) and bool(torch.isfinite(rad).all())
     assert pb["diffuse"].shape == (1, 2, p, p, 3)
 
+    # the same batch served fused: its 18 convolutions through K6's route
+    import os
+    from wcmc_tpu_torch.ops import _build
+    os.environ["WCMC_FUSED_INFERENCE"] = "1"
+    try:
+        _build.reset_counts()
+        frad, _ = iface.validate_batch(batch)
+        assert dict(_build.plain_calls)["conv5"] == 18, _build.plain_calls
+    finally:
+        del os.environ["WCMC_FUSED_INFERENCE"]
+    assert float((frad - rad).abs().max()) <= 1e-4 * float(rad.abs().max())
+
     from wcmc_tpu_torch.data.batches import synthetic_batch
     cfg = TrainConfig(kpcn_ksize=5, use_llpm_buf=True, manif_learn=True,
                       manif_loss="FMSE", compute_dtype="float32", finite_check_every=1)
@@ -95,7 +107,6 @@ _CHILD = textwrap.dedent("""
 
     # the bf16 SBMC step, as the card runs it: its plain versions are
     # called exactly where the card launches chip_smoke's kernel counts
-    from wcmc_tpu_torch.ops import _build
     cfg = TrainConfig(base_model="sbmc", sbmc_ksize=5, use_llpm_buf=True, manif_learn=True,
                       manif_loss="FMSE", finite_check_every=1)
     sbmc = init_interfaces(cfg, device="cpu")[0]
@@ -118,7 +129,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 22
+    assert n_modules >= 23
 
 
 def test_entry_points_need_a_card_or_an_explicit_device(tmp_path, monkeypatch):

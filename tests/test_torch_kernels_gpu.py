@@ -811,3 +811,111 @@ def test_sbmc_train_batch_repeats_bit_for_bit(cuda):
         grads.append([p.grad.clone() for m in iface.models.values() for p in m.parameters()])
     for other in grads[1:]:
         assert all(torch.equal(a, b) for a, b in zip(grads[0], other))
+
+
+# ---------------------------------------------------------------------------
+# The fused convolution K6 (the opt-in fused KPCN inference)
+# ---------------------------------------------------------------------------
+
+# of max |plain|: the same bf16 products summed in f32 in another order,
+# rounded once; a sum on a rounding boundary can go to the neighbouring
+# bf16 value, one step being at most 2^-7 of a value (so of max |plain|)
+CONV_TOL = 8e-3
+
+
+def _conv_case(cuda, b, h, w, cin, cout, k, seed):
+    g = _gen(seed)
+    x = torch.randn((b, h, w, cin), device=cuda, generator=g).to(torch.bfloat16)
+    wgt = torch.randn((k, k, cin, cout), device=cuda, generator=g) / (k * k * cin) ** 0.5
+    bias = 0.1 * torch.randn(cout, device=cuda, generator=g)
+    return x, wgt, bias
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,act", [
+    (8, 128, 128, 39, 100, 5, "relu"),      # KPCN layer 1 with paths (n_in 39)
+    (8, 96, 96, 100, 441, 5, None),         # KPCN layer 9: the 441 kernel logits
+    (2, 260, 300, 34, 100, 5, "relu"),      # layer 1 without paths, a wide frame
+    (3, 21, 37, 100, 100, 5, "leaky_relu"), # partial tiles in rows and columns
+    (2, 19, 23, 7, 9, 3, "linear"),         # 3x3, narrow odd channel counts
+    (1, 40, 40, 200, 130, 5, "relu"),       # two input chunks, two output slices
+    (1, 30, 34, 151, 60, 5, "relu"),        # two input chunks of an odd Cin
+])
+def test_conv5(cuda, b, h, w, cin, cout, k, act):
+    from wcmc_tpu_torch.ops import conv5
+
+    x, wgt, bias = _conv_case(cuda, b, h, w, cin, cout, k, 7)
+    _build.reset_counts()
+    got = conv5.conv2d(x, wgt, bias, k, act)
+    assert dict(_build.launches) == {"conv5": 1} and not _build.plain_calls
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert tuple(got.shape) == (b, h - k + 1, w - k + 1, cout)
+    _close(got, conv5.conv2d_plain(x, wgt, bias, k, act), CONV_TOL)
+    # no split reduction, no atomics: a second launch gives the same bits
+    torch.testing.assert_close(conv5.conv2d(x, wgt, bias, k, act), got, rtol=0, atol=0)
+
+
+def test_conv5_refuses_what_it_does_not_compute(cuda):
+    from wcmc_tpu_torch.ops import conv5
+
+    x, wgt, bias = _conv_case(cuda, 1, 12, 12, 8, 16, 5, 8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        conv5.conv2d(x.float(), wgt, bias, 5, "relu")
+    with pytest.raises(ValueError, match="activations"):
+        conv5.conv2d(x, wgt, bias, 5, "elu")
+    with pytest.raises(ValueError, match="weight"):
+        conv5.conv2d(x[..., :4], wgt, bias, 5, None)
+    with pytest.raises(ValueError, match="smaller"):
+        conv5.conv2d(x[:, :3], wgt, bias, 5, None)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        conv5.conv2d(x, wgt.cpu(), bias, 5, None)
+
+
+def test_conv5_backward_uses_library_convolutions(cuda):
+    """The VJP on the card (library d(x) and d(w), as the reference keeps
+    its backward in XLA) against the same VJP of the plain version on the
+    CPU, in bf16."""
+    from wcmc_tpu_torch.ops import conv5
+
+    x, wgt, bias = _conv_case(cuda, 2, 24, 20, 39, 100, 5, 9)
+    cot = torch.randn((2, 20, 16, 100), device=cuda, generator=_gen(10))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs, ws, bs = (t.to(dev).detach().requires_grad_() for t in (x, wgt, bias))
+        torch.autograd.backward(conv5.conv2d(xs, ws, bs, 5, "relu"), cot.to(dev))
+        grads.append([xs.grad, ws.grad, bs.grad])
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        _close(got.cpu(), want, 2e-2)
+
+
+def test_fused_kpcn_tile_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The README flagship (KPCN k21 d9 w100 + dual PathNet) served fused
+    (``WCMC_FUSED_INFERENCE=1``) on the card, on 2 tiles of 128 px at 8
+    spp: 18 launches of K6, 2 of K1 and one each of K4-fwd and K5-fwd, no
+    plain call; against the same fresh weights served fused on the CPU in
+    bf16, within 1e-2 of max |ref|, as ``chip_smoke.py`` holds a served
+    tile (SERVE_BF16_TOL)."""
+    import numpy as np
+
+    from wcmc_tpu_torch import convert
+    from wcmc_tpu_torch.data.batches import synthetic_batch
+    from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
+
+    monkeypatch.setenv("WCMC_FUSED_INFERENCE", "1")
+    cfg = TrainConfig(kpcn_ksize=21, use_llpm_buf=True)
+    card = init_interfaces(cfg, device=cuda)[0]
+    cpu = init_interfaces(cfg, device="cpu")[0]
+    for name, m in card.models.items():
+        convert.load_flax_params(cpu.models[name], convert.to_flax(m))
+    batch = synthetic_batch(np.random.default_rng(1), "kpcn", 2, 128, 8, True)
+    card.to_eval_mode()
+    cpu.to_eval_mode()
+    _build.reset_counts()
+    rad, p = card.validate_batch(batch)
+    assert dict(_build.launches) == {"conv5": 18, "gather_softmax": 2, "pathnet_embed": 1,
+                                     "pathnet_head": 1}
+    assert not _build.plain_calls
+    ref_rad, ref_p = cpu.validate_batch(batch)
+    _close(rad.cpu(), ref_rad, 1e-2)
+    for k in ref_p:
+        _close(p[k].cpu(), ref_p[k], 1e-2)

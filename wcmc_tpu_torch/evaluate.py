@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -157,6 +158,22 @@ def evaluate_frame(out_rad, tgt, ipt, has_hit):
     return results, results_input
 
 
+def _clamp_pathological_tile(tile_h, tile_w):
+    """Square tiles above 384 px on both sides become 256 x 256, with a
+    warning, as the reference clamps them (its ``_clamp_pathological_tile``;
+    for the models with paths the tile size changes the output, since the
+    PathNet context is global to the tile).  Full-width bands
+    (``tile_w >> tile_h``) and ``None`` pass through.
+    ``WCMC_ALLOW_LARGE_TILES=1`` overrides the clamp."""
+    if (tile_h or 0) > 384 and (tile_w or 0) > 384 and \
+            not os.environ.get("WCMC_ALLOW_LARGE_TILES"):
+        warnings.warn(
+            f"tile {tile_h}x{tile_w} clamped to 256x256, as wcmc_tpu clamps large square "
+            "tiles; set WCMC_ALLOW_LARGE_TILES=1 to override", stacklevel=3)
+        return 256, 256
+    return tile_h, tile_w
+
+
 def denoise(
     interface,
     input_dir: str,
@@ -187,6 +204,7 @@ def denoise(
     if tile_h is None and tile_w is None and base_model == "kpcn" \
             and not use_llpm_buf:
         tile_h = tile_w = 256
+    tile_h, tile_w = _clamp_pathological_tile(tile_h, tile_w)
     if batch_size_fn is None:
         if (tile_h or PATCH_SIZE) * (tile_w or PATCH_SIZE) > 256 * 256:
             batch_size_fn = lambda spp: 1  # noqa: E731 — band tiles

@@ -8,7 +8,8 @@ compute ``dtype`` every convolution casts its input, weight and bias to
 it explicitly and returns that dtype, as flax's ``nn.Conv(dtype=...)``
 does.  Sub-modules are named like the flax param tree (``Conv_0``, ...)
 so ``convert.py`` maps checkpoints one to one; fresh parameters use
-flax's init (``lecun_normal`` weights, zero biases).
+flax's init (``lecun_normal`` weights, zero biases).  ``ConvChain``'s
+fused route (the reference's ``fused=True``) takes and returns NHWC.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wcmc_tpu_torch.ops.conv5 import conv2d
 from wcmc_tpu_torch.ops.mlp_fused import fused_mlp
 
 # stddev of a unit normal truncated to [-2, 2] (flax's lecun_normal)
@@ -33,8 +35,8 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator=None):
     return t
 
 
-def make_conv(cin: int, cout: int, ksize: int, generator=None) -> nn.Conv2d:
-    conv = nn.Conv2d(cin, cout, ksize, device="meta").to_empty(device="cpu")
+def make_conv(cin: int, cout: int, ksize: int, generator=None, cls=nn.Conv2d) -> nn.Conv2d:
+    conv = cls(cin, cout, ksize, device="meta").to_empty(device="cpu")
     lecun_normal_(conv.weight, cin * ksize * ksize, generator)
     nn.init.zeros_(conv.bias)
     return conv
@@ -47,11 +49,29 @@ def conv_apply(conv: nn.Conv2d, x, dtype=None, padding=0):
     return F.conv2d(x, w, b, padding=padding)
 
 
+class FusedConv(nn.Conv2d):
+    """An ``nn.Conv2d`` (weight (Cout, Cin, K, K) and bias, made by
+    ``make_conv``: the same ``state_dict`` keys, layout and init) that
+    can also run channels-last through the fused convolution K6
+    (``ops/conv5.py``), its bias and activation fused into the store:
+    :meth:`fused`.  Counterpart of the reference's ``FusedConv``."""
+
+    def fused(self, x, act=None, dtype=None):
+        """``x (B, H, W, Cin)`` -> ``(B, H - K + 1, W - K + 1, Cout)`` in
+        ``dtype`` (or ``x``'s), rounded once after the bias and
+        activation."""
+        if dtype is not None:
+            x = x.to(dtype)
+        return conv2d(x, self.weight.permute(2, 3, 1, 0), self.bias, self.kernel_size[0], act)
+
+
 class ConvChain(nn.Module):
     """``depth`` stacked VALID convolutions (shrink ``ksize - 1`` pixels
-    each), ReLU between them, linear output.  (The reference's
-    ``fused=True`` variant, the opt-in implicit-GEMM kernel K6, is not
-    ported yet.)"""
+    each), ReLU between them, linear output.  Two routes over the same
+    parameters, chosen per call: by default NCHW in and out through
+    library convolutions; with ``fused`` (the reference's
+    ``ConvChain(fused=True)``) NHWC in and out, every layer through
+    ``FusedConv.fused``."""
 
     def __init__(self, in_channels: int, out_channels: int, width: int = 64,
                  depth: int = 3, ksize: int = 3, dtype=None, generator=None):
@@ -60,10 +80,15 @@ class ConvChain(nn.Module):
         cin = in_channels
         for i in range(depth):
             cout = out_channels if i == depth - 1 else width
-            self.add_module(f"Conv_{i}", make_conv(cin, cout, ksize, generator))
+            self.add_module(f"Conv_{i}", make_conv(cin, cout, ksize, generator, FusedConv))
             cin = cout
 
-    def forward(self, x):
+    def forward(self, x, fused: bool = False):
+        if fused:
+            for i in range(self.depth):
+                act = "relu" if i < self.depth - 1 else None
+                x = getattr(self, f"Conv_{i}").fused(x, act, self.dtype)
+            return x
         for i in range(self.depth):
             x = conv_apply(getattr(self, f"Conv_{i}"), x, self.dtype)
             if i < self.depth - 1:

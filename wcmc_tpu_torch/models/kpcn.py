@@ -12,7 +12,10 @@ Counterpart of ``wcmc_tpu/models/kpcn.py``:
 The convolutions run in channels-last memory, so the kernel logits come
 out with their K*K taps innermost and go to the gather kernel (K1) as a
 strided crop, without a copy.  The two branches call the gather once
-each.
+each.  With ``fused`` (the reference's ``KPCN.fused``, set for primal-only
+steps by the interface's ``_val_model``) the chains take the NHWC inputs
+as they are and run through the fused convolution K6; the parameters are
+the same either way, so one checkpoint serves both.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ class KPCN(nn.Module):
         super().__init__()
         self.n_in, self.ksize, self.depth, self.width, self.dtype = (
             n_in, ksize, depth, width, dtype)
+        self.fused = False
         for name in ("diffuse", "specular"):
             self.add_module(name, ConvChain(
                 n_in, ksize**2, width=width, depth=depth, ksize=5, dtype=dtype,
@@ -38,8 +42,11 @@ class KPCN(nn.Module):
             ))
 
     def _branch(self, chain, x, buf):
-        logits = chain(x.permute(0, 3, 1, 2))
-        logits = logits.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        if self.fused:
+            logits = chain(x, fused=True)   # NHWC in and out, taps innermost
+        else:
+            logits = chain(x.permute(0, 3, 1, 2))
+            logits = logits.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         # keep only kernel positions whose full K x K window lies inside
         # the conv-output grid; the buffer is center-cropped to match
         r = self.ksize // 2

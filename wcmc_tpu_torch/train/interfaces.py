@@ -26,6 +26,8 @@ sample-space models keep theirs channels-last.
 
 from __future__ import annotations
 
+import copy
+import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -183,6 +185,23 @@ class BaseInterface:
         """Numpy arrays or tensors -> tensors on this interface's device."""
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
+    def _val_model(self, name: str = "dncnn"):
+        """The model ``name`` as a primal-only (validation / inference)
+        step runs it.  A model with a ``fused`` switch (KPCN) runs fused,
+        its convolution chains through K6 (``ops/conv5.py``), when
+        ``WCMC_FUSED_INFERENCE=1`` is set: a shallow copy with the switch
+        on, sharing the parameters and sub-modules (no copy of the
+        weights).  Every other model, and every model without the
+        variable, is returned as it is.  The reference reads the variable
+        once, when it compiles its validation step; the port has no
+        compiled step, so the variable is read at every call.  Default
+        off; training never comes here."""
+        m = self.models[name]
+        if hasattr(m, "fused") and os.environ.get("WCMC_FUSED_INFERENCE", "0") == "1":
+            m = copy.copy(m)
+            m.fused = True
+        return m
+
     def validate_batch(self, batch):
         """(radiance, p-buffers or None) of ``_val_step``; accumulates
         ``l_test`` into ``m_losses['m_val']`` on the device."""
@@ -324,7 +343,7 @@ class KPCNInterface(BaseInterface):
         net_batch = batch
         if self.use_llpm_buf:
             net_batch, p_buffers = self._forward_with_paths(batch, for_training=False)
-        out = self.models["dncnn"](net_batch)
+        out = self._val_model("dncnn")(net_batch)
         tgt_total = crop_like(batch["target_total"], out["radiance"])
         return out["radiance"], p_buffers, self.loss_funcs["l_test"](out["radiance"], tgt_total)
 
