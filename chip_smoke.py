@@ -815,7 +815,10 @@ def conv_flops_bytes(xshape, cout, k=5):
 def conv_kernel_phase(torch, dev):
     """K6 (the fused convolution) at the fused KPCN serving shapes against
     its plain version: layer 1, a middle layer and layer 9 of the chain
-    with paths (128-px tiles), and layer 1 without paths (256-px tiles);
+    with paths (128-px tiles), and layer 1 without paths (256-px tiles),
+    each in the layouts of the fused chain (a hidden layer written at the
+    padded pixel pitch of ``conv5.conv2d_padded`` and read so by the
+    next; layer 1's input padded to 40 channels inside the timed call);
     each row with cuDNN's channels-last bf16 ``F.conv2d`` + the in-place
     activation (``library_ms``), two launches compared bit for bit, and
     on the first row the whole 9-layer chain of one branch (K6 against
@@ -843,25 +846,34 @@ def conv_kernel_phase(torch, dev):
     def library(lib, act):
         return in_place[act](F.conv2d(*lib))
 
+    def layer(act):
+        # the chain's route: hidden layers padded, the logits contiguous
+        return conv5.conv2d_padded if act else conv5.conv2d
+
     rows = []
     with_paths, no_paths = conv_chain(39, 128), conv_chain(34, 256)
     for name, (xshape, cout, act) in (("layer 1", with_paths[0]), ("layer 5", with_paths[4]),
                                       ("layer 9", with_paths[8]),
                                       ("layer 1, no paths", no_paths[0])):
         x, w, bias, lib = case(xshape, cout)
-        y = conv5.conv2d(x, w, bias, 5, act)
+        if not name.startswith("layer 1"):
+            # a hidden layer's input: the chain hands it over at the padded pitch
+            x = conv5._pitched(x, conv5.padded_pitch(xshape[-1]), fill=0)
+        conv = layer(act)
+        y = conv(x, w, bias, 5, act)
         err = max_err(torch, [y], [conv5.conv2d_plain(x, w, bias, 5, act)], CONV_TOL)
-        if not torch.equal(conv5.conv2d(x, w, bias, 5, act), y):
+        if not torch.equal(conv(x, w, bias, 5, act), y):
             raise AssertionError(f"K6 {name}: two launches gave different bits")
         lib_y = library(lib, act).permute(0, 2, 3, 1)
         flops, n_bytes = conv_flops_bytes(xshape, cout)
         rows.append(kernel_row(
             "conv5", "conv5", "wcmc_tpu/ops/conv5.py:137", err,
-            time_ms(torch, lambda: conv5.conv2d(x, w, bias, 5, act), 20, flush),
+            time_ms(torch, lambda: conv(x, w, bias, 5, act), 20, flush),
             time_ms(torch, lambda: conv5.conv2d_plain(x, w, bias, 5, act), 3, flush),
             bound_ms(n_bytes, [(flops, BF16_FLOPS)]),
-            {"layer": name, "x": list(x.shape), "w": list(w.shape), "act": act,
-             "out": list(y.shape)},
+            {"layer": name, "x": list(x.shape), "x_stride": list(x.stride()),
+             "w": list(w.shape), "act": act, "out": list(y.shape),
+             "out_stride": list(y.stride())},
             library_ms=time_ms(torch, lambda: library(lib, act), 20, flush),
             library_call="F.conv2d(x, w, b) in bf16, channels-last, then the in-place "
                          "activation (cuDNN)",
@@ -877,7 +889,7 @@ def conv_kernel_phase(torch, dev):
     def chain_k6():
         h = x0
         for _, w, bias, _, act in cases:
-            h = conv5.conv2d(h, w, bias, 5, act)
+            h = layer(act)(h, w, bias, 5, act)
         return h
 
     def chain_library():

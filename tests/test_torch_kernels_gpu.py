@@ -839,6 +839,14 @@ def _conv_case(cuda, b, h, w, cin, cout, k, seed):
     (2, 19, 23, 7, 9, 3, "linear"),         # 3x3, narrow odd channel counts
     (1, 40, 40, 200, 130, 5, "relu"),       # two input chunks, two output slices
     (1, 30, 34, 151, 60, 5, "relu"),        # two input chunks of an odd Cin
+    # Cout at the pass boundaries (passes of 104 channels up to 104, of 224
+    # above) and Cin % 8 in {0, 2, 7}
+    (1, 20, 36, 48, 104, 5, "relu"),        # one full 104-channel pass
+    (1, 22, 34, 50, 105, 5, "relu"),        # one past it: a 224-channel pass
+    (2, 19, 40, 23, 224, 5, None),          # one full 224-channel pass
+    (1, 24, 20, 100, 225, 5, "leaky_relu"), # two passes, the second of one channel
+    (1, 17, 33, 64, 448, 5, None),          # two full passes
+    (1, 21, 18, 40, 449, 3, "relu"),        # three passes
 ])
 def test_conv5(cuda, b, h, w, cin, cout, k, act):
     from wcmc_tpu_torch.ops import conv5
@@ -852,6 +860,33 @@ def test_conv5(cuda, b, h, w, cin, cout, k, act):
     _close(got, conv5.conv2d_plain(x, wgt, bias, k, act), CONV_TOL)
     # no split reduction, no atomics: a second launch gives the same bits
     torch.testing.assert_close(conv5.conv2d(x, wgt, bias, k, act), got, rtol=0, atol=0)
+
+
+def test_conv5_padded_chain(cuda):
+    """The fused chain's layouts: layer 1's 39 channels copied once to a
+    pitch of 40, hidden layers written at a pitch of 104 (pad channels
+    zero) and read by the next launch as that strided view, the logits
+    contiguous; each launch against the plain version on its own input,
+    and bit for bit on a second launch."""
+    from wcmc_tpu_torch.ops import conv5
+
+    x, _, _ = _conv_case(cuda, 2, 44, 41, 39, 1, 5, 11)
+    layers = [(39, 100, "relu"), (100, 100, "relu"), (100, 441, None)]
+    h = x
+    for i, (cin, cout, act) in enumerate(layers):
+        _, wgt, bias = _conv_case(cuda, 1, 5, 5, cin, cout, 5, 12 + i)
+        conv = conv5.conv2d_padded if act else conv5.conv2d
+        _build.reset_counts()
+        got = conv(h, wgt, bias, 5, act)
+        assert dict(_build.launches) == {"conv5": 1} and not _build.plain_calls
+        pitch = 104 if act else 441
+        assert got.stride()[2:] == (pitch, 1) and got.shape[-1] == cout
+        if act:
+            assert not got._base[..., cout:].any()
+        _close(got, conv5.conv2d_plain(h, wgt, bias, 5, act), CONV_TOL)
+        torch.testing.assert_close(conv(h, wgt, bias, 5, act), got, rtol=0, atol=0)
+        h = got
+    assert h.is_contiguous()
 
 
 def test_conv5_refuses_what_it_does_not_compute(cuda):

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wcmc_tpu_torch.ops.conv5 import conv2d
+from wcmc_tpu_torch.ops.conv5 import conv2d, conv2d_padded
 from wcmc_tpu_torch.ops.mlp_fused import fused_mlp
 
 # stddev of a unit normal truncated to [-2, 2] (flax's lecun_normal)
@@ -56,13 +56,15 @@ class FusedConv(nn.Conv2d):
     (``ops/conv5.py``), its bias and activation fused into the store:
     :meth:`fused`.  Counterpart of the reference's ``FusedConv``."""
 
-    def fused(self, x, act=None, dtype=None):
+    def fused(self, x, act=None, dtype=None, padded=False):
         """``x (B, H, W, Cin)`` -> ``(B, H - K + 1, W - K + 1, Cout)`` in
         ``dtype`` (or ``x``'s), rounded once after the bias and
-        activation."""
+        activation; with ``padded``, as the view that ``conv2d_padded``
+        returns."""
         if dtype is not None:
             x = x.to(dtype)
-        return conv2d(x, self.weight.permute(2, 3, 1, 0), self.bias, self.kernel_size[0], act)
+        conv = conv2d_padded if padded else conv2d
+        return conv(x, self.weight.permute(2, 3, 1, 0), self.bias, self.kernel_size[0], act)
 
 
 class ConvChain(nn.Module):
@@ -71,7 +73,8 @@ class ConvChain(nn.Module):
     parameters, chosen per call: by default NCHW in and out through
     library convolutions; with ``fused`` (the reference's
     ``ConvChain(fused=True)``) NHWC in and out, every layer through
-    ``FusedConv.fused``."""
+    ``FusedConv.fused``, the hidden layers at the padded pixel pitch of
+    ``conv2d_padded``."""
 
     def __init__(self, in_channels: int, out_channels: int, width: int = 64,
                  depth: int = 3, ksize: int = 3, dtype=None, generator=None):
@@ -86,8 +89,9 @@ class ConvChain(nn.Module):
     def forward(self, x, fused: bool = False):
         if fused:
             for i in range(self.depth):
-                act = "relu" if i < self.depth - 1 else None
-                x = getattr(self, f"Conv_{i}").fused(x, act, self.dtype)
+                hidden = i < self.depth - 1
+                x = getattr(self, f"Conv_{i}").fused(x, "relu" if hidden else None, self.dtype,
+                                                     padded=hidden)
             return x
         for i in range(self.depth):
             x = conv_apply(getattr(self, f"Conv_{i}"), x, self.dtype)

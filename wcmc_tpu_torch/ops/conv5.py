@@ -16,13 +16,25 @@ convolution before its bias; this does not, as the reference's
   tensors; the kernel tiles rows and columns, so it takes every H and W
   (the reference falls back to XLA where its VMEM bands do not fit).
   Backward, as the reference's ``_conv2d_bwd``: the activation's mask on
-  the saved output, then library convolutions for d(x) and d(w).
+  the saved output, then library convolutions for d(x) and d(w);
+* ``conv2d_padded``: the same, returning a view of a buffer whose pixel
+  pitch is Cout rounded up to 8 channels (pad channels zero), the form
+  in which the fused chain hands a hidden layer to the next;
+* ``kernel_plan``, ``pack_weights`` / ``unpack_weights``: how K6 tiles a
+  layer and the order in which it streams the weights.  The wrapper packs
+  a weight once per parameter value (a small cache), and gives K6 its
+  input as it is where each pixel starts on 16 bytes, else one copy at a
+  pitch of Cin rounded up to 8.
 
 The kernel computes bfloat16 only and raises ``ValueError`` for another
 dtype, as for a shape it does not take.
 """
 
 from __future__ import annotations
+
+import collections
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,22 +44,121 @@ from wcmc_tpu_torch.ops.mlp_fused import _act
 
 # activation codes of the kernel (mlp_act of csrc/mlp.cuh)
 ACT_CODES = {None: 0, "linear": 0, "relu": 1, "leaky_relu": 2}
-COUT_BLOCK = 112     # output channels per block of csrc/conv5.cu (kConvNC)
 MAX_BATCH = 65535    # the kernel's grid takes the batch as its z extent
+# csrc/conv5.cu's tiling: output columns per block, weight-ring buffers,
+# most input channels staged at once, and the shared memory a block may
+# opt into on an H100 (227 KB); the C entry point checks the device's own
+TILE_W, STAGES, MAX_CHUNK = 16, 3, 128
+SMEM_LIMIT = 232448
+PACK_CACHE_SIZE = 64  # packed weight tensors kept (the fused KPCN has 18)
+# wcmc_conv5's C arguments: x, packed weights, bias, y; b, h, w, cin; x's
+# strides; cout, ypitch, k, n, cin_pad, chunk, act, device; the stream
+_ARGTYPES = ((_build.PTR,) * 4 + (_build.INT,) * 4 + (_build.LONG,) * 3 + (_build.INT,) * 8
+             + (_build.PTR,))
+
+
+class Plan(NamedTuple):
+    """How K6 runs one layer: ``n`` output channels per pass (104 or
+    224), ``rows`` output rows per block (4 per warpgroup), ``npass``
+    passes, ``cin_pad`` packed weight rows per tap (whole chunks) and
+    ``chunk`` input channels staged at once (16 to 128)."""
+    n: int
+    rows: int
+    npass: int
+    cin_pad: int
+    chunk: int
+
+
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+def _smem(ksize, chunk, n, rows, npass):
+    """csrc/conv5.cu's conv_smem: the input tile at a pitch of chunk + 8,
+    the weight ring, the bias of every pass, the ring's barriers and
+    release counts, each rounded up to 128 bytes."""
+    def r(v):
+        return _round_up(v, 128)
+    pix = (rows + ksize - 1) * (TILE_W + ksize - 1)
+    return (r(2 * pix * (chunk + 8)) + STAGES * r(2 * chunk * n) + r(4 * npass * n)
+            + r(8 * STAGES) + r(4 * STAGES))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_plan(cin: int, cout: int, ksize: int) -> Plan:
+    """K6's plan for a layer: Cout <= 104 in one pass of 104 channels
+    over 16-row blocks, wider Cout in passes of 224 over 8-row blocks
+    (the accumulators of a pass take n / 2 registers a thread); Cin
+    (rounded up to 16) in the fewest equal chunks whose tile and weight
+    ring fit, the last padded with zero weights."""
+    n, rows = (104, 16) if cout <= 104 else (224, 8)
+    npass = -(-cout // n)
+    need = _round_up(cin, 16)
+    nchunks = 1
+    while True:
+        chunk = _round_up(-(-need // nchunks), 16)
+        if chunk == 16 or (chunk <= MAX_CHUNK
+                           and _smem(ksize, chunk, n, rows, npass) <= SMEM_LIMIT):
+            return Plan(n, rows, npass, nchunks * chunk, chunk)
+        nchunks += 1
+
+
+def pack_weights(w, n: int, cin_pad: int, dtype=torch.bfloat16):
+    """``w (K, K, Cin, Cout)`` in the order K6 streams it: ``(npass, K *
+    K, cin_pad / 16, n / 8, 2, 8, 8)`` = [pass][tap][k16 step][n8 group]
+    [k half][8 output channels][8 input channels], zero past Cin and
+    Cout.  Each innermost 8 x 8 block is one K-major core matrix of 128
+    bytes, and each (pass, tap) a contiguous run of k16 steps."""
+    k, _, cin, cout = w.shape
+    npass = -(-cout // n)
+    wp = torch.zeros((k, k, cin_pad, npass * n), dtype=dtype, device=w.device)
+    wp[:, :, :cin, :cout] = w
+    wp = wp.view(k * k, cin_pad // 16, 2, 8, npass, n // 8, 8)   # tap, ks, kh, c, p, j, r
+    return wp.permute(4, 0, 1, 5, 2, 6, 3).contiguous()
+
+
+def unpack_weights(packed, ksize: int, cin: int, cout: int):
+    """The inverse of :func:`pack_weights`: ``(K, K, Cin, Cout)``."""
+    npass, _, ks, n8 = packed.shape[:4]
+    w = packed.permute(1, 2, 4, 6, 0, 3, 5).reshape(ksize, ksize, ks * 16, npass * n8 * 8)
+    return w[:, :, :cin, :cout]
+
+
+_packed: collections.OrderedDict = collections.OrderedDict()
+
+
+def _packed_weights(w, n, cin_pad):
+    """``pack_weights(w, n, cin_pad)``, made once per parameter value:
+    cached on the tensor's data pointer, version counter (bumped by every in-place
+    update), shape, strides, dtype and device.  An entry holds ``w``
+    itself, so its memory cannot be freed and reused by another tensor
+    that would match the key while the entry lives.  A tensor made in
+    inference mode has no version counter and is packed on every call."""
+    if w.is_inference():
+        return pack_weights(w, n, cin_pad)
+    key = (w.data_ptr(), w._version, tuple(w.shape), w.stride(), w.dtype, w.device, n, cin_pad)
+    hit = _packed.get(key)
+    if hit is not None:
+        _packed.move_to_end(key)
+        return hit[1]
+    packed = pack_weights(w.detach(), n, cin_pad)
+    _packed[key] = (w, packed)
+    while len(_packed) > PACK_CACHE_SIZE:
+        _packed.popitem(last=False)
+    return packed
 
 
 def _check_args(x, w, bias, ksize, act):
     if act not in ACT_CODES:
         raise ValueError(f"conv2d computes the activations {tuple(ACT_CODES)}, got {act!r}")
-    if x.dim() != 4:
-        raise ValueError(f"conv2d takes x (B, H, W, Cin), got {tuple(x.shape)}")
-    cin = x.shape[-1]
-    if w.dim() != 4 or tuple(w.shape[:3]) != (ksize, ksize, cin) or \
-            tuple(bias.shape) != (w.shape[-1],):
-        raise ValueError(f"conv2d: weight {tuple(w.shape)} / bias {tuple(bias.shape)} is not "
-                         f"({ksize}, {ksize}, {cin}, Cout) / (Cout,)")
-    if x.shape[1] < ksize or x.shape[2] < ksize:
-        raise ValueError(f"conv2d: input {tuple(x.shape)} is smaller than the {ksize}x{ksize} "
+    xs, ws = x.shape, w.shape
+    if len(xs) != 4:
+        raise ValueError(f"conv2d takes x (B, H, W, Cin), got {tuple(xs)}")
+    if len(ws) != 4 or ws[:3] != (ksize, ksize, xs[3]) or bias.shape != ws[3:]:
+        raise ValueError(f"conv2d: weight {tuple(ws)} / bias {tuple(bias.shape)} is not "
+                         f"({ksize}, {ksize}, {xs[3]}, Cout) / (Cout,)")
+    if xs[1] < ksize or xs[2] < ksize:
+        raise ValueError(f"conv2d: input {tuple(xs)} is smaller than the {ksize}x{ksize} "
                          "window")
 
 
@@ -62,7 +173,33 @@ def conv2d_plain(x, w, bias, ksize: int, act=None):
     return _act(act or "linear", z).to(x.dtype).permute(0, 2, 3, 1).contiguous()
 
 
-def _conv_kernel(x, w, bias, ksize, act):
+def padded_pitch(cout: int) -> int:
+    """The pixel pitch of the fused chain's hidden activations: Cout
+    rounded up to 8 channels (104 for the KPCN's 100), so K6 copies the
+    next layer's input tile 16 bytes at a time."""
+    return _round_up(cout, 8)
+
+
+def _pitched(x, pitch, fill=None):
+    """``x (B, H, W, C)`` copied once into a ``(B, H, W, pitch)`` buffer,
+    returned as the view of its first C channels; the pad channels are
+    ``fill`` or, without it, left as they are (K6 never reads them)."""
+    c = x.shape[-1]
+    make = torch.empty if fill is None else functools.partial(torch.full, fill_value=fill)
+    buf = make((*x.shape[:3], pitch), dtype=x.dtype, device=x.device)
+    buf[..., :c] = x
+    return buf[..., :c]
+
+
+def _copyable(x):
+    """Whether K6 copies ``x``'s pixels 16 bytes at a time as it is:
+    channels contiguous, every other stride a multiple of 8 channels and
+    the data 16-byte aligned."""
+    sb, sh, sw, sc = x.stride()
+    return sc == 1 and not (sb % 8 or sh % 8 or sw % 8) and x.data_ptr() % 16 == 0
+
+
+def _conv_kernel(x, w, bias, ksize, act, padded=False):
     _check_args(x, w, bias, ksize, act)
     dev = x.device
     if dev.type != "cuda" or w.device != dev or bias.device != dev:
@@ -74,23 +211,25 @@ def _conv_kernel(x, w, bias, ksize, act):
     cout = w.shape[-1]
     if b > MAX_BATCH:
         raise ValueError(f"conv5 kernel takes at most {MAX_BATCH} images, got {b}")
-    y = torch.empty((b, h - ksize + 1, wd - ksize + 1, cout), dtype=torch.bfloat16, device=dev)
+    pitch = padded_pitch(cout) if padded else cout
+    y = torch.empty((b, h - ksize + 1, wd - ksize + 1, pitch), dtype=torch.bfloat16, device=dev)
+    if pitch != cout:
+        y = y[..., :cout]
     if b == 0:
         return y
-    x = x.contiguous()
-    # the weights in x's dtype, zero-padded to whole 16-row taps and whole
-    # 112-column block slices, the layout the kernel streams
-    cin_pad = -(-cin // 16) * 16
-    cout_pad = -(-cout // COUT_BLOCK) * COUT_BLOCK
-    wp = torch.zeros((ksize, ksize, cin_pad, cout_pad), dtype=torch.bfloat16, device=dev)
-    wp[:, :, :cin, :cout] = w
-    bf = bias.float().contiguous()
-    P, INT = _build.PTR, _build.INT
-    fn = _build.kernel("wcmc_conv5", P, P, P, P, *([INT] * 10), P)
-    idx = dev.index or 0
+    plan = kernel_plan(cin, cout, ksize)
+    wp = _packed_weights(w, plan.n, plan.cin_pad)
+    bf = bias if bias.dtype == torch.float32 and bias.is_contiguous() else \
+        bias.float().contiguous()
+    fn = _build.kernel("wcmc_conv5", *_ARGTYPES)
+    stream = _build.stream_of(dev)
+    if not _copyable(x):
+        # one copy (Cin 39, 34 -> a pitch of 40), launched last before K6
+        x = _pitched(x, padded_pitch(cin))
+    sb, sh, sw, _ = x.stride()
     _build.check(fn(x.data_ptr(), wp.data_ptr(), bf.data_ptr(), y.data_ptr(), b, h, wd, cin,
-                    cout, ksize, cin_pad, cout_pad, ACT_CODES[act], idx, _build.stream_of(dev)),
-                 "conv5")
+                    sb, sh, sw, cout, pitch, ksize, plan.n, plan.cin_pad, plan.chunk,
+                    ACT_CODES[act], dev.index or 0, stream), "conv5")
     _build.launches["conv5"] += 1
     return y
 
@@ -105,13 +244,19 @@ def _act_grad_mask(act, y, g):
     return torch.where(y > 0, g, 0.01 * g)
 
 
+def _forward(x, w, bias, ksize, act, padded):
+    """K6 for CUDA tensors, the plain version for CPU tensors; with
+    ``padded``, the result at the padded pitch."""
+    if x.device.type != "cpu":
+        return _conv_kernel(x, w, bias, ksize, act, padded)
+    y = conv2d_plain(x, w, bias, ksize, act)
+    return _pitched(y, padded_pitch(y.shape[-1]), fill=0) if padded else y
+
+
 class _Conv2d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bias, ksize, act):
-        if x.device.type == "cpu":
-            y = conv2d_plain(x, w, bias, ksize, act)
-        else:
-            y = _conv_kernel(x, w, bias, ksize, act)
+    def forward(ctx, x, w, bias, ksize, act, padded):
+        y = _forward(x, w, bias, ksize, act, padded)
         ctx.act = act
         ctx.save_for_backward(x, w, y)
         return y
@@ -133,7 +278,7 @@ class _Conv2d(torch.autograd.Function):
             dw = dw.to(dt).to(w.dtype).permute(2, 3, 1, 0)
         if ctx.needs_input_grad[2]:
             db = dz.float().sum(dim=(0, 1, 2)).to(w.dtype)
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None
 
 
 def conv2d(x, w, bias, ksize: int, act=None):
@@ -142,4 +287,21 @@ def conv2d(x, w, bias, ksize: int, act=None):
     Cin, Cout)`` and ``bias (Cout,)`` f32 parameters.  Returns ``(B, H - K
     + 1, W - K + 1, Cout)`` in ``x``'s dtype.  K6 for CUDA tensors, the
     plain version for CPU tensors; differentiable in all three inputs."""
-    return _Conv2d.apply(x, w, bias, ksize, act)
+    return _apply(x, w, bias, ksize, act, False)
+
+
+def conv2d_padded(x, w, bias, ksize: int, act=None):
+    """:func:`conv2d` as the fused chain's hidden layers run it: the
+    result is the ``(B, H - K + 1, W - K + 1, Cout)`` view of a buffer
+    whose pixel pitch is :func:`padded_pitch` (Cout rounded up to 8), its
+    pad channels zero, which the next layer's K6 copies as it is."""
+    return _apply(x, w, bias, ksize, act, True)
+
+
+def _apply(x, w, bias, ksize, act, padded):
+    """The autograd Function where a gradient may be asked for, else its
+    forward alone (inference, where the Function's bookkeeping on the
+    host is most of a small launch's cost)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or bias.requires_grad):
+        return _Conv2d.apply(x, w, bias, ksize, act, padded)
+    return _forward(x, w, bias, ksize, act, padded)

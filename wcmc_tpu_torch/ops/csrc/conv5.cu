@@ -15,270 +15,429 @@
 // a branch is ~0.50 TFLOP for ~0.39 GB, ~0.51 ms at the bf16 dense peak.
 //
 // Design: an implicit GEMM, M = output pixels, N = Cout, the reduction
-// over (dy, dx, Cin).  A block owns 16 output rows x 16 output columns x
-// a slice of 112 output channels; each of its 16 warps owns two rows and
-// half of the slice, i.e. 2 x 7 tiles of 16 x 8 f32 accumulators in
-// registers (16 warps rather than 8 with twice the tiles: the SM has no
-// room for a second block, and the latency of the operand loads wants
-// the warps).  The block stages its input tile with the (K - 1)-pixel
-// halo, (16 + K - 1)^2 pixels x a chunk of up to 128 input channels, in
-// shared memory once per chunk, with channels past Cin and pixels past the
-// image zero-filled there, not in device memory (with Cin even, by 4-byte
-// cp.async copies that keep many loads in flight: a warp's plain loads
-// pixel after pixel took a third of the kernel's time); and it streams
-// the weights tap by tap: the (chunk x 112) slice of tap t + 1 is copied
-// with cp.async into the second of two buffers while the warps multiply
-// tap t, one barrier a tap.  For a tap (dy, dx), row r's A operand is 16
-// consecutive pixels of staged row r + dy starting at column dx, a plain
-// row-major matrix whose leading dimension is the pixel pitch, so no
-// im2col copy is made.  Operands come from shared memory through ldmatrix
-// (A as it is, B transposed from the row-major [Cin][Cout] slice), with
-// pixel and weight rows padded by 16 bytes so that no two rows of a load
-// share a bank group; the products are mma.sync m16n8k16 (bf16 in, f32
-// accumulation).  The epilogue adds the f32 bias to the accumulators,
-// applies the activation, rounds once and stores NHWC (channel pairs as
-// one 4-byte store where Cout is even), with the ragged edges (rows,
-// columns, Cout) masked.  No split of the reduction across blocks and no
-// atomics: the result repeats bit for bit.  Offsets into device memory
-// are 64-bit.  No TMA, wgmma or warp specialisation yet; one ~150 KB block
-// per SM at K = 5 and 112 channels.
-#include <algorithm>
-
+// over (dy, dx, Cin).  A block owns an output tile of 4 . kWG rows x 16
+// columns and every output channel: it runs Cout as passes of kN channels
+// (kN = 104 with kWG = 4 for Cout <= 104, kN = 224 with kWG = 2 above:
+// Cout 441 is two passes) over one staged input tile, so the tile is
+// loaded once per chunk of input channels, not once per channel slice.
+// Each warp owns one output row: 16 pixels x kN channels of f32
+// accumulators in registers (kN / 2 a thread).  Those registers cap a
+// block at 256 (kN 104) or 128 (kN 224) output pixels, so each weight
+// byte streamed from L2 serves that many flops: at the tensor cores'
+// peak the blocks would draw ~3.9 or ~7.7 TB/s of weights from L2: the
+// likely limit of this design (inferred from that arithmetic, not
+// profiled).
+//
+// Input tile: the (4 kWG + K - 1) x (16 + K - 1) pixels with the halo,
+// a chunk of up to 128 input channels, copied by 16-byte cp.async into
+// shared memory at a pitch of chunk + 8 elements (an odd number of
+// 16-byte units, so the 8 rows of an ldmatrix fall in 8 bank groups).
+// The copies need a pixel pitch in device memory that is a multiple of 8
+// channels: the wrapper gives K6 either such a tensor as it is (the fused
+// chain carries its hidden activations at a pitch of 104 channels, which
+// K6 itself writes, pad channels zero) or one padded copy (Cin 39 and 34
+// -> 40).  A padded pitch in device memory was chosen over staging rows
+// flat and re-laying them out in shared memory: it costs one small copy
+// at the chain's first layer and nothing after, where a re-layout costs
+// a second pass through shared memory and a barrier on every tile.  The
+// copy itself zero-fills what it does not read (channels past Cin in the
+// last 16 bytes, pixels past the image), so the pad channels' contents in
+// device memory never matter.
+//
+// Weights: packed once by the wrapper (ops/conv5.py, pack_weights) into
+// the order the kernel streams, [pass][tap][k16 step][n8 group][k half]
+// [8 n][8 k]: 8 x 8 core matrices of 128 contiguous bytes, K-major, the
+// layout a wgmma reads B from through a descriptor (no swizzle), so one
+// step's slice (a tap's chunk of input channels x kN) is one contiguous
+// block, brought in by a single cp.async.bulk (no tensor map) into a ring
+// of kStages buffers, each with a full mbarrier that the copy completes:
+// no block-wide barrier per tap.  A stage is refilled by the last warp
+// that releases it (a count in shared memory), so no warp waits on the
+// refill and no producer warp costs registers (a wgmma block's register
+// budget is counted in whole warpgroups).  Chunks are templated by their
+// depth, so every step issues a fixed run of wgmmas (a product under a
+// branch is serialized by ptxas); the wrapper pads Cin to whole chunks.
+//
+// Products: wgmma m64nNk16 (N = kN, bf16 in, f32 accumulation), one
+// warpgroup's 4 output rows x 16 columns as the 64 rows of M: each warp
+// supplies its row's 16 pixels as A from registers, the ldmatrix
+// fragments of mma.m16n8k16 (for a tap (dy, dx), row r's A operand is 16
+// consecutive pixels of staged row r + dy starting at column dx: no
+// im2col copy), and B comes from the ring, read once per warpgroup.  A
+// step loads its A fragments, fences, issues one wgmma per k16 step,
+// commits and waits, then frees the stage.  The epilogue adds the f32
+// bias, applies the activation, rounds once and stores NHWC at the
+// output's pixel pitch (channel pairs as one 4-byte store where the pitch
+// is even; channels between Cout and the pitch written as zeros), with the
+// ragged edges masked.  No split of the reduction across blocks and no
+// atomics on values (the one atomic, a shared count, only picks the warp
+// that refills a stage): the result repeats bit for bit.  Offsets into
+// device memory are 64-bit.
 #include "mlp.cuh"
 
 namespace wcmc {
 
-constexpr int kConvTH = 16;                   // output rows per block
-constexpr int kConvTW = 16;                   // output columns per block (the M of a product)
-constexpr int kConvWarps = 16;                // 8 row pairs x 2 halves of the channel slice
-constexpr int kConvThreads = kConvWarps * 32;
-constexpr int kConvRows = 2;                  // output rows per warp
-constexpr int kConvNC = 112;                  // output channels per block
-constexpr int kConvHalf = kConvNC / 2;        // output channels per warp
-constexpr int kConvN8 = kConvHalf / 8;        // n8 accumulator tiles per row and warp
-constexpr int kConvWPitch = kConvNC + 8;      // weight-slice row pitch (pitch_bf16)
-constexpr int kConvMaxChunk = 128;            // most input channels staged at once
+constexpr int kConvTW = 16;         // output columns per block (a warp's 16 rows of M)
+constexpr int kConvStages = 3;      // weight-ring buffers
+constexpr int kConvMaxChunk = 128;  // most input channels staged at once
 
 struct ConvDims {
   int b, h, w, cin, cout, k;  // input sizes and the kernel's side
+  long long sb, sh, sw;       // x's strides (elements), channels contiguous
   int ho, wo;                 // output sizes
-  int cin_pad;                // weight rows per tap: Cin rounded up to 16
-  int cout_pad;               // weight columns: Cout rounded up to kConvNC
+  int ypitch;                 // output pixel pitch (elements), >= cout
+  int cin_pad;                // packed weight rows per tap: Cin in whole chunks
+  int npass;                  // passes of kN output channels
   int chunk;                  // input channels per staged chunk (multiple of 16)
   int act;                    // 0 linear, 1 relu, 2 leaky relu (mlp_act)
 };
 
-// A staged pixel's pitch (elements): its chunk of channels plus 16 bytes,
-// an odd number of 16-byte units, so the 8 rows an ldmatrix reads (8
-// consecutive pixels) fall in 8 different bank groups.  The weight slice's
-// rows (kConvWPitch) are padded the same way.
-__host__ __device__ inline int conv_xpitch(int chunk) { return chunk + 8; }
+__host__ __device__ constexpr int conv_xpitch(int chunk) { return chunk + 8; }
 
-inline size_t conv_smem(int k, int chunk) {
-  const size_t pix = (size_t)(kConvTH + k - 1) * (kConvTW + k - 1);
+// The block's shared memory: the input tile, the weight ring, the bias
+// of every pass, the ring's full barriers and its release counts.
+// ops/conv5.py's kernel_plan computes the same sum to choose the chunk.
+inline size_t conv_smem(int k, int chunk, int n, int rows, int npass) {
+  const size_t pix = (size_t)(rows + k - 1) * (kConvTW + k - 1);
   return smem_bytes(pix * conv_xpitch(chunk), 2) +
-         2 * smem_bytes((size_t)chunk * kConvWPitch, 2) + smem_bytes(kConvNC, 4);
+         kConvStages * smem_bytes((size_t)chunk * n, 2) + smem_bytes((size_t)npass * n, 4) +
+         smem_bytes(kConvStages, 8) + smem_bytes(kConvStages, 4);
 }
 
-__device__ inline void cp_async16(unsigned dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-// 4 bytes, or (src_bytes 0) 4 zero bytes
-__device__ inline void cp_async4_zfill(unsigned dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
+// 16 bytes, of which the first src_bytes are read and the rest zero-filled
+__device__ inline void cp_async16_zfill(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
 }
 
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ inline void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ inline void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ inline void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from device to
+// shared memory, counted against the mbarrier's transaction count
+__device__ inline void bulk_copy(unsigned dst, const void* src, unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 // Four 8x8 bf16 matrices from shared memory (each lane gives one row's
-// address), as the A operand of mma.m16n8k16, or (trans) as the B operands
-// of two n8 tiles from a row-major [k][n] tile.
+// address): a warp's 16 x 16 slice of the A operand of a wgmma, in the
+// layout of mma.m16n8k16's A fragment.
 __device__ inline void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
 
-__device__ inline void ldmatrix_x2_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
+// A wgmma descriptor of a K-major B operand without swizzle in shared
+// memory: 8 x 8 core matrices of 128 contiguous bytes, the two k halves
+// of an n8 group 128 bytes apart (leading byte offset), successive n8
+// groups 256 bytes apart (stride byte offset); addresses and offsets in
+// 16-byte units.
+__device__ inline uint64_t wgmma_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
 }
 
-__device__ inline void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+__device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// c += a . b on the tensor cores: a 16x16 bf16 (row-major fragment), b
-// 16x8 bf16 (two registers), c 16x8 f32.
-__device__ inline void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+__device__ inline void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous products.
+template <int kN8>
+__device__ inline void fence_acc(float (&d)[kN8][4]) {
+#pragma unroll
+  for (int j = 0; j < kN8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+}
+
+// d += a . B on the tensor cores for the warpgroup: an m64n104k16 product,
+// A (64 x 16 bf16) from registers as four ldmatrix fragments a warp, B
+// (16 x 104 bf16) from shared memory through the descriptor, f32 d.
+__device__ inline void wgmma_n104(float (&d)[13][4], const unsigned (&a)[4], uint64_t desc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-static __global__ void __launch_bounds__(kConvThreads)
+// d += a . B on the tensor cores for the warpgroup: an m64n224k16 product,
+// A (64 x 16 bf16) from registers as four ldmatrix fragments a warp, B
+// (16 x 224 bf16) from shared memory through the descriptor, f32 d.
+__device__ inline void wgmma_n224(float (&d)[28][4], const unsigned (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111"
+      "}, {%112, %113, %114, %115}, %116, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int kN>
+__device__ inline void wgmma_bf16(float (&d)[kN / 8][4], const unsigned (&a)[4], uint64_t desc) {
+  if constexpr (kN == 104) {
+    wgmma_n104(d, a, desc);
+  } else {
+    wgmma_n224(d, a, desc);
+  }
+}
+
+// kN output channels per pass, kWG warpgroups (4 kWG output rows per
+// block), chunks of 16 kNK input channels.
+template <int kN, int kWG, int kNK>
+static __global__ void __launch_bounds__(kWG * 128, 1)
     conv5_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                  const float* __restrict__ bias, bf16* __restrict__ y, ConvDims d) {
+  constexpr int kRows = 4 * kWG, kThreads = kWG * 128, kWarps = kThreads / 32;
+  constexpr int kN8 = kN / 8, kChunk = 16 * kNK;
+  constexpr unsigned kStageBytes = kChunk * kN * 2;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tiles_x = (d.wo + kConvTW - 1) / kConvTW;
-  const int y0 = (blockIdx.x / tiles_x) * kConvTH, x0 = (blockIdx.x % tiles_x) * kConvTW;
-  const int n0 = blockIdx.y * kConvNC, bi = blockIdx.z;
-  const int win = kConvTW + d.k - 1, npix = (kConvTH + d.k - 1) * win;
-  const int kk = d.k * d.k, xpitch = conv_xpitch(d.chunk);
-  const int steps = (d.cin_pad + d.chunk - 1) / d.chunk * kk;
+  const int y0 = (blockIdx.x / tiles_x) * kRows, x0 = (blockIdx.x % tiles_x) * kConvTW;
+  const int bi = blockIdx.z;
+  const int win = kConvTW + d.k - 1, npix = (kRows + d.k - 1) * win;
+  const int kk = d.k * d.k, nchunks = d.cin_pad / kChunk, steps = d.npass * nchunks * kk;
+  constexpr int kXPitch = conv_xpitch(kChunk);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = (warp % 8) * kConvRows, nhalf = warp / 8;
-  const bool active = y0 + row0 < d.ho;
 
   SmemCarver carve{smem, 0};
-  bf16* sx = carve.take<bf16>((size_t)npix * xpitch);
-  bf16* sw0 = carve.take<bf16>((size_t)d.chunk * kConvWPitch);
-  bf16* sw1 = carve.take<bf16>((size_t)d.chunk * kConvWPitch);
-  float* sb = carve.take<float>(kConvNC);
+  bf16* sx = carve.take<bf16>((size_t)npix * kXPitch);
+  bf16* sw = carve.take<bf16>((size_t)kConvStages * kChunk * kN);
+  float* sb = carve.take<float>((size_t)d.npass * kN);
+  unsigned long long* full = carve.take<unsigned long long>(kConvStages);
+  int* released = carve.take<int>(kConvStages);
   // shared-window addresses, so every copy and fragment load is a shared one
   const unsigned sx_addr = static_cast<unsigned>(__cvta_generic_to_shared(sx));
-  const unsigned sw_addr[2] = {static_cast<unsigned>(__cvta_generic_to_shared(sw0)),
-                               static_cast<unsigned>(__cvta_generic_to_shared(sw1))};
-  for (int i = threadIdx.x; i < kConvNC; i += kConvThreads)
-    sb[i] = n0 + i < d.cout ? bias[n0 + i] : 0.0f;
+  const unsigned sw_addr = static_cast<unsigned>(__cvta_generic_to_shared(sw));
+  const unsigned full0 = static_cast<unsigned>(__cvta_generic_to_shared(full));
 
-  // step s: input chunk s / kk, tap s % kk; its weight slice is
-  // (rows of the chunk) x kConvNC, 14 pieces of 16 bytes a row
-  auto load_w = [&](int s, unsigned dst) {
-    const int c0 = (s / kk) * d.chunk, rows = min(d.chunk, d.cin_pad - c0);
-    const bf16* src = w + ((size_t)(s % kk) * d.cin_pad + c0) * d.cout_pad + n0;
-    constexpr int kPieces = kConvNC * 2 / 16;
-    for (int i = threadIdx.x; i < rows * kPieces; i += kConvThreads) {
-      const int r = i / kPieces, p = i % kPieces;
-      cp_async16(dst + (r * kConvWPitch + p * 8) * 2, src + (size_t)r * d.cout_pad + p * 8);
+  // step s: pass s / (nchunks kk), chunk (s / kk) % nchunks, tap s % kk;
+  // its weights, one contiguous block of the packed tensor, into stage
+  // s % kStages, counted against that stage's full barrier
+  auto fetch = [&](int s) {
+    const int st = s % kConvStages, t = s % kk, c = (s / kk) % nchunks, p = s / (kk * nchunks);
+    const bf16* src = w + ((size_t)(p * kk + t) * d.cin_pad + c * kChunk) * kN;
+    mbar_expect_tx(full0 + 8 * st, kStageBytes);
+    bulk_copy(sw_addr + st * kStageBytes, src, kStageBytes, full0 + 8 * st);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kConvStages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      released[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kConvStages && s < steps; ++s) fetch(s);
+  }
+  for (int i = threadIdx.x; i < d.npass * kN; i += kThreads) sb[i] = i < d.cout ? bias[i] : 0.0f;
+
+  // the input tile of channels [c0, c0 + kChunk), 16 bytes a copy;
+  // channels past Cin and pixels past the image are zero-filled by the copy
+  const bf16* xb = x + (size_t)bi * d.sb;
+  auto load_x = [&](int c0) {
+    constexpr int kPieces = kChunk / 8;
+    for (int i = threadIdx.x; i < npix * kPieces; i += kThreads) {
+      const int p = i / kPieces, q = i % kPieces, c = c0 + 8 * q;
+      const int gy = y0 + p / win, gx = x0 + p % win;
+      const int bytes = gy < d.h && gx < d.w ? max(0, min(16, 2 * (d.cin - c))) : 0;
+      const bf16* src = bytes ? xb + gy * d.sh + gx * d.sw + c : x;
+      cp_async16_zfill(sx_addr + 2 * (p * kXPitch + 8 * q), src, bytes);
     }
     cp_async_commit();
-  };
-  // the input tile of chunk c0, a warp per pixel, lanes on its channels;
-  // with Cin even, as channel pairs copied asynchronously (many in flight,
-  // pixels past the image and channels past Cin zero-filled by the copy),
-  // else element by element
-  auto load_x = [&](int c0) {
-    const int cw = min(d.chunk, d.cin_pad - c0);
-    if (d.cin % 2 == 0) {
-      for (int p = warp; p < npix; p += kConvWarps) {
-        const int gy = y0 + p / win, gx = x0 + p % win;
-        const bool in = gy < d.h && gx < d.w;
-        const bf16* src = in ? x + (((size_t)bi * d.h + gy) * d.w + gx) * d.cin + c0 : x;
-        const unsigned dst = sx_addr + 2 * p * xpitch;
-        for (int c = 2 * lane; c < cw; c += 64) {
-          const bool real = in && c0 + c < d.cin;
-          cp_async4_zfill(dst + 2 * c, real ? src + c : x, real ? 4 : 0);
-        }
-      }
-      cp_async_commit();
-      return;
-    }
-    const bf16 zero = __float2bfloat16(0.0f);
-#pragma unroll 4
-    for (int p = warp; p < npix; p += kConvWarps) {
-      const int gy = y0 + p / win, gx = x0 + p % win;
-      bf16* dst = sx + (size_t)p * xpitch;
-      if (gy < d.h && gx < d.w) {
-        const bf16* src = x + (((size_t)bi * d.h + gy) * d.w + gx) * d.cin + c0;
-        const int real = min(cw, d.cin - c0);
-        for (int c = lane; c < cw; c += 32) dst[c] = c < real ? src[c] : zero;
-      } else {
-        for (int c = lane; c < cw; c += 32) dst[c] = zero;
-      }
-    }
-  };
-
-  // the lane's row of each 8x8 matrix an ldmatrix.x4 reads: A's rows are
-  // the 16 pixels (matrices 0 and 1) at channels +0 and +8 (2 and 3);
-  // B's rows are the 16 k of the slice at channel columns +0 and +8
-  const int frag_row = (lane % 8) + 8 * ((lane / 8) % 2), frag_col = 8 * (lane / 16);
-  const int a_lane = (row0 * win + frag_row) * xpitch + frag_col;  // elements
-  const int b_lane = frag_row * kConvWPitch + kConvHalf * nhalf + frag_col;
-
-  float acc[kConvRows][kConvN8][4];
-#pragma unroll
-  for (int r = 0; r < kConvRows; ++r)
-#pragma unroll
-    for (int j = 0; j < kConvN8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[r][j][i] = 0.0f;
-
-  load_w(0, sw_addr[0]);
-  for (int s = 0; s < steps; ++s) {
-    const int tap = s % kk, c0 = (s / kk) * d.chunk;
-    if (tap == 0) {
-      if (s > 0) __syncthreads();  // every warp is done with the last chunk's tile
-      load_x(c0);
-    }
-    cp_async_wait_all();  // this step's weights (and the chunk's tile)
+    cp_async_wait_all();
     __syncthreads();
-    // the other buffer was last read in step s - 1, which every warp
-    // finished before the barrier above: fill it for step s + 1 while
-    // this step multiplies
-    if (s + 1 < steps) load_w(s + 1, sw_addr[(s + 1) & 1]);
-    if (!active) continue;
-    const int dy = tap / d.k, dx = tap % d.k, cw = min(d.chunk, d.cin_pad - c0);
-    const unsigned a_base = sx_addr + 2 * (a_lane + (dy * win + dx) * xpitch);
-    const unsigned b_base = sw_addr[s & 1] + 2 * b_lane;
-    // the 7th n8 tile by an x2 load: lanes 0-15 give its k rows 0-15
-    const unsigned b_last =
-        sw_addr[s & 1] + 2 * ((lane % 16) * kConvWPitch + kConvHalf * nhalf + 48);
-    for (int k0 = 0; k0 < cw; k0 += 16) {
-      unsigned a[kConvRows][4], b[4][4];
+  };
+
+  // the lane's row of each 8x8 matrix an ldmatrix.x4 reads for A: the 16
+  // pixels (matrices 0 and 1) at channels +0 and +8 (2 and 3)
+  const int frag_row = (lane % 8) + 8 * ((lane / 8) % 2), frag_col = 8 * (lane / 16);
+  const unsigned a_lane = sx_addr + 2 * ((warp * win + frag_row) * kXPitch + frag_col);
+
+  float acc[kN8][4];
+  for (int p = 0; p < d.npass; ++p) {
 #pragma unroll
-      for (int r = 0; r < kConvRows; ++r) ldmatrix_x4(a[r], a_base + 2 * (r * win * xpitch + k0));
+    for (int j = 0; j < kN8; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 3; ++jj)
-        ldmatrix_x4_trans(b[jj], b_base + 2 * (k0 * kConvWPitch + 16 * jj));
-      ldmatrix_x2_trans(b[3], b_last + 2 * k0 * kConvWPitch);
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+    for (int c = 0; c < nchunks; ++c) {
+      if (p == 0 || nchunks > 1) {
+        if (p > 0 || c > 0) __syncthreads();  // every warp is done with the last tile
+        load_x(c * kChunk);
+      }
+      for (int t = 0; t < kk; ++t) {
+        const int s = (p * nchunks + c) * kk + t, st = s % kConvStages;
+        const int dy = t / d.k, dx = t % d.k;
+        // the warp's A fragments of every k16 step of the chunk, then, once
+        // the step's weights have landed, its products as one group
+        const unsigned a_base = a_lane + 2 * (dy * win + dx) * kXPitch;
+        unsigned a[kNK][4];
 #pragma unroll
-      for (int r = 0; r < kConvRows; ++r) {
+        for (int ks = 0; ks < kNK; ++ks) ldmatrix_x4(a[ks], a_base + 32 * ks);
+        mbar_wait(full0 + 8 * st, (s / kConvStages) & 1);
+        const uint64_t desc = wgmma_desc(sw_addr + st * kStageBytes);
+        fence_acc(acc);
+        wgmma_fence();
 #pragma unroll
-        for (int jj = 0; jj < 3; ++jj) {
-          mma_bf16(acc[r][2 * jj], a[r], b[jj][0], b[jj][1]);
-          mma_bf16(acc[r][2 * jj + 1], a[r], b[jj][2], b[jj][3]);
-        }
-        mma_bf16(acc[r][6], a[r], b[3][0], b[3][1]);
+        for (int ks = 0; ks < kNK; ++ks)
+          wgmma_bf16<kN>(acc, a[ks], desc + (uint64_t)(ks * kN * 2));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(acc);
+        // this warp is done with the stage; the last warp to say so refills
+        // it with step s + kStages (the count only grows: round s / kStages
+        // ends at (round + 1) kWarps)
+        __syncwarp();
+        if (lane == 0 &&
+            atomicAdd(released + st, 1) == (s / kConvStages + 1) * kWarps - 1 &&
+            s + kConvStages < steps)
+          fetch(s + kConvStages);
+        __syncwarp();
       }
     }
-  }
 
-  // epilogue from the accumulators: lane holds pixels lane / 4 and
-  // lane / 4 + 8 of its row at channels 2 (lane % 4) + {0, 1} of each n8 tile
-  if (!active) return;
-  const bool pairs = d.cout % 2 == 0;  // channel pairs are 4-byte aligned
-#pragma unroll
-  for (int r = 0; r < kConvRows; ++r) {
-    const int oy = y0 + row0 + r;
+    // epilogue from the accumulators: lane holds pixels lane / 4 and
+    // lane / 4 + 8 of its row at channels 2 (lane % 4) + {0, 1} of each n8 tile
+    const int oy = y0 + warp;
     if (oy >= d.ho) continue;
+    const bool pairs = d.ypitch % 2 == 0;  // channel pairs are 4-byte aligned
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int ox = x0 + lane / 4 + 8 * half;
       if (ox >= d.wo) continue;
-      bf16* out = y + (((size_t)bi * d.ho + oy) * d.wo + ox) * d.cout;
+      bf16* out = y + (((size_t)bi * d.ho + oy) * d.wo + ox) * d.ypitch;
 #pragma unroll
-      for (int j = 0; j < kConvN8; ++j) {
-        const int c = kConvHalf * nhalf + j * 8 + 2 * (lane % 4), n = n0 + c;
-        const float v0 = mlp_act(d.act, acc[r][j][2 * half] + sb[c]);
-        const float v1 = mlp_act(d.act, acc[r][j][2 * half + 1] + sb[c + 1]);
-        if (pairs && n + 1 < d.cout) {
+      for (int j = 0; j < kN8; ++j) {
+        const int c = j * 8 + 2 * (lane % 4), n = p * kN + c;
+        if (n >= d.ypitch) continue;
+        const float v0 = n < d.cout ? mlp_act(d.act, acc[j][2 * half] + sb[n]) : 0.0f;
+        const float v1 = n + 1 < d.cout ? mlp_act(d.act, acc[j][2 * half + 1] + sb[n + 1]) : 0.0f;
+        if (pairs) {
           *reinterpret_cast<__nv_bfloat162*>(out + n) = __floats2bfloat162_rn(v0, v1);
         } else {
-          if (n < d.cout) out[n] = __float2bfloat16(v0);
-          if (n + 1 < d.cout) out[n + 1] = __float2bfloat16(v1);
+          out[n] = __float2bfloat16(v0);
+          if (n + 1 < d.ypitch) out[n + 1] = __float2bfloat16(v1);
         }
       }
     }
+  }
+}
+
+template <int kN, int kWG, int kNK>
+static int launch_conv5(const bf16* x, const bf16* wp, const float* bias, bf16* y, ConvDims d,
+                        int device, cudaStream_t stream) {
+  constexpr int kRows = 4 * kWG;
+  const size_t smem = conv_smem(d.k, d.chunk, kN, kRows, d.npass);
+  cudaError_t err = set_smem(conv5_kernel<kN, kWG, kNK>, smem, device);
+  if (err != cudaSuccess) return err;
+  const long long tiles =
+      (long long)((d.ho + kRows - 1) / kRows) * ((d.wo + kConvTW - 1) / kConvTW);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, 1, d.b);
+  conv5_kernel<kN, kWG, kNK><<<grid, kWG * 128, smem, stream>>>(x, wp, bias, y, d);
+  return cudaGetLastError();
+}
+
+// one instantiation per pass width and chunk depth (16 to 128 channels)
+template <int kN, int kWG>
+static int dispatch_conv5(const bf16* x, const bf16* wp, const float* bias, bf16* y, ConvDims d,
+                          int device, cudaStream_t stream) {
+  switch (d.chunk / 16) {
+    case 1: return launch_conv5<kN, kWG, 1>(x, wp, bias, y, d, device, stream);
+    case 2: return launch_conv5<kN, kWG, 2>(x, wp, bias, y, d, device, stream);
+    case 3: return launch_conv5<kN, kWG, 3>(x, wp, bias, y, d, device, stream);
+    case 4: return launch_conv5<kN, kWG, 4>(x, wp, bias, y, d, device, stream);
+    case 5: return launch_conv5<kN, kWG, 5>(x, wp, bias, y, d, device, stream);
+    case 6: return launch_conv5<kN, kWG, 6>(x, wp, bias, y, d, device, stream);
+    case 7: return launch_conv5<kN, kWG, 7>(x, wp, bias, y, d, device, stream);
+    case 8: return launch_conv5<kN, kWG, 8>(x, wp, bias, y, d, device, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -286,36 +445,34 @@ static __global__ void __launch_bounds__(kConvThreads)
 
 using namespace wcmc;
 
-// x (b, h, w, cin) bf16 contiguous; wp (k, k, cin_pad, cout_pad) bf16,
-// the weights zero-padded to cin_pad = cin rounded up to 16 rows and
-// cout_pad (a multiple of the 112-channel block slice) columns; bias
-// (cout) f32; y (b, h - k + 1, w - k + 1, cout) bf16 contiguous.  act: 0
-// linear, 1 relu, 2 leaky relu.
+// x (b, h, w, cin) bf16 with strides (sb, sh, sw, 1), each a multiple of
+// 8 elements, and 16-byte aligned; wp the packed weights of ops/conv5.py
+// (pack_weights: npass passes of n channels, cin_pad rows a tap, a
+// multiple of the chunk); bias (cout) f32; y (b, h - k + 1, w - k + 1,
+// ypitch) bf16 contiguous, channels [cout, ypitch) written as zeros.  n
+// is 104 or 224; chunk (16 to 128, a multiple of 16) the input channels
+// staged at once.  act: 0 linear, 1 relu, 2 leaky relu.
 extern "C" int wcmc_conv5(const void* x, const void* wp, const void* bias, void* y, int b, int h,
-                          int w, int cin, int cout, int k, int cin_pad, int cout_pad, int act,
-                          int device, void* stream) {
-  ConvDims d{b, h, w, cin, cout, k, h - k + 1, w - k + 1, cin_pad, cout_pad, 0, act};
+                          int w, int cin, long long sb, long long sh, long long sw, int cout,
+                          int ypitch, int k, int n, int cin_pad, int chunk, int act, int device,
+                          void* stream) {
+  ConvDims d{b, h, w, cin, cout, k, sb, sh, sw, h - k + 1, w - k + 1, ypitch, cin_pad, 0, chunk,
+             act};
   if (b < 1 || b > 65535 || k < 1 || d.ho < 1 || d.wo < 1 || cin < 1 || cout < 1 ||
-      cin_pad != round_up(cin, 16) || cout_pad != round_up(cout, kConvNC) || act < 0 ||
-      act > 2 || cout_pad / kConvNC > 65535)
+      (n != 104 && n != 224) || act < 0 || act > 2 || chunk < 16 || chunk % 16 ||
+      chunk > kConvMaxChunk || cin_pad < cin || cin_pad % chunk || cin_pad - chunk >= cin ||
+      sb % 8 || sh % 8 || sw % 8 || sw < cin || (reinterpret_cast<uintptr_t>(x) & 15u) ||
+      (reinterpret_cast<uintptr_t>(wp) & 15u))
     return cudaErrorInvalidValue;
+  d.npass = (cout + n - 1) / n;
+  if (ypitch < cout || ypitch > d.npass * n) return cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  int limit = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  // the widest chunk of input channels whose tiles fit the block's shared memory
-  d.chunk = std::min(cin_pad, kConvMaxChunk);
-  while (d.chunk > 16 && conv_smem(k, d.chunk) > (size_t)limit) d.chunk -= 16;
-  const size_t smem = conv_smem(k, d.chunk);
-  err = set_smem(conv5_kernel, smem, device);
-  if (err != cudaSuccess) return err;
-  const long long tiles =
-      (long long)((d.ho + kConvTH - 1) / kConvTH) * ((d.wo + kConvTW - 1) / kConvTW);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, cout_pad / kConvNC, b);
-  conv5_kernel<<<grid, kConvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wp), static_cast<const float*>(bias),
-      static_cast<bf16*>(y), d);
-  return cudaGetLastError();
+  const auto xs = static_cast<const bf16*>(x);
+  const auto ws = static_cast<const bf16*>(wp);
+  const auto bs = static_cast<const float*>(bias);
+  const auto ys = static_cast<bf16*>(y);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return n == 104 ? dispatch_conv5<104, 4>(xs, ws, bs, ys, d, device, st)
+                  : dispatch_conv5<224, 2>(xs, ws, bs, ys, d, device, st);
 }
