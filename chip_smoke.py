@@ -398,6 +398,13 @@ def head_bwd_row(torch, pf, dev, g, flush, b, s, hw, ce, c1, cout, moments, cmaj
     de, dctx, dws, dbs = kernel()
     pde, pdctx, pws, pbs = plain()
     max_err(torch, dws + dbs, pws + pbs, BF16_TOL)
+    # the partials are summed in block order: a second launch repeats bit for bit
+    again = kernel()
+    bit_for_bit = all(torch.equal(x, y) for x, y in zip(
+        [again[0], again[1], *again[2], *again[3]], [de, dctx, *dws, *dbs]))
+    if not bit_for_bit:
+        raise AssertionError("K5-bwd: a second launch gave other bits")
+    del again
     row_l2 = {"de": rel_l2(torch, de, pde), "dctx": rel_l2(torch, dctx, pdctx)}
     if max(row_l2.values()) > ROW_L2_TOL:
         raise AssertionError(f"K5-bwd per-row outputs off by {row_l2} (relative L2)")
@@ -415,7 +422,8 @@ def head_bwd_row(torch, pf, dev, g, flush, b, s, hw, ce, c1, cout, moments, cmaj
          "g_dtype": str(gout.dtype).replace("torch.", ""), "w1": [2 * ce, c1],
          "w2": [c1, cout], "acts": list(acts), "moments": moments,
          "gsq": gsq_t is not None},
-        library_note="no single PyTorch call computes a fused MLP's backward", row_rel_l2=row_l2)
+        library_note="no single PyTorch call computes a fused MLP's backward", row_rel_l2=row_l2,
+        bit_for_bit=bit_for_bit)
 
 
 def kernel_phase(torch, ka, pf, dev):
@@ -953,13 +961,16 @@ def device_kind(name):
     name of its launch counter (the bodies that two kernels share, K1 and
     K9, K2 and K8, K3 and K7, told apart by their softmax template
     argument; ``reduce_parts``, the second launch of the backward
-    kernels), the library convolutions and products, copies, or the rest
-    (PyTorch's elementwise, reduction and copy kernels)."""
+    kernels; K5-bwd's two bodies, PathNet's and the tiled one), the
+    library convolutions and products, copies, or the rest (PyTorch's
+    elementwise, reduction and copy kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
     if m:
         kind = m.group(1).removesuffix("_kernel")
         if kind == "softmax_stats":
             return "scatter_softmax"
+        if kind.startswith("pathnet_head_bwd"):
+            return "pathnet_head_bwd"
         if kind in ("gather", "outer", "splat_gather"):
             kind = "scatter" if kind == "splat_gather" else kind
             if re.search(r"wcmc::\w+<[^>]*\btrue>", name):

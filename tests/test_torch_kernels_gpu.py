@@ -226,6 +226,11 @@ def test_pathnet_head_backward(cuda, b, s, hw):
     flat = pf.pathnet_head_bwd(e, ctx, g.transpose(2, 3).contiguous(), gsum, gsq, ws, bs)
     for gt, wt in zip(flat[2] + flat[3], got[2] + got[3]):
         torch.testing.assert_close(gt, wt, rtol=0, atol=0)
+    # a second launch repeats bit for bit (partials summed in block order)
+    again = pf.pathnet_head_bwd(e, ctx, g, gsum, gsq, ws, bs, cmajor=True)
+    for gt, wt in zip([again[0], again[1], *again[2], *again[3]],
+                      [got[0], got[1], *got[2], *got[3]]):
+        torch.testing.assert_close(gt, wt, rtol=0, atol=0)
 
 
 def test_train_batch_on_the_card_matches_the_cpu(cuda):
@@ -707,7 +712,14 @@ def _sbmc_head_case(cuda, b, s, hw, seed):
 
 
 @pytest.mark.parametrize("moments", [True, False])
-@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 11, 37), (8, 8, 16384)])
+@pytest.mark.parametrize("b,s,hw", [
+    (2, 3, 100), (1, 11, 37), (8, 8, 16384),
+    # the tiled kernel's 32-pixel tile: HW at P - 1, P and P + 1; S = 1
+    # and 2; fewer tiles (2 to 6) than the card's 132 blocks
+    (2, 1, 31), (1, 2, 32), (3, 5, 33),
+    # many more tiles than blocks, not a whole number per block
+    (5, 2, 4099),
+])
 def test_pathnet_head_backward_sbmc(cuda, b, s, hw, moments):
     """K5-bwd in Multisteps' update form: [128 | 128] -> 128 -> 128, leaky
     relu, Cout 128, a bf16 channels-last output cotangent, with the
@@ -723,6 +735,11 @@ def test_pathnet_head_backward_sbmc(cuda, b, s, hw, moments):
     _close_l2(got[1], want[1], 1e-2)
     for gt, wt in zip([*got[2], *got[3]], [*want[2], *want[3]]):
         _close(gt, wt, BF16_TOL)
+    # a second launch repeats bit for bit (partials summed in block order)
+    again = pf.pathnet_head_bwd(e, ctx, gout, gsum, None, ws, bs, LEAKY3[:2])
+    for gt, wt in zip([again[0], again[1], *again[2], *again[3]],
+                      [got[0], got[1], *got[2], *got[3]]):
+        torch.testing.assert_close(gt, wt, rtol=0, atol=0)
     # through autograd, as Multisteps calls it
     params = [t.clone().requires_grad_() for t in (e, ctx, *ws, *bs)]
     res = pf.pathnet_head(params[0], params[1], params[2:4], params[4:], LEAKY3[:2], moments,
@@ -735,6 +752,52 @@ def test_pathnet_head_backward_sbmc(cuda, b, s, hw, moments):
         torch.testing.assert_close(gt, wt.to(gt.dtype), rtol=0, atol=0)
     with pytest.raises(ValueError):   # an f32 cotangent is not Multisteps' form
         pf.pathnet_head_bwd(e, ctx, gout.float(), gsum, None, ws, bs, LEAKY3[:2])
+
+
+def test_pathnet_head_backward_sbmc_other_inputs(cuda):
+    """The update form's other inputs, which Multisteps does not pass: a
+    ``gsq`` cotangent, a channel-major cotangent, a cotangent view that
+    does not start on 16 bytes, and a narrower chain (Ce 64, Cc 32, C1 96,
+    Cout 100, run zero-padded to the tiled widths)."""
+    e, ctx, ws, bs, gout, gsum = _sbmc_head_case(cuda, 2, 3, 45, 29)
+    gsq = 0.1 * gsum.flip(-1)
+    flat = torch.cat([torch.zeros(1, device=cuda), gsum.reshape(-1)])
+    gsum = flat[1:].view(gsum.shape)   # 4 bytes past a 16-byte boundary
+    got = pf.pathnet_head_bwd(e, ctx, gout.transpose(2, 3), gsum, gsq, ws, bs, LEAKY3[:2],
+                              cmajor=True)
+    want = pf._head_bwd_plain(e, ctx, gout, gsum, gsq, ws, bs, LEAKY3[:2])
+    _close_l2(got[0], want[0], 1e-2)
+    _close_l2(got[1], want[1], 1e-2)
+    for gt, wt in zip([*got[2], *got[3]], [*want[2], *want[3]]):
+        _close(gt, wt, BF16_TOL)
+    ce, cc, c1, cout = 64, 32, 96, 100
+    w1 = torch.cat([ws[0][:ce, :c1], ws[0][128:128 + cc, :c1]])
+    nws, nbs = [w1, ws[1][:c1, :cout]], [bs[0][:c1], bs[1][:cout]]
+    ne, nctx = e[..., :ce].contiguous(), ctx[..., :cc].contiguous()
+    ng = gout[..., :cout]
+    got = pf.pathnet_head_bwd(ne, nctx, ng, gsum[..., :cout], None, nws, nbs, LEAKY3[:2])
+    want = pf._head_bwd_plain(ne, nctx, ng, gsum[..., :cout], None, nws, nbs, LEAKY3[:2])
+    assert got[0].shape == ne.shape and got[1].shape == nctx.shape
+    _close_l2(got[0], want[0], 1e-2)
+    _close_l2(got[1], want[1], 1e-2)
+    for gt, wt in zip([*got[2], *got[3]], [*want[2], *want[3]]):
+        assert gt.shape == wt.shape
+        _close(gt, wt, BF16_TOL)
+
+
+@pytest.mark.parametrize("acts,widths", [(LEAKY3[:2], (128, 128, 128)),
+                                         (pf.HEAD_ACTS, (128, 128, 256)),
+                                         (pf.HEAD_ACTS, (64, 64, 128))])
+def test_head_bwd_plan_is_the_kernels_shared_memory(cuda, acts, widths):
+    """``head_bwd_plan``'s total is the dynamic shared memory K5-bwd's
+    entry point gives a block of the form (the tiled kernel also checks
+    its own carve against it at every launch)."""
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_head_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    code = 2 if acts == LEAKY3[:2] else 1
+    assert fn(code, *widths) == pf.head_bwd_plan(tuple(acts), *widths).total
 
 
 def _sbmc_step_setup(cuda, b, patch):

@@ -32,7 +32,6 @@ dtype, as for a shape it does not take.
 
 from __future__ import annotations
 
-import collections
 import functools
 from typing import NamedTuple
 
@@ -40,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from wcmc_tpu_torch.ops import _build
+from wcmc_tpu_torch.ops._pack import PackCache
 from wcmc_tpu_torch.ops.mlp_fused import _act
 
 # activation codes of the kernel (mlp_act of csrc/mlp.cuh)
@@ -124,28 +124,13 @@ def unpack_weights(packed, ksize: int, cin: int, cout: int):
     return w[:, :, :cin, :cout]
 
 
-_packed: collections.OrderedDict = collections.OrderedDict()
+_packed = PackCache(PACK_CACHE_SIZE)
 
 
 def _packed_weights(w, n, cin_pad):
-    """``pack_weights(w, n, cin_pad)``, made once per parameter value:
-    cached on the tensor's data pointer, version counter (bumped by every in-place
-    update), shape, strides, dtype and device.  An entry holds ``w``
-    itself, so its memory cannot be freed and reused by another tensor
-    that would match the key while the entry lives.  A tensor made in
-    inference mode has no version counter and is packed on every call."""
-    if w.is_inference():
-        return pack_weights(w, n, cin_pad)
-    key = (w.data_ptr(), w._version, tuple(w.shape), w.stride(), w.dtype, w.device, n, cin_pad)
-    hit = _packed.get(key)
-    if hit is not None:
-        _packed.move_to_end(key)
-        return hit[1]
-    packed = pack_weights(w.detach(), n, cin_pad)
-    _packed[key] = (w, packed)
-    while len(_packed) > PACK_CACHE_SIZE:
-        _packed.popitem(last=False)
-    return packed
+    """``pack_weights(w, n, cin_pad)``, made once per parameter value
+    (:class:`~wcmc_tpu_torch.ops._pack.PackCache`)."""
+    return _packed.get((w,), (n, cin_pad), lambda t: pack_weights(t, n, cin_pad))
 
 
 def _check_args(x, w, bias, ksize, act):

@@ -73,6 +73,7 @@
 // atomics on values (the one atomic, a shared count, only picks the warp
 // that refills a stage): the result repeats bit for bit.  Offsets into
 // device memory are 64-bit.
+#include "hopper.cuh"
 #include "mlp.cuh"
 
 namespace wcmc {
@@ -104,88 +105,11 @@ inline size_t conv_smem(int k, int chunk, int n, int rows, int npass) {
          smem_bytes(kConvStages, 8) + smem_bytes(kConvStages, 4);
 }
 
-// 16 bytes, of which the first src_bytes are read and the rest zero-filled
-__device__ inline void cp_async16_zfill(unsigned dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-__device__ inline void mbar_init(unsigned bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ inline void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ inline void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16, both addresses 16-byte aligned) from device to
-// shared memory, counted against the mbarrier's transaction count
-__device__ inline void bulk_copy(unsigned dst, const void* src, unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory (each lane gives one row's
-// address): a warp's 16 x 16 slice of the A operand of a wgmma, in the
-// layout of mma.m16n8k16's A fragment.
-__device__ inline void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // A wgmma descriptor of a K-major B operand without swizzle in shared
 // memory: 8 x 8 core matrices of 128 contiguous bytes, the two k halves
 // of an n8 group 128 bytes apart (leading byte offset), successive n8
-// groups 256 bytes apart (stride byte offset); addresses and offsets in
-// 16-byte units.
-__device__ inline uint64_t wgmma_desc(unsigned addr) {
-  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
-}
-
-__device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-
-__device__ inline void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ inline void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators
-// across the asynchronous products.
-template <int kN8>
-__device__ inline void fence_acc(float (&d)[kN8][4]) {
-#pragma unroll
-  for (int j = 0; j < kN8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
-}
+// groups 256 bytes apart (stride byte offset).
+__device__ inline uint64_t wgmma_desc(unsigned addr) { return smem_desc(addr, 128, 256); }
 
 // d += a . B on the tensor cores for the warpgroup: an m64n104k16 product,
 // A (64 x 16 bf16) from registers as four ldmatrix fragments a warp, B

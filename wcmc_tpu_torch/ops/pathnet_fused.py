@@ -11,7 +11,10 @@ Counterpart of ``wcmc_tpu/ops/pathnet_fused.py`` (reference dataflow:
   (``csrc/pathnet_embed_bwd.cu``), plain version ``_embed_bwd_plain``;
 * ``pathnet_head``: forward K5-fwd (``csrc/pathnet_head.cu``), plain
   ``_head_plain``; backward K5-bwd (``csrc/pathnet_head_bwd.cu``), plain
-  ``_head_bwd_plain``.
+  ``_head_bwd_plain``.  K5-bwd reads the head's parameters as
+  ``pack_head_weights`` lays them out (packed once per parameter value);
+  ``head_bwd_plan`` gives its tiles and shared memory per form, and
+  ``_head_bwd_walk`` is a plain walk of its order of sums (CPU tests).
 
 The SBMC ``Multisteps`` model runs the same two forms wider: an
 embedding with leaky relu on every layer (95 -> 128 -> 128 -> 128) and
@@ -38,9 +41,13 @@ that autograd passes as ``None`` is a zero.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from wcmc_tpu_torch.ops import _build
+from wcmc_tpu_torch.ops._pack import PackCache
 from wcmc_tpu_torch.ops.mlp_fused import (
     ACTS, _act, _act_grad, _mlp_bwd_rows, _mlp_plain, matmul_f32,
 )
@@ -276,6 +283,261 @@ def _head_bwd_form(acts, cout, g_dtype):
     return form
 
 
+# ---------------------------------------------------------------------------
+# K5-bwd's layouts and plan (csrc/pathnet_head_bwd.cu), kept here so the
+# CPU tests reach them
+# ---------------------------------------------------------------------------
+
+# The Multisteps form runs the tiled kernel at these widths (Ce = Cc = C1
+# = 128, W2 staged 128 wide); narrower chains are zero-padded to them.
+TILED_WIDTH = 128
+# csrc/pathnet_head_bwd.cu's tiles: (pixels per tile, samples per chunk)
+# of the tiled kernel (64 rows per product) and of PathNet's kernel
+TILED_TILE, PATHNET_TILE = (32, 2), (16, 8)
+TILED_STAGES = 2      # the e ring's stages
+PACK_CACHE_SIZE = 16  # packed heads kept (a train step has 2 or 3)
+
+
+class HeadBwdPlan(NamedTuple):
+    """How K5-bwd runs a form: ``pix`` pixels of one image per tile,
+    ``samples`` samples per chunk (``pix * samples`` rows per product),
+    and the block's shared memory, ``smem`` as (buffer, bytes) pairs, each
+    rounded up to 128 bytes as the kernel carves them, ``total`` their sum."""
+    tiled: bool
+    pix: int
+    samples: int
+    smem: tuple
+    total: int
+
+
+def _r128(n):
+    return -(-n // 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def head_bwd_plan(acts, ce=TILED_WIDTH, cc=TILED_WIDTH, c1=TILED_WIDTH) -> HeadBwdPlan:
+    """K5-bwd's plan for the form of ``acts`` (``HEAD_BWD_FORMS``) at
+    widths Ce, Cc, C1 (the tiled form's are always 128).  The tiled form
+    (Multisteps): the packed W1e and W2, a ring of e tiles and the
+    cotangent tile (blocked), h1 / g1 and bf16(gz2) (the first also the
+    tile's [G_hi | G_lo], the second the staged d(e)), two context tiles,
+    ctx . W1c + b1, G and gsum in f32, b2, the warps' running bias sums and
+    the mbarriers.  PathNet's: csrc/pathnet_head_bwd.cu's pathnet_bwd_smem.
+    ``total`` is what wcmc_pathnet_head_bwd_smem of that file returns."""
+    kout = HEAD_BWD_FORMS[tuple(acts)][0]
+    if tuple(acts) == LEAKY[:2]:
+        w = TILED_WIDTH
+        pix, samples = TILED_TILE
+        rows = pix * samples
+        pb, pf = 2 * (w + 8), 4 * (w + 8)      # padded rows of bf16 / f32
+        smem = (("w1e", 2 * w * w), ("w2", 2 * w * kout),
+                ("e", TILED_STAGES * rows * 2 * w), ("g", rows * 2 * kout),
+                ("h", max(2 * rows * w, pix * 2 * (2 * w + 8))),
+                ("gz", max(2 * rows * kout, rows * pb)), ("ctx", 2 * pix * pb),
+                ("zc", pix * pf), ("G", pix * pf), ("gsum", pix * 4 * (kout + 8)),
+                ("b2", 4 * kout), ("db", 2 * 4 * 8 * 64), ("bars", 8 * 7))
+        tiled = True
+    else:
+        pix, samples = PATHNET_TILE
+        rows = pix * samples
+        smem = (("ctx", pix * 2 * (cc + 8)), ("zc", pix * 4 * (c1 + 4)),
+                ("e", rows * 2 * (ce + 8)), ("h", rows * 2 * (c1 + 8)),
+                ("gz", rows * 2 * (kout + 8)), ("gf", rows * kout * 4),
+                ("gsum", pix * kout * 4), ("gsq", pix * kout * 4), ("gacc", pix * c1 * 4),
+                ("ghi", pix * 2 * (c1 + 8)), ("glo", pix * 2 * (c1 + 8)),
+                ("stage", 8 * 256 * 4), ("dbpart", samples * c1 * 4), ("db1", c1 * 4),
+                ("b1", c1 * 4), ("db2", kout * 4), ("b2", kout * 4))
+        tiled = False
+    smem = tuple((name, _r128(n)) for name, n in smem)
+    return HeadBwdPlan(tiled, pix, samples, smem, sum(n for _, n in smem))
+
+
+def blocked(x):
+    """A (R, C) matrix as (R / 8, C / 8, 8, 8) blocks of 8 rows x 8
+    columns, each block's rows 16 contiguous bytes in bf16: the 8 x 8 core
+    matrices in which K5-bwd keeps its weights and tiles in shared memory.
+    A wgmma reads such a matrix as a B operand either way round (rows
+    along K or along N) through one descriptor, and ldmatrix reads any
+    8 x 8 block of it, plain or transposed."""
+    r, c = x.shape
+    return x.reshape(r // 8, 8, c // 8, 8).permute(0, 2, 1, 3).contiguous()
+
+
+def unblocked(xb):
+    """The inverse of :func:`blocked`."""
+    r8, c8 = xb.shape[:2]
+    return xb.permute(0, 2, 1, 3).reshape(r8 * 8, c8 * 8)
+
+
+def frag_order(b):
+    """A (K, N) matrix as the B fragments of mma.m16n8k16 in the order a
+    warp loads them from device memory: (K / 16, N / 8, 32, 4), lane l
+    of k16 step ks and n8 tile j holding B[16 ks + 2 (l % 4) + (i % 2) +
+    8 (i // 2), 8 j + l // 4] for i < 4 (8 contiguous bytes a lane)."""
+    k, n = b.shape
+    # (ks, khalf, t, pair, j, g) -> (ks, j, g, t, khalf, pair)
+    x = b.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3)
+    return x.reshape(k // 16, n // 8, 32, 4).contiguous()
+
+
+def unfrag_order(f):
+    """The inverse of :func:`frag_order`."""
+    ks, n8 = f.shape[:2]
+    return f.reshape(ks, n8, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2).reshape(16 * ks, 8 * n8)
+
+
+def pack_head_weights(ws, bs, acts, ce, dtype=torch.bfloat16):
+    """The head's parameters (``ws[0]``'s first ``ce`` rows take e) in
+    the layout K5-bwd reads: ``(weights, biases)``, flat.  The tiled form (Multisteps, widths zero-padded to
+    128): ``blocked(W1e) | blocked(W2) | frag_order(W1c) |
+    frag_order(W1c^T)`` in ``dtype`` (the last two the B fragments of
+    ctx . W1c and of G . W1c^T, read from device memory once per tile),
+    and ``b1 | b2`` in f32.  PathNet's: ``W1 | W2`` with W2's columns
+    zero-padded to 16, and ``b1 | b2`` likewise."""
+    w1, w2 = ws
+    b1, b2 = bs
+    kout = HEAD_BWD_FORMS[tuple(acts)][0]
+    c1, cout = w2.shape
+    dev = w1.device
+    if head_bwd_plan(tuple(acts)).tiled:
+        n, cc = TILED_WIDTH, w1.shape[0] - ce
+        w1e = torch.zeros((n, n), dtype=dtype, device=dev)
+        w1e[:ce, :c1] = w1[:ce]
+        w1c = torch.zeros((n, n), dtype=dtype, device=dev)
+        w1c[:cc, :c1] = w1[ce:]
+        w2p = torch.zeros((n, kout), dtype=dtype, device=dev)
+        w2p[:c1, :cout] = w2
+        wp = torch.cat([blocked(w1e).reshape(-1), blocked(w2p).reshape(-1),
+                        frag_order(w1c).reshape(-1), frag_order(w1c.t()).reshape(-1)])
+        bp = torch.zeros(n + kout, dtype=torch.float32, device=dev)
+        bp[:c1] = b1
+    else:
+        w2p = torch.zeros((c1, kout), dtype=dtype, device=dev)
+        w2p[:, :cout] = w2
+        wp = torch.cat([w1.to(dtype).reshape(-1), w2p.reshape(-1)])
+        bp = torch.zeros(c1 + kout, dtype=torch.float32, device=dev)
+        bp[:c1] = b1
+    bp[-kout:][:cout] = b2
+    return wp, bp
+
+
+def unpack_head_weights(wp, bp, acts, ce, cc, c1, cout):
+    """The inverse of :func:`pack_head_weights`: ``([W1, W2], [b1,
+    b2])``; the tiled form's two W1c copies must agree."""
+    kout = HEAD_BWD_FORMS[tuple(acts)][0]
+    if head_bwd_plan(tuple(acts)).tiled:
+        n = TILED_WIDTH
+        w1e, w2, fc, fct = torch.split(wp, [n * n, n * kout, n * n, n * n])
+        w1c = unfrag_order(fc.view(n // 16, n // 8, 32, 4))
+        if not torch.equal(unfrag_order(fct.view(n // 16, n // 8, 32, 4)).t(), w1c):
+            raise ValueError("the packed W1c and W1c^T fragments disagree")
+        w1 = torch.cat([unblocked(w1e.view(n // 8, n // 8, 8, 8))[:ce, :c1], w1c[:cc, :c1]])
+        w2 = unblocked(w2.view(n // 8, kout // 8, 8, 8))[:c1, :cout]
+        b1 = bp[:c1]
+    else:
+        w1 = wp[:(ce + cc) * c1].view(ce + cc, c1)
+        w2 = wp[(ce + cc) * c1:].view(c1, kout)[:, :cout]
+        b1 = bp[:c1]
+    return [w1, w2], [b1, bp[-kout:][:cout]]
+
+
+_packed = PackCache(PACK_CACHE_SIZE)
+
+
+def _packed_head(ws, bs, acts, ce):
+    """``pack_head_weights(ws, bs, acts, ce)``, made once per value of the
+    four parameters (:class:`~wcmc_tpu_torch.ops._pack.PackCache`)."""
+    return _packed.get((*ws, *bs), (tuple(acts), ce),
+                       lambda w1, w2, b1, b2: pack_head_weights([w1, w2], [b1, b2], acts, ce))
+
+
+def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3):
+    """A plain walk of K5-bwd's order on the CPU: persistent blocks take
+    pixel tiles in turn (``head_bwd_plan``'s tile and chunk), each tile
+    computes ctx . W1c + b1 once, then its samples in chunks (the tiled
+    form's rows pixel-major: pixel by pixel, the chunk's samples of each):
+    h1, h2 and the cotangent, dW2, g1, the sum G of bf16(g1) over the
+    samples in sample order, dW1e and de, every product summed k16 step by
+    k16 step into its accumulator; at the tile's end d(ctx) (the hi and lo
+    terms of each k16 step in turn) and dW1c from G = hi + lo (hi =
+    bf16(G), lo = bf16(G - hi)).  Each block's weight and bias
+    gradients are its partials, summed in block order.  Returns what
+    ``_head_bwd_plain`` returns."""
+    dt = e.dtype
+    b, s, hw, ce = e.shape
+    cc = ctx.shape[-1]
+    c1, cout = ws[1].shape
+    plan = head_bwd_plan(tuple(acts), ce, cc, c1)
+    w1e, w1c = ws[0][:ce].to(dt).float(), ws[0][ce:].to(dt).float()
+    w2 = ws[1].to(dt).float()
+    b1, b2 = bs[0].float(), bs[1].float()
+    gfull = torch.zeros((b, s, hw, cout))
+    if g is not None:
+        gfull += (g.transpose(2, 3) if cmajor else g).float()
+
+    def into(acc, a, w):
+        for k in range(0, a.shape[1], 16):
+            acc = acc + a[:, k:k + 16] @ w[k:k + 16]
+        return acc
+
+    def prod(a, w):
+        return into(torch.zeros((a.shape[0], w.shape[1])), a, w)
+
+    def rows(x):   # (samples, pixels, C) -> the chunk's rows
+        return (x.transpose(0, 1) if plan.tiled else x).reshape(-1, x.shape[-1])
+
+    def unrows(x, ns, npx):
+        return (x.reshape(npx, ns, -1).transpose(0, 1) if plan.tiled
+                else x.reshape(ns, npx, -1))
+
+    de = torch.empty_like(e)
+    dctx = torch.empty((b, hw, cc))
+    per_image = -(-hw // plan.pix)
+    n_tiles = b * per_image
+    sums = None
+    for blk in range(min(n_blocks, n_tiles)):
+        dw1e, dw1c, dw2 = torch.zeros((ce, c1)), torch.zeros((cc, c1)), torch.zeros((c1, cout))
+        db1, db2 = torch.zeros(c1), torch.zeros(cout)
+        for t in range(blk, n_tiles, min(n_blocks, n_tiles)):
+            bi, p0 = t // per_image, (t % per_image) * plan.pix
+            p1 = min(p0 + plan.pix, hw)
+            cx = ctx[bi, p0:p1].to(dt).float()
+            zc = prod(cx, w1c) + b1
+            big_g = torch.zeros((p1 - p0, c1))
+            for s0 in range(0, s, plan.samples):
+                s1 = min(s0 + plan.samples, s)
+                ns, npx = s1 - s0, p1 - p0
+                ec = rows(e[bi, s0:s1, p0:p1].float())
+                h1 = _act(acts[0], into(rows(zc.expand(ns, -1, -1)), ec, w1e)).to(dt).float()
+                h2 = _act(acts[1], prod(h1, w2) + b2)
+                gg = rows(gfull[bi, s0:s1, p0:p1])
+                if gsum is not None:
+                    gg = gg + rows(gsum[bi, p0:p1].float().expand(ns, -1, -1))
+                if gsq is not None:
+                    gg = gg + 2.0 * h2 * rows(gsq[bi, p0:p1].float().expand(ns, -1, -1))
+                gz = _act_grad(acts[1], h2, gg)
+                db2 += gz.sum(dim=0)
+                gzc = gz.to(dt).float()
+                dw2 = into(dw2, h1.t(), gzc)
+                g1 = _act_grad(acts[0], h1, prod(gzc, w2.t()))
+                db1 += g1.sum(dim=0)
+                g1c = g1.to(dt).float()
+                for g1s in unrows(g1c, ns, npx):
+                    big_g = big_g + g1s
+                dw1e = into(dw1e, ec.t(), g1c)
+                de[bi, s0:s1, p0:p1] = unrows(prod(g1c, w1e.t()).to(dt), ns, npx)
+            hi = big_g.to(torch.bfloat16).float()
+            lo = (big_g - hi).to(torch.bfloat16).float()
+            d = torch.zeros((p1 - p0, cc))
+            for k in range(0, c1, 16):
+                d = d + hi[:, k:k + 16] @ w1c.t()[k:k + 16] + lo[:, k:k + 16] @ w1c.t()[k:k + 16]
+            dctx[bi, p0:p1] = d
+            dw1c = into(into(dw1c, cx.t(), hi), cx.t(), lo)
+        part = [torch.cat([dw1e, dw1c]), dw2, db1, db2]
+        sums = part if sums is None else [a + p for a, p in zip(sums, part)]
+    return de, dctx, sums[:2], sums[2:]
+
+
 def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx):
     dev = _require_cuda("pathnet_embed_bwd", x, *ws, *bs)
     b, s, hw, c0 = x.shape
@@ -317,6 +579,17 @@ def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx):
     return (dx if compute_dx else None), dws, [db0, db1, db2]
 
 
+def _pad_last(t, n):
+    """``t`` with its last axis zero-padded to ``n`` (``t`` itself when it is that wide)."""
+    c = t.shape[-1]
+    return t if c == n else torch.nn.functional.pad(t, (0, n - c))
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data does not start on 16 bytes."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor):
     dev = _require_cuda("pathnet_head_bwd", e, ctx, *ws, *bs)
     codes = _check_head_card(e, acts)
@@ -334,37 +607,53 @@ def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor):
             or any(m is not None and tuple(m.shape) != (b, hw, cout) for m in (gsum, gsq))):
         raise ValueError("pathnet_head_bwd: shapes of e, ctx, the weights and the "
                          "cotangents disagree")
+    plan = head_bwd_plan(tuple(acts), ce, cc, c1)
+    if plan.tiled and max(ce, cc, c1) > TILED_WIDTH:
+        raise ValueError(f"pathnet_head_bwd kernel's {tuple(acts)} form takes Ce, Cc, C1 up "
+                         f"to {TILED_WIDTH}, got {ce}, {cc}, {c1}")
     f32, bf = torch.float32, torch.bfloat16
-    # the cotangents as they come (the kernel reads either layout); None is zero
-    g = None if g is None else g.to(g_dtype).contiguous()
+    wp, bp = _packed_head(ws, bs, acts, ce)
+    # the cotangents as they come (PathNet's kernel reads either layout, the
+    # tiled one channels-last); None is zero
+    if g is not None:
+        g = g.to(g_dtype)
+        g = (g.transpose(2, 3) if cmajor and plan.tiled else g).contiguous()
     gsum, gsq = (None if t is None else t.float().contiguous() for t in (gsum, gsq))
-    w1 = ws[0].to(bf).contiguous()
-    w2 = torch.zeros((c1, kout), dtype=bf, device=dev)
-    w2[:, :cout] = ws[1]
-    b2 = torch.zeros(kout, dtype=f32, device=dev)
-    b2[:cout] = bs[1]
-    b1 = bs[0].float().contiguous()
     e = e.contiguous()
     ctx = ctx.to(bf).contiguous()
+    if plan.tiled:   # a narrower chain runs zero-padded to the tiled widths (exact)
+        n = TILED_WIDTH
+        # the tiled kernel's bulk copies need 16-byte aligned rows
+        e, ctx = (_aligned(_pad_last(t, n)) for t in (e, ctx))
+        g, gsum, gsq = (None if t is None else _aligned(_pad_last(t, kout))
+                        for t in (g, gsum, gsq))
+        dims = (n, n, n)
+    else:
+        dims = (ce, cc, c1)
     de = torch.empty_like(e)
-    dctx = torch.empty((b, hw, cc), dtype=f32, device=dev)
-    n_parts = ce * c1 + cc * c1 + c1 * kout + c1 + kout
+    dctx = torch.empty((b, hw, dims[1]), dtype=f32, device=dev)
+    n_parts = (dims[0] + dims[1]) * dims[2] + dims[2] * kout + dims[2] + kout
     idx = dev.index or 0
     n_blocks = _build.sm_count(idx)
     parts = torch.empty(n_blocks * n_parts, dtype=f32, device=dev)
     out = torch.empty(n_parts, dtype=f32, device=dev)
     P, INT = _build.PTR, _build.INT
-    fn = _build.kernel("wcmc_pathnet_head_bwd", *([P] * 13), *([INT] * 13), P)
+    fn = _build.kernel("wcmc_pathnet_head_bwd", *([P] * 11), *([INT] * 13), P)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    _build.check(fn(e.data_ptr(), ctx.data_ptr(), ptr(g), ptr(gsum), ptr(gsq),
-                    w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                    de.data_ptr(), dctx.data_ptr(), parts.data_ptr(), out.data_ptr(),
-                    b, s, hw, ce, cc, c1, cout, *codes, kout, int(cmajor), n_blocks, idx,
-                    _build.stream_of(dev)), "pathnet_head_bwd")
+    _build.check(fn(e.data_ptr(), ctx.data_ptr(), ptr(g), ptr(gsum), ptr(gsq), wp.data_ptr(),
+                    bp.data_ptr(), de.data_ptr(), dctx.data_ptr(), parts.data_ptr(),
+                    out.data_ptr(), b, s, hw, *dims, cout, *codes, kout,
+                    int(cmajor and not plan.tiled), n_blocks, idx, _build.stream_of(dev)),
+                 "pathnet_head_bwd")
     _build.launches["pathnet_head_bwd"] += 1
-    dw1, dw2, db1, db2 = torch.split(out, [(ce + cc) * c1, c1 * kout, c1, kout])
-    dws = [dw1.view(ce + cc, c1), dw2.view(c1, kout)[:, :cout]]
-    return de, dctx, dws, [db1, db2[:cout]]
+    k1, kc, k2 = dims
+    dw1, dw2, db1, db2 = torch.split(out, [(k1 + kc) * k2, k2 * kout, k2, kout])
+    dw1 = dw1.view(k1 + kc, k2)
+    if (k1, kc, k2) != (ce, cc, c1):
+        dw1 = torch.cat([dw1[:ce, :c1], dw1[k1:k1 + cc, :c1]])
+        de, dctx = de[..., :ce], dctx[..., :cc]
+    dws = [dw1, dw2.view(k2, kout)[:c1, :cout]]
+    return de, dctx, dws, [db1[:c1], db2[:cout]]
 
 
 def pathnet_embed_bwd(x, ge, gmean, ws, bs, acts=EMBED_ACTS, compute_dx=False):
