@@ -20,7 +20,9 @@ Phases (one JSON line each):
    KPCN (8 tiles or patches of 128 px, 8 spp, K = 21, both branches): K1
    (softmax gather), K4-fwd (PathNet embedding), K5-fwd (PathNet head),
    K2 (softmax-gather d logits), K3 (softmax-gather d buffer), K4-bwd and
-   K5-bwd; K2 and K3 are first driven through ``torch.autograd.grad`` of
+   K5-bwd (each backward MLP also two launches compared bit for bit,
+   their partials being summed in block order); K2 and K3 are first
+   driven through ``torch.autograd.grad`` of
    ``kernel_gather_softmax`` with a buffer that requires grad (KPCN's
    buffers are data, so its step runs no K3).  LBMC (the same sizes):
    K10-fwd and K10-bwd (the fused per-pixel MLP, 32 -> 32 -> 32 -> 32,
@@ -348,7 +350,15 @@ def embed_bwd_row(torch, pf, dev, g, flush, b, s, hw, dims, acts=None, compute_d
     dx, dws, dbs = kernel()
     pdx, pws, pbs = plain()
     err = max_err(torch, dws + dbs, pws + pbs, BF16_TOL)
-    extra = {}
+    # the partials are summed in block order: a second launch repeats bit for bit
+    again = kernel()
+    bit_for_bit = all(torch.equal(a, w) for a, w in zip(
+        [*again[1], *again[2]] + ([again[0]] if compute_dx else []),
+        [*dws, *dbs] + ([dx] if compute_dx else [])))
+    if not bit_for_bit:
+        raise AssertionError("K4-bwd: a second launch gave other bits")
+    del again
+    extra = {"bit_for_bit": bit_for_bit}
     if compute_dx:
         # d(x) per row: a recomputed pre-activation within rounding of zero
         # can take the other slope of its leaky relu
@@ -961,7 +971,7 @@ def device_kind(name):
     name of its launch counter (the bodies that two kernels share, K1 and
     K9, K2 and K8, K3 and K7, told apart by their softmax template
     argument; ``reduce_parts``, the second launch of the backward
-    kernels; K5-bwd's two bodies, PathNet's and the tiled one), the
+    kernels; K4-bwd's and K5-bwd's two bodies each), the
     library convolutions and products, copies, or the rest (PyTorch's
     elementwise, reduction and copy kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
@@ -969,8 +979,9 @@ def device_kind(name):
         kind = m.group(1).removesuffix("_kernel")
         if kind == "softmax_stats":
             return "scatter_softmax"
-        if kind.startswith("pathnet_head_bwd"):
-            return "pathnet_head_bwd"
+        for body in ("pathnet_head_bwd", "pathnet_embed_bwd"):
+            if kind.startswith(body):
+                return body
         if kind in ("gather", "outer", "splat_gather"):
             kind = "scatter" if kind == "splat_gather" else kind
             if re.search(r"wcmc::\w+<[^>]*\btrue>", name):
@@ -1320,9 +1331,11 @@ def cross_check(torch, card_if, batch, family):
     return result
 
 
-def train_phase(torch, dev, family, b=8, patch=128, spp=8):
+def train_phase(torch, dev, family, b=8, patch=128, spp=8, check=cross_check):
     """The flagship training step of ``family`` through the port's entry
-    points; returns the phase record and the launches of the timed steps."""
+    points; returns the phase record and the launches of the timed steps.
+    ``check`` is the cross-check at its end (``chip_xcheck.py`` passes one
+    that saves the state the check starts from)."""
     import numpy as np
 
     from wcmc_tpu_torch.data.batches import synthetic_batch
@@ -1377,7 +1390,7 @@ def train_phase(torch, dev, family, b=8, patch=128, spp=8):
 
     profiled = profile_steps(torch, iface, batch, n_prof)
     # the cross-check on the first two patches of the batch
-    xcheck = cross_check(torch, iface, {k: v[:2] for k, v in batch.items()}, family)
+    xcheck = check(torch, iface, {k: v[:2] for k, v in batch.items()}, family)
 
     med = statistics.median(step_ms)
     config = {"model": str(iface.models["dncnn"]), "batch": b, "patch": patch, "spp": spp,

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of wcmc_tpu_torch, and not
-chip_smoke.py, imports JAX, flax, optax or wcmc_tpu, while serving a
+"""The port stands alone: no module of wcmc_tpu_torch, and neither
+chip_smoke.py nor chip_xcheck.py, imports JAX, flax, optax or wcmc_tpu, while serving a
 batch (unfused and fused) and taking a train step of KPCN, of LBMC and of
 SBMC; and its entry points refuse to fall back to the CPU silently."""
 
@@ -38,6 +38,8 @@ _CHILD = textwrap.dedent("""
     spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
+    spec = importlib.util.spec_from_file_location("chip_xcheck", "chip_xcheck.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
     from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
     cfg = TrainConfig(kpcn_ksize=5, use_llpm_buf=True, compute_dtype="float32")
@@ -161,6 +163,18 @@ def test_chip_smoke_refuses_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_xcheck_refuses_without_a_card(tmp_path):
+    """chip_xcheck.py exits non-zero and writes no state without CUDA
+    (skips where torch sees a card)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; chip_xcheck.py would run for real")
+    state = tmp_path / "state.pt"
+    proc = subprocess.run([sys.executable, "chip_xcheck.py", "save", "kpcn", str(state)],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout == "" and not state.exists()
 
 
 def test_chip_smoke_alone_refuses(tmp_path):

@@ -163,9 +163,8 @@ def test_gather_softmax_backward(cuda, b, h, w, ksize, dtype):
     assert dict(_build.launches) == {"outer_softmax": 1}
 
 
-def _embed_case(cuda, b, s, hw, seed):
+def _embed_case(cuda, b, s, hw, seed, dims=(36, 128, 128, 128)):
     g = _gen(seed)
-    dims = (36, 128, 128, 128)
     x = torch.randn((b, s, hw, dims[0]), device=cuda, generator=g).to(torch.bfloat16)
     ws = [torch.randn((ci, co), device=cuda, generator=g) / ci**0.5
           for ci, co in zip(dims[:-1], dims[1:])]
@@ -175,9 +174,22 @@ def _embed_case(cuda, b, s, hw, seed):
     return x, ws, bs, ge, gmean
 
 
-@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 11, 40), (8, 8, 16384)])
-def test_pathnet_embed_backward(cuda, b, s, hw):
-    x, ws, bs, ge, gmean = _embed_case(cuda, b, s, hw, 4)
+# K4-bwd's shapes beside the paths': its 32-pixel tile at HW P - 1, P and
+# P + 1; S = 1 and 2; fewer tiles (2 to 6) than the card's 132 blocks and
+# many more, not a whole number per block; x spans that start on 16 bytes
+# (HW 64) and spans that do not (HW 37, 100, 4099: a sample's span of
+# pixels starts on 16 bytes only where its first row index is a multiple
+# of 8 for 95 channels, of 2 for 36)
+EMBED_BWD_SHAPES = [(2, 3, 100), (8, 8, 16384), (2, 1, 31), (1, 2, 32), (3, 5, 33),
+                    (2, 2, 64), (5, 2, 4099)]
+
+
+# PathNet's chain 128 wide (KPCN's branches merged: the row-chunk body) and
+# 64 wide (LBMC's and SBMC's PathNet: the tiled body, zero-padded to 128)
+@pytest.mark.parametrize("dims", [(36, 128, 128, 128), (36, 64, 64, 64)])
+@pytest.mark.parametrize("b,s,hw", [(1, 11, 40)] + EMBED_BWD_SHAPES)
+def test_pathnet_embed_backward(cuda, b, s, hw, dims):
+    x, ws, bs, ge, gmean = _embed_case(cuda, b, s, hw, 4, dims)
     _build.reset_counts()
     _, dws, dbs = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs)
     assert _build.launches["pathnet_embed_bwd"] == 1 and not _build.plain_calls
@@ -185,6 +197,16 @@ def test_pathnet_embed_backward(cuda, b, s, hw):
     for got, want in zip(dws + dbs, wdws + wdbs):
         assert got.dtype == torch.float32
         _close(got, want, BF16_TOL)
+    # a second launch repeats bit for bit (partials summed in block order)
+    _, dws2, dbs2 = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs)
+    for got, want in zip(dws2 + dbs2, dws + dbs):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # either cotangent absent (autograd passes None for an unused output)
+    for cots in ((None, gmean), (ge, None)):
+        _, gws, gbs = pf.pathnet_embed_bwd(x, *cots, ws, bs)
+        _, pws, pbs = pf._embed_bwd_plain(x, *cots, ws, bs, pf.EMBED_ACTS)
+        for got, want in zip(gws + gbs, pws + pbs):
+            _close(got, want, BF16_TOL)
     # through autograd: weights that require grad launch K4-bwd
     params = [w.clone().requires_grad_() for w in ws + bs]
     e, mean = pf.pathnet_embed(x, params[:3], params[3:])
@@ -668,7 +690,7 @@ def _sbmc_embed_case(cuda, b, s, hw, seed):
     return x, ws, bs, ge, gmean
 
 
-@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 11, 37), (8, 8, 16384)])
+@pytest.mark.parametrize("b,s,hw", [(1, 11, 37)] + EMBED_BWD_SHAPES)
 def test_pathnet_embed_backward_sbmc(cuda, b, s, hw):
     """K4-bwd in Multisteps' form: 95 -> 128 -> 128 -> 128, leaky relu x 3,
     with d(x) (rows of 95 bf16 values) and without."""
@@ -682,6 +704,17 @@ def test_pathnet_embed_backward_sbmc(cuda, b, s, hw):
     for got, want in zip(dws + dbs, wdws + wdbs):
         assert got.dtype == torch.float32
         _close(got, want, BF16_TOL)
+    # a second launch repeats bit for bit (partials summed in block order)
+    dx2, dws2, dbs2 = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, LEAKY3, compute_dx=True)
+    for got, want in zip([dx2, *dws2, *dbs2], [dx, *dws, *dbs]):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # either cotangent absent
+    for cots in ((None, gmean), (ge, None)):
+        gdx, gws, gbs = pf.pathnet_embed_bwd(x, *cots, ws, bs, LEAKY3, compute_dx=True)
+        pdx, pws, pbs = pf._embed_bwd_plain(x, *cots, ws, bs, LEAKY3, compute_dx=True)
+        _close_l2(gdx, pdx, 1e-2)
+        for got, want in zip(gws + gbs, pws + pbs):
+            _close(got, want, BF16_TOL)
     none, dws2, dbs2 = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, LEAKY3)
     assert none is None
     for got, want in zip(dws2 + dbs2, dws + dbs):
@@ -697,6 +730,39 @@ def test_pathnet_embed_backward_sbmc(cuda, b, s, hw):
         torch.testing.assert_close(got, want.to(got.dtype), rtol=0, atol=0)
     with pytest.raises(ValueError):
         pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, ("leaky_relu", "relu", "linear"))
+
+
+def test_pathnet_embed_backward_other_inputs(cuda):
+    """K4-bwd's other inputs, which the models do not pass: Multisteps' form
+    with 40 input channels (padded to 48, where both warpgroups form d(x))
+    and narrower layers (32, 48, 64, run zero-padded to 128); rows x that do
+    not start on 16 bytes (every span by 2-byte loads); PathNet's form with
+    60 input channels, 64 wide (the tiled body, C0 padded to 96) and 128
+    wide (the row-chunk body, C0 padded to 64)."""
+    g = _gen(31)
+    cases = [(LEAKY3, (40, 32, 48, 64), True, False), (LEAKY3, (95, 128, 128, 128), True, True),
+             (pf.EMBED_ACTS, (60, 64, 64, 64), False, False),
+             (pf.EMBED_ACTS, (60, 128, 128, 128), False, False)]
+    for acts, dims, compute_dx, offset in cases:
+        b, s, hw = 2, 3, 45
+        x = torch.randn((b, s, hw, dims[0]), device=cuda, generator=g).to(torch.bfloat16)
+        if offset:   # 2 bytes past a 16-byte boundary
+            flat = torch.cat([torch.zeros(1, device=cuda, dtype=x.dtype), x.reshape(-1)])
+            x = flat[1:].view(x.shape)
+            assert x.data_ptr() % 16 == 2
+        ws = [torch.randn((ci, co), device=cuda, generator=g) / ci**0.5
+              for ci, co in zip(dims[:-1], dims[1:])]
+        bs = [0.1 * torch.randn(co, device=cuda, generator=g) for co in dims[1:]]
+        ge = torch.randn((b, s, hw, dims[-1]), device=cuda, generator=g).to(torch.bfloat16)
+        gmean = torch.randn((b, hw, dims[-1]), device=cuda, generator=g)
+        dx, dws, dbs = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, acts, compute_dx)
+        wdx, wdws, wdbs = pf._embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx)
+        if compute_dx:
+            assert dx.shape == x.shape
+            _close_l2(dx, wdx, 1e-2)
+        for got, want in zip(dws + dbs, wdws + wdbs):
+            assert got.shape == want.shape
+            _close(got, want, BF16_TOL)
 
 
 def _sbmc_head_case(cuda, b, s, hw, seed):
@@ -798,6 +864,18 @@ def test_head_bwd_plan_is_the_kernels_shared_memory(cuda, acts, widths):
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
     code = 2 if acts == LEAKY3[:2] else 1
     assert fn(code, *widths) == pf.head_bwd_plan(tuple(acts), *widths).total
+
+
+@pytest.mark.parametrize("c0", [36, 95])
+def test_embed_bwd_plan_is_the_kernels_shared_memory(cuda, c0):
+    """``embed_bwd_plan``'s total is the dynamic shared memory K4-bwd's
+    entry point gives a block for rows of ``c0`` values (the kernel also
+    checks its own carve against it at every launch)."""
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_embed_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    assert fn(c0) == pf.embed_bwd_plan(c0).total
 
 
 def _sbmc_step_setup(cuda, b, patch):

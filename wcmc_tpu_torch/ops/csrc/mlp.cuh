@@ -85,7 +85,9 @@ __device__ inline void store_rows(bf16* __restrict__ dst, const bf16* src, int p
   }
 }
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+__host__ __device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
 
 // Fill and check the layer description from the C arguments; false for
 // what the kernels do not compute.

@@ -8,7 +8,11 @@ Counterpart of ``wcmc_tpu/ops/pathnet_fused.py`` (reference dataflow:
 
 * ``pathnet_embed``: forward CUDA kernel K4-fwd (``csrc/pathnet_embed.cu``),
   plain version ``_embed_plain``; backward K4-bwd
-  (``csrc/pathnet_embed_bwd.cu``), plain version ``_embed_bwd_plain``;
+  (``csrc/pathnet_embed_bwd.cu``), plain version ``_embed_bwd_plain``.
+  K4-bwd reads the embedding's parameters as ``pack_embed_weights`` lays
+  them out (packed once per parameter value); ``embed_bwd_plan`` gives its
+  tile and shared memory, and ``_embed_bwd_walk`` is a plain walk of its
+  order of sums (CPU tests);
 * ``pathnet_head``: forward K5-fwd (``csrc/pathnet_head.cu``), plain
   ``_head_plain``; backward K5-bwd (``csrc/pathnet_head_bwd.cu``), plain
   ``_head_bwd_plain``.  K5-bwd reads the head's parameters as
@@ -295,7 +299,7 @@ TILED_WIDTH = 128
 # of the tiled kernel (64 rows per product) and of PathNet's kernel
 TILED_TILE, PATHNET_TILE = (32, 2), (16, 8)
 TILED_STAGES = 2      # the e ring's stages
-PACK_CACHE_SIZE = 16  # packed heads kept (a train step has 2 or 3)
+PACK_CACHE_SIZE = 16  # packed heads and embeddings kept (a train step has up to 6)
 
 
 class HeadBwdPlan(NamedTuple):
@@ -451,6 +455,19 @@ def _packed_head(ws, bs, acts, ce):
                        lambda w1, w2, b1, b2: pack_head_weights([w1, w2], [b1, b2], acts, ce))
 
 
+def _into(acc, a, w):
+    """``acc + a @ w``, summed k16 step by k16 step (of ``a``'s columns) as
+    the kernels' products add into their accumulators."""
+    for k in range(0, a.shape[1], 16):
+        acc = acc + a[:, k:k + 16] @ w[k:k + 16]
+    return acc
+
+
+def _prod(a, w):
+    """``a @ w`` in k16 steps (:func:`_into` from zero)."""
+    return _into(torch.zeros((a.shape[0], w.shape[1])), a, w)
+
+
 def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3):
     """A plain walk of K5-bwd's order on the CPU: persistent blocks take
     pixel tiles in turn (``head_bwd_plan``'s tile and chunk), each tile
@@ -474,15 +491,6 @@ def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3)
     gfull = torch.zeros((b, s, hw, cout))
     if g is not None:
         gfull += (g.transpose(2, 3) if cmajor else g).float()
-
-    def into(acc, a, w):
-        for k in range(0, a.shape[1], 16):
-            acc = acc + a[:, k:k + 16] @ w[k:k + 16]
-        return acc
-
-    def prod(a, w):
-        return into(torch.zeros((a.shape[0], w.shape[1])), a, w)
-
     def rows(x):   # (samples, pixels, C) -> the chunk's rows
         return (x.transpose(0, 1) if plan.tiled else x).reshape(-1, x.shape[-1])
 
@@ -502,14 +510,14 @@ def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3)
             bi, p0 = t // per_image, (t % per_image) * plan.pix
             p1 = min(p0 + plan.pix, hw)
             cx = ctx[bi, p0:p1].to(dt).float()
-            zc = prod(cx, w1c) + b1
+            zc = _prod(cx, w1c) + b1
             big_g = torch.zeros((p1 - p0, c1))
             for s0 in range(0, s, plan.samples):
                 s1 = min(s0 + plan.samples, s)
                 ns, npx = s1 - s0, p1 - p0
                 ec = rows(e[bi, s0:s1, p0:p1].float())
-                h1 = _act(acts[0], into(rows(zc.expand(ns, -1, -1)), ec, w1e)).to(dt).float()
-                h2 = _act(acts[1], prod(h1, w2) + b2)
+                h1 = _act(acts[0], _into(rows(zc.expand(ns, -1, -1)), ec, w1e)).to(dt).float()
+                h2 = _act(acts[1], _prod(h1, w2) + b2)
                 gg = rows(gfull[bi, s0:s1, p0:p1])
                 if gsum is not None:
                     gg = gg + rows(gsum[bi, p0:p1].float().expand(ns, -1, -1))
@@ -518,24 +526,166 @@ def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3)
                 gz = _act_grad(acts[1], h2, gg)
                 db2 += gz.sum(dim=0)
                 gzc = gz.to(dt).float()
-                dw2 = into(dw2, h1.t(), gzc)
-                g1 = _act_grad(acts[0], h1, prod(gzc, w2.t()))
+                dw2 = _into(dw2, h1.t(), gzc)
+                g1 = _act_grad(acts[0], h1, _prod(gzc, w2.t()))
                 db1 += g1.sum(dim=0)
                 g1c = g1.to(dt).float()
                 for g1s in unrows(g1c, ns, npx):
                     big_g = big_g + g1s
-                dw1e = into(dw1e, ec.t(), g1c)
-                de[bi, s0:s1, p0:p1] = unrows(prod(g1c, w1e.t()).to(dt), ns, npx)
+                dw1e = _into(dw1e, ec.t(), g1c)
+                de[bi, s0:s1, p0:p1] = unrows(_prod(g1c, w1e.t()).to(dt), ns, npx)
             hi = big_g.to(torch.bfloat16).float()
             lo = (big_g - hi).to(torch.bfloat16).float()
             d = torch.zeros((p1 - p0, cc))
             for k in range(0, c1, 16):
                 d = d + hi[:, k:k + 16] @ w1c.t()[k:k + 16] + lo[:, k:k + 16] @ w1c.t()[k:k + 16]
             dctx[bi, p0:p1] = d
-            dw1c = into(into(dw1c, cx.t(), hi), cx.t(), lo)
+            dw1c = _into(_into(dw1c, cx.t(), hi), cx.t(), lo)
         part = [torch.cat([dw1e, dw1c]), dw2, db1, db2]
         sums = part if sums is None else [a + p for a, p in zip(sums, part)]
     return de, dctx, sums[:2], sums[2:]
+
+
+# ---------------------------------------------------------------------------
+# K4-bwd's layouts and plan (csrc/pathnet_embed_bwd.cu), kept here so the
+# CPU tests reach them
+# ---------------------------------------------------------------------------
+
+# K4-bwd's tiled body runs every chain at C1 = C2 = C3 = 128 (narrower ones
+# zero-padded to it) and C0 zero-padded to the first of EMBED_BWD_K0 that
+# holds it; tiles of (pixels, samples per chunk): 64 rows per product.  It
+# takes Multisteps' form and PathNet's chains up to EMBED_BWD_PATHNET_TILED
+# wide (LBMC's and SBMC's PathNet); wider PathNet chains (KPCN's merged
+# branches) run the row-chunk body (csrc/pathnet_embed_bwd.cu).
+EMBED_BWD_WIDTH = 128
+EMBED_BWD_K0 = (48, 96)
+EMBED_BWD_TILE = (32, 2)
+EMBED_BWD_PATHNET_TILED = 64
+
+
+class EmbedBwdPlan(NamedTuple):
+    """How K4-bwd runs rows of C0 values: C0 padded to ``k0``, ``pix``
+    pixels of one image per tile, ``samples`` samples per chunk, and the
+    block's shared memory, ``smem`` as (buffer, bytes) pairs, each rounded
+    up to 128 bytes as the kernel carves them, ``total`` their sum."""
+    k0: int
+    pix: int
+    samples: int
+    smem: tuple
+    total: int
+
+
+@functools.lru_cache(maxsize=None)
+def embed_bwd_plan(c0) -> EmbedBwdPlan:
+    """K4-bwd's plan for rows of ``c0`` values: the packed W0 (k0 x 128),
+    W1 and W2, the landing stage of the chunk's x spans and the blocked x
+    tile, the cotangent tile (ge, then g3), h1 / g1, h2 / g2 (then the
+    staged d(x)), dW0^T and the tile's gmean / S in f32, the biases and the
+    mbarriers.  ``total`` is what wcmc_pathnet_embed_bwd_smem returns."""
+    if not 1 <= c0 <= EMBED_BWD_K0[-1]:
+        raise ValueError(f"pathnet_embed_bwd kernel takes 1 to {EMBED_BWD_K0[-1]} input "
+                         f"channels, got {c0}")
+    k0 = next(k for k in EMBED_BWD_K0 if c0 <= k)
+    w = EMBED_BWD_WIDTH
+    pix, samples = EMBED_BWD_TILE
+    rows = pix * samples
+    smem = (("w0", 2 * k0 * w), ("w1", 2 * w * w), ("w2", 2 * w * w), ("x_in", 2 * rows * k0),
+            ("x", 2 * rows * k0), ("g", 2 * rows * w), ("h1", 2 * rows * w), ("h2", 2 * rows * w),
+            ("dw0", 4 * w * k0), ("gmean", 4 * pix * w), ("bias", 4 * 3 * w), ("bars", 8 * 4))
+    smem = tuple((name, _r128(n)) for name, n in smem)
+    return EmbedBwdPlan(k0, pix, samples, smem, sum(n for _, n in smem))
+
+
+def pack_embed_weights(ws, bs, dtype=torch.bfloat16):
+    """The embedding's parameters in the layout K4-bwd reads: ``(weights,
+    biases)``, flat: ``blocked(W0) | blocked(W1) | blocked(W2)`` in
+    ``dtype``, W0 zero-padded to (k0, 128) and W1, W2 to (128, 128); and
+    ``b0 | b1 | b2`` in f32, each zero-padded to 128."""
+    n = EMBED_BWD_WIDTH
+    rows = (embed_bwd_plan(ws[0].shape[0]).k0, n, n)
+    dev = ws[0].device
+    wp, bp = [], torch.zeros(3 * n, dtype=torch.float32, device=dev)
+    for i, (w, b, r) in enumerate(zip(ws, bs, rows)):
+        wz = torch.zeros((r, n), dtype=dtype, device=dev)
+        wz[:w.shape[0], :w.shape[1]] = w
+        wp.append(blocked(wz).reshape(-1))
+        bp[i * n:i * n + b.shape[0]] = b
+    return torch.cat(wp), bp
+
+
+def unpack_embed_weights(wp, bp, c0, c1, c2, c3):
+    """The inverse of :func:`pack_embed_weights`: ``([W0, W1, W2], [b0,
+    b1, b2])``."""
+    n = EMBED_BWD_WIDTH
+    k0 = embed_bwd_plan(c0).k0
+    w0, w1, w2 = torch.split(wp, [k0 * n, n * n, n * n])
+    ws = [unblocked(w.view(r // 8, n // 8, 8, 8))[:ci, :co]
+          for w, r, ci, co in ((w0, k0, c0, c1), (w1, n, c1, c2), (w2, n, c2, c3))]
+    return ws, [bp[:c1], bp[n:n + c2], bp[2 * n:2 * n + c3]]
+
+
+def _packed_embed(ws, bs):
+    """``pack_embed_weights(ws, bs)``, made once per value of the six
+    parameters (:class:`~wcmc_tpu_torch.ops._pack.PackCache`)."""
+    return _packed.get((*ws, *bs), ("embed",),
+                       lambda *p: pack_embed_weights(list(p[:3]), list(p[3:])))
+
+
+def _embed_bwd_walk(x, ge, gmean, ws, bs, acts, compute_dx=False, n_blocks=3):
+    """A plain walk of K4-bwd's order on the CPU: persistent blocks take
+    pixel tiles in turn (``embed_bwd_plan``'s tile), each tile its samples
+    in chunks, rows sample-major: the hiddens recomputed, g3 from ge +
+    gmean / S, dW2, g2, dW1, g1, each weight-gradient product summed k16
+    step by k16 step (of the chunk's rows) into its block-long accumulator;
+    dW0^T = g1^T . x as one product per chunk, added to the block's dW0^T;
+    d(x) per chunk.  Each block's weight and bias gradients are its
+    partials, summed in block order.  Returns what ``_embed_bwd_plain``
+    returns."""
+    dt = x.dtype
+    b, s, hw, c0 = x.shape
+    c3 = ws[-1].shape[1]
+    plan = embed_bwd_plan(c0)
+    wt = [w.to(dt).float() for w in ws]
+    bias = [bb.float() for bb in bs]
+    gfull = torch.zeros((b, s, hw, c3)) if ge is None else ge.to(dt).float()
+    gm = torch.zeros((b, hw, c3)) if gmean is None else gmean.float() / s
+    dx = torch.empty_like(x) if compute_dx else None
+    per_image = -(-hw // plan.pix)
+    n_tiles = b * per_image
+    grid = min(n_blocks, n_tiles)
+    sums = None
+    for blk in range(grid):
+        dw0t = torch.zeros((ws[0].shape[1], c0))
+        dw = [torch.zeros(w.shape) for w in ws[1:]]
+        db = [torch.zeros(w.shape[1]) for w in ws]
+        for t in range(blk, n_tiles, grid):
+            bi, p0 = t // per_image, (t % per_image) * plan.pix
+            p1 = min(p0 + plan.pix, hw)
+            for s0 in range(0, s, plan.samples):
+                s1 = min(s0 + plan.samples, s)
+                xc = x[bi, s0:s1, p0:p1].float().reshape(-1, c0)
+                h1 = _act(acts[0], _prod(xc, wt[0]) + bias[0]).to(dt).float()
+                h2 = _act(acts[1], _prod(h1, wt[1]) + bias[1]).to(dt).float()
+                g = (gfull[bi, s0:s1, p0:p1] + gm[bi, p0:p1]).reshape(-1, c3)
+                if acts[2] != "linear":
+                    g = _act_grad(acts[2], _act(acts[2], _prod(h2, wt[2]) + bias[2]).to(dt), g)
+                db[2] += g.sum(dim=0)
+                g3 = g.to(dt).float()
+                dw[1] = _into(dw[1], h2.t(), g3)
+                g2 = _act_grad(acts[1], h2, _prod(g3, wt[2].t()))
+                db[1] += g2.sum(dim=0)
+                g2 = g2.to(dt).float()
+                dw[0] = _into(dw[0], h1.t(), g2)
+                g1 = _act_grad(acts[0], h1, _prod(g2, wt[1].t()))
+                db[0] += g1.sum(dim=0)
+                g1 = g1.to(dt).float()
+                dw0t = dw0t + _prod(g1.t(), xc)
+                if compute_dx:
+                    dx[bi, s0:s1, p0:p1] = _prod(g1, wt[0].t()).to(dt).reshape(
+                        s1 - s0, p1 - p0, c0)
+        part = [dw0t.t(), *dw, *db]
+        sums = part if sums is None else [a + p for a, p in zip(sums, part)]
+    return dx, sums[:3], sums[3:]
 
 
 def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx):
@@ -546,6 +696,44 @@ def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx):
     if ((ge is not None and tuple(ge.shape) != (b, s, hw, c3))
             or (gmean is not None and tuple(gmean.shape) != (b, hw, c3))):
         raise ValueError("pathnet_embed_bwd: cotangent shapes do not match the embedding")
+    if not with_dx and max(c1, c2, c3) > EMBED_BWD_PATHNET_TILED:
+        return _embed_bwd_rows(x, ge, gmean, ws, bs, dev)
+    n = EMBED_BWD_WIDTH
+    if max(c1, c2, c3) > n:
+        raise ValueError(f"pathnet_embed_bwd kernel takes layer widths up to {n}, got "
+                         f"{c1}, {c2}, {c3}")
+    k0 = embed_bwd_plan(c0).k0
+    wp, bp = _packed_embed(ws, bs)
+    # the rows as they come (any alignment); the cotangents 16-byte aligned,
+    # None is zero
+    x = x.contiguous()
+    ge = None if ge is None else _aligned(ge.to(torch.bfloat16).contiguous())
+    gmean = None if gmean is None else _aligned(gmean.float().contiguous())
+    dx = torch.empty_like(x) if with_dx else None
+    idx = dev.index or 0
+    n_blocks = _build.sm_count(idx)
+    sizes = [k0 * n, n * n, n * n, n, n, n]
+    parts = torch.empty(n_blocks * sum(sizes), dtype=torch.float32, device=dev)
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    P, INT = _build.PTR, _build.INT
+    fn = _build.kernel("wcmc_pathnet_embed_bwd", *([P] * 8), *([INT] * 10), P)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    _build.check(fn(x.data_ptr(), ptr(ge), ptr(gmean), wp.data_ptr(), bp.data_ptr(), ptr(dx),
+                    parts.data_ptr(), out.data_ptr(), b, s, hw, c0, c3, *codes, n_blocks,
+                    idx, _build.stream_of(dev)),
+                 "pathnet_embed_bwd")
+    _build.launches["pathnet_embed_bwd"] += 1
+    dw0, dw1, dw2, db0, db1, db2 = torch.split(out, sizes)
+    dws = [dw0.view(k0, n)[:c0, :c1], dw1.view(n, n)[:c1, :c2], dw2.view(n, n)[:c2, :c3]]
+    return (dx if compute_dx else None), dws, [db0[:c1], db1[:c2], db2[:c3]]
+
+
+def _embed_bwd_rows(x, ge, gmean, ws, bs, dev):
+    """K4-bwd's row-chunk body for PathNet's chain (relu, relu, linear,
+    no d(x)): W0 zero-padded to c0 rounded up to 16 rows, the weights in
+    bf16 and the biases in f32 per call, absent cotangents as zeros."""
+    b, s, hw, c0 = x.shape
+    c1, c2, c3 = (w.shape[1] for w in ws)
     k0 = -(-c0 // 16) * 16
     bf = torch.bfloat16
     x = x.contiguous()
@@ -556,27 +744,21 @@ def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx):
     w0 = torch.zeros((k0, c1), dtype=bf, device=dev)
     w0[:c0] = ws[0]
     w1, w2 = (w.to(bf).contiguous() for w in ws[1:])
-    b0, b1, b2 = (bb.float().contiguous() for bb in bs)
-    # d(x) goes straight into (B, S, HW, C0): the kernel stores its columns
-    # one by one, so a row width that is not a multiple of 8 needs no pad
-    dx = torch.empty_like(x) if with_dx else None
-    n_parts = k0 * c1 + c1 * c2 + c2 * c3 + c1 + c2 + c3
+    b0, b1 = (bb.float().contiguous() for bb in bs[:2])
+    sizes = [k0 * c1, c1 * c2, c2 * c3, c1, c2, c3]
     idx = dev.index or 0
     n_blocks = _build.sm_count(idx)
-    parts = torch.empty(n_blocks * n_parts, dtype=torch.float32, device=dev)
-    out = torch.empty(n_parts, dtype=torch.float32, device=dev)
+    parts = torch.empty(n_blocks * sum(sizes), dtype=torch.float32, device=dev)
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     P, INT = _build.PTR, _build.INT
-    fn = _build.kernel("wcmc_pathnet_embed_bwd", *([P] * 12), *([INT] * 12), P)
-    _build.check(fn(x.data_ptr(), ge.data_ptr(), gmean.data_ptr(),
-                    w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    w2.data_ptr(), b2.data_ptr(), dx.data_ptr() if with_dx else None,
-                    parts.data_ptr(), out.data_ptr(), b, s, hw, c0, c1, c2, c3, *codes,
-                    n_blocks, idx, _build.stream_of(dev)), "pathnet_embed_bwd")
+    fn = _build.kernel("wcmc_pathnet_embed_bwd_rows", *([P] * 10), *([INT] * 9), P)
+    _build.check(fn(x.data_ptr(), ge.data_ptr(), gmean.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+                    w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), parts.data_ptr(),
+                    out.data_ptr(), b, s, hw, c0, c1, c2, c3, n_blocks, idx,
+                    _build.stream_of(dev)), "pathnet_embed_bwd")
     _build.launches["pathnet_embed_bwd"] += 1
-    sizes = [k0 * c1, c1 * c2, c2 * c3, c1, c2, c3]
     dw0, dw1, dw2, db0, db1, db2 = torch.split(out, sizes)
-    dws = [dw0.view(k0, c1)[:c0], dw1.view(c1, c2), dw2.view(c2, c3)]
-    return (dx if compute_dx else None), dws, [db0, db1, db2]
+    return None, [dw0.view(k0, c1)[:c0], dw1.view(c1, c2), dw2.view(c2, c3)], [db0, db1, db2]
 
 
 def _pad_last(t, n):
