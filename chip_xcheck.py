@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Replay the cross-check of a train step that ``chip_smoke.py`` makes (one
 step on the card against the same step on the CPU in bf16 and in f32, same
-weights, batch and draws) from saved weights, and break each model's
-gradient down by parameter.  Needs one CUDA card.
+weights, batch and draws) from saved weights.  Needs one CUDA card.
 
     python3 chip_xcheck.py save FAMILY STATE [--init]
     python3 chip_xcheck.py check FAMILY STATE
@@ -11,11 +10,13 @@ gradient down by parameter.  Needs one CUDA card.
 phase does and saves the weights, the batch and the state of the draws'
 generator that its cross-check starts from (with ``--init``, the seeded
 initial weights instead).  ``check`` runs ``chip_smoke.py``'s cross-check
-from STATE with the code of the tree it is run from (copy this file to the
-root of another checkout to hold that checkout's code against the same
-weights) and prints one JSON line: the check's readings, or its failure,
-and for each model the norm of its gradient on the card, on the CPU in
-bf16 and in f32, and of each difference."""
+from STATE with the code of the tree it is run from (copy this file and
+``chip_smoke.py`` to the root of another checkout to hold that checkout's
+code against the same weights and the same decision) and prints one JSON
+line: the check's record, passed or failed (per model and loss the
+decision's terms: n = |g_b - g_f|, |g_c - g_b| and |g_c - g_f| beside their
+limits), and for each model the norm of its gradient on the card, on the
+CPU in bf16 and in f32, and of each difference."""
 
 from __future__ import annotations
 
@@ -46,15 +47,7 @@ def save(torch, cs, family, path, init):
         cs.train_phase(torch, dev, family, check=keep)
 
 
-def grads(iface, batch, draws):
-    iface.preprocess(batch)
-    iface.train_batch(batch, grad_hook_mode=True, draws=draws)
-    return {n: {pn: p.grad.detach().double().cpu().clone() for pn, p in m.named_parameters()}
-            for n, m in iface.models.items()}
-
-
 def check(torch, cs, family, path):
-    from wcmc_tpu_torch import convert
     from wcmc_tpu_torch.train.factory import init_interfaces
 
     state = torch.load(path, weights_only=False)
@@ -65,31 +58,21 @@ def check(torch, cs, family, path):
     iface.to_train_mode()
     batch = {k: v.to(dev) for k, v in state["batch"].items()}
     iface.generator.set_state(state["generator"])
-    draws = cs.step_draws(iface, batch, family)
-    iface.generator.set_state(state["generator"])
     out = {"family": family}
     try:
-        out["cross_check"] = cs.cross_check(torch, iface, batch, family)
+        record = out["cross_check"] = cs.cross_check(torch, iface, batch, family)
     except AssertionError as exc:
-        out["cross_check_failed"] = str(exc)
-    # per parameter: the card step, and the CPU steps in bf16 and in f32
-    steps = {"card": grads(iface, batch, draws)}
-    host = {k: v.cpu() for k, v in batch.items()}
-    for dtype in ("bfloat16", "float32"):
-        ref = init_interfaces(cs.train_config(family, compute_dtype=dtype), device="cpu")[0]
-        for name, m in iface.models.items():
-            convert.load_flax_params(ref.models[name], convert.to_flax(m))
-        ref.to_train_mode()
-        steps[dtype] = grads(ref, host, draws)
+        record = out["cross_check_failed"] = exc.record
+    # per model: the norms of the card's, the CPU bf16 and f32 gradients
+    # and of each difference, from the check's record
     out["norms"] = {}
-    for model in steps["card"]:
-        flat = {k: torch.cat([g.flatten() for g in steps[k][model].values()]) for k in steps}
+    for model in record["float32"]["grads"]:
+        t = record["decision"][model]
+        card = record["float32"]["grads"][model]["norm_ratio"] * t["f32"]
         out["norms"][model] = {
-            "card": flat["card"].norm().item(), "bf16": flat["bfloat16"].norm().item(),
-            "f32": flat["float32"].norm().item(),
-            "card-bf16": (flat["card"] - flat["bfloat16"]).norm().item(),
-            "card-f32": (flat["card"] - flat["float32"]).norm().item(),
-            "bf16-f32": (flat["bfloat16"] - flat["float32"]).norm().item()}
+            "card": card, "bf16": card / record["bfloat16"]["grads"][model]["norm_ratio"],
+            "f32": t["f32"], "card-bf16": t["card-bf16"], "card-f32": t["card-f32"],
+            "bf16-f32": t["n"]}
     print(json.dumps(out), flush=True)
 
 

@@ -7,14 +7,16 @@ of sums.
 * ``pack_embed_weights`` / ``unpack_embed_weights``: an exact round trip,
   for Multisteps' (C0 95 padded to 96) and PathNet's (C0 36 padded to 48)
   chains and for 64-wide chains zero-padded to 128; the blocks are 8 x 8
-  core matrices, element by element, and the pads are zero.  (The tiled
-  body takes Multisteps' form and PathNet's chains up to 64 wide; KPCN's
-  128-wide PathNet chain runs the row-chunk body, which reads no pack.)
+  core matrices, element by element, and the pads are zero; above 96
+  input channels W0 is padded to slabs of 96 rows.  (The tiled body takes
+  Multisteps' form and PathNet's chains up to 128 wide; wider PathNet
+  chains run the row-chunk body, which reads no pack.)
 * The cache: a hit for the same parameter values, a new pack after an
   in-place update (the version counter), a pack on every call for
   tensors made in inference mode.
 * The plan: its buffers fit the 227 KB a block may opt into, for each
-  padded input width.
+  padded input width; above 96 input channels, slabs of 96 in the carve
+  of 96.
 * The walk: the kernel's order over blocks, pixel tiles, sample chunks and
   k16 steps, dW0^T added to the block's copy once per chunk and the
   per-block partials summed in block order, in f32, within 1e-5
@@ -47,7 +49,8 @@ def _case(b, s, hw, dims, seed):
 
 @pytest.mark.parametrize("dims,k0", [(SBMC, 96), ((36, 128, 128, 128), 48), (LBMC, 48),
                                      ((48, 32, 96, 112), 48),
-                                     ((49, 128, 16, 64), 96)])
+                                     ((49, 128, 16, 64), 96),
+                                     ((150, 128, 128, 128), 192)])
 def test_pack_round_trip(dims, k0):
     _, ws, bs, _, _ = _case(1, 1, 8, dims, 0)
     wp, bp = pf.pack_embed_weights(ws, bs, torch.float32)
@@ -110,25 +113,33 @@ def test_pack_cache():
     pf._packed.clear()
 
 
-@pytest.mark.parametrize("c0,k0", [(1, 48), (36, 48), (48, 48), (49, 96), (95, 96), (96, 96)])
+@pytest.mark.parametrize("c0,k0", [(1, 48), (36, 48), (48, 48), (49, 96), (95, 96), (96, 96),
+                                   (97, 192), (100, 192), (128, 192), (150, 192), (193, 288)])
 def test_plan_fits(c0, k0):
     plan = pf.embed_bwd_plan(c0)
-    assert plan.k0 == k0
+    assert plan.k0 == k0 and plan.slab == min(k0, 96) and k0 % plan.slab == 0
     assert plan.total == sum(n for _, n in plan.smem)
     assert all(n % 128 == 0 for _, n in plan.smem)
     assert plan.total <= conv5.SMEM_LIMIT   # the 227 KB a block may opt into on an H100
     # 64 rows per product (a wgmma's m64)
     assert (plan.pix, plan.samples) == pf.EMBED_BWD_TILE and plan.pix * plan.samples == 64
     sizes = dict(plan.smem)
-    assert sizes["w0"] == 2 * k0 * 128 and sizes["w1"] == sizes["w2"] == 2 * 128 * 128
-    assert sizes["x_in"] == sizes["x"] == 2 * 64 * k0 and sizes["dw0"] == 4 * 128 * k0
-    # the staged d(x) spans fit the freed h2 tile
-    assert 2 * plan.samples * plan.pix * c0 <= sizes["h2"]
+    slab = plan.slab
+    assert sizes["w0"] == 2 * slab * 128 and sizes["w1"] == sizes["w2"] == 2 * 128 * 128
+    assert sizes["x_in"] == sizes["x"] == 2 * 64 * slab and sizes["dw0"] == 4 * 128 * slab
+    # the staged d(x) spans (of a slab, above 96 channels) fit the freed h2 tile
+    assert 2 * plan.samples * plan.pix * min(c0, slab) <= sizes["h2"]
+    if k0 > 96:   # wide rows take the carve of 96
+        assert plan.total == pf.embed_bwd_plan(96).total
 
 
 def test_plan_refuses_wide_rows():
+    """Rows of any width are taken (slabs of 96 above 96); only rows
+    without a value, which the reference cannot take either, are refused."""
+    for c0 in (97, 100, 150, 1000):
+        assert pf.embed_bwd_plan(c0).k0 == -(-c0 // 96) * 96
     with pytest.raises(ValueError):
-        pf.embed_bwd_plan(97)
+        pf.embed_bwd_plan(0)
 
 
 @pytest.mark.parametrize("acts,dims,dx,b,s,hw,none", [
@@ -139,6 +150,10 @@ def test_plan_refuses_wide_rows():
     (pf.EMBED_ACTS, LBMC, False, 2, 3, 37, ""),     # LBMC's and SBMC's PathNet
     (pf.EMBED_ACTS, LBMC, False, 2, 2, 40, "gmean"),
     (pf.EMBED_ACTS, (60, 32, 64, 48), False, 1, 9, 17, "ge"),   # k0 96, narrower
+    (pf.LEAKY, (97, 128, 128, 128), True, 2, 3, 37, ""),    # C0 past 96: slabs of 96
+    (pf.LEAKY, (100, 128, 128, 128), True, 1, 2, 33, "gmean"),
+    (pf.LEAKY, (150, 128, 128, 128), True, 1, 3, 40, ""),
+    (pf.EMBED_ACTS, (150, 64, 64, 64), False, 1, 2, 33, "ge"),
 ])
 def test_walk_matches_plain(acts, dims, dx, b, s, hw, none):
     x, ws, bs, ge, gmean = _case(b, s, hw, dims, 7)

@@ -92,6 +92,29 @@ def test_pack_tiled_layout():
     assert torch.equal(bp, torch.cat(bs))
 
 
+def test_pack_pathnet_tiled_layout():
+    """PathNet's tiled form at KPCN's widths: blocked W1e (128 x 256) and
+    W2 (256 x 6 padded to 16), W1c's fragments (K 128 x N 256) and W1c^T's
+    (K 256 x N 128), b1 | b2 padded to 16; LBMC's 64-wide head padded to
+    128 x 128."""
+    _, _, _, _, _, ws, bs = _case(1, 1, 8, 128, 128, 256, 6, True, 6)
+    wp, bp = pf.pack_head_weights(ws, bs, pf.HEAD_ACTS, 128, torch.float32)
+    n = 128 * 256
+    assert torch.equal(wp[:n], pf.blocked(ws[0][:128]).reshape(-1))
+    w2 = pf.unblocked(wp[n:n + 256 * 16].view(32, 2, 8, 8))
+    assert torch.equal(w2[:, :6], ws[1]) and torch.count_nonzero(w2[:, 6:]) == 0
+    fc = wp[n + 256 * 16:2 * n + 256 * 16]
+    assert torch.equal(fc, pf.frag_order(ws[0][128:]).reshape(-1))
+    assert torch.equal(wp[2 * n + 256 * 16:], pf.frag_order(ws[0][128:].t()).reshape(-1))
+    assert torch.equal(bp[:256], bs[0]) and torch.equal(bp[256:262], bs[1])
+    assert torch.count_nonzero(bp[262:]) == 0
+    _, _, _, _, _, ws, bs = _case(1, 1, 8, 64, 64, 128, 3, False, 6)
+    wp, bp = pf.pack_head_weights(ws, bs, pf.HEAD_ACTS, 64, torch.float32)
+    w1e = pf.unblocked(wp[:128 * 128].view(16, 16, 8, 8))
+    assert torch.equal(w1e[:64], ws[0][:64]) and torch.count_nonzero(w1e[64:]) == 0
+    assert wp.numel() == 3 * 128 * 128 + 128 * 16 and bp.numel() == 128 + 16
+
+
 def test_pack_cache():
     _, _, _, _, _, ws, bs = _case(1, 1, 8, 128, 128, 128, 128, False, 5)
     params = [torch.nn.Parameter(t.clone()) for t in ws + bs]
@@ -118,20 +141,34 @@ def test_pack_cache():
 
 @pytest.mark.parametrize("acts,dims", [(LEAKY2, (128, 128, 128)),
                                        (pf.HEAD_ACTS, (128, 128, 256)),
-                                       (pf.HEAD_ACTS, (64, 64, 128))])
+                                       (pf.HEAD_ACTS, (64, 64, 128)),
+                                       (pf.HEAD_ACTS, (144, 128, 256)),
+                                       (pf.HEAD_ACTS, (128, 128, 272))])
 def test_plan_fits(acts, dims):
     plan = pf.head_bwd_plan(acts, *dims)
     assert plan.total == sum(n for _, n in plan.smem)
     assert all(n % 128 == 0 for _, n in plan.smem)
     assert plan.total <= conv5.SMEM_LIMIT   # the 227 KB a block may opt into on an H100
-    if plan.tiled:
+    sizes = dict(plan.smem)
+    if plan.tiled and acts == LEAKY2:
         # 64 rows per product (a wgmma's m64), a ring of two e tiles
         assert (plan.pix, plan.samples) == pf.TILED_TILE and plan.pix * plan.samples == 64
-        sizes = dict(plan.smem)
         assert sizes["e"] == pf.TILED_STAGES * sizes["g"] == pf.TILED_STAGES * 64 * 2 * 128
         assert sizes["w1e"] == sizes["w2"] == 2 * 128 * 128
-    else:
-        assert (plan.pix, plan.samples) == pf.PATHNET_TILE
+        assert plan.widths == (128, 128, 128)
+    elif plan.tiled:
+        # PathNet's tiled form: 16 pixels x 4 samples, 64 rows per product;
+        # Ce and Cc padded to 128, C1 to 128 or 256 (KPCN's merged branches)
+        assert (plan.pix, plan.samples) == pf.PN_TILE and plan.pix * plan.samples == 64
+        n1 = 128 if dims[2] <= 128 else 256
+        assert plan.widths == (128, 128, n1)
+        assert sizes["e"] == pf.TILED_STAGES * 64 * 2 * 128
+        assert sizes["w1e"] == 2 * 128 * n1 and sizes["w2"] == 2 * n1 * 16
+        # h1 / g1 holds the chunk's 64 rows and the tile's [G_hi | G_lo]
+        assert sizes["h"] >= max(2 * 64 * n1, 2 * 16 * (2 * n1 + 8))
+    else:   # wider than the tiled forms: the wmma body at the head's own widths
+        assert max(dims[:2]) > 128 or dims[2] > 256
+        assert (plan.pix, plan.samples) == pf.PATHNET_TILE and plan.widths == dims
 
 
 @pytest.mark.parametrize("acts,dims,cmajor,b,s,hw,none", [
@@ -142,6 +179,11 @@ def test_plan_fits(acts, dims):
     (pf.HEAD_ACTS, (128, 128, 256, 6), True, 2, 3, 37, ""),   # KPCN: channel-major f32 g
     (pf.HEAD_ACTS, (128, 128, 256, 6), False, 1, 9, 17, "gsq"),
     (pf.HEAD_ACTS, (64, 64, 128, 3), False, 2, 2, 40, "g"),   # LBMC / SBMC's PathNet
+    (pf.HEAD_ACTS, (128, 128, 256, 6), True, 1, 1, 33, "gsum"),   # KPCN: S = 1, ragged HW
+    (pf.HEAD_ACTS, (128, 128, 256, 6), True, 2, 5, 32, "g"),      # odd S, whole tiles
+    (pf.HEAD_ACTS, (128, 128, 256, 6), False, 1, 4, 18, ""),      # channels-last
+    (pf.HEAD_ACTS, (64, 64, 128, 3), True, 1, 3, 23, "gsq"),
+    (pf.HEAD_ACTS, (144, 128, 256, 6), True, 1, 3, 20, ""),       # wider: the wmma body
 ])
 def test_walk_matches_plain(acts, dims, cmajor, b, s, hw, none):
     e, ctx, g, gsum, gsq, ws, bs = _case(b, s, hw, *dims, cmajor, 7)

@@ -184,8 +184,8 @@ EMBED_BWD_SHAPES = [(2, 3, 100), (8, 8, 16384), (2, 1, 31), (1, 2, 32), (3, 5, 3
                     (2, 2, 64), (5, 2, 4099)]
 
 
-# PathNet's chain 128 wide (KPCN's branches merged: the row-chunk body) and
-# 64 wide (LBMC's and SBMC's PathNet: the tiled body, zero-padded to 128)
+# PathNet's chain 128 wide (KPCN's branches merged) and 64 wide (LBMC's and
+# SBMC's PathNet, zero-padded to 128), both on the tiled body
 @pytest.mark.parametrize("dims", [(36, 128, 128, 128), (36, 64, 64, 64)])
 @pytest.mark.parametrize("b,s,hw", [(1, 11, 40)] + EMBED_BWD_SHAPES)
 def test_pathnet_embed_backward(cuda, b, s, hw, dims):
@@ -217,32 +217,45 @@ def test_pathnet_embed_backward(cuda, b, s, hw, dims):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def _head_case(cuda, b, s, hw, seed):
+def _head_case(cuda, b, s, hw, seed, dims=(128, 128, 256, 6)):
     g = _gen(seed)
-    ce = cc = 128
+    ce, cc, c1, cout = dims
     e = torch.randn((b, s, hw, ce), device=cuda, generator=g).to(torch.bfloat16)
     ctx = torch.randn((b, hw, cc), device=cuda, generator=g).to(torch.bfloat16)
-    ws = [torch.randn((ce + cc, 256), device=cuda, generator=g) / 16.0,
-          torch.randn((256, 6), device=cuda, generator=g) / 16.0]
-    bs = [0.1 * torch.randn(256, device=cuda, generator=g),
-          0.1 * torch.randn(6, device=cuda, generator=g)]
-    cot = [torch.randn((b, s, 6, hw), device=cuda, generator=g),
-           torch.randn((b, hw, 6), device=cuda, generator=g),
-           0.1 * torch.randn((b, hw, 6), device=cuda, generator=g)]
+    ws = [torch.randn((ce + cc, c1), device=cuda, generator=g) / (ce + cc) ** 0.5,
+          torch.randn((c1, cout), device=cuda, generator=g) / c1 ** 0.5]
+    bs = [0.1 * torch.randn(c1, device=cuda, generator=g),
+          0.1 * torch.randn(cout, device=cuda, generator=g)]
+    cot = [torch.randn((b, s, cout, hw), device=cuda, generator=g),
+           torch.randn((b, hw, cout), device=cuda, generator=g),
+           0.1 * torch.randn((b, hw, cout), device=cuda, generator=g)]
     return e, ctx, ws, bs, cot
 
 
-@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 11, 40), (8, 8, 16384)])
-def test_pathnet_head_backward(cuda, b, s, hw):
-    e, ctx, ws, bs, (g, gsum, gsq) = _head_case(cuda, b, s, hw, 5)
+# PathNet's head: KPCN's ([128 | 128] -> 256 -> 6, both branches merged)
+# and LBMC's and SBMC's ([64 | 64] -> 128 -> 3, zero-padded to 128) on the
+# tiled body, and one wider than it takes (the wmma body); shapes beside the
+# paths': the 16-pixel tile at HW P - 1, P, P + 1 and ragged (channel-major
+# rows off 16 bytes), S = 1, odd S, fewer tiles than blocks and many more
+HEAD_BWD_DIMS = [(128, 128, 256, 6), (64, 64, 128, 3), (144, 128, 256, 6)]
+
+
+@pytest.mark.parametrize("dims", HEAD_BWD_DIMS)
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 11, 40), (8, 8, 16384), (2, 1, 15),
+                                    (1, 2, 16), (3, 5, 17), (5, 2, 4099)])
+def test_pathnet_head_backward(cuda, b, s, hw, dims):
+    e, ctx, ws, bs, (g, gsum, gsq) = _head_case(cuda, b, s, hw, 5, dims)
+    assert pf.head_bwd_plan(pf.HEAD_ACTS, *dims[:3]).tiled == (dims[0] <= 128)
     _build.reset_counts()
     got = pf.pathnet_head_bwd(e, ctx, g, gsum, gsq, ws, bs, cmajor=True)
     assert _build.launches["pathnet_head_bwd"] == 1 and not _build.plain_calls
     want = pf._head_bwd_plain(e, ctx, g, gsum, gsq, ws, bs, pf.HEAD_ACTS, cmajor=True)
     assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    assert got[0].shape == e.shape and got[1].shape == ctx.shape
     _close_l2(got[0], want[0], 1e-2)
     _close_l2(got[1], want[1], 1e-2)
     for gt, wt in zip([*got[2], *got[3]], [*want[2], *want[3]]):
+        assert gt.shape == wt.shape
         _close(gt, wt, BF16_TOL)
     # the channels-last cotangent gives the same gradients
     flat = pf.pathnet_head_bwd(e, ctx, g.transpose(2, 3).contiguous(), gsum, gsq, ws, bs)
@@ -253,6 +266,15 @@ def test_pathnet_head_backward(cuda, b, s, hw):
     for gt, wt in zip([again[0], again[1], *again[2], *again[3]],
                       [got[0], got[1], *got[2], *got[3]]):
         torch.testing.assert_close(gt, wt, rtol=0, atol=0)
+    # each cotangent absent (autograd passes None for an unused output)
+    for none in range(3):
+        cots = [None if i == none else t for i, t in enumerate((g, gsum, gsq))]
+        part = pf.pathnet_head_bwd(e, ctx, *cots, ws, bs, cmajor=True)
+        ref = pf._head_bwd_plain(e, ctx, *cots, ws, bs, pf.HEAD_ACTS, cmajor=True)
+        _close_l2(part[0], ref[0], 1e-2)
+        _close_l2(part[1], ref[1], 1e-2)
+        for gt, wt in zip([*part[2], *part[3]], [*ref[2], *ref[3]]):
+            _close(gt, wt, BF16_TOL)
 
 
 def test_train_batch_on_the_card_matches_the_cpu(cuda):
@@ -737,12 +759,15 @@ def test_pathnet_embed_backward_other_inputs(cuda):
     with 40 input channels (padded to 48, where both warpgroups form d(x))
     and narrower layers (32, 48, 64, run zero-padded to 128); rows x that do
     not start on 16 bytes (every span by 2-byte loads); PathNet's form with
-    60 input channels, 64 wide (the tiled body, C0 padded to 96) and 128
-    wide (the row-chunk body, C0 padded to 64)."""
+    60 input channels, 64 and 128 wide (the tiled body, C0 padded to 96),
+    and 144 wide (the row-chunk body, C0 padded to 64); PathNet's form with
+    150 input channels (the tiled body, slabs of 96)."""
     g = _gen(31)
     cases = [(LEAKY3, (40, 32, 48, 64), True, False), (LEAKY3, (95, 128, 128, 128), True, True),
              (pf.EMBED_ACTS, (60, 64, 64, 64), False, False),
-             (pf.EMBED_ACTS, (60, 128, 128, 128), False, False)]
+             (pf.EMBED_ACTS, (60, 128, 128, 128), False, False),
+             (pf.EMBED_ACTS, (60, 144, 144, 144), False, False),
+             (pf.EMBED_ACTS, (150, 128, 128, 128), False, True)]
     for acts, dims, compute_dx, offset in cases:
         b, s, hw = 2, 3, 45
         x = torch.randn((b, s, hw, dims[0]), device=cuda, generator=g).to(torch.bfloat16)
@@ -763,6 +788,28 @@ def test_pathnet_embed_backward_other_inputs(cuda):
         for got, want in zip(dws + dbs, wdws + wdbs):
             assert got.shape == want.shape
             _close(got, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("c0", [97, 100, 128, 150])
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 45), (8, 8, 16384)])
+def test_pathnet_embed_backward_sbmc_wide_input(cuda, b, s, hw, c0):
+    """Multisteps' form at more input channels than 96 (``--pnet_out_size``
+    5 or more gives 92 + the embedding width): C0 in slabs of 96, the
+    block's dW0 added to in its partial chunk by chunk."""
+    x, ws, bs, ge, gmean = _embed_case(cuda, b, s, hw, 33, (c0, 128, 128, 128))
+    _build.reset_counts()
+    dx, dws, dbs = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, LEAKY3, True)
+    assert dict(_build.launches) == {"pathnet_embed_bwd": 1} and not _build.plain_calls
+    wdx, wdws, wdbs = pf._embed_bwd_plain(x, ge, gmean, ws, bs, LEAKY3, True)
+    assert dx.shape == x.shape
+    _close_l2(dx, wdx, 1e-2)
+    for got, want in zip(dws + dbs, wdws + wdbs):
+        assert got.shape == want.shape
+        _close(got, want, BF16_TOL)
+    # a second launch repeats bit for bit (partials summed in block order)
+    dx2, dws2, dbs2 = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, LEAKY3, True)
+    for got, want in zip([dx2, *dws2, *dbs2], [dx, *dws, *dbs]):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def _sbmc_head_case(cuda, b, s, hw, seed):
@@ -853,7 +900,8 @@ def test_pathnet_head_backward_sbmc_other_inputs(cuda):
 
 @pytest.mark.parametrize("acts,widths", [(LEAKY3[:2], (128, 128, 128)),
                                          (pf.HEAD_ACTS, (128, 128, 256)),
-                                         (pf.HEAD_ACTS, (64, 64, 128))])
+                                         (pf.HEAD_ACTS, (128, 128, 128)),
+                                         (pf.HEAD_ACTS, (144, 128, 256))])
 def test_head_bwd_plan_is_the_kernels_shared_memory(cuda, acts, widths):
     """``head_bwd_plan``'s total is the dynamic shared memory K5-bwd's
     entry point gives a block of the form (the tiled kernel also checks
@@ -863,10 +911,11 @@ def test_head_bwd_plan_is_the_kernels_shared_memory(cuda, acts, widths):
     fn = _build.library().wcmc_pathnet_head_bwd_smem
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
     code = 2 if acts == LEAKY3[:2] else 1
-    assert fn(code, *widths) == pf.head_bwd_plan(tuple(acts), *widths).total
+    plan = pf.head_bwd_plan(tuple(acts), *widths)
+    assert fn(code, *plan.widths) == plan.total
 
 
-@pytest.mark.parametrize("c0", [36, 95])
+@pytest.mark.parametrize("c0", [36, 95, 97, 150])
 def test_embed_bwd_plan_is_the_kernels_shared_memory(cuda, c0):
     """``embed_bwd_plan``'s total is the dynamic shared memory K4-bwd's
     entry point gives a block for rows of ``c0`` values (the kernel also

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// 16-byte cp.async copies, mbarriers, 1-D bulk copies from device to
+// 16- and 4-byte cp.async copies, mbarriers, 1-D bulk copies from device to
 // shared memory (no tensor map), ldmatrix, mma.sync, wgmma descriptors,
-// fences and products (m64 n48 / n64 / n128, both operands in shared
-// memory), named barriers.
+// fences and products (m64 n16 / n48 / n64 / n128, both operands in
+// shared memory), named barriers.
 // Addresses in shared memory are shared-window (32-bit) addresses.
 #pragma once
 
@@ -27,6 +27,13 @@ __device__ inline unsigned dynamic_smem_size() {
 // 16 bytes, of which the first src_bytes are read and the rest zero-filled
 __device__ inline void cp_async16_zfill(unsigned dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes, of which the first src_bytes (0 or 4) are read and the rest zero-filled
+__device__ inline void cp_async4_zfill(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
 }
@@ -229,6 +236,50 @@ __device__ inline void wgmma_ss_n48(float (&d)[kN8][4], uint64_t a, uint64_t b) 
         "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
       : "l"(a), "l"(b), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+// d += A . B for the warpgroup: wgmma m64n16k16, as wgmma_ss_n64, into
+// 2 n8 tiles of d.
+template <int kTA, int kTB>
+__device__ inline void wgmma_ss_n16(float (&d)[2][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(a), "l"(b), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+// acc (kN8 n8 tiles) += A . B over kK16 k16 steps, for this warpgroup's
+// 64 rows, on wgmma: A and B blocked bf16 tiles (8 x 8 core matrices) in
+// shared memory, kARG / kBRG bytes between their 8-row groups, a and b
+// the addresses of the warpgroup's first row of A and first column of B
+// at k = 0.  kTA: A is stored transposed ([k][m], read with its rows
+// along K), else [m][k]; kTB: B is stored [k][n], else [n][k].  The
+// caller brackets a group of products with wgmma_fence / commit / wait.
+template <int kN8, int kK16, bool kTA, int kARG, bool kTB, int kBRG, int kAcc>
+__device__ inline void mm(float (&acc)[kAcc][4], unsigned a, unsigned b) {
+  const uint64_t da = kTA ? smem_desc(a, kARG, 128) : smem_desc(a, 128, kARG);
+  const uint64_t db = kTB ? smem_desc(b, kBRG, 128) : smem_desc(b, 128, kBRG);
+  constexpr int kAStep = kTA ? 2 * kARG : 256, kBStep = kTB ? 2 * kBRG : 256;
+#pragma unroll
+  for (int ks = 0; ks < kK16; ++ks) {
+    const uint64_t sa = da + (uint64_t)((ks * kAStep) >> 4);
+    const uint64_t sb = db + (uint64_t)((ks * kBStep) >> 4);
+    if constexpr (kN8 == 2) {
+      static_assert(kAcc == 2, "m64n16 into 2 n8 tiles");
+      wgmma_ss_n16<kTA, kTB>(acc, sa, sb);
+    } else if constexpr (kN8 == 6) {
+      wgmma_ss_n48<kTA, kTB>(acc, sa, sb);
+    } else if constexpr (kN8 == 8) {
+      wgmma_ss_n64<kTA, kTB>(acc, sa, sb);
+    } else {
+      static_assert(kN8 == 16 && kAcc == 16, "m64 n16, n48, n64 or n128");
+      wgmma_ss_n128<kTA, kTB>(acc, sa, sb);
+    }
+  }
 }
 
 }  // namespace wcmc

@@ -22,9 +22,9 @@
 // d(x) (under use_llpm_buf the features carry the learned p-buffer, so
 // d(x) flows to the PathNet) and PathNet's relu-relu-linear without d(x)
 // (the paths are data).  Two bodies: the tiled one (below) runs
-// Multisteps' form and PathNet's chains up to 64 wide (LBMC's and SBMC's
-// PathNet); PathNet's wider chains (KPCN's two branches merged, 128 wide)
-// keep the row-chunk body of the first port (at the end of the file).
+// Multisteps' form and PathNet's chains up to 128 wide (KPCN's two
+// branches merged, LBMC's and SBMC's PathNet); PathNet's wider chains keep
+// the row-chunk body of the first port (at the end of the file).
 //
 // What bounds it on the H100 (8 patches x 8 spp x 128^2 px = 1,048,576
 // rows): operations for the Multisteps form, 95 -> 128 -> 128 -> 128 with
@@ -36,7 +36,8 @@
 // The tiled body.  Every chain runs at widths C1 = C2 = C3 = 128 (a
 // narrower one zero-padded to them, which is exact: its pad columns stay
 // zero through the chain and its pad gradients are cut off by the
-// wrapper) and C0 zero-padded to k0 = 48 or 96.
+// wrapper) and C0 zero-padded to k0 = 48 or 96, or, above 96, to slabs of
+// 96 (see "Wide rows" below).
 // - Persistent blocks, one per SM, 256 threads (two warpgroups); each
 //   takes tiles of 32 pixels of one image in turn, and each tile's samples
 //   in chunks of 2: 64 rows per product (a wgmma's m64), sample-major (row
@@ -97,8 +98,22 @@
 // per SM (the kernel checks its carve against the launch's size).
 // Registers: dW1 and dW2 128 a thread, a product's accumulators 32, the
 // bias sums 6; 255 in all (-Xptxas -v), with spills of 124 / 140 bytes
-// (stores / loads) in Multisteps' form at k0 96, 200 / 224 at 48, and 36 /
-// 36 in PathNet's at 48 (KPCN, LBMC), 20 / 20 at 96.
+// (stores / loads) in Multisteps' form at k0 96, 176 / 204 at 48 and
+// 152 / 192 in slabs of 96, and 16 / 16 in PathNet's at 48 (KPCN, LBMC),
+// 36 / 36 at 96, 24 / 24 in slabs.
+// Wide rows (C0 above 96, which Multisteps takes with a PathNet output
+// wider than 4): an instantiation of k0 = 96 of its own (kWide) with a
+// run-time count of slabs of 96 columns.  Per chunk, layer 1's product accumulates over the slabs
+// in order, each slab's W0 rows (contiguous in the blocked pack) and the
+// chunk's x columns loaded into the same buffers first (16-byte and
+// 2-byte loads, no landing stage); after g1, each slab (the last first,
+// still loaded) forms dW0^T's slab, added by the owning thread into the
+// block's dW0 partial in device memory (zeroed at the start), and d(x)'s
+// slab, staged and stored by 2-byte stores.  The products' wgmma counts
+// stay those of k0 = 96; only the slab loop runs at run time, and the
+// instantiations for C0 up to 96 are the code without slabs.  It costs one reload of W0 and x
+// per slab and a read-modify-write of dW0 per chunk, off the models'
+// default widths.
 #include "hopper.cuh"
 #include "mlp.cuh"
 
@@ -133,34 +148,8 @@ struct EmbedBwdArgs {
   bf16* dx;            // (B, S, HW, c0) or null
   float* parts;        // gridDim.x partials of embed_bwd_parts(k0) floats
   int B, S, HW, c0, c3;
+  int k0;              // W0's packed rows: kK0, or slabs of kK0 = 96 above 96
 };
-
-// acc (kN8 n8 tiles) += A . B over kK16 k16 steps, for this warpgroup's
-// 64 rows, on wgmma: A and B blocked bf16 tiles in shared memory, kARG /
-// kBRG bytes between their 8-row groups, a and b the addresses of the
-// warpgroup's first row of A and first column of B at k = 0.  kTA: A is
-// stored transposed ([k][m], read with its rows along K), else [m][k];
-// kTB: B is stored [k][n], else [n][k].  The caller brackets a group of
-// products with wgmma_fence / commit / wait.
-template <int kN8, int kK16, bool kTA, int kARG, bool kTB, int kBRG, int kAcc>
-__device__ inline void mm(float (&acc)[kAcc][4], unsigned a, unsigned b) {
-  const uint64_t da = kTA ? smem_desc(a, kARG, 128) : smem_desc(a, 128, kARG);
-  const uint64_t db = kTB ? smem_desc(b, kBRG, 128) : smem_desc(b, 128, kBRG);
-  constexpr int kAStep = kTA ? 2 * kARG : 256, kBStep = kTB ? 2 * kBRG : 256;
-#pragma unroll
-  for (int ks = 0; ks < kK16; ++ks) {
-    const uint64_t sa = da + (uint64_t)((ks * kAStep) >> 4);
-    const uint64_t sb = db + (uint64_t)((ks * kBStep) >> 4);
-    if constexpr (kN8 == 6) {
-      wgmma_ss_n48<kTA, kTB>(acc, sa, sb);
-    } else if constexpr (kN8 == 8) {
-      wgmma_ss_n64<kTA, kTB>(acc, sa, sb);
-    } else {
-      static_assert(kN8 == 16 && kAcc == 16, "m64 n48, n64 or n128");
-      wgmma_ss_n128<kTA, kTB>(acc, sa, sb);
-    }
-  }
-}
 
 // Column sums of an accumulator pair over the warp's 16 rows (rows g and
 // g + 8 of the lane's two columns), in a fixed order: every lane ends with
@@ -184,8 +173,8 @@ __device__ inline int dw0_slot(int row, int u) {
 }
 
 // kK0: C0 padded (48 or 96); kA0..kA2: the layers' activation codes
-// (mlp_act); kDx: write d(x).
-template <int kK0, int kA0, int kA1, int kA2, bool kDx>
+// (mlp_act); kDx: write d(x); kWide: C0 above 96, in slabs of kK0 = 96.
+template <int kK0, int kA0, int kA1, int kA2, bool kDx, bool kWide>
 __global__ void __launch_bounds__(kEThreads, 1) pathnet_embed_bwd_kernel(EmbedBwdArgs a) {
   static_assert(kK0 == 48 || kK0 == 96, "k0 is 48 or 96");
   constexpr int kXRG = kK0 / 8 * 128;    // bytes between 8-row groups of the x tile
@@ -215,6 +204,11 @@ __global__ void __launch_bounds__(kEThreads, 1) pathnet_embed_bwd_kernel(EmbedBw
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wg = warp / 4, q = warp % 4, g8 = lane / 4, t4 = lane % 4;
   const int S = a.S, HW = a.HW, c0 = a.c0, c3 = a.c3;
+  // C0 above 96 runs in slabs of kK0 (= 96) columns: W0's slab and the
+  // chunk's x slab are loaded for each slab's products, twice a chunk
+  static_assert(!kWide || kK0 == 96, "slabs of 96");
+  constexpr bool wide = kWide;
+  const int n_slabs = kWide ? a.k0 / kK0 : 1;
   const int per_image = (HW + kEPix - 1) / kEPix;
   const int n_tiles = a.B * per_image, n_chunks = (S + kESamples - 1) / kESamples;
   const int n_mine = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
@@ -294,12 +288,52 @@ __global__ void __launch_bounds__(kEThreads, 1) pathnet_embed_bwd_kernel(EmbedBw
     }
   };
 
+  float* part = a.parts + (size_t)blockIdx.x * embed_bwd_parts(a.k0);
+  // C0 in slabs: W0's slab sl (rows kK0 sl on of the blocked W0, one
+  // contiguous piece) into s_w0 and the chunk's x columns of that slab
+  // straight into the blocked x tile, by 16-byte loads and 2-byte loads;
+  // what lies past C0, S or HW zero
+  auto load_slab = [&](int sl, int b, int row0, int npx, int s0) {
+    const uint4* wsrc = reinterpret_cast<const uint4*>(a.w + (size_t)sl * kK0 * kEW);
+    for (int i = tid; i < kK0 * kEW / 8; i += kEThreads) reinterpret_cast<uint4*>(s_w0)[i] = wsrc[i];
+    for (int t = tid; t < kERows * (kK0 / 8); t += kEThreads) {
+      const int r = t / (kK0 / 8), cg = t % (kK0 / 8), si = r / kEPix, px = r % kEPix;
+      const bool ok = s0 + si < S && px < npx;
+      const unsigned short* src = reinterpret_cast<const unsigned short*>(
+          a.x + (ok ? span_at(b, row0, s0 + si) + (size_t)px * c0 : 0));
+      unsigned v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int col = kK0 * sl + 8 * cg + 2 * u;
+        const unsigned lo = ok && col < c0 ? src[col] : 0u;
+        const unsigned hi = ok && col + 1 < c0 ? src[col + 1] : 0u;
+        v[u] = lo | hi << 16;
+      }
+      *reinterpret_cast<uint4*>(reinterpret_cast<char*>(s_x) + (r / 8) * kXRG + cg * 128 +
+                                (r % 8) * 16) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    fence_proxy_async();
+  };
+  // chunk c's d(x) of slab sl, staged as rows of kK0 in s_h2, out by 2-byte stores
+  auto store_dx_slab = [&](int b, int row0, int npx, int s0, int sl) {
+    const int w = min(kK0, c0 - kK0 * sl);
+    for (int si = 0; si < kESamples && s0 + si < S; ++si) {
+      bf16* to = a.dx + span_at(b, row0, s0 + si) + kK0 * sl;
+      const bf16* from = s_h2 + si * kSpan;
+      for (int i = tid; i < npx * w; i += kEThreads)
+        to[(size_t)(i / w) * c0 + i % w] = from[(i / w) * kK0 + i % w];
+    }
+  };
+
   // Zero every staged buffer once (rows never written stay finite, and
-  // an absent gmean stays zero); the biases; the mbarriers.
+  // an absent gmean stays zero); the biases; the mbarriers; above 96
+  // columns, the block's dW0 partial (added to chunk by chunk).
   for (uint4* p = reinterpret_cast<uint4*>(s_xin) + tid; p < reinterpret_cast<uint4*>(s_b);
        p += kEThreads)
     *p = make_uint4(0u, 0u, 0u, 0u);
   for (int i = tid; i < 3 * kEW; i += kEThreads) s_b[i] = a.bias[i];
+  if (wide)
+    for (int i = tid; i < a.k0 * kEW; i += kEThreads) part[i] = 0.0f;
   if (tid == 0) {
     mbar_init(bar_w, 1);
     for (int i = 1; i < 4; ++i) mbar_init(bar_w + 8 * i, kEThreads);
@@ -311,10 +345,10 @@ __global__ void __launch_bounds__(kEThreads, 1) pathnet_embed_bwd_kernel(EmbedBw
     if (tid == 0) {
       mbar_expect_tx(bar_w, (kK0 + 2 * kEW) * kEW * 2);
       bulk_copy(u_w0, a.w, kK0 * kEW * 2, bar_w);
-      bulk_copy(u_w1, a.w + kK0 * kEW, kEW * kEW * 2, bar_w);
-      bulk_copy(u_w2, a.w + (kK0 + kEW) * kEW, kEW * kEW * 2, bar_w);
+      bulk_copy(u_w1, a.w + (size_t)a.k0 * kEW, kEW * kEW * 2, bar_w);
+      bulk_copy(u_w2, a.w + (size_t)(a.k0 + kEW) * kEW, kEW * kEW * 2, bar_w);
     }
-    fetch_x(0);
+    if (!wide) fetch_x(0);
     if (a.gmean != nullptr) fetch_gm(0);
     if (a.ge != nullptr) fetch_g(0);
     mbar_wait(bar_w, 0);
@@ -343,14 +377,14 @@ __global__ void __launch_bounds__(kEThreads, 1) pathnet_embed_bwd_kernel(EmbedBw
     const int k = c / n_chunks, ci = c % n_chunks, s0 = ci * kESamples;
     int b, row0, npx;
     tile_of(k, b, row0, npx);
-    mbar_wait(bar_x, c & 1);
+    if (!wide) mbar_wait(bar_x, c & 1);
     if (ci == 0 && a.gmean != nullptr) {  // the tile's gmean / S, once
       mbar_wait(bar_gm, k & 1);
       for (int i = tid; i < kEPix * kEW; i += kEThreads) s_gm[i] = __fdiv_rn(s_gm[i], (float)S);
     }
     // lay the spans out into the blocked x tile: one 16-byte piece (8
     // columns of a row) a step
-    for (int t = tid; t < kERows * (kK0 / 8); t += kEThreads) {
+    for (int t = tid; !wide && t < kERows * (kK0 / 8); t += kEThreads) {
       const int r = t / (kK0 / 8), cg = t % (kK0 / 8), si = r / kEPix, px = r % kEPix;
       const bool ok = s0 + si < S && px < npx;
       const unsigned short* src =
@@ -368,16 +402,24 @@ __global__ void __launch_bounds__(kEThreads, 1) pathnet_embed_bwd_kernel(EmbedBw
     }
     fence_proxy_async();
     __syncthreads();
-    if (c + 1 < total) fetch_x(c + 1);  // the landing stage is free
+    if (!wide && c + 1 < total) fetch_x(c + 1);  // the landing stage is free
 
-    // h1 = bf16(a0(x . W0 + b0)): the warpgroup's 64 C1 columns
+    // h1 = bf16(a0(x . W0 + b0)): the warpgroup's 64 C1 columns; above
+    // 96 columns of x, summed over the slabs in order
     zero_acc(acc);
-    fence_acc(acc);
-    wgmma_fence();
-    mm<8, kK0 / 16, false, kXRG, true, kERG>(acc, u_x, u_w0 + 8 * wg * 128);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_acc(acc);
+    for (int sl = 0; sl < n_slabs; ++sl) {
+      if (wide) {
+        __syncthreads();  // the last products that read s_x and s_w0 are done
+        load_slab(sl, b, row0, npx, s0);
+        __syncthreads();
+      }
+      fence_acc(acc);
+      wgmma_fence();
+      mm<8, kK0 / 16, false, kXRG, true, kERG>(acc, u_x, u_w0 + 8 * wg * 128);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(acc);
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -525,59 +567,81 @@ __global__ void __launch_bounds__(kEThreads, 1) pathnet_embed_bwd_kernel(EmbedBw
 
     // dW0^T += bf16(g1)^T . x: the warpgroup's C1 rows, k0 columns 48 at a
     // time, added from the accumulators into s_dw0 by the owning thread
+    // (above 96 columns: slab by slab, last first, into the block's dW0
+    // partial in device memory, by the owning thread likewise)
+    for (int sl = n_slabs - 1; sl >= 0; --sl) {
+      if (wide && sl != n_slabs - 1) {
+        __syncthreads();  // the slab's products and d(x) stores are done
+        load_slab(sl, b, row0, npx, s0);
+        __syncthreads();
+      }
 #pragma unroll
-    for (int hh = 0; hh < kK0 / 48; ++hh) {
-      zero_acc(acc);
-      fence_acc(acc);
-      wgmma_fence();
-      mm<6, kERows / 16, true, kERG, true, kXRG>(acc, u_h1 + 8 * wg * 128, u_x + 6 * hh * 128);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_acc(acc);
-#pragma unroll
-      for (int j = 0; j < 6; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = 64 * wg + 16 * q + g8 + 8 * h;
-          float2* p = reinterpret_cast<float2*>(s_dw0) + dw0_slot<kK0>(row, 24 * hh + 4 * j + t4);
-          float2 v = *p;
-          v.x += acc[j][2 * h];
-          v.y += acc[j][2 * h + 1];
-          *p = v;
-        }
-    }
-    if constexpr (kDx) {
-      // dx = bf16(bf16(g1) . W0^T): x columns 48 wg on (k0 96), or all 48
-      // by both warpgroups and staged by the first (k0 48); into s_h2
-      // (free since the last barrier) as spans of c0-wide rows
-      constexpr int kDxSplit = kK0 == 96 ? 1 : 0;
-      zero_acc(acc);
-      fence_acc(acc);
-      wgmma_fence();
-      mm<6, kEW / 16, false, kERG, false, kERG>(acc, u_h1, u_w0 + 6 * kDxSplit * wg * kERG);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_acc(acc);
-      if (kDxSplit == 1 || wg == 0) {
-        bf16* stage = s_h2 + si_lane * kSpan;
+      for (int hh = 0; hh < kK0 / 48; ++hh) {
+        zero_acc(acc);
+        fence_acc(acc);
+        wgmma_fence();
+        mm<6, kERows / 16, true, kERG, true, kXRG>(acc, u_h1 + 8 * wg * 128, u_x + 6 * hh * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(acc);
 #pragma unroll
         for (int j = 0; j < 6; ++j)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int px = 16 * (q % 2) + g8 + 8 * h, col = 48 * kDxSplit * wg + 8 * j + 2 * t4;
-            if (col < c0) stage[px * c0 + col] = __float2bfloat16(acc[j][2 * h]);
-            if (col + 1 < c0) stage[px * c0 + col + 1] = __float2bfloat16(acc[j][2 * h + 1]);
+            const int row = 64 * wg + 16 * q + g8 + 8 * h;
+            if (wide) {
+              float* p = part + (size_t)(kK0 * sl + 48 * hh + 8 * j + 2 * t4) * kEW + row;
+              p[0] += acc[j][2 * h];
+              p[kEW] += acc[j][2 * h + 1];
+            } else {
+              float2* p =
+                  reinterpret_cast<float2*>(s_dw0) + dw0_slot<kK0>(row, 24 * hh + 4 * j + t4);
+              float2 v = *p;
+              v.x += acc[j][2 * h];
+              v.y += acc[j][2 * h + 1];
+              *p = v;
+            }
           }
+      }
+      if constexpr (kDx) {
+        // dx = bf16(bf16(g1) . W0^T): x columns 48 wg on (k0 96), or all 48
+        // by both warpgroups and staged by the first (k0 48); into s_h2
+        // (free since the last barrier) as spans of c0-wide rows, or of
+        // the slab's kK0-wide rows above 96 columns
+        constexpr int kDxSplit = kK0 == 96 ? 1 : 0;
+        const int pitch = wide ? kK0 : c0, lim = wide ? min(kK0, c0 - kK0 * sl) : c0;
+        zero_acc(acc);
+        fence_acc(acc);
+        wgmma_fence();
+        mm<6, kEW / 16, false, kERG, false, kERG>(acc, u_h1, u_w0 + 6 * kDxSplit * wg * kERG);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(acc);
+        if (kDxSplit == 1 || wg == 0) {
+          bf16* stage = s_h2 + si_lane * kSpan;
+#pragma unroll
+          for (int j = 0; j < 6; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int px = 16 * (q % 2) + g8 + 8 * h, col = 48 * kDxSplit * wg + 8 * j + 2 * t4;
+              if (col < lim) stage[px * pitch + col] = __float2bfloat16(acc[j][2 * h]);
+              if (col + 1 < lim) stage[px * pitch + col + 1] = __float2bfloat16(acc[j][2 * h + 1]);
+            }
+        }
+        if (wide) {
+          __syncthreads();  // the slab's d(x) is staged
+          store_dx_slab(b, row0, npx, s0, sl);
+        }
       }
     }
     __syncthreads();  // x and g1 are read; d(x) is staged
-    if constexpr (kDx) store_dx(b, row0, npx, s0);
+    if constexpr (kDx)
+      if (!wide) store_dx(b, row0, npx, s0);
   }
 
   // The block's partials: dW0 (k0 x 128, from dW0^T) | dW1 | dW2 | db0 |
   // db1 | db2.  Bias sums: each warp's into s_xin (free), then added in
   // warp order.
-  float* part = a.parts + (size_t)blockIdx.x * embed_bwd_parts(kK0);
   float* s_db = reinterpret_cast<float*>(s_xin);  // [3][8 warps][64]
   __syncthreads();
 #pragma unroll
@@ -589,13 +653,13 @@ __global__ void __launch_bounds__(kEThreads, 1) pathnet_embed_bwd_kernel(EmbedBw
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const size_t at = (size_t)(64 * wg + 16 * q + g8 + 8 * h) * kEW + 8 * j + 2 * t4;
-      *reinterpret_cast<float2*>(part + kK0 * kEW + at) =
+      *reinterpret_cast<float2*>(part + (size_t)a.k0 * kEW + at) =
           make_float2(dw1[j][2 * h], dw1[j][2 * h + 1]);
-      *reinterpret_cast<float2*>(part + (kK0 + kEW) * kEW + at) =
+      *reinterpret_cast<float2*>(part + (size_t)(a.k0 + kEW) * kEW + at) =
           make_float2(dw2[j][2 * h], dw2[j][2 * h + 1]);
     }
   __syncthreads();
-  for (int i = tid; i < kK0 * kEW; i += kEThreads) {
+  for (int i = tid; !wide && i < kK0 * kEW; i += kEThreads) {
     const int kk = i / kEW, cc = i % kEW;
     part[i] = s_dw0[2 * dw0_slot<kK0>(cc, kk / 2) + kk % 2];
   }
@@ -603,23 +667,20 @@ __global__ void __launch_bounds__(kEThreads, 1) pathnet_embed_bwd_kernel(EmbedBw
     const int l = i / kEW, cc = i % kEW, w4 = 4 * (cc / 64);
     float v = 0.0f;
     for (int w = 0; w < 4; ++w) v += s_db[(l * 8 + w4 + w) * 64 + cc % 64];
-    part[(kK0 + 2 * kEW) * kEW + i] = v;
+    part[(size_t)(a.k0 + 2 * kEW) * kEW + i] = v;
   }
 }
 
 // ---------------------------------------------------------------------------
-// The row-chunk body: PathNet's chains wider than 64 (KPCN's).  Unchanged
-// from the first port but for the branches of Multisteps' form, which runs
-// the tiled body.  A block owns a tile of 16 pixels of one image and takes
+// The row-chunk body: PathNet's chains wider than 128, which no model runs.
+// Unchanged from the first port but for the branches of Multisteps' form,
+// which runs the tiled body.  A block owns a tile of 16 pixels of one image and takes
 // its S samples in chunks of up to 8 (128 rows); each weight-gradient
 // product is added into the block's f32 partial in device memory (read,
 // added to and written back per chunk, by the warp that owns the
 // fragment); weights are read through L1/L2 by the wmma fragment loads;
 // 2-byte copies of x and ge; bias gradients by per-fragment column sums in
-// fixed order.  It stays for now: on the tiled body the KPCN train step
-// sums its gradients in another order, which moves the weights that
-// chip_smoke.py's cross-check of that step starts from to a state where
-// the check's bf16 leg does not hold (ROADMAP.md).
+// fixed order.
 // ---------------------------------------------------------------------------
 
 constexpr int kRowPix = 16;     // pixels per tile
@@ -826,11 +887,11 @@ __global__ void __launch_bounds__(kThreads)
 
 using namespace wcmc;
 
-template <int kK0, int kA0, int kA1, int kA2, bool kDx>
+template <int kK0, int kA0, int kA1, int kA2, bool kDx, bool kWide>
 static cudaError_t launch_embed_bwd(const EmbedBwdArgs& args, void* out, int n_blocks, int device,
                                     cudaStream_t stream) {
   const size_t smem = embed_bwd_smem(kK0);
-  auto* kernel = pathnet_embed_bwd_kernel<kK0, kA0, kA1, kA2, kDx>;
+  auto* kernel = pathnet_embed_bwd_kernel<kK0, kA0, kA1, kA2, kDx, kWide>;
   cudaError_t err = set_smem(kernel, smem, device);
   if (err != cudaSuccess) return err;
   const long long n_tiles = (long long)args.B * ((args.HW + kEPix - 1) / kEPix);
@@ -838,15 +899,17 @@ static cudaError_t launch_embed_bwd(const EmbedBwdArgs& args, void* out, int n_b
   kernel<<<grid, kEThreads, smem, stream>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce_parts(args.parts, static_cast<float*>(out), grid, embed_bwd_parts(kK0), stream);
+  return reduce_parts(args.parts, static_cast<float*>(out), grid, embed_bwd_parts(args.k0), stream);
 }
 
 template <int kA0, int kA1, int kA2, bool kDx>
 static cudaError_t launch_form(const EmbedBwdArgs& args, void* out, int n_blocks, int device,
                                cudaStream_t stream) {
-  return args.c0 <= 48
-             ? launch_embed_bwd<48, kA0, kA1, kA2, kDx>(args, out, n_blocks, device, stream)
-             : launch_embed_bwd<96, kA0, kA1, kA2, kDx>(args, out, n_blocks, device, stream);
+  if (args.c0 <= 48)
+    return launch_embed_bwd<48, kA0, kA1, kA2, kDx, false>(args, out, n_blocks, device, stream);
+  if (args.c0 <= 96)
+    return launch_embed_bwd<96, kA0, kA1, kA2, kDx, false>(args, out, n_blocks, device, stream);
+  return launch_embed_bwd<96, kA0, kA1, kA2, kDx, true>(args, out, n_blocks, device, stream);
 }
 
 static cudaError_t launch_embed_bwd_rows(const void* x, const void* ge, const void* gmean,
@@ -899,11 +962,12 @@ extern "C" long long wcmc_pathnet_embed_bwd_smem(int c0) {
   return (long long)embed_bwd_smem(c0 <= 48 ? 48 : 96);
 }
 
-// x (B, S, HW, c0) bf16, c0 <= 96; ge (B, S, HW, c3) bf16 and gmean (B,
+// x (B, S, HW, c0) bf16, any c0; ge (B, S, HW, c3) bf16 and gmean (B,
 // HW, c3) f32, c3 a multiple of 16 up to 128, either may be null (zero),
 // each 16-byte aligned; wpack, bpack: the chain's parameters as
 // ops/pathnet_fused.py's pack_embed_weights lays them out (widths
-// zero-padded to 128, W0 to k0 = 48 for c0 <= 48, else 96 rows), 16-byte
+// zero-padded to 128, W0 to k0 = 48 for c0 <= 48, else to a multiple of
+// 96 rows), 16-byte
 // aligned.  act0..act2: the layers' activation codes; the two forms are
 // relu, relu, linear with dx null (PathNet) and leaky relu x 3 with dx
 // (B, S, HW, c0) bf16 (Multisteps); others are refused.  parts: n_blocks
@@ -915,7 +979,7 @@ extern "C" int wcmc_pathnet_embed_bwd(const void* x, const void* ge, const void*
                                       const void* wpack, const void* bpack, void* dx, void* parts,
                                       void* out, int B, int S, int HW, int c0, int c3, int act0,
                                       int act1, int act2, int n_blocks, int device, void* stream) {
-  if (c0 < 1 || c0 > 96 || c3 < 16 || c3 > kEW || c3 % 16 || S < 1 || n_blocks < 1)
+  if (c0 < 1 || c3 < 16 || c3 > kEW || c3 % 16 || S < 1 || n_blocks < 1)
     return cudaErrorInvalidValue;
   for (const void* p : {ge, gmean, wpack, bpack})
     if (!aligned16(p)) return cudaErrorInvalidValue;
@@ -924,7 +988,8 @@ extern "C" int wcmc_pathnet_embed_bwd(const void* x, const void* ge, const void*
   const EmbedBwdArgs args{static_cast<const bf16*>(x), static_cast<const bf16*>(ge),
                           static_cast<const float*>(gmean), static_cast<const bf16*>(wpack),
                           static_cast<const float*>(bpack), static_cast<bf16*>(dx),
-                          static_cast<float*>(parts), B, S, HW, c0, c3};
+                          static_cast<float*>(parts), B, S, HW, c0, c3,
+                          c0 <= 48 ? 48 : round_up(c0, 96)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (act0 == 1 && act1 == 1 && act2 == 0 && dx == nullptr)  // PathNet: relu, relu, linear
     return launch_form<1, 1, 0, false>(args, out, n_blocks, device, s);

@@ -96,14 +96,53 @@
 // PathNet's form: relu-relu, Cout <= 16 (zero-padded to 16), an f32
 // cotangent, channel-major for the KPCN training head, channels-last for
 // LBMC's and SBMC's PathNet.  At the KPCN training shape (Ce = Cc = 128,
-// 256 -> 256 -> 6, both branches merged) it is bound by operations,
-// closely followed by bytes: ~730 MB (e and de in bf16, the f32 context
-// gradient) for ~232 GFLOP.  Its body is unchanged from the first port:
-// a block owns 16 pixels and takes their samples in chunks of 8 (128
-// rows per weight-gradient product) on wmma, adding the weight gradients
-// into its partials in device memory chunk by chunk, weights read through
-// L1/L2 by the fragment loads; its weights come packed like the tiled
-// form's (W2 and b2 zero-padded once per parameter value, not per call).
+// 256 -> 256 -> 6, both branches merged; the kernel computes the dense
+// function, as the TPU kernel does, and the model drops the off-diagonal
+// gradients) it is bound by operations, closely followed by bytes: ~730
+// MB (e and de in bf16, the f32 context gradient) for ~242 GFLOP, 0.244
+// ms.  Two bodies:
+// - The tiled one (pathnet_head_bwd_pn_kernel) at Ce = Cc = 128 and C1 =
+//   128 or 256, narrower heads zero-padded to them by the wrapper (LBMC's
+//   and SBMC's [64 | 64] -> 128 -> 3).  It keeps the Multisteps form's
+//   design where the widths allow: persistent blocks, 256 threads; tiles
+//   of 16 pixels x chunks of 4 samples, 64 rows a product, pixel-major
+//   (row r: pixel r / 4 of sample s0 + r % 4); W1e and W2 packed once per
+//   parameter value and staged by two bulk copies, one copy read as W and
+//   as W^T; e through a 2-stage ring of 16-byte cp.async copies, the
+//   context into two tile buffers; products on wgmma with templated
+//   counts; register epilogues; partials summed in block order.  Where
+//   KPCN's widths differ:
+//   - dW1e (128 x 256 f32) stays in registers for the block's whole run
+//     (each warpgroup its 64 Ce rows: two m64n128 accumulators, 128 a
+//     thread), which leaves no room for dW2: dW2 (256 x 16) is a transient
+//     m64n16 product per chunk and half, added into f32 in shared memory by
+//     the thread that owns each element.
+//   - C1 = 256: h1 and g1 in two 128-column halves (each warpgroup 64
+//     columns of each, m64n64); h2 = h1 . W2 over K = 256 (m64n16, each
+//     warpgroup all 64 rows, each takes one n8 tile of the cotangent's
+//     epilogue); g1's halves each one k16 step (K = W2's 16 columns); d(e)
+//     over K = 256 into each warpgroup's 64 Ce columns.
+//   - The cotangent as it comes: f32, channel-major (B, S, Cout, HW) by
+//     16-byte copies of 4-pixel runs where HW is a multiple of 4, else (and
+//     channels-last) by 4-byte copies, into [sample][channel][pixel];
+//     gsum and gsq per tile, 4 bytes a copy; no transposed or padded copy
+//     in the wrapper.  The 2 h2 gsq term is always formed (an absent gsq
+//     is a zero buffer).
+//   - G = sum_s bf16(g1) per pixel is added in sample order by all threads
+//     from the g1 tile while dW1e's and d(e)'s products run; d(ctx) and
+//     dW1c (K = 2 x 16 pixels) at the tile's end on mma.sync, W1c's
+//     fragments from device memory; dW1c added into the block's partial in
+//     device memory once per tile, by the owning thread.
+//   Four block barriers and one warpgroup barrier a chunk.  Shared memory
+//   (pn_smem): 228608 bytes at C1 256 (148736 at 128), one block per SM.
+//   Registers (-Xptxas -v): 255 with 284 / 372 bytes spilled (stores /
+//   loads) at C1 256, 224 and none at 128.
+// - the wmma body (pathnet_head_bwd_kernel) for wider heads, which no model
+//   runs: a block owns 16 pixels and takes their samples in chunks of 8
+//   (128 rows per weight-gradient product) on wmma, adding the weight
+//   gradients into its partials in device memory chunk by chunk, weights
+//   read through L1/L2 by the fragment loads, W2 and b2 zero-padded once
+//   per parameter value.
 #include "hopper.cuh"
 #include "mlp.cuh"
 
@@ -468,19 +507,20 @@ __device__ inline void product(float (&acc)[kN8][4], unsigned a, unsigned b) {
 }
 
 // acc (this warp's 16 rows x 8 kN8 columns) += A . B on mma.sync, for a
-// 128-deep B read from device memory in frag_order (pack_head_weights):
-// its n8 tiles j0 on, each lane's 8 bytes of a fragment one load.  A comes
+// B of kK16 k16 steps and kN8All n8 tiles (128 x 128 by default) read
+// from device memory in frag_order (pack_head_weights): its n8 tiles j0
+// on, each lane's 8 bytes of a fragment one load.  A comes
 // through ldmatrix at a + ks a_step; with a_two, A . B + A2 . B with A2
 // at a + a_two + ks a_step, the two sharing B's fragments.
-template <int kN8>
+template <int kN8, int kK16 = kTW / 16, int kN8All = kTW / 8>
 __device__ inline void product_frag(float (&acc)[kN8][4], unsigned a, int a_step, int a_two,
                                     const bf16* __restrict__ wf, int j0) {
   const uint2* f = reinterpret_cast<const uint2*>(wf) + threadIdx.x % 32;
 #pragma unroll 2
-  for (int ks = 0; ks < kTW / 16; ++ks) {
+  for (int ks = 0; ks < kK16; ++ks) {
     uint2 bf[kN8];
 #pragma unroll
-    for (int j = 0; j < kN8; ++j) bf[j] = __ldg(f + (ks * (kTW / 8) + j0 + j) * 32);
+    for (int j = 0; j < kN8; ++j) bf[j] = __ldg(f + (ks * kN8All + j0 + j) * 32);
     unsigned af[4];
     ldmatrix_x4(af, a + ks * a_step);
 #pragma unroll
@@ -946,6 +986,543 @@ __global__ void __launch_bounds__(kTThreads, 1) pathnet_head_bwd_tiled_kernel(Ti
   }
 }
 
+// ---------------------------------------------------------------------------
+// PathNet's tiled form (relu-relu, Cout <= 16): KPCN's head, and LBMC's and
+// SBMC's PathNet zero-padded to it
+// ---------------------------------------------------------------------------
+
+constexpr int kPPix = 16;                   // pixels of one image per tile
+constexpr int kPSamples = 4;                // samples per chunk
+constexpr int kPRows = kPPix * kPSamples;   // rows per product: a wgmma's m64
+constexpr int kPW = 128;                    // Ce = Cc (narrower ones zero-padded)
+constexpr int kPOut = 16;                   // W2's staged width and the cotangents' channels
+constexpr int kPPitch = kPW + 8;            // padded bf16 row of the context and d(e) (272 bytes)
+constexpr int kPRGe = kPW / 8 * 128;        // bytes between 8-row groups of the e tile
+constexpr int kPRGo = kPOut / 8 * 128;      // ... of W2 and of the bf16(gz2) tile
+
+// The block's shared memory, in the order the kernel carves it, for C1 =
+// 128 kHalves; ops/pathnet_fused.py's head_bwd_plan computes the same sum.
+inline size_t pn_smem(int halves) {
+  const int c1 = 128 * halves;
+  return smem_bytes((size_t)kPW * c1, 2) + smem_bytes((size_t)c1 * kPOut, 2) +
+         smem_bytes(2 * kPRows * kPW, 2) +
+         smem_bytes(cmax(kPRows * c1, kPPix * (2 * c1 + 8)), 2) +
+         smem_bytes(kPRows * kPOut, 2) + smem_bytes(kPRows * kPPitch, 2) +
+         smem_bytes(2 * kPPix * kPPitch, 2) + 2 * smem_bytes((size_t)kPPix * (c1 + 8), 4) +
+         smem_bytes((size_t)c1 * kPOut, 4) + smem_bytes(kPSamples * kPOut * kPPix, 4) +
+         2 * smem_bytes(kPPix * kPOut, 4) + smem_bytes(kPOut, 4) +
+         smem_bytes((size_t)8 * c1 / 2, 4) + smem_bytes(8 * kPOut, 4) + smem_bytes(7, 8);
+}
+
+struct PnArgs {
+  const bf16* e;      // (B, S, HW, 128)
+  const bf16* ctx;    // (B, HW, 128)
+  const float* g;     // (B, S, cout, HW) with cmajor, else (B, S, HW, cout); or null
+  const float* gsum;  // (B, HW, cout) or null
+  const float* gsq;   // (B, HW, cout) or null
+  const bf16* w;      // pack_head_weights: blocked W1e | blocked W2 | W1c and W1c^T fragments
+  const float* bias;  // b1 (C1) | b2 (16)
+  bf16* de;           // (B, S, HW, 128)
+  float* dctx;        // (B, HW, 128)
+  float* parts;       // gridDim.x partials of head_bwd_parts floats
+  int B, S, HW, cout, cmajor;
+};
+
+// kHalves: C1 = 128 kHalves (256: KPCN's merged branches; 128: LBMC's and
+// SBMC's PathNet, Ce and Cc zero-padded to 128).
+template <int kHalves>
+__global__ void __launch_bounds__(kTThreads, 1) pathnet_head_bwd_pn_kernel(PnArgs a) {
+  constexpr int kC1 = 128 * kHalves;
+  constexpr int kRGw = kC1 / 8 * 128;       // bytes between 8-row groups of W1e and of h1 / g1
+  constexpr int kHiLo = 2 * kC1 + 8;        // a [G_hi | G_lo] row
+  constexpr int kPitchZ = kC1 + 8;          // padded f32 row of ctx . W1c + b1 and of G
+  constexpr int kWarpCols = kC1 / 2;        // C1 columns a warp's bias sums hold
+  extern __shared__ __align__(128) unsigned char smem[];
+  SmemCarver carve{smem, 0};
+  bf16* s_w1e = carve.take<bf16>(kPW * kC1);
+  bf16* s_w2 = carve.take<bf16>(kC1 * kPOut);
+  bf16* s_e = carve.take<bf16>(2 * kPRows * kPW);                        // the e ring (blocked)
+  bf16* s_h = carve.take<bf16>(cmax(kPRows * kC1, kPPix * kHiLo));      // h1, g1; [G_hi | G_lo]
+  bf16* s_gz = carve.take<bf16>(kPRows * kPOut);                        // bf16(gz2) (blocked)
+  bf16* s_de = carve.take<bf16>(kPRows * kPPitch);                      // d(e), padded rows
+  bf16* s_ctx = carve.take<bf16>(2 * kPPix * kPPitch);
+  float* s_zc = carve.take<float>(kPPix * kPitchZ);   // ctx . W1c + b1
+  float* s_G = carve.take<float>(kPPix * kPitchZ);    // sum_s bf16(g1)
+  float* s_dw2 = carve.take<float>(kC1 * kPOut);
+  float* s_g = carve.take<float>(kPSamples * kPOut * kPPix);   // [sample][channel][pixel]
+  float* s_gsum = carve.take<float>(kPPix * kPOut);
+  float* s_gsq = carve.take<float>(kPPix * kPOut);
+  float* s_b2 = carve.take<float>(kPOut);
+  float* s_db1 = carve.take<float>(8 * kWarpCols);    // per warp: its columns' db1 running sums
+  float* s_db2 = carve.take<float>(8 * kPOut);        // per warp: db2 running sums
+  unsigned long long* s_bars = carve.take<unsigned long long>(7);
+  if (carve.offset != dynamic_smem_size()) __trap();  // the carve is what pn_smem() sums
+  const unsigned u_w1e = smem_addr(s_w1e), u_w2 = smem_addr(s_w2), u_e = smem_addr(s_e);
+  const unsigned u_h = smem_addr(s_h), u_gz = smem_addr(s_gz), u_ctx = smem_addr(s_ctx);
+  const unsigned u_g = smem_addr(s_g), u_gsum = smem_addr(s_gsum), u_gsq = smem_addr(s_gsq);
+  // mbarriers: 0 the weights, 1-2 the e ring, 3 g, 4-5 the context tiles, 6 gsum and gsq
+  const unsigned bar0 = smem_addr(s_bars);
+  constexpr unsigned kEBytes = kPRows * kPW * 2, kCtxBytes = kPPix * kPPitch * 2;
+  const bf16* w1c_frag = a.w + kPW * kC1 + kC1 * kPOut;   // (K = Cc, N = C1)
+  const bf16* w1ct_frag = w1c_frag + kPW * kC1;          // (K = C1, N = Cc)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, q = warp % 4, g8 = lane / 4, t4 = lane % 4;
+  const int S = a.S, HW = a.HW, cout = a.cout;
+  const int per_image = (HW + kPPix - 1) / kPPix;
+  const int n_tiles = a.B * per_image, n_chunks = (S + kPSamples - 1) / kPSamples;
+  const int n_mine = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = n_mine * n_chunks;
+  const bool moments = a.gsum != nullptr || a.gsq != nullptr;
+  // 16-byte copies of 4-pixel runs of a channel-major cotangent whose rows
+  // start on 16 bytes; 4-byte copies otherwise
+  const bool g_runs = a.cmajor && HW % 4 == 0 && aligned16(a.g);
+  float* part =
+      a.parts + (size_t)blockIdx.x * head_bwd_parts(HeadBwdDims{kPW, kPW, kC1, 0}, kPOut);
+  float* p_dw1c = part + kPW * kC1;
+
+  auto tile_of = [&](int k, int& b, int& row0, int& npx) {
+    const int t = (int)blockIdx.x + k * (int)gridDim.x;
+    b = t / per_image;
+    row0 = (t % per_image) * kPPix;
+    npx = min(kPPix, HW - row0);
+  };
+  // Copies, by every thread, what lies past S, HW or Cout zero-filled;
+  // each thread then arrives on the buffer's mbarrier once its copies
+  // have landed (every mbarrier but the weights' expects all 256
+  // arrivals).  A chunk's rows are pixel-major: row r is pixel r / 4 of
+  // sample s0 + r % 4.  e goes into a blocked stage by 16-byte pieces: 8
+  // threads take one piece of 8 rows, so each warp reads 64 contiguous
+  // bytes of 8 rows; thread tid copies rows f_r + 16 m, m < 4 (pixel f_px
+  // + 4 m of sample f_si), at column f_col.
+  const int f_r = 8 * (tid / 128) + tid % 8, f_col = 8 * ((tid / 8) % 16);
+  const int f_si = f_r % kPSamples, f_px = f_r / kPSamples;
+  const unsigned f_dst = (f_r / 8) * kPRGe + (f_col / 8) * 128 + (f_r % 8) * 16;
+  auto fetch_e = [&](int c) {
+    int b, row0, npx;
+    tile_of(c / n_chunks, b, row0, npx);
+    const int s0 = (c % n_chunks) * kPSamples;
+    const bool s_in = s0 + f_si < S;
+    const bf16* from = a.e + (((size_t)b * S + s0 + f_si) * HW + row0 + f_px) * kPW + f_col;
+    const unsigned dst = u_e + (c & 1) * kEBytes + f_dst;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const bool ok = s_in && f_px + 4 * m < npx;
+      cp_async16_zfill(dst + 2 * m * kPRGe, ok ? from + 4 * m * kPW : a.e, ok ? 16 : 0);
+    }
+    cp_async_mbar_arrive(bar0 + 8 * (1 + (c & 1)));
+  };
+  // a tile's context as padded rows, one 16-byte piece a thread
+  auto fetch_ctx = [&](int k) {
+    int b, row0, npx;
+    tile_of(k, b, row0, npx);
+    const int px = tid / 16, p = tid % 16;
+    const bool ok = px < npx;
+    cp_async16_zfill(u_ctx + (k & 1) * kCtxBytes + px * kPPitch * 2 + 16 * p,
+                     ok ? a.ctx + ((size_t)b * HW + row0 + px) * kPW + 8 * p : a.ctx, ok ? 16 : 0);
+    cp_async_mbar_arrive(bar0 + 8 * (4 + (k & 1)));
+  };
+  // a tile's gsum and gsq as [pixel][channel], 4 bytes a copy
+  auto fetch_moments = [&](int k) {
+    int b, row0, npx;
+    tile_of(k, b, row0, npx);
+    const int px = tid / kPOut, ch = tid % kPOut;
+    const bool ok = px < npx && ch < cout;
+    const size_t at = ((size_t)b * HW + row0 + px) * cout + ch;
+    if (a.gsum != nullptr) cp_async4_zfill(u_gsum + 4 * tid, ok ? a.gsum + at : a.gsum, ok ? 4 : 0);
+    if (a.gsq != nullptr) cp_async4_zfill(u_gsq + 4 * tid, ok ? a.gsq + at : a.gsq, ok ? 4 : 0);
+    cp_async_mbar_arrive(bar0 + 48);
+  };
+  // a chunk's output cotangent as [sample][channel][pixel]: runs of 4
+  // pixels of one channel by 16-byte copies (channel-major, rows aligned),
+  // else element by element
+  auto fetch_g = [&](int c) {
+    int b, row0, npx;
+    tile_of(c / n_chunks, b, row0, npx);
+    const int s0 = (c % n_chunks) * kPSamples;
+    if (g_runs) {
+      const int si = tid / (kPOut * 4), ch = (tid / 4) % kPOut, p4 = tid % 4;
+      const bool ok = s0 + si < S && ch < cout && 4 * p4 < npx;
+      const float* from = a.g + (((size_t)b * S + s0 + si) * cout + ch) * HW + row0 + 4 * p4;
+      cp_async16_zfill(u_g + 16 * tid, ok ? from : a.g, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int i = tid + kTThreads * m;
+        const int si = i / (kPOut * kPPix), ch = (i / kPPix) % kPOut, px = i % kPPix;
+        const bool ok = s0 + si < S && ch < cout && px < npx;
+        const size_t row = ((size_t)b * S + s0 + si) * HW + row0 + px;
+        const size_t at = a.cmajor ? (((size_t)b * S + s0 + si) * cout + ch) * HW + row0 + px
+                                   : row * cout + ch;
+        cp_async4_zfill(u_g + 4 * i, ok ? a.g + at : a.g, ok ? 4 : 0);
+      }
+    }
+    cp_async_mbar_arrive(bar0 + 24);
+  };
+  // a chunk's d(e), staged as padded rows, out 16 bytes a store (16
+  // threads a row): thread tid stores rows d_r + 16 m, m < 4 (pixel d_px
+  // + 4 m of sample d_si), at column d_col
+  const int d_r = tid / 16, d_col = 8 * (tid % 16), d_si = d_r % kPSamples, d_px = d_r / kPSamples;
+  auto store_de = [&](int b, int row0, int npx, int s0) {
+    if (s0 + d_si >= S) return;
+    bf16* to = a.de + (((size_t)b * S + s0 + d_si) * HW + row0 + d_px) * kPW + d_col;
+    const bf16* from = s_de + d_r * kPPitch + d_col;
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (d_px + 4 * m < npx)
+        *reinterpret_cast<uint4*>(to + 4 * m * kPW) =
+            *reinterpret_cast<const uint4*>(from + 16 * m * kPPitch);
+  };
+
+  // Zero every staged buffer once, so that rows never written stay finite
+  // and absent cotangents stay zero; dW2 and the bias sums start at zero.
+  for (uint4* p = reinterpret_cast<uint4*>(s_e) + tid; p < reinterpret_cast<uint4*>(s_bars);
+       p += kTThreads)
+    *p = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  for (int i = tid; i < kPOut; i += kTThreads) s_b2[i] = a.bias[kC1 + i];
+  if (tid == 0) {
+    for (int i = 0; i < 7; ++i) mbar_init(bar0 + 8 * i, i == 0 ? 1 : kTThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (total > 0) {
+    if (tid == 0) {
+      mbar_expect_tx(bar0, (kPW + kPOut) * kC1 * 2);
+      bulk_copy(u_w1e, a.w, kPW * kC1 * 2, bar0);
+      bulk_copy(u_w2, a.w + kPW * kC1, kC1 * kPOut * 2, bar0);
+    }
+    fetch_ctx(0);
+    if (moments) fetch_moments(0);
+    fetch_e(0);
+    if (total > 1) fetch_e(1);
+    if (a.g != nullptr) fetch_g(0);
+    mbar_wait(bar0, 0);
+  }
+
+  float dw1e[kHalves][16][4];  // this warp's rows of dW1e, for the whole run
+#pragma unroll
+  for (int hf = 0; hf < kHalves; ++hf) zero_acc(dw1e[hf]);
+  float acc[8][4];
+  float* db1w = s_db1 + warp * kWarpCols;
+  float* db2w = s_db2 + warp * kPOut;
+  // the lane's rows of a chunk: 16 q + g8 + 8 h, pixel px0 + 2 h of sample
+  // si; its accumulator element (h, n8 tile n) of a blocked tile at
+  // h_lane + h kRG + 128 n bytes
+  const int si = g8 % kPSamples, px0 = 4 * q + g8 / kPSamples;
+  const int lane_blk = g8 * 16 + 4 * t4;
+  char* const h_lane = reinterpret_cast<char*>(s_h) + 2 * q * kRGw + 8 * wg * 128 + lane_blk;
+  char* const gz_lane = reinterpret_cast<char*>(s_gz) + 2 * q * kPRGo + wg * 128 + lane_blk;
+  const int col0 = 64 * wg + 2 * t4;   // the lane's first column of the warpgroup's 64
+
+  for (int k = 0; k < n_mine; ++k) {
+    int b, row0, npx;
+    tile_of(k, b, row0, npx);
+    const unsigned ctx_buf = u_ctx + (k & 1) * kCtxBytes;
+    mbar_wait(bar0 + 8 * (4 + (k & 1)), (k >> 1) & 1);
+    {  // ctx . W1c + b1 (16 x C1), once per tile: warp -> 16 pixels x C1 / 8 columns
+      constexpr int kN8 = kC1 / 64;
+      float z[kN8][4];
+      zero_acc(z);
+      product_frag<kN8, kPW / 16, kC1 / 8>(z, a_lane<false>(ctx_buf, 0, kPPitch * 2), 32, 0,
+                                          w1c_frag, kN8 * warp);
+#pragma unroll
+      for (int j = 0; j < kN8; ++j) {
+        const int col = 8 * kN8 * warp + 8 * j + 2 * t4;
+        const float2 bb = *reinterpret_cast<const float2*>(a.bias + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(s_zc + (g8 + 8 * h) * kPitchZ + col) =
+              make_float2(z[j][2 * h] + bb.x, z[j][2 * h + 1] + bb.y);
+      }
+    }
+    __syncthreads();
+    if (k + 1 < n_mine) fetch_ctx(k + 1);
+
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const int c = k * n_chunks + ci, st = c & 1, s0 = ci * kPSamples;
+      const unsigned e_buf = u_e + st * kEBytes;
+      const bool s_ok = s0 + si < S;
+      mbar_wait(bar0 + 8 * (1 + st), (c >> 1) & 1);
+      fence_proxy_async();  // e came by cp.async; the wgmmas read it through the async proxy
+
+      // h1 = bf16(relu(ctx . W1c + b1 + e . W1e)), a 128-column half at a
+      // time: the warpgroup's 64 columns of each
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 z = *reinterpret_cast<const float2*>(
+                s_zc + (px0 + 2 * h) * kPitchZ + 128 * hf + col0 + 8 * j);
+            acc[j][2 * h] = z.x;
+            acc[j][2 * h + 1] = z.y;
+          }
+        fence_acc(acc);
+        wgmma_fence();
+        mm<8, kPW / 16, false, kPRGe, true, kRGw>(acc, e_buf, u_w1e + (16 * hf + 8 * wg) * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(acc);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<__nv_bfloat162*>(h_lane + h * kRGw + (16 * hf + j) * 128) =
+                __floats2bfloat162_rn(mlp_act(1, acc[j][2 * h]), mlp_act(1, acc[j][2 * h + 1]));
+      }
+      fence_proxy_async();  // h1 is read by wgmmas next
+      __syncthreads();
+
+      // h2 = relu(h1 . W2 + b2) (f32, all 64 rows x 16 columns, by each
+      // warpgroup) and the cotangent of its pre-activation, gz2 =
+      // relu'(h2, g + gsum + 2 h2 gsq), zero on rows past S or HW and on
+      // columns past Cout: the warpgroup's n8 tile wg; db2 += its column sums
+      {
+        float o[2][4];
+        zero_acc(o);
+        fence_acc(o);
+        wgmma_fence();
+        mm<2, kC1 / 16, false, kRGw, true, kPRGo>(o, u_h, u_w2);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(o);
+        if (a.g != nullptr) mbar_wait(bar0 + 24, c & 1);
+        if (moments) mbar_wait(bar0 + 48, k & 1);
+        const int col = 8 * wg + 2 * t4;
+        const float2 bb = *reinterpret_cast<const float2*>(s_b2 + col);
+        float cs0 = 0.0f, cs1 = 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = px0 + 2 * h;
+          const bool ok = s_ok && px < npx;
+          const float v0 = wg == 0 ? o[0][2 * h] : o[1][2 * h];
+          const float v1 = wg == 0 ? o[0][2 * h + 1] : o[1][2 * h + 1];
+          const float h0 = mlp_act(1, v0 + bb.x), h1 = mlp_act(1, v1 + bb.y);
+          // the staged cotangents stay zero where they are absent
+          const float g0 = s_g[(si * kPOut + col) * kPPix + px] + s_gsum[px * kPOut + col] +
+                           2.0f * h0 * s_gsq[px * kPOut + col];
+          const float g1 = s_g[(si * kPOut + col + 1) * kPPix + px] +
+                           s_gsum[px * kPOut + col + 1] + 2.0f * h1 * s_gsq[px * kPOut + col + 1];
+          const float z0 = ok && col < cout ? mlp_act_grad(1, h0, g0) : 0.0f;
+          const float z1 = ok && col + 1 < cout ? mlp_act_grad(1, h1, g1) : 0.0f;
+          cs0 += z0;
+          cs1 += z1;
+          *reinterpret_cast<__nv_bfloat162*>(gz_lane + h * kPRGo) = __floats2bfloat162_rn(z0, z1);
+        }
+        add_col_sums(db2w, col, cs0, cs1);
+      }
+      fence_proxy_async();
+      __syncthreads();
+      if (a.g != nullptr && c + 1 < total) fetch_g(c + 1);
+      if (moments && ci == n_chunks - 1 && k + 1 < n_mine) fetch_moments(k + 1);
+
+      // dW2 += h1^T . bf16(gz2) for the warpgroup's C1 rows (its 64 columns
+      // of each half; m64n16, K = the chunk's 64 rows, added into s_dw2 by
+      // the owning thread), and g1 = relu'(h1, bf16(gz2) . W2^T) (K = 16)
+      // half by half, written over the warpgroup's h1 once its dW2
+      // products are done with them; db1 += g1's column sums
+      {
+        float t2[kHalves][2][4];
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf) {
+          zero_acc(t2[hf]);
+          fence_acc(t2[hf]);
+        }
+        zero_acc(acc);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf)
+          mm<2, kPRows / 16, true, kRGw, true, kPRGo>(t2[hf], u_h + (16 * hf + 8 * wg) * 128, u_gz);
+        mm<8, 1, false, kPRGo, false, kPRGo>(acc, u_gz, u_w2 + 8 * wg * kPRGo);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf) fence_acc(t2[hf]);
+        fence_acc(acc);
+        named_sync(1 + wg, 128);
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float2* p = reinterpret_cast<float2*>(
+                  s_dw2 + (128 * hf + 64 * wg + 16 * q + g8 + 8 * h) * kPOut + 8 * j + 2 * t4);
+              float2 v = *p;
+              v.x += t2[hf][j][2 * h];
+              v.y += t2[hf][j][2 * h + 1];
+              *p = v;
+            }
+        auto g1_epilogue = [&](int hf) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float cs0 = 0.0f, cs1 = 0.0f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              auto* p = reinterpret_cast<__nv_bfloat162*>(h_lane + h * kRGw + (16 * hf + j) * 128);
+              const float2 hv = __bfloat1622float2(*p);
+              const float v0 = mlp_act_grad(1, hv.x, acc[j][2 * h]);
+              const float v1 = mlp_act_grad(1, hv.y, acc[j][2 * h + 1]);
+              cs0 += v0;
+              cs1 += v1;
+              *p = __floats2bfloat162_rn(v0, v1);
+            }
+            add_col_sums(db1w, 64 * hf + 8 * j + 2 * t4, cs0, cs1);
+          }
+        };
+        g1_epilogue(0);
+        if constexpr (kHalves == 2) {
+          zero_acc(acc);
+          fence_acc(acc);
+          wgmma_fence();
+          mm<8, 1, false, kPRGo, false, kPRGo>(acc, u_gz, u_w2 + (16 + 8 * wg) * kPRGo);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_acc(acc);
+          g1_epilogue(1);
+        }
+      }
+      fence_proxy_async();
+      __syncthreads();
+
+      // dW1e += e^T . bf16(g1): the warpgroup's Ce rows [64 wg, 64 wg + 64),
+      // all C1 columns (m64n128 per half); and de = bf16(bf16(g1) . W1e^T):
+      // the warpgroup's 64 Ce columns.  Under the products, G += the
+      // chunk's bf16(g1) of each pixel, in sample order.
+      zero_acc(acc);
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) fence_acc(dw1e[hf]);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf)
+        mm<16, kPRows / 16, true, kPRGe, true, kRGw>(dw1e[hf], e_buf + 8 * wg * 128,
+                                                     u_h + 16 * hf * 128);
+      mm<8, kC1 / 16, false, kRGw, false, kRGw>(acc, u_h, u_w1e + 8 * wg * kRGw);
+      wgmma_commit();
+      for (int i = tid; i < kPPix * kC1 / 2; i += kTThreads) {
+        const int px = i / (kC1 / 2), col = 2 * (i % (kC1 / 2));
+        float2* gp = reinterpret_cast<float2*>(s_G + px * kPitchZ + col);
+        float2 gv = *gp;
+#pragma unroll
+        for (int sj = 0; sj < kPSamples; ++sj) {
+          const int r = kPSamples * px + sj;
+          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              reinterpret_cast<const char*>(s_h) + (r / 8) * kRGw + (col / 8) * 128 + (r % 8) * 16 +
+              (col % 8) * 2));
+          gv.x += v.x;
+          gv.y += v.y;
+        }
+        *gp = gv;
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) fence_acc(dw1e[hf]);
+      fence_acc(acc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(s_de + (16 * q + g8 + 8 * h) * kPPitch + col0 + 8 * j) =
+              __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+      __syncthreads();
+      store_de(b, row0, npx, s0);  // e's stage is free: the next chunk but one's e
+      if (c + 2 < total) fetch_e(c + 2);
+    }
+
+    // [G_hi | G_lo] rows into s_h (free since the last barrier), 4 columns
+    // a thread; G zeroed for the next tile
+    for (int f = tid; f < kPPix * kC1 / 4; f += kTThreads) {
+      const int px = f / (kC1 / 4), c4 = 4 * (f % (kC1 / 4));
+      float4* gp = reinterpret_cast<float4*>(s_G + px * kPitchZ + c4);
+      const float4 v = *gp;
+      const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y), h23 = __floats2bfloat162_rn(v.z, v.w);
+      const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+      bf16* hp = s_h + px * kHiLo + c4;
+      reinterpret_cast<__nv_bfloat162*>(hp)[0] = h01;
+      reinterpret_cast<__nv_bfloat162*>(hp)[1] = h23;
+      reinterpret_cast<__nv_bfloat162*>(hp + kC1)[0] = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
+      reinterpret_cast<__nv_bfloat162*>(hp + kC1)[1] = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
+      *gp = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    __syncthreads();
+    {  // d(ctx) = G_hi . W1c^T + G_lo . W1c^T (16 x 128, K = C1): warp -> 16 columns
+      float z[2][4];
+      zero_acc(z);
+      product_frag<2, kC1 / 16, kPW / 8>(z, a_lane<false>(u_h, 0, kHiLo * 2), 32, kC1 * 2,
+                                         w1ct_frag, 2 * warp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = g8 + 8 * h;
+          if (px < npx)
+            *reinterpret_cast<float2*>(a.dctx + ((size_t)b * HW + row0 + px) * kPW + 16 * warp +
+                                       8 * j + 2 * t4) = make_float2(z[j][2 * h], z[j][2 * h + 1]);
+        }
+    }
+    // dW1c += ctx^T . G_hi + ctx^T . G_lo (128 x C1, K = 2 x 16): warp ->
+    // 16 Cc rows, 64 columns a round, added from the accumulators into the
+    // block's partial in device memory by plain loads, adds and stores (the
+    // first tile stores): each element by the one thread that owns it,
+    // once per tile, so the order of the adds, and the bits, are fixed.
+    const unsigned ctx_t = a_lane<true>(ctx_buf, 16 * warp, kPPitch * 2);
+#pragma unroll 1
+    for (int rd = 0; rd < kC1 / 64; ++rd) {
+      const int n0 = 64 * rd;
+      zero_acc(acc);
+      product<8, 1, true, 16 * kPPitch * 2, true, 8 * kHiLo * 2, 16, kHiLo * 2>(acc, ctx_t,
+                                                                             u_h + 2 * n0);
+      product<8, 1, true, 16 * kPPitch * 2, true, 8 * kHiLo * 2, 16, kHiLo * 2>(
+          acc, ctx_t, u_h + 2 * (kC1 + n0));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* p = reinterpret_cast<float2*>(p_dw1c + (size_t)(16 * warp + g8 + 8 * h) * kC1 +
+                                                n0 + 8 * j + 2 * t4);
+          float2 v = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+          if (k > 0) {
+            const float2 o = *p;
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *p = v;
+        }
+    }
+  }
+
+  if (n_mine == 0)
+    for (int i = tid; i < kPW * kC1; i += kTThreads) p_dw1c[i] = 0.0f;
+  // the block's partials: dW1e | dW1c (above) | dW2 | db1 | db2
+#pragma unroll
+  for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(part + (size_t)(64 * wg + 16 * q + g8 + 8 * h) * kC1 +
+                                   128 * hf + 8 * j + 2 * t4) =
+            make_float2(dw1e[hf][j][2 * h], dw1e[hf][j][2 * h + 1]);
+  __syncthreads();
+  float* p_dw2 = part + 2 * kPW * kC1;
+  for (int i = tid; i < kC1 * kPOut; i += kTThreads) p_dw2[i] = s_dw2[i];
+  for (int c = tid; c < kC1 + kPOut; c += kTThreads) {
+    float v = 0.0f;
+    if (c < kC1) {  // warp 4 w4 + i of warpgroup w4 holds column c at 64 (c / 128) + c % 64
+      const int w4 = 4 * ((c % 128) / 64), cl = 64 * (c / 128) + c % 64;
+      for (int i = 0; i < 4; ++i) v += s_db1[(w4 + i) * kWarpCols + cl];
+    } else {        // warpgroup w4 holds db2's n8 tile w4
+      const int cc = c - kC1, w4 = 4 * (cc / 8);
+      for (int i = 0; i < 4; ++i) v += s_db2[(w4 + i) * kPOut + cc];
+    }
+    part[2 * kPW * kC1 + kC1 * kPOut + c] = v;
+  }
+}
+
 }  // namespace wcmc
 
 using namespace wcmc;
@@ -990,12 +1567,35 @@ static cudaError_t launch_tiled(const TiledArgs& args, void* out, int n_blocks, 
   return reduce_parts(args.parts, static_cast<float*>(out), grid, kTParts, stream);
 }
 
+template <int kHalves>
+static cudaError_t launch_pn(const PnArgs& args, void* out, int n_blocks, int device,
+                             cudaStream_t stream) {
+  const size_t smem = pn_smem(kHalves);
+  cudaError_t err = set_smem(pathnet_head_bwd_pn_kernel<kHalves>, smem, device);
+  if (err != cudaSuccess) return err;
+  const long long n_tiles = (long long)args.B * ((args.HW + kPPix - 1) / kPPix);
+  const int grid = (int)(n_tiles < n_blocks ? (n_tiles > 0 ? n_tiles : 1) : n_blocks);
+  pathnet_head_bwd_pn_kernel<kHalves><<<grid, kTThreads, smem, stream>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_parts(args.parts, static_cast<float*>(out), grid,
+                      head_bwd_parts(HeadBwdDims{kPW, kPW, 128 * kHalves, 0}, kPOut), stream);
+}
+
+// PathNet's form runs the tiled body at Ce = Cc = 128 and C1 = 128 or 256
+// (the wrapper zero-pads narrower heads to them), the wmma body otherwise.
+static bool pn_tiled(int ce, int cc, int c1) {
+  return ce == kPW && cc == kPW && (c1 == 128 || c1 == 256);
+}
+
 // The dynamic shared memory, in bytes, that wcmc_pathnet_head_bwd gives
 // a block of the form of act (2: the tiled form, at its own widths; 1:
-// PathNet's at ce, cc, c1): what ops/pathnet_fused.py's head_bwd_plan
-// totals.
+// PathNet's at ce, cc, c1, on its tiled body where it takes them): what
+// ops/pathnet_fused.py's head_bwd_plan totals.
 extern "C" long long wcmc_pathnet_head_bwd_smem(int act, int ce, int cc, int c1) {
-  return (long long)(act == 2 ? tiled_smem() : pathnet_bwd_smem(HeadBwdDims{ce, cc, c1, 16}, 16, 8));
+  if (act == 2) return (long long)tiled_smem();
+  if (pn_tiled(ce, cc, c1)) return (long long)pn_smem(c1 / 128);
+  return (long long)pathnet_bwd_smem(HeadBwdDims{ce, cc, c1, 16}, 16, 8);
 }
 
 // e (B, S, HW, ce) bf16; ctx (B, HW, cc) bf16; g the output cotangent,
@@ -1003,10 +1603,12 @@ extern "C" long long wcmc_pathnet_head_bwd_smem(int act, int ce, int cc, int c1)
 // cout) f32; any of g, gsum, gsq may be null (zero).  wpack, bpack: the
 // head's parameters as ops/pathnet_fused.py's pack_head_weights lays them
 // out for the form.  The two forms: act1 = act2 = relu (1), kout 16, g f32
-// (PathNet); act1 = act2 = leaky relu (2), kout 128, g bf16, ce = cc = c1
-// = 128, channels-last, every cotangent 128 channels wide and every
-// pointer 16-byte aligned (the tiled form; the wrapper pads to it); others
-// are refused.  de (B, S, HW, ce) bf16 and dctx (B, HW, cc) f32 out.
+// (PathNet; on its tiled body at ce = cc = 128 and c1 = 128 or 256, with
+// e, ctx, de, dctx and the packs 16-byte aligned, the wrapper padding
+// narrower heads to it); act1 = act2 = leaky relu (2), kout 128, g bf16,
+// ce = cc = c1 = 128, channels-last, every cotangent 128 channels wide and
+// every pointer 16-byte aligned (the tiled form; the wrapper pads to it);
+// others are refused.  de (B, S, HW, ce) bf16 and dctx (B, HW, cc) f32 out.
 // parts: n_blocks partials of head_bwd_parts floats (scratch); out: their
 // sum, laid out as dW1e (ce, c1) | dW1c (cc, c1) | dW2 (c1, kout) | db1
 // (c1) | db2 (kout), f32.  All contiguous; ce, cc, c1 multiples of 16.
@@ -1025,6 +1627,19 @@ extern "C" int wcmc_pathnet_head_bwd(const void* e, const void* ctx, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const bf16*>(wpack);
   const auto* bias = static_cast<const float*>(bpack);
+  if (act1 == 1 && act2 == 1 && kout == 16 && cout <= kPOut && pn_tiled(ce, cc, c1)) {
+    // PathNet on the tiled body: relu, relu, Cout <= 16, f32 g in either layout
+    for (const void* p : {e, ctx, wpack, bpack, static_cast<const void*>(de),
+                          static_cast<const void*>(dctx)})
+      if (!aligned16(p)) return cudaErrorInvalidValue;
+    const PnArgs args{static_cast<const bf16*>(e), static_cast<const bf16*>(ctx),
+                      static_cast<const float*>(g), static_cast<const float*>(gsum),
+                      static_cast<const float*>(gsq), w, bias, static_cast<bf16*>(de),
+                      static_cast<float*>(dctx), static_cast<float*>(parts), B, S, HW, cout,
+                      cmajor};
+    return c1 == 256 ? launch_pn<2>(args, out, n_blocks, device, s)
+                     : launch_pn<1>(args, out, n_blocks, device, s);
+  }
   if (act1 == 1 && act2 == 1 && kout == 16)  // PathNet: relu, relu, Cout <= 16, f32 g
     return launch_pathnet_bwd<float, 1, 1, 16, 8>(
         e, ctx, g, gsum, gsq, w, bias, w + (size_t)(ce + cc) * c1, bias + c1, de, dctx, parts,

@@ -294,24 +294,30 @@ def _head_bwd_form(acts, cout, g_dtype):
 
 # The Multisteps form runs the tiled kernel at these widths (Ce = Cc = C1
 # = 128, W2 staged 128 wide); narrower chains are zero-padded to them.
+# PathNet's form runs its tiled kernel at Ce = Cc = 128 and C1 = 128 or
+# PN_TILED_C1 (narrower heads zero-padded to them), the wmma body wider.
 TILED_WIDTH = 128
+PN_TILED_C1 = 256
 # csrc/pathnet_head_bwd.cu's tiles: (pixels per tile, samples per chunk)
-# of the tiled kernel (64 rows per product) and of PathNet's kernel
-TILED_TILE, PATHNET_TILE = (32, 2), (16, 8)
+# of the tiled kernels (64 rows per product) and of the wmma PathNet body
+TILED_TILE, PN_TILE, PATHNET_TILE = (32, 2), (16, 4), (16, 8)
 TILED_STAGES = 2      # the e ring's stages
 PACK_CACHE_SIZE = 16  # packed heads and embeddings kept (a train step has up to 6)
 
 
 class HeadBwdPlan(NamedTuple):
-    """How K5-bwd runs a form: ``pix`` pixels of one image per tile,
+    """How K5-bwd runs a form: on a tiled body (``tiled``; its rows
+    pixel-major) or the wmma one, ``pix`` pixels of one image per tile,
     ``samples`` samples per chunk (``pix * samples`` rows per product),
-    and the block's shared memory, ``smem`` as (buffer, bytes) pairs, each
-    rounded up to 128 bytes as the kernel carves them, ``total`` their sum."""
+    the block's shared memory, ``smem`` as (buffer, bytes) pairs, each
+    rounded up to 128 bytes as the kernel carves them, ``total`` their sum,
+    and ``widths``, the (Ce, Cc, C1) the kernel runs (zero-padded)."""
     tiled: bool
     pix: int
     samples: int
     smem: tuple
     total: int
+    widths: tuple
 
 
 def _r128(n):
@@ -321,14 +327,33 @@ def _r128(n):
 @functools.lru_cache(maxsize=None)
 def head_bwd_plan(acts, ce=TILED_WIDTH, cc=TILED_WIDTH, c1=TILED_WIDTH) -> HeadBwdPlan:
     """K5-bwd's plan for the form of ``acts`` (``HEAD_BWD_FORMS``) at
-    widths Ce, Cc, C1 (the tiled form's are always 128).  The tiled form
-    (Multisteps): the packed W1e and W2, a ring of e tiles and the
-    cotangent tile (blocked), h1 / g1 and bf16(gz2) (the first also the
-    tile's [G_hi | G_lo], the second the staged d(e)), two context tiles,
-    ctx . W1c + b1, G and gsum in f32, b2, the warps' running bias sums and
-    the mbarriers.  PathNet's: csrc/pathnet_head_bwd.cu's pathnet_bwd_smem.
-    ``total`` is what wcmc_pathnet_head_bwd_smem of that file returns."""
+    widths Ce, Cc, C1.  The tiled form (Multisteps, always at 128): the
+    packed W1e and W2, a ring of e tiles and the cotangent tile (blocked),
+    h1 / g1 and bf16(gz2) (the first also the tile's [G_hi | G_lo], the
+    second the staged d(e)), two context tiles, ctx . W1c + b1, G and gsum
+    in f32, b2, the warps' running bias sums and the mbarriers.  PathNet's
+    tiled form (Ce, Cc up to 128, C1 up to PN_TILED_C1): the packed W1e and
+    W2, the e ring, h1 / g1 (also [G_hi | G_lo]), bf16(gz2), the staged
+    d(e), two context tiles, ctx . W1c + b1 and G in f32, dW2 in f32, the
+    chunk's cotangent and the tile's gsum and gsq, b2, the warps' running
+    bias sums and the mbarriers.  Wider PathNet heads: the wmma body,
+    csrc/pathnet_head_bwd.cu's pathnet_bwd_smem.  ``total`` is what
+    wcmc_pathnet_head_bwd_smem of that file returns."""
     kout = HEAD_BWD_FORMS[tuple(acts)][0]
+    if tuple(acts) == HEAD_ACTS and max(ce, cc) <= TILED_WIDTH and c1 <= PN_TILED_C1:
+        w = TILED_WIDTH
+        n1 = w if c1 <= w else PN_TILED_C1
+        pix, samples = PN_TILE
+        rows = pix * samples
+        smem = (("w1e", 2 * w * n1), ("w2", 2 * n1 * kout), ("e", 2 * rows * 2 * w),
+                ("h", max(2 * rows * n1, pix * 2 * (2 * n1 + 8))), ("gz", 2 * rows * kout),
+                ("de", rows * 2 * (w + 8)), ("ctx", 2 * pix * 2 * (w + 8)),
+                ("zc", pix * 4 * (n1 + 8)), ("G", pix * 4 * (n1 + 8)), ("dw2", 4 * n1 * kout),
+                ("g", 4 * samples * kout * pix), ("gsum", 4 * pix * kout),
+                ("gsq", 4 * pix * kout), ("b2", 4 * kout), ("db1", 4 * 8 * n1 // 2),
+                ("db2", 4 * 8 * kout), ("bars", 8 * 7))
+        smem = tuple((name, _r128(n)) for name, n in smem)
+        return HeadBwdPlan(True, pix, samples, smem, sum(n for _, n in smem), (w, w, n1))
     if tuple(acts) == LEAKY[:2]:
         w = TILED_WIDTH
         pix, samples = TILED_TILE
@@ -340,7 +365,7 @@ def head_bwd_plan(acts, ce=TILED_WIDTH, cc=TILED_WIDTH, c1=TILED_WIDTH) -> HeadB
                 ("gz", max(2 * rows * kout, rows * pb)), ("ctx", 2 * pix * pb),
                 ("zc", pix * pf), ("G", pix * pf), ("gsum", pix * 4 * (kout + 8)),
                 ("b2", 4 * kout), ("db", 2 * 4 * 8 * 64), ("bars", 8 * 7))
-        tiled = True
+        tiled, widths = True, (w, w, w)
     else:
         pix, samples = PATHNET_TILE
         rows = pix * samples
@@ -351,9 +376,9 @@ def head_bwd_plan(acts, ce=TILED_WIDTH, cc=TILED_WIDTH, c1=TILED_WIDTH) -> HeadB
                 ("ghi", pix * 2 * (c1 + 8)), ("glo", pix * 2 * (c1 + 8)),
                 ("stage", 8 * 256 * 4), ("dbpart", samples * c1 * 4), ("db1", c1 * 4),
                 ("b1", c1 * 4), ("db2", kout * 4), ("b2", kout * 4))
-        tiled = False
+        tiled, widths = False, (ce, cc, c1)
     smem = tuple((name, _r128(n)) for name, n in smem)
-    return HeadBwdPlan(tiled, pix, samples, smem, sum(n for _, n in smem))
+    return HeadBwdPlan(tiled, pix, samples, smem, sum(n for _, n in smem), widths)
 
 
 def blocked(x):
@@ -392,28 +417,31 @@ def unfrag_order(f):
 
 def pack_head_weights(ws, bs, acts, ce, dtype=torch.bfloat16):
     """The head's parameters (``ws[0]``'s first ``ce`` rows take e) in
-    the layout K5-bwd reads: ``(weights, biases)``, flat.  The tiled form (Multisteps, widths zero-padded to
-    128): ``blocked(W1e) | blocked(W2) | frag_order(W1c) |
+    the layout K5-bwd reads: ``(weights, biases)``, flat.  The tiled forms
+    (widths zero-padded to ``head_bwd_plan``'s, Ce = Cc = 128 and C1 =
+    n1): ``blocked(W1e) | blocked(W2) | frag_order(W1c) |
     frag_order(W1c^T)`` in ``dtype`` (the last two the B fragments of
     ctx . W1c and of G . W1c^T, read from device memory once per tile),
-    and ``b1 | b2`` in f32.  PathNet's: ``W1 | W2`` with W2's columns
-    zero-padded to 16, and ``b1 | b2`` likewise."""
+    and ``b1 | b2`` in f32, b1 n1 wide.  the wmma PathNet body: ``W1 | W2``
+    with W2's columns zero-padded to 16, and ``b1 | b2`` likewise."""
     w1, w2 = ws
     b1, b2 = bs
     kout = HEAD_BWD_FORMS[tuple(acts)][0]
     c1, cout = w2.shape
+    cc = w1.shape[0] - ce
     dev = w1.device
-    if head_bwd_plan(tuple(acts)).tiled:
-        n, cc = TILED_WIDTH, w1.shape[0] - ce
-        w1e = torch.zeros((n, n), dtype=dtype, device=dev)
+    plan = head_bwd_plan(tuple(acts), ce, cc, c1)
+    if plan.tiled:
+        n, _, n1 = plan.widths
+        w1e = torch.zeros((n, n1), dtype=dtype, device=dev)
         w1e[:ce, :c1] = w1[:ce]
-        w1c = torch.zeros((n, n), dtype=dtype, device=dev)
+        w1c = torch.zeros((n, n1), dtype=dtype, device=dev)
         w1c[:cc, :c1] = w1[ce:]
-        w2p = torch.zeros((n, kout), dtype=dtype, device=dev)
+        w2p = torch.zeros((n1, kout), dtype=dtype, device=dev)
         w2p[:c1, :cout] = w2
         wp = torch.cat([blocked(w1e).reshape(-1), blocked(w2p).reshape(-1),
                         frag_order(w1c).reshape(-1), frag_order(w1c.t()).reshape(-1)])
-        bp = torch.zeros(n + kout, dtype=torch.float32, device=dev)
+        bp = torch.zeros(n1 + kout, dtype=torch.float32, device=dev)
         bp[:c1] = b1
     else:
         w2p = torch.zeros((c1, kout), dtype=dtype, device=dev)
@@ -429,14 +457,15 @@ def unpack_head_weights(wp, bp, acts, ce, cc, c1, cout):
     """The inverse of :func:`pack_head_weights`: ``([W1, W2], [b1,
     b2])``; the tiled form's two W1c copies must agree."""
     kout = HEAD_BWD_FORMS[tuple(acts)][0]
-    if head_bwd_plan(tuple(acts)).tiled:
-        n = TILED_WIDTH
-        w1e, w2, fc, fct = torch.split(wp, [n * n, n * kout, n * n, n * n])
-        w1c = unfrag_order(fc.view(n // 16, n // 8, 32, 4))
-        if not torch.equal(unfrag_order(fct.view(n // 16, n // 8, 32, 4)).t(), w1c):
+    plan = head_bwd_plan(tuple(acts), ce, cc, c1)
+    if plan.tiled:
+        n, _, n1 = plan.widths
+        w1e, w2, fc, fct = torch.split(wp, [n * n1, n1 * kout, n * n1, n * n1])
+        w1c = unfrag_order(fc.view(n // 16, n1 // 8, 32, 4))
+        if not torch.equal(unfrag_order(fct.view(n1 // 16, n // 8, 32, 4)).t(), w1c):
             raise ValueError("the packed W1c and W1c^T fragments disagree")
-        w1 = torch.cat([unblocked(w1e.view(n // 8, n // 8, 8, 8))[:ce, :c1], w1c[:cc, :c1]])
-        w2 = unblocked(w2.view(n // 8, kout // 8, 8, 8))[:c1, :cout]
+        w1 = torch.cat([unblocked(w1e.view(n // 8, n1 // 8, 8, 8))[:ce, :c1], w1c[:cc, :c1]])
+        w2 = unblocked(w2.view(n1 // 8, kout // 8, 8, 8))[:c1, :cout]
         b1 = bp[:c1]
     else:
         w1 = wp[:(ce + cc) * c1].view(ce + cc, c1)
@@ -475,7 +504,8 @@ def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3)
     form's rows pixel-major: pixel by pixel, the chunk's samples of each):
     h1, h2 and the cotangent, dW2, g1, the sum G of bf16(g1) over the
     samples in sample order, dW1e and de, every product summed k16 step by
-    k16 step into its accumulator; at the tile's end d(ctx) (the hi and lo
+    k16 step into its accumulator (PathNet's tiled form: dW2 as one
+    product per chunk, added to the block's); at the tile's end d(ctx) (the hi and lo
     terms of each k16 step in turn) and dW1c from G = hi + lo (hi =
     bf16(G), lo = bf16(G - hi)).  Each block's weight and bias
     gradients are its partials, summed in block order.  Returns what
@@ -485,6 +515,7 @@ def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3)
     cc = ctx.shape[-1]
     c1, cout = ws[1].shape
     plan = head_bwd_plan(tuple(acts), ce, cc, c1)
+    pn = plan.tiled and tuple(acts) == HEAD_ACTS
     w1e, w1c = ws[0][:ce].to(dt).float(), ws[0][ce:].to(dt).float()
     w2 = ws[1].to(dt).float()
     b1, b2 = bs[0].float(), bs[1].float()
@@ -526,7 +557,7 @@ def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3)
                 gz = _act_grad(acts[1], h2, gg)
                 db2 += gz.sum(dim=0)
                 gzc = gz.to(dt).float()
-                dw2 = _into(dw2, h1.t(), gzc)
+                dw2 = dw2 + _prod(h1.t(), gzc) if pn else _into(dw2, h1.t(), gzc)
                 g1 = _act_grad(acts[0], h1, _prod(gzc, w2.t()))
                 db1 += g1.sum(dim=0)
                 g1c = g1.to(dt).float()
@@ -553,18 +584,21 @@ def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3)
 
 # K4-bwd's tiled body runs every chain at C1 = C2 = C3 = 128 (narrower ones
 # zero-padded to it) and C0 zero-padded to the first of EMBED_BWD_K0 that
-# holds it; tiles of (pixels, samples per chunk): 64 rows per product.  It
-# takes Multisteps' form and PathNet's chains up to EMBED_BWD_PATHNET_TILED
-# wide (LBMC's and SBMC's PathNet); wider PathNet chains (KPCN's merged
-# branches) run the row-chunk body (csrc/pathnet_embed_bwd.cu).
+# holds it, or, above the last, to slabs of that width; tiles of (pixels,
+# samples per chunk): 64 rows per product.  It takes Multisteps' form and
+# PathNet's chains up to EMBED_BWD_PATHNET_TILED wide (KPCN's merged
+# branches, LBMC's and SBMC's PathNet); wider PathNet chains run the
+# row-chunk body (csrc/pathnet_embed_bwd.cu).
 EMBED_BWD_WIDTH = 128
 EMBED_BWD_K0 = (48, 96)
 EMBED_BWD_TILE = (32, 2)
-EMBED_BWD_PATHNET_TILED = 64
+EMBED_BWD_PATHNET_TILED = 128
 
 
 class EmbedBwdPlan(NamedTuple):
-    """How K4-bwd runs rows of C0 values: C0 padded to ``k0``, ``pix``
+    """How K4-bwd runs rows of C0 values: C0 padded to ``k0``, taken in
+    slabs of ``slab`` columns (``k0`` itself up to 96, 96 above: W0's slab
+    and the chunk's x slab loaded for each slab's products), ``pix``
     pixels of one image per tile, ``samples`` samples per chunk, and the
     block's shared memory, ``smem`` as (buffer, bytes) pairs, each rounded
     up to 128 bytes as the kernel carves them, ``total`` their sum."""
@@ -573,27 +607,33 @@ class EmbedBwdPlan(NamedTuple):
     samples: int
     smem: tuple
     total: int
+    slab: int
 
 
 @functools.lru_cache(maxsize=None)
 def embed_bwd_plan(c0) -> EmbedBwdPlan:
-    """K4-bwd's plan for rows of ``c0`` values: the packed W0 (k0 x 128),
-    W1 and W2, the landing stage of the chunk's x spans and the blocked x
-    tile, the cotangent tile (ge, then g3), h1 / g1, h2 / g2 (then the
-    staged d(x)), dW0^T and the tile's gmean / S in f32, the biases and the
-    mbarriers.  ``total`` is what wcmc_pathnet_embed_bwd_smem returns."""
-    if not 1 <= c0 <= EMBED_BWD_K0[-1]:
-        raise ValueError(f"pathnet_embed_bwd kernel takes 1 to {EMBED_BWD_K0[-1]} input "
-                         f"channels, got {c0}")
-    k0 = next(k for k in EMBED_BWD_K0 if c0 <= k)
+    """K4-bwd's plan for rows of ``c0`` values: the packed W0 (a slab of
+    it, k0 or 96 x 128), W1 and W2, the landing stage of the chunk's x
+    spans and the blocked x tile, the cotangent tile (ge, then g3), h1 /
+    g1, h2 / g2 (then the staged d(x)), dW0^T and the tile's gmean / S in
+    f32, the biases and the mbarriers.  ``total`` is what
+    wcmc_pathnet_embed_bwd_smem returns.  Above 96 columns the carve is
+    the 96 one's, and the block's dW0 is added to in its partial in device
+    memory, chunk by chunk."""
+    if c0 < 1:
+        raise ValueError(f"pathnet_embed_bwd kernel takes 1 or more input channels, got {c0}")
+    top = EMBED_BWD_K0[-1]
+    k0 = next((k for k in EMBED_BWD_K0 if c0 <= k), -(-c0 // top) * top)
+    slab = min(k0, top)
     w = EMBED_BWD_WIDTH
     pix, samples = EMBED_BWD_TILE
     rows = pix * samples
-    smem = (("w0", 2 * k0 * w), ("w1", 2 * w * w), ("w2", 2 * w * w), ("x_in", 2 * rows * k0),
-            ("x", 2 * rows * k0), ("g", 2 * rows * w), ("h1", 2 * rows * w), ("h2", 2 * rows * w),
-            ("dw0", 4 * w * k0), ("gmean", 4 * pix * w), ("bias", 4 * 3 * w), ("bars", 8 * 4))
+    smem = (("w0", 2 * slab * w), ("w1", 2 * w * w), ("w2", 2 * w * w), ("x_in", 2 * rows * slab),
+            ("x", 2 * rows * slab), ("g", 2 * rows * w), ("h1", 2 * rows * w),
+            ("h2", 2 * rows * w), ("dw0", 4 * w * slab), ("gmean", 4 * pix * w),
+            ("bias", 4 * 3 * w), ("bars", 8 * 4))
     smem = tuple((name, _r128(n)) for name, n in smem)
-    return EmbedBwdPlan(k0, pix, samples, smem, sum(n for _, n in smem))
+    return EmbedBwdPlan(k0, pix, samples, smem, sum(n for _, n in smem), slab)
 
 
 def pack_embed_weights(ws, bs, dtype=torch.bfloat16):
@@ -637,8 +677,9 @@ def _embed_bwd_walk(x, ge, gmean, ws, bs, acts, compute_dx=False, n_blocks=3):
     in chunks, rows sample-major: the hiddens recomputed, g3 from ge +
     gmean / S, dW2, g2, dW1, g1, each weight-gradient product summed k16
     step by k16 step (of the chunk's rows) into its block-long accumulator;
-    dW0^T = g1^T . x as one product per chunk, added to the block's dW0^T;
-    d(x) per chunk.  Each block's weight and bias gradients are its
+    dW0^T = g1^T . x as one product per chunk (per slab above 96 columns),
+    added to the block's dW0^T; d(x) per chunk.  The layer-1 product
+    sums the k16 steps of all slabs in order, as one product.  Each block's weight and bias gradients are its
     partials, summed in block order.  Returns what ``_embed_bwd_plain``
     returns."""
     dt = x.dtype
@@ -790,28 +831,29 @@ def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor):
         raise ValueError("pathnet_head_bwd: shapes of e, ctx, the weights and the "
                          "cotangents disagree")
     plan = head_bwd_plan(tuple(acts), ce, cc, c1)
-    if plan.tiled and max(ce, cc, c1) > TILED_WIDTH:
+    multisteps = tuple(acts) == LEAKY[:2]
+    if multisteps and max(ce, cc, c1) > TILED_WIDTH:
         raise ValueError(f"pathnet_head_bwd kernel's {tuple(acts)} form takes Ce, Cc, C1 up "
                          f"to {TILED_WIDTH}, got {ce}, {cc}, {c1}")
     f32, bf = torch.float32, torch.bfloat16
     wp, bp = _packed_head(ws, bs, acts, ce)
-    # the cotangents as they come (PathNet's kernel reads either layout, the
-    # tiled one channels-last); None is zero
+    # the cotangents as they come (PathNet's kernels read either layout,
+    # the Multisteps one channels-last); None is zero
     if g is not None:
         g = g.to(g_dtype)
-        g = (g.transpose(2, 3) if cmajor and plan.tiled else g).contiguous()
+        g = (g.transpose(2, 3) if cmajor and multisteps else g).contiguous()
     gsum, gsq = (None if t is None else t.float().contiguous() for t in (gsum, gsq))
     e = e.contiguous()
     ctx = ctx.to(bf).contiguous()
-    if plan.tiled:   # a narrower chain runs zero-padded to the tiled widths (exact)
-        n = TILED_WIDTH
-        # the tiled kernel's bulk copies need 16-byte aligned rows
-        e, ctx = (_aligned(_pad_last(t, n)) for t in (e, ctx))
-        g, gsum, gsq = (None if t is None else _aligned(_pad_last(t, kout))
-                        for t in (g, gsum, gsq))
-        dims = (n, n, n)
-    else:
-        dims = (ce, cc, c1)
+    dims = plan.widths
+    if plan.tiled:   # a narrower head runs zero-padded to the tiled widths (exact)
+        # the tiled kernels' copies need 16-byte aligned rows
+        e, ctx = (_aligned(_pad_last(t, dims[0])) for t in (e, ctx))
+        if multisteps:
+            g, gsum, gsq = (None if t is None else _aligned(_pad_last(t, kout))
+                            for t in (g, gsum, gsq))
+        elif g is not None:
+            g = _aligned(g)
     de = torch.empty_like(e)
     dctx = torch.empty((b, hw, dims[1]), dtype=f32, device=dev)
     n_parts = (dims[0] + dims[1]) * dims[2] + dims[2] * kout + dims[2] + kout
@@ -825,7 +867,7 @@ def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor):
     _build.check(fn(e.data_ptr(), ctx.data_ptr(), ptr(g), ptr(gsum), ptr(gsq), wp.data_ptr(),
                     bp.data_ptr(), de.data_ptr(), dctx.data_ptr(), parts.data_ptr(),
                     out.data_ptr(), b, s, hw, *dims, cout, *codes, kout,
-                    int(cmajor and not plan.tiled), n_blocks, idx, _build.stream_of(dev)),
+                    int(cmajor and not multisteps), n_blocks, idx, _build.stream_of(dev)),
                  "pathnet_head_bwd")
     _build.launches["pathnet_head_bwd"] += 1
     k1, kc, k2 = dims
