@@ -18,10 +18,14 @@ Phases (one JSON line each):
    beside the least time the card could take (bytes over 3.35 TB/s or
    operations over the peak rate of their type, whichever is larger).
    KPCN (8 tiles or patches of 128 px, 8 spp, K = 21, both branches): K1
-   (softmax gather), K4-fwd (PathNet embedding), K5-fwd (PathNet head),
-   K2 (softmax-gather d logits), K3 (softmax-gather d buffer), K4-bwd and
-   K5-bwd (each backward MLP also two launches compared bit for bit,
-   their partials being summed in block order); K2 and K3 are first
+   (softmax gather), K4-fwd (PathNet embedding), K5-fwd (PathNet head;
+   channels-last as served, with the leg without moments, and
+   channel-major as the train step runs it), K2 (softmax-gather d
+   logits), K3 (softmax-gather d buffer), K4-bwd and K5-bwd (each
+   backward MLP also two launches compared bit for bit, their partials
+   being summed in block order; every K5-fwd row too, its moments
+   summed in sample order, with the body that ran it and the host time of
+   its weight pack); K2 and K3 are first
    driven through ``torch.autograd.grad`` of
    ``kernel_gather_softmax`` with a buffer that requires grad (KPCN's
    buffers are data, so its step runs no K3).  LBMC (the same sizes):
@@ -53,7 +57,8 @@ Phases (one JSON line each):
    widths 96 / 32) + single PathNet, and Multisteps (95 input channels,
    K 21, 3 steps, width 128, exp splat) + single PathNet, in bf16 from
    seeded weights, 49 tiles in 7 batches of 8.  Each kernel of the path must
-   have launched its count per batch and no plain version may have run.
+   have launched its count per batch and no plain version may have run,
+   and the profiled frame's K5-fwd entries must all be its tiled body's.
    One tile is checked against the same weights run on the CPU in bf16
    and in f32 (max error of each output, and relative L2 beside that of
    the reference moved by one pixel), and the frame is timed again in
@@ -72,7 +77,8 @@ Phases (one JSON line each):
    ``to_train_mode`` -> ``preprocess`` -> ``train_batch``: 3 warm-up
    steps, 10 timed steps (step ms, MP/s, peak memory, launches per step),
    2 more under ``torch.profiler``.  Each kernel of the step must launch
-   its count per step, no plain version may run, every loss must be
+   its count per step, no plain version may run, K5-fwd's profiled
+   entries must all be its tiled body's, every loss must be
    finite and every model's parameters must change.  One step on the card
    is held against the same step (weights, batch, draws) on the CPU in
    bf16 and in f32, at the seeded initial weights (before the warm-up
@@ -294,49 +300,76 @@ def embed_fwd_row(torch, pf, dev, g, flush, b, s, hw, dims, acts=None):
         {"x": list(x.shape), "dims": list(dims), "acts": list(acts)})
 
 
-def head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts, moments, out_dtype):
-    """K5-fwd against its plain version: error, times and bound."""
+def head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts, moments, out_dtype, cmajor=False):
+    """K5-fwd against its plain version: error, two launches bit for bit
+    (each moment has one writer, summed in sample order), times and bound;
+    and the kernel's output."""
     b, s, hw, ce = e.shape
     c1, cout = hws[1].shape
 
     def kernel():
-        return pf.pathnet_head(e, ctx, hws, hbs, acts, moments, out_dtype=out_dtype)
+        return pf.pathnet_head(e, ctx, hws, hbs, acts, moments, cmajor, out_dtype)
 
     def plain():
-        return pf._head_plain(e, ctx, hws, hbs, acts, moments, out_dtype=out_dtype)
+        return pf._head_plain(e, ctx, hws, hbs, acts, moments, cmajor, out_dtype)
 
     got, want = kernel(), plain()
     got, want = (list(got), list(want)) if moments else ([got], [want])
     err = max_err(torch, got, want, BF16_TOL)
+    again = kernel()
+    if not all(torch.equal(x, y) for x, y in zip(list(again) if moments else [again], got)):
+        raise AssertionError("K5-fwd: a second launch gave other bits")
+    del again
     # the context product is done once per pixel, not once per sample
     flops = 2 * b * s * hw * (ce * c1 + c1 * cout) + 2 * b * hw * ce * c1
     bms, by = bound_ms(nbytes(e, ctx, *got) + weight_bytes(hws), [(flops, BF16_FLOPS)])
     return {"max_abs_err": err, "ms": time_ms(torch, kernel, 20, flush),
-            "plain_ms": time_ms(torch, plain, 3, flush), "bound_ms": bms, "bound_by": by}
+            "plain_ms": time_ms(torch, plain, 3, flush), "bound_ms": bms, "bound_by": by,
+            "bit_for_bit": True}, got[0]
+
+
+def pack_ms(torch, pf, hws, hbs, acts, ce, repeats=5):
+    """Host milliseconds of one pack of the head's parameters (the median
+    of ``repeats``, each ended by a synchronize): what a call pays whose
+    weights are made afresh, as KPCN's merged head is on every call."""
+    times = []
+    for _ in range(repeats + 1):
+        t0 = time.perf_counter()
+        pf.pack_head_weights(hws, hbs, acts, ce)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[1:])
 
 
 def head_fwd_row(torch, pf, dev, g, flush, e, c1, cout, moments, acts=None,
-                 out_dtype=None, both_legs=False):
+                 out_dtype=None, both_legs=False, cmajor=False):
     """K5-fwd over the embedding ``e`` and a context of its width, [C | C]
-    -> c1 -> cout; channels-last, PathNet's activations and an f32 output
-    unless ``acts`` and ``out_dtype``.  With ``both_legs`` the row also
-    carries the leg without moments.  Returns (the context, row)."""
+    -> c1 -> cout; channels-last (channel-major with ``cmajor``),
+    PathNet's activations and an f32 output unless ``acts`` and
+    ``out_dtype``.  With ``both_legs`` the row also carries the leg without
+    moments, whose output must be the one with them, bit for bit.  Returns
+    (the context, row)."""
     acts = acts or pf.HEAD_ACTS
     out_dtype = out_dtype or torch.float32
     b, s, hw, ce = e.shape
     ctx = torch.randn((b, hw, ce), device=dev, generator=g).to(torch.bfloat16)
     hws, hbs = rand_mlp(torch, dev, g, (2 * ce, c1, cout))
-    leg = head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts, moments, out_dtype)
-    extra = {}
+    plan = pf.head_fwd_plan(tuple(acts), ce, ce, c1, cout, out_dtype, cmajor)
+    leg, out = head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts, moments, out_dtype, cmajor)
+    extra = {"body": plan.form or "wmma", "bit_for_bit": True}
+    if plan.tiled:
+        extra["pack_ms"] = pack_ms(torch, pf, hws, hbs, acts, ce)
     if both_legs:
-        extra["without_moments"] = head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts,
-                                                False, out_dtype)
+        extra["without_moments"], bare = head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts,
+                                                       False, out_dtype, cmajor)
+        if not torch.equal(bare, out):
+            raise AssertionError("K5-fwd: the output without moments is not the one with them")
     return ctx, kernel_row(
         "pathnet_head", "pathnet_head", "wcmc_tpu/ops/pathnet_fused.py:457",
         leg["max_abs_err"], leg["ms"], leg["plain_ms"], (leg["bound_ms"], leg["bound_by"]),
         {"e": list(e.shape), "ctx": list(ctx.shape), "w1": [2 * ce, c1], "w2": [c1, cout],
          "acts": list(acts), "out_dtype": str(out_dtype).replace("torch.", ""),
-         "moments": moments}, **extra)
+         "moments": moments, "cmajor": cmajor}, **extra)
 
 
 def embed_bwd_row(torch, pf, dev, g, flush, b, s, hw, dims, acts=None, compute_dx=False):
@@ -487,7 +520,8 @@ def kernel_phase(torch, ka, pf, dev):
     # with moments and the context in the compute dtype, [128 | 128] -> 256 -> 6
     e, row = embed_fwd_row(torch, pf, dev, g, flush, b, 8, 128 * 128, (36, 128, 128, 128))
     rows.append(row)
-    rows.append(head_fwd_row(torch, pf, dev, g, flush, e, 256, 6, moments=True)[1])
+    rows.append(head_fwd_row(torch, pf, dev, g, flush, e, 256, 6, moments=True,
+                             both_legs=True)[1])
     torch.cuda.synchronize()
     return rows
 
@@ -570,6 +604,12 @@ def backward_kernel_phase(torch, ka, pf, dev):
     })
     del conv_out, logits, lg, dconv, dlogits, out, data_out
 
+    # K5-fwd as the KPCN step runs it: channel-major, with moments; its
+    # launches are the train step's
+    e = torch.randn((b, 8, 128 * 128, 128), device=dev, generator=g).to(torch.bfloat16)
+    row = head_fwd_row(torch, pf, dev, g, flush, e, 256, 6, moments=True, cmajor=True)[1]
+    rows.append(dict(row, train_launches=True))
+    del e
     # K4-bwd and K5-bwd: the dual PathNet, the head with moments and a
     # channel-major cotangent
     rows.append(embed_bwd_row(torch, pf, dev, g, flush, b, 8, 128 * 128, (36, 128, 128, 128)))
@@ -980,12 +1020,23 @@ def profile_frame(torch, evaluate, iface, ds):
     }
 
 
+def check_head_body(kinds, where):
+    """Every K5-fwd form a path runs is a tiled form: the profile's device
+    entries of K5-fwd must be the tiled body's (``pathnet_head_tiled``),
+    none the wmma body's (``pathnet_head``)."""
+    if kinds.get("pathnet_head", 0.0) > 0 or kinds.get("pathnet_head_tiled", 0.0) <= 0:
+        raise AssertionError(f"{where}: K5-fwd's device ms by body "
+                             f"{ {k: v for k, v in kinds.items() if k.startswith('pathnet_head')} }, "
+                             "not the tiled body alone")
+
+
 def device_kind(name):
     """The group of a device entry in a profile: a hand kernel by the
     name of its launch counter (the bodies that two kernels share, K1 and
     K9, K2 and K8, K3 and K7, told apart by their softmax template
     argument; ``reduce_parts``, the second launch of the backward
-    kernels; K4-bwd's and K5-bwd's two bodies each), the
+    kernels; K4-bwd's and K5-bwd's two bodies each; K5-fwd's two bodies
+    apart, ``pathnet_head_tiled`` and the wmma body ``pathnet_head``), the
     library convolutions and products, copies, or the rest (PyTorch's
     elementwise, reduction and copy kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
@@ -1153,6 +1204,8 @@ def serve_phase(torch, dev, work, name, size=512):
                 raise AssertionError(f"bad p-buffer {v.shape}")
 
         profiled = profile_frame(torch, evaluate, iface, ds)
+        if "pathnet_head" in spec["launches"]:
+            check_head_body(profiled["device_ms_by_kind"], name)
 
         # one tile against the same weights on the CPU (plain versions), in
         # bf16 and in f32; errors and max |ref| of the radiance and p-buffers
@@ -1450,6 +1503,7 @@ def train_phase(torch, dev, family, b=8, patch=128, spp=8, check=cross_check):
         raise AssertionError(f"parameters did not change: {unchanged}")
 
     profiled = profile_steps(torch, iface, batch, n_prof)
+    check_head_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step")
     # the cross-check on the first two patches of the batch, after the timed steps
     t0 = time.perf_counter()
     xcheck = check(torch, iface, {k: v[:2] for k, v in batch.items()}, family)
@@ -1482,12 +1536,15 @@ FORWARD_KERNELS = ("gather_softmax", "pathnet_embed", "pathnet_head", "mlp_fused
 def attach_launches(rows, path, serve, train, autograd=None):
     """Each row's ``launches``: the count from its path's run, per served
     frame for a forward kernel and per 10 train steps for a backward one
-    (KPCN's K3, which its step does not run, from its autograd drive)."""
+    or a forward kernel's training form (KPCN's channel-major K5-fwd);
+    KPCN's K3, which its step does not run, from its autograd drive."""
     for row in rows:
         name = row.pop("counter")
         row["path"] = path
         if autograd is not None and name in autograd:
             row["launches"] = autograd[name]
+        elif row.pop("train_launches", False):   # a forward kernel's training form
+            row["launches"] = train[name]
         else:
             row["launches"] = (serve if name in FORWARD_KERNELS else train)[name]
         row["launches_by_path"] = {"serve_frame": serve.get(name, 0),

@@ -129,6 +129,21 @@ def test_kernels_refuse_what_they_do_not_compute(cuda):
         pf.pathnet_embed(x, ws, bs)
     with pytest.raises(ValueError):
         pf.pathnet_embed(x.to(torch.bfloat16), ws, bs, ("relu", "gelu", "relu"))
+    # K5-fwd: f32 e, an unknown activation, Cout 17, an f16 output
+    e = torch.zeros((1, 1, 16, 64), device=cuda)
+    ctx = torch.zeros((1, 16, 64), device=cuda)
+    hws = [torch.zeros((128, 128), device=cuda), torch.zeros((128, 3), device=cuda)]
+    hbs = [torch.zeros(128, device=cuda), torch.zeros(3, device=cuda)]
+    with pytest.raises(TypeError):
+        pf.pathnet_head(e, ctx, hws, hbs)
+    eb = e.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        pf.pathnet_head(eb, ctx, hws, hbs, ("relu", "gelu"))
+    with pytest.raises(ValueError):
+        pf.pathnet_head(eb, ctx, [hws[0], torch.zeros((128, 17), device=cuda)],
+                        [hbs[0], torch.zeros(17, device=cuda)])
+    with pytest.raises(TypeError):
+        pf.pathnet_head(eb, ctx, hws, hbs, out_dtype=torch.float16)
 
 
 def _crop_logits(cuda, g, b, h, w, ksize, dtype):
@@ -698,6 +713,101 @@ def test_pathnet_head_sbmc(cuda, b, s, hw, moments, out_dtype):
     assert got[0].dtype == out_dtype and got[0].shape == (b, s, hw, 128)
     for gt, wt in zip(got, want):
         _close(gt, wt, BF16_TOL)
+
+
+# K5-fwd's tiled body: (activations, Ce = Cc, C1, Cout, output dtype) of
+# Multisteps' update chain, KPCN's merged head and the 64-wide PathNet head
+HEAD_FWD_FORMS = {"multisteps": (LEAKY3[:2], 128, 128, 128, torch.bfloat16),
+                  "kpcn": (pf.HEAD_ACTS, 128, 256, 6, torch.float32),
+                  "pathnet64": (pf.HEAD_ACTS, 64, 128, 3, torch.float32)}
+# the paths' layouts: Multisteps channels-last, KPCN both (serving,
+# training), the 64-wide head channels-last (and channel-major, which no
+# path runs but the body takes)
+HEAD_FWD_CASES = [("multisteps", False), ("kpcn", False), ("kpcn", True),
+                  ("pathnet64", False), ("pathnet64", True)]
+
+
+def _head_fwd_case(cuda, form, b, s, hw, seed):
+    acts, ce, c1, cout, dtype = HEAD_FWD_FORMS[form]
+    g = _gen(seed)
+    e = torch.randn((b, s, hw, ce), device=cuda, generator=g).to(torch.bfloat16)
+    ctx = torch.randn((b, hw, ce), device=cuda, generator=g).to(torch.bfloat16)
+    ws = [torch.randn((2 * ce, c1), device=cuda, generator=g) / (2 * ce) ** 0.5,
+          torch.randn((c1, cout), device=cuda, generator=g) / c1 ** 0.5]
+    bs = [0.1 * torch.randn(c1, device=cuda, generator=g),
+          0.1 * torch.randn(cout, device=cuda, generator=g)]
+    return acts, dtype, e, ctx, ws, bs
+
+
+@pytest.mark.parametrize("form,cmajor", HEAD_FWD_CASES)
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (8, 8, 16384), (1, 1, 64), (3, 2, 65),
+                                    (1, 5, 1)])
+def test_pathnet_head_tiled(cuda, form, cmajor, b, s, hw):
+    """K5-fwd's tiled body in every form a path runs, at the path shape
+    and beside it (a ragged 64-pixel unit, one unit, one pixel, fewer units
+    than blocks): within 2e-2 of max |plain| (bf16 hidden layer summed in
+    another order), two launches bit for bit, and the output without
+    moments the output with them, bit for bit."""
+    acts, dtype, e, ctx, ws, bs = _head_fwd_case(cuda, form, b, s, hw, 31)
+    c1, cout = ws[1].shape
+    assert pf.head_fwd_plan(acts, e.shape[-1], ctx.shape[-1], c1, cout, dtype, cmajor).form == form
+    _build.reset_counts()
+    got = pf.pathnet_head(e, ctx, ws, bs, acts, True, cmajor, dtype)
+    assert dict(_build.launches) == {"pathnet_head": 1} and not _build.plain_calls
+    want = pf._head_plain(e, ctx, ws, bs, acts, True, cmajor, dtype)
+    shape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
+    assert got[0].dtype == dtype and tuple(got[0].shape) == shape
+    for gt, wt in zip(got, want):
+        _close(gt, wt, BF16_TOL)
+    again = pf.pathnet_head(e, ctx, ws, bs, acts, True, cmajor, dtype)
+    for gt, wt in zip(again, got):
+        assert torch.equal(gt, wt)
+    no_moments = pf.pathnet_head(e, ctx, ws, bs, acts, False, cmajor, dtype)
+    assert torch.equal(no_moments, got[0])
+
+
+@pytest.mark.parametrize("form,cmajor", HEAD_FWD_CASES)
+def test_pathnet_head_tiled_repeats_the_wmma_body(cuda, form, cmajor):
+    """The tiled body sums what the wmma body sums in the same order
+    (ctx . W1c from zero and then b1, e . W1e added k16 step by k16 step,
+    h1 . W2 from zero, the moments in sample order), so its output and
+    moments are the wmma body's bit for bit."""
+    acts, dtype, e, ctx, ws, bs = _head_fwd_case(cuda, form, 3, 5, 1000, 33)
+    got = pf.pathnet_head(e, ctx, ws, bs, acts, True, cmajor, dtype)
+    want = pf._head_fwd_kernel(e, ctx, ws, bs, acts, True, cmajor, dtype, wmma=True)
+    for gt, wt in zip(got, want):
+        assert torch.equal(gt, wt)
+
+
+def test_pathnet_head_tiled_shares_the_pack_with_the_backward(cuda):
+    """A forward and backward through autograd pack the head once: the
+    backward finds the forward's pack."""
+    acts, dtype, e, ctx, ws, bs = _head_fwd_case(cuda, "multisteps", 2, 3, 100, 32)
+    params = [t.clone().requires_grad_() for t in ws + bs]
+    pf._packed.clear()
+    out, ssum, _ = pf.pathnet_head(e, ctx, params[:2], params[2:], acts, True, False, dtype)
+    (out.float().sum() + ssum.sum()).backward()
+    assert (pf._packed.misses, pf._packed.hits) == (1, 1)
+    pf._packed.clear()
+
+
+@pytest.mark.parametrize("acts,dims,out_dtype,cmajor", [
+    (LEAKY3[:2], (128, 128, 128, 128), torch.bfloat16, False),
+    (pf.HEAD_ACTS, (128, 128, 256, 6), torch.float32, True),
+    (pf.HEAD_ACTS, (64, 64, 128, 3), torch.float32, False),
+    (LEAKY3[:2], (128, 128, 128, 128), torch.float32, False),   # the wmma body
+    (pf.HEAD_ACTS, (32, 32, 64, 6), torch.float32, False)])
+def test_head_fwd_plan_is_the_kernels_shared_memory(cuda, acts, dims, out_dtype, cmajor):
+    """``head_fwd_plan``'s total is the dynamic shared memory K5-fwd's
+    entry point gives a block of the form (the tiled kernel also checks its
+    own carve against it at every launch)."""
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_head_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_longlong
+    plan = pf.head_fwd_plan(tuple(acts), *dims, out_dtype, cmajor)
+    codes = [mf.ACTS.index(a) for a in acts]
+    assert fn(*dims, *codes, int(out_dtype == torch.bfloat16), int(cmajor)) == plan.total
 
 
 def _sbmc_embed_case(cuda, b, s, hw, seed):

@@ -25,6 +25,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxChannels = 8;
 
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // Row pitch (in elements) of a bf16 / f32 tile in shared memory.  The
 // 16-byte pad spreads rows over the banks; a pointer to row r0 (r0 a

@@ -439,8 +439,6 @@ constexpr int kTThreads = 256;               // two warpgroups
 constexpr int kTBlocked = kTW / 8 * 128;     // bytes between 8-row groups of a blocked matrix
 constexpr long long kTParts = 3LL * kTW * kTW + 2 * kTW;
 
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
 // The block's shared memory, in the order the kernel carves it;
 // ops/pathnet_fused.py's head_bwd_plan computes the same sum.
 inline size_t tiled_smem() {

@@ -15,10 +15,13 @@ Counterpart of ``wcmc_tpu/ops/pathnet_fused.py`` (reference dataflow:
   order of sums (CPU tests);
 * ``pathnet_head``: forward K5-fwd (``csrc/pathnet_head.cu``), plain
   ``_head_plain``; backward K5-bwd (``csrc/pathnet_head_bwd.cu``), plain
-  ``_head_bwd_plain``.  K5-bwd reads the head's parameters as
-  ``pack_head_weights`` lays them out (packed once per parameter value);
-  ``head_bwd_plan`` gives its tiles and shared memory per form, and
-  ``_head_bwd_walk`` is a plain walk of its order of sums (CPU tests).
+  ``_head_bwd_plain``.  Both read the head's parameters as
+  ``pack_head_weights`` lays them out (packed once per parameter value,
+  so a train step's backward finds its forward's pack; K5-fwd's wmma
+  body, for the forms its tiled body does not take, reads them as they
+  come); ``head_fwd_plan`` and ``head_bwd_plan`` give their tiles and
+  shared memory per form, and ``_head_fwd_walk`` and ``_head_bwd_walk``
+  are plain walks of their orders of sums (CPU tests).
 
 The SBMC ``Multisteps`` model runs the same two forms wider: an
 embedding with leaky relu on every layer (95 -> 128 -> 128 -> 128) and
@@ -52,6 +55,7 @@ import torch
 
 from wcmc_tpu_torch.ops import _build
 from wcmc_tpu_torch.ops._pack import PackCache
+from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT
 from wcmc_tpu_torch.ops.mlp_fused import (
     ACTS, _act, _act_grad, _mlp_bwd_rows, _mlp_plain, matmul_f32,
 )
@@ -156,6 +160,12 @@ def _embed_fwd(x, ws, bs, acts):
 def _head_fwd(e, ctx, ws, bs, acts, moments, cmajor, out_dtype):
     if e.device.type == "cpu":
         return _head_plain(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
+    return _head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
+
+
+def _head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype, wmma=False):
+    """K5-fwd on the body ``head_fwd_plan`` picks, or with ``wmma`` on the
+    wmma body whatever the form (the card tests compare the two)."""
     dev = _require_cuda("pathnet_head", e, ctx, *ws, *bs)
     codes = _check_head_card(e, acts)
     b, s, hw, ce = e.shape
@@ -164,16 +174,8 @@ def _head_fwd(e, ctx, ws, bs, acts, moments, cmajor, out_dtype):
     if (tuple(ctx.shape) != (b, hw, cc) or tuple(ws[0].shape) != (ce + cc, c1)
             or tuple(ws[1].shape) != (c1, cout)):
         raise ValueError("pathnet_head: shapes of e, ctx and the weights disagree")
-    if ce % 16 or cc % 16 or c1 % 16 or cout > HEAD_MAX_OUT or (cout > 16 and cout % 16):
-        raise ValueError("pathnet_head kernel needs Ce, Cc, C1 multiples of 16 and Cout "
-                         f"<= 16 or a multiple of 16 up to {HEAD_MAX_OUT}, got {ce}, {cc}, "
-                         f"{c1}, {cout}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"pathnet_head kernel writes float32 or bfloat16, got {out_dtype}")
-    e = e.contiguous()
+    plan = head_fwd_plan(tuple(acts), ce, cc, c1, cout, out_dtype, cmajor)
     ctx = ctx.to(torch.bfloat16).contiguous()
-    w1, w2 = (w.to(torch.bfloat16).contiguous() for w in ws)
-    b1, b2 = (bb.float().contiguous() for bb in bs)
     shape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
     out = torch.empty(shape, dtype=out_dtype, device=dev)
     ssum = ssq = None
@@ -181,15 +183,26 @@ def _head_fwd(e, ctx, ws, bs, acts, moments, cmajor, out_dtype):
         ssum = torch.empty((b, hw, cout), dtype=torch.float32, device=dev)
         ssq = torch.empty_like(ssum)
     P, INT = _build.PTR, _build.INT
-    fn = _build.kernel("wcmc_pathnet_head", *([P] * 9), *([INT] * 13), P)
+    ptr = (lambda t: None if t is None else t.data_ptr())
     idx = dev.index or 0
-    _build.check(fn(e.data_ptr(), ctx.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                    ssum.data_ptr() if moments else None,
-                    ssq.data_ptr() if moments else None,
-                    b, s, hw, ce, cc, c1, cout, *codes, int(out_dtype == torch.bfloat16),
-                    int(cmajor), _build.sm_count(idx), idx, _build.stream_of(dev)),
-                 "pathnet_head")
+    common = (b, s, hw, ce, cc, c1, cout, *codes, int(out_dtype == torch.bfloat16), int(cmajor),
+              _build.sm_count(idx), idx, _build.stream_of(dev))
+    if plan.tiled and not wmma:
+        # the pack K5-bwd reads, made once per parameter value (a train
+        # step's backward finds the forward's); rows 16-byte aligned
+        wp, bp = _packed_head(ws, bs, acts, ce)
+        e, ctx = _aligned(e.contiguous()), _aligned(ctx)
+        fn = _build.kernel("wcmc_pathnet_head_tiled", *([P] * 7), *([INT] * 13), P)
+        err = fn(e.data_ptr(), ctx.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
+                 ptr(ssum), ptr(ssq), *common)
+    else:
+        e = e.contiguous()
+        w1, w2 = (w.to(torch.bfloat16).contiguous() for w in ws)
+        b1, b2 = (bb.float().contiguous() for bb in bs)
+        fn = _build.kernel("wcmc_pathnet_head", *([P] * 9), *([INT] * 13), P)
+        err = fn(e.data_ptr(), ctx.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), out.data_ptr(), ptr(ssum), ptr(ssq), *common)
+    _build.check(err, "pathnet_head")
     _build.launches["pathnet_head"] += 1
     return (out, ssum, ssq) if moments else out
 
@@ -285,6 +298,127 @@ def _head_bwd_form(acts, cout, g_dtype):
             f"Cout; output cotangent dtype) {HEAD_BWD_FORMS}, got {tuple(acts)}, Cout {cout}, "
             f"{g_dtype}")
     return form
+
+
+# ---------------------------------------------------------------------------
+# K5-fwd's plan (csrc/pathnet_head.cu), kept here so the CPU tests reach it
+# ---------------------------------------------------------------------------
+
+# The forms K5-fwd runs on its tiled body: (activations, Ce = Cc, C1, the
+# widest Cout, the output dtype, the e ring's stages).  Multisteps' update
+# chain takes Cout 128 exactly, channels-last; the PathNet heads (KPCN's
+# merged branches, LBMC's and SBMC's 64-wide one) Cout up to 16, in either
+# layout, with or without moments.  Every other form runs the wmma body.
+HEAD_FWD_TILED = {
+    "multisteps": (LEAKY[:2], 128, 128, 128, torch.bfloat16, 2),
+    "kpcn": (HEAD_ACTS, 128, 256, 16, torch.float32, 2),
+    "pathnet64": (HEAD_ACTS, 64, 128, 16, torch.float32, 4),
+}
+HEAD_FWD_PIX = 64     # pixels of one image per unit of the tiled body; one sample a product
+HEAD_WMMA_PIX = 32    # ... of the wmma body
+
+
+class HeadFwdPlan(NamedTuple):
+    """How K5-fwd runs a form: on the tiled body (``form``, a key of
+    ``HEAD_FWD_TILED``) or the wmma one (``form`` None), ``pix`` pixels of
+    one image per unit with its samples taken one at a time, ``workers``
+    walkers a block (the tiled body's two warpgroups each walk their own
+    units), ``stages`` e tiles in flight a walker, and the block's shared
+    memory, ``smem`` as (buffer, bytes) pairs in the order the kernel
+    carves them, each a multiple of 128 bytes, ``total`` their sum (what
+    ``wcmc_pathnet_head_smem`` returns)."""
+    tiled: bool
+    form: str | None
+    pix: int
+    workers: int
+    stages: int
+    smem: tuple
+    total: int
+
+
+@functools.lru_cache(maxsize=None)
+def head_fwd_plan(acts, ce, cc, c1, cout, out_dtype=torch.float32, cmajor=False) -> HeadFwdPlan:
+    """K5-fwd's plan for a head [Ce | Cc] -> C1 -> Cout with activations
+    ``acts``.  The tiled body: blocked W1e and W2, each warpgroup's ring of
+    blocked e / context tiles, ctx . W1c + b1 in f32 (Multisteps only;
+    PathNet keeps it in registers), h1 (Multisteps: also the staged bf16
+    output, padded rows), PathNet's staged output and moments, the
+    mbarriers.  The wmma body (32-pixel tiles): W1e, W1c and W2 in padded
+    rows, ctx . W1c + b1, the e and h tiles, the warps' staging, the
+    moments, b1 and b2.  ValueError (TypeError for the output dtype) for
+    what neither body computes."""
+    acts = tuple(acts)
+    _act_codes("pathnet_head", acts, 2)
+    if (min(ce, cc, c1) < 16 or ce % 16 or cc % 16 or c1 % 16 or cout < 1 or cout > HEAD_MAX_OUT
+            or (cout > 16 and cout % 16)):
+        raise ValueError("pathnet_head kernel needs Ce, Cc, C1 multiples of 16 and Cout "
+                         f"<= 16 or a multiple of 16 up to {HEAD_MAX_OUT}, got {ce}, {cc}, "
+                         f"{c1}, {cout}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pathnet_head kernel writes float32 or bfloat16, got {out_dtype}")
+    for form, (f_acts, f_ce, f_c1, f_cout, f_dtype, stages) in HEAD_FWD_TILED.items():
+        wide = f_cout == 128
+        if (acts == f_acts and ce == cc == f_ce and c1 == f_c1 and out_dtype == f_dtype
+                and (cout == f_cout if wide else cout <= f_cout) and not (wide and cmajor)):
+            tile, pix = 2 * HEAD_FWD_PIX * ce, HEAD_FWD_PIX
+            smem = (("w1e", 2 * ce * c1), ("w2", 2 * c1 * f_cout), ("ring", 2 * stages * tile),
+                    ("zc", 2 * 4 * pix * c1 if wide else 0),
+                    ("h", 2 * max(2 * pix * c1, 2 * pix * (f_cout + 8) if wide else 0)),
+                    ("out", 0 if wide else 2 * 4 * f_cout * (pix + 4)),
+                    ("moments", 0 if wide else 2 * 2 * 4 * pix * f_cout),
+                    ("bars", _r128(8 * (1 + 2 * stages))))
+            return HeadFwdPlan(True, form, pix, 2, stages, smem, sum(n for _, n in smem))
+    coutp, pix = -(-cout // 16) * 16, HEAD_WMMA_PIX
+    smem = (("w1e", 2 * ce * (c1 + 8)), ("w1c", 2 * cc * (c1 + 8)), ("w2", 2 * c1 * (coutp + 8)),
+            ("zc", 4 * pix * (c1 + 4)), ("e", 2 * pix * (ce + 8)), ("h", 2 * pix * (max(c1, cc) + 8)),
+            ("stage", 4 * 8 * 256), ("sum", 4 * pix * coutp), ("sq", 4 * pix * coutp),
+            ("b1", 4 * c1), ("b2", 4 * coutp))
+    smem = tuple((name, _r128(n)) for name, n in smem)
+    total = sum(n for _, n in smem)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"pathnet_head kernel's wmma body needs {total} bytes of shared memory "
+                         f"for [{ce} | {cc}] -> {c1} -> {cout}, over the {SMEM_LIMIT} a block "
+                         "may use")
+    return HeadFwdPlan(False, None, pix, 1, 1, smem, total)
+
+
+def _head_fwd_walk(e, ctx, ws, bs, acts, moments=False, cmajor=False,
+                   out_dtype=torch.float32, n_blocks=3):
+    """A plain walk of K5-fwd's order on the CPU: the plan's walkers
+    (``workers`` a block) take units of ``pix`` pixels of one image in
+    turn; each unit computes ctx . W1c + b1 once (k16 step by k16 step from
+    zero, then the bias), then its samples in order: z = that + e . W1e
+    summed k16 step by k16 step into it, h1 = bf16(act(z)), o = act(h1 .
+    W2 + b2) (from zero, k16 steps), the output o rounded to ``out_dtype``,
+    and the moments sum_s o and sum_s o^2 added sample by sample from
+    zero.  Returns what ``_head_plain`` returns."""
+    dt = e.dtype
+    b, s, hw, ce = e.shape
+    cc = ctx.shape[-1]
+    c1, cout = ws[1].shape
+    plan = head_fwd_plan(tuple(acts), ce, cc, c1, cout, out_dtype, cmajor)
+    w1e, w1c, w2 = ws[0][:ce].to(dt).float(), ws[0][ce:].to(dt).float(), ws[1].to(dt).float()
+    b1, b2 = bs[0].float(), bs[1].float()
+    out = torch.empty((b, s, hw, cout))
+    ssum, ssq = torch.empty((b, hw, cout)), torch.empty((b, hw, cout))
+    per_image = -(-hw // plan.pix)
+    n_units = b * per_image
+    walkers = min(plan.workers * n_blocks, n_units)
+    for w in range(walkers):
+        for t in range(w, n_units, walkers):
+            bi, p0 = t // per_image, (t % per_image) * plan.pix
+            p1 = min(p0 + plan.pix, hw)
+            zc = _prod(ctx[bi, p0:p1].to(dt).float(), w1c) + b1
+            msum, msq = torch.zeros((p1 - p0, cout)), torch.zeros((p1 - p0, cout))
+            for si in range(s):
+                h1 = _act(acts[0], _into(zc, e[bi, si, p0:p1].float(), w1e)).to(dt).float()
+                o = _act(acts[1], _prod(h1, w2) + b2)
+                out[bi, si, p0:p1] = o
+                msum, msq = msum + o, msq + o * o
+            ssum[bi, p0:p1], ssq[bi, p0:p1] = msum, msq
+    res = out.to(out_dtype)
+    res = res.transpose(2, 3) if cmajor else res
+    return (res, ssum, ssq) if moments else res
 
 
 # ---------------------------------------------------------------------------
