@@ -14,18 +14,22 @@ Phases (one JSON line each):
    shared memory and spills per kernel).
 3. kernels: every kernel held against its plain PyTorch version on the
    same inputs at the shapes of each path that runs it, with CUDA-event
-   times (median of repeats after warm-up, L2 flushed before each launch)
-   beside the least time the card could take (bytes over 3.35 TB/s or
-   operations over the peak rate of their type, whichever is larger).
+   times (median of repeats after warm-up, L2 flushed before each launch;
+   ``ms``) and the median device time of the kernel's own entries in a
+   torch.profiler pass over five more calls (``device_ms``, which leaves
+   out any wait for the wrapper's host work), beside the least time the
+   card could take (bytes over 3.35 TB/s or operations over the peak rate
+   of their type, whichever is larger).
    KPCN (8 tiles or patches of 128 px, 8 spp, K = 21, both branches): K1
    (softmax gather), K4-fwd (PathNet embedding), K5-fwd (PathNet head;
    channels-last as served, with the leg without moments, and
    channel-major as the train step runs it), K2 (softmax-gather d
    logits), K3 (softmax-gather d buffer), K4-bwd and K5-bwd (each
    backward MLP also two launches compared bit for bit, their partials
-   being summed in block order; every K5-fwd row too, its moments
-   summed in sample order, with the body that ran it and the host time of
-   its weight pack); K2 and K3 are first
+   being summed in block order; every K5-fwd and K4-fwd row too, their
+   moments and means summed in sample order, with the body that ran it
+   and the host time of its weight pack; K4-fwd's tiled body also against
+   its row-chunk body, bit for bit); K2 and K3 are first
    driven through ``torch.autograd.grad`` of
    ``kernel_gather_softmax`` with a buffer that requires grad (KPCN's
    buffers are data, so its step runs no K3).  LBMC (the same sizes):
@@ -58,7 +62,8 @@ Phases (one JSON line each):
    K 21, 3 steps, width 128, exp splat) + single PathNet, in bf16 from
    seeded weights, 49 tiles in 7 batches of 8.  Each kernel of the path must
    have launched its count per batch and no plain version may have run,
-   and the profiled frame's K5-fwd entries must all be its tiled body's.
+   and the profiled frame's K5-fwd and K4-fwd entries must all be their
+   tiled bodies'.
    One tile is checked against the same weights run on the CPU in bf16
    and in f32 (max error of each output, and relative L2 beside that of
    the reference moved by one pixel), and the frame is timed again in
@@ -77,8 +82,8 @@ Phases (one JSON line each):
    ``to_train_mode`` -> ``preprocess`` -> ``train_batch``: 3 warm-up
    steps, 10 timed steps (step ms, MP/s, peak memory, launches per step),
    2 more under ``torch.profiler``.  Each kernel of the step must launch
-   its count per step, no plain version may run, K5-fwd's profiled
-   entries must all be its tiled body's, every loss must be
+   its count per step, no plain version may run, K5-fwd's and K4-fwd's
+   profiled entries must all be their tiled bodies', every loss must be
    finite and every model's parameters must change.  One step on the card
    is held against the same step (weights, batch, draws) on the CPU in
    bf16 and in f32, at the seeded initial weights (before the warm-up
@@ -231,6 +236,42 @@ def time_ms(torch, fn, repeats, flush):
     return statistics.median(times)
 
 
+def median_device_ms(events, kinds, calls):
+    """The median over ``calls`` calls, made one after another, of the
+    device time of each call's entries of ``kinds`` (``device_kind``):
+    ``events`` the profiled window's device entries as (name, start us,
+    duration us).  None where no entry of those kinds ran, or where their
+    count does not divide evenly into the calls."""
+    mine = sorted((start, dur) for name, start, dur in events if device_kind(name) in kinds)
+    if not mine or len(mine) % calls:
+        return None
+    per = len(mine) // calls
+    return statistics.median(sum(d for _, d in mine[i:i + per])
+                             for i in range(0, len(mine), per)) / 1e3
+
+
+def device_ms(torch, fn, counter, flush, calls=5):
+    """The median device time of one call of ``fn`` in the entries of the
+    kernel whose launch counter is ``counter`` (either of its bodies:
+    ``counter`` and ``counter``_tiled), from one torch.profiler pass over
+    ``calls`` calls after a warm-up call, the L2 flushed before each and a
+    synchronize after each.  ``time_ms``'s CUDA events also count any wait
+    for the wrapper's host work; this does not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+            torch.cuda.synchronize()
+    events = [(e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    return median_device_ms(events, (counter, counter + "_tiled"), calls)
+
+
 def max_err(torch, got, want, tol, pairs=None):
     """Largest |got - want| over the pairs; each pair must be finite, of
     one shape and within ``tol`` of its max |want|.  With ``pairs``, each
@@ -285,19 +326,43 @@ def rand_mlp(torch, dev, g, dims):
 
 def embed_fwd_row(torch, pf, dev, g, flush, b, s, hw, dims, acts=None):
     """K4-fwd at (B, S, HW) rows of ``dims`` (PathNet's activations unless
-    ``acts``); returns (the embedding, row)."""
+    ``acts``), against its plain version; on the tiled body also against
+    the row-chunk body, bit for bit (both sum every layer from zero in k16
+    steps and the mean in sample order), with the host time of its weight
+    pack; two launches bit for bit.  Returns (the embedding, row)."""
     acts = acts or pf.EMBED_ACTS
     x = torch.randn((b, s, hw, dims[0]), device=dev, generator=g).to(torch.bfloat16)
     ws, bs = rand_mlp(torch, dev, g, dims)
-    e, mean = pf.pathnet_embed(x, ws, bs, acts)
+    plan = pf.embed_fwd_plan(tuple(acts), *dims)
+
+    def kernel():
+        return pf.pathnet_embed(x, ws, bs, acts)
+
+    e, mean = kernel()
     err = max_err(torch, [e, mean], list(pf._embed_plain(x, ws, bs, acts)), BF16_TOL)
+    again = kernel()
+    if not (torch.equal(again[0], e) and torch.equal(again[1], mean)):
+        raise AssertionError("K4-fwd: a second launch gave other bits")
+    del again
+    extra = {"body": plan.form or "row_chunk", "bit_for_bit": True}
+    if plan.tiled:
+        rows_e, rows_mean = pf._embed_fwd_kernel(x, ws, bs, acts, rows=True)
+        if not (torch.equal(rows_e, e) and torch.equal(rows_mean, mean)):
+            raise AssertionError(
+                f"K4-fwd's tiled body is not the row-chunk body's bits ({plan.form}): max "
+                f"|diff| e {(rows_e.float() - e.float()).abs().max().item()}, mean "
+                f"{(rows_mean - mean).abs().max().item()}")
+        extra["rows_body_bit_for_bit"] = True
+        extra["pack_ms"] = pack_ms(torch, lambda: pf.pack_embed_weights(ws, bs))
+        del rows_e, rows_mean
     flops = 2 * b * s * hw * sum(ci * co for ci, co in zip(dims[:-1], dims[1:]))
     return e, kernel_row(
         "pathnet_embed", "pathnet_embed", "wcmc_tpu/ops/pathnet_fused.py:155", err,
-        time_ms(torch, lambda: pf.pathnet_embed(x, ws, bs, acts), 20, flush),
+        time_ms(torch, kernel, 20, flush),
         time_ms(torch, lambda: pf._embed_plain(x, ws, bs, acts), 3, flush),
         bound_ms(nbytes(x, e, mean) + weight_bytes(ws), [(flops, BF16_FLOPS)]),
-        {"x": list(x.shape), "dims": list(dims), "acts": list(acts)})
+        {"x": list(x.shape), "dims": list(dims), "acts": list(acts)},
+        device_ms=device_ms(torch, kernel, "pathnet_embed", flush), **extra)
 
 
 def head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts, moments, out_dtype, cmajor=False):
@@ -324,18 +389,20 @@ def head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts, moments, out_dtype, c
     flops = 2 * b * s * hw * (ce * c1 + c1 * cout) + 2 * b * hw * ce * c1
     bms, by = bound_ms(nbytes(e, ctx, *got) + weight_bytes(hws), [(flops, BF16_FLOPS)])
     return {"max_abs_err": err, "ms": time_ms(torch, kernel, 20, flush),
+            "device_ms": device_ms(torch, kernel, "pathnet_head", flush),
             "plain_ms": time_ms(torch, plain, 3, flush), "bound_ms": bms, "bound_by": by,
             "bit_for_bit": True}, got[0]
 
 
-def pack_ms(torch, pf, hws, hbs, acts, ce, repeats=5):
-    """Host milliseconds of one pack of the head's parameters (the median
-    of ``repeats``, each ended by a synchronize): what a call pays whose
-    weights are made afresh, as KPCN's merged head is on every call."""
+def pack_ms(torch, pack, repeats=5):
+    """Host milliseconds of one weight pack, ``pack()`` (the median of
+    ``repeats``, each ended by a synchronize): what a call pays whose
+    weights are made afresh, as KPCN's merged head and embedding are on
+    every call."""
     times = []
     for _ in range(repeats + 1):
         t0 = time.perf_counter()
-        pf.pack_head_weights(hws, hbs, acts, ce)
+        pack()
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times[1:])
@@ -356,9 +423,9 @@ def head_fwd_row(torch, pf, dev, g, flush, e, c1, cout, moments, acts=None,
     hws, hbs = rand_mlp(torch, dev, g, (2 * ce, c1, cout))
     plan = pf.head_fwd_plan(tuple(acts), ce, ce, c1, cout, out_dtype, cmajor)
     leg, out = head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts, moments, out_dtype, cmajor)
-    extra = {"body": plan.form or "wmma", "bit_for_bit": True}
+    extra = {"body": plan.form or "wmma", "bit_for_bit": True, "device_ms": leg["device_ms"]}
     if plan.tiled:
-        extra["pack_ms"] = pack_ms(torch, pf, hws, hbs, acts, ce)
+        extra["pack_ms"] = pack_ms(torch, lambda: pf.pack_head_weights(hws, hbs, acts, ce))
     if both_legs:
         extra["without_moments"], bare = head_fwd_leg(torch, pf, flush, e, ctx, hws, hbs, acts,
                                                        False, out_dtype, cmajor)
@@ -418,7 +485,8 @@ def embed_bwd_row(torch, pf, dev, g, flush, b, s, hw, dims, acts=None, compute_d
                  [(2 * macs, BF16_FLOPS)]),
         {"x": list(x.shape), "ge": list(ge.shape), "gmean": list(gmean.shape),
          "dims": list(dims), "acts": list(acts), "compute_dx": compute_dx},
-        library_note="no single PyTorch call computes a fused MLP's backward", **extra)
+        library_note="no single PyTorch call computes a fused MLP's backward",
+        device_ms=device_ms(torch, kernel, "pathnet_embed_bwd", flush), **extra)
 
 
 def head_bwd_row(torch, pf, dev, g, flush, b, s, hw, ce, c1, cout, moments, cmajor,
@@ -473,7 +541,7 @@ def head_bwd_row(torch, pf, dev, g, flush, b, s, hw, ce, c1, cout, moments, cmaj
          "w2": [c1, cout], "acts": list(acts), "moments": moments,
          "gsq": gsq_t is not None},
         library_note="no single PyTorch call computes a fused MLP's backward", row_rel_l2=row_l2,
-        bit_for_bit=bit_for_bit)
+        bit_for_bit=bit_for_bit, device_ms=device_ms(torch, kernel, "pathnet_head_bwd", flush))
 
 
 def kernel_phase(torch, ka, pf, dev):
@@ -502,6 +570,8 @@ def kernel_phase(torch, ka, pf, dev):
         legs[leg] = {
             "max_abs_err": err,
             "ms": time_ms(torch, lambda: ka.kernel_gather_softmax(buf, logits, k), 20, flush),
+            "device_ms": device_ms(torch, lambda: ka.kernel_gather_softmax(buf, logits, k),
+                                   "gather_softmax", flush),
             "plain_ms": time_ms(torch, lambda: ka.gather_softmax_plain(buf, logits, k), 3,
                                 flush),
             "bound_ms": bms, "bound_by": by,
@@ -582,6 +652,8 @@ def backward_kernel_phase(torch, ka, pf, dev):
         "replaces": "wcmc_tpu/ops/pallas_kernels.py:410", "counter": "outer_softmax",
         "max_abs_err": err2,
         "ms": time_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k), 20, flush),
+        "device_ms": device_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k),
+                               "outer_softmax", flush),
         "plain_ms": time_ms(torch, lambda: ka.outer_softmax_plain(cot, buf, lg, k), 3, flush),
         "bound_ms": bms2, "bound_by": by2, "library_ms": None,
         "library_note": "no single PyTorch call computes the softmax-gather VJP",
@@ -594,6 +666,8 @@ def backward_kernel_phase(torch, ka, pf, dev):
         "replaces": "wcmc_tpu/ops/pallas_kernels.py:297", "counter": "scatter_softmax",
         "max_abs_err": err3,
         "ms": time_ms(torch, lambda: ka.scatter_softmax(cot, lg, k), 20, flush),
+        "device_ms": device_ms(torch, lambda: ka.scatter_softmax(cot, lg, k),
+                               "scatter_softmax", flush),
         "plain_ms": time_ms(torch, lambda: ka.scatter_softmax_plain(cot, lg, k), 3, flush),
         "bound_ms": bms3, "bound_by": by3, "library_ms": None,
         "library_note": "no single PyTorch call computes the softmax-weighted splat",
@@ -646,7 +720,8 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
         time_ms(torch, lambda: mf.fused_mlp(x, ws, bs, acts), 20, flush),
         time_ms(torch, lambda: mf._mlp_fwd_plain(x, ws, bs, acts), 3, flush),
         bound_ms(nbytes(x, y) + weight_bytes(ws), [(2 * n * mac, BF16_FLOPS)]), shape,
-        library_note=note))
+        library_note=note,
+        device_ms=device_ms(torch, lambda: mf.fused_mlp(x, ws, bs, acts), "mlp_fused", flush)))
     cot = torch.randn((n, dims[-1]), device=dev, generator=g).to(torch.bfloat16)
     dx, dws, dbs = mf.mlp_fused_bwd(x, cot, ws, bs, acts, True)
     pdx, pdws, pdbs = mf._mlp_bwd_plain(x, cot, ws, bs, acts, True)
@@ -667,7 +742,9 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
                  [(3 * 2 * n * mac, BF16_FLOPS)]),
         dict(shape, g=[n, dims[-1]], compute_dx=True),
         library_note="no single PyTorch call computes a fused MLP's backward",
-        row_rel_l2=row_l2))
+        row_rel_l2=row_l2,
+        device_ms=device_ms(torch, lambda: mf.mlp_fused_bwd(x, cot, ws, bs, acts, True),
+                            "mlp_fused_bwd", flush)))
     del x, y, cot, dx, pdx
 
     # K1, K2, K3 at K = 13: bf16 logits, the layer's slice of the kernel head
@@ -695,21 +772,27 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
         time_ms(torch, lambda: ka.kernel_gather_softmax(buf, lg, k), 20, flush),
         time_ms(torch, lambda: ka.gather_softmax_plain(buf, lg, k), 3, flush),
         # softmax ~5 f32 ops per tap (max, sub, exp, add, scale), 2 per channel
-        bound_ms(2 * taps + nbytes(buf, out), [(taps * (5 + 2 * 3), F32_FLOPS)]), shape))
+        bound_ms(2 * taps + nbytes(buf, out), [(taps * (5 + 2 * 3), F32_FLOPS)]), shape,
+        device_ms=device_ms(torch, lambda: ka.kernel_gather_softmax(buf, lg, k),
+                            "gather_softmax", flush)))
     rows.append(kernel_row(
         "outer_softmax", "outer_softmax", "wcmc_tpu/ops/pallas_kernels.py:410", err2,
         time_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k), 20, flush),
         time_ms(torch, lambda: ka.outer_softmax_plain(cot, buf, lg, k), 3, flush),
         bound_ms(2 * 2 * taps + nbytes(cot, buf), [(taps * (2 * 3 + 8), F32_FLOPS)]),
         dict(shape, g=[b, p, p, 3]),
-        library_note="no single PyTorch call computes the softmax-gather VJP"))
+        library_note="no single PyTorch call computes the softmax-gather VJP",
+        device_ms=device_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k), "outer_softmax",
+                            flush)))
     rows.append(kernel_row(
         "scatter_softmax", "scatter_softmax", "wcmc_tpu/ops/pallas_kernels.py:297", err3,
         time_ms(torch, lambda: ka.scatter_softmax(cot, lg, k), 20, flush),
         time_ms(torch, lambda: ka.scatter_softmax_plain(cot, lg, k), 3, flush),
         bound_ms(2 * taps + nbytes(cot, dbuf), [(taps * (3 + 2 * 3), F32_FLOPS)]),
         dict(shape, g=[b, p, p, 3]),
-        library_note="no single PyTorch call computes the softmax-weighted splat"))
+        library_note="no single PyTorch call computes the softmax-weighted splat",
+        device_ms=device_ms(torch, lambda: ka.scatter_softmax(cot, lg, k), "scatter_softmax",
+                            flush)))
     del head, logits, lg, dhead, dlogits, out, dbuf
 
     # K4 and K5 at the single PathNet's widths
@@ -751,7 +834,8 @@ def sbmc_kernel_phase(torch, ka, pf, dev):
         # multiply-add per weight and channel
         bound_ms(nbytes(x, wt, out), [(2 * wt.numel() * x.shape[-1], F32_FLOPS)]),
         {"x": list(x.shape), "w": list(wt.shape), "out": list(out.shape)},
-        library_note="no single PyTorch call computes the per-pixel-kernel splat"))
+        library_note="no single PyTorch call computes the per-pixel-kernel splat",
+        device_ms=device_ms(torch, lambda: ka.scatter(x, wt, k), "scatter", flush)))
     del x, wt, out
 
     leaky = ("leaky_relu",) * 3
@@ -803,7 +887,8 @@ def sbmc_train_kernel_phase(torch, ka, pf, dev):
         time_ms(torch, lambda: ka.outer(x, gc, k), 10, flush),
         time_ms(torch, lambda: ka.outer_plain(x, gc, k), 3, flush),
         bound_ms(nbytes(x, gc, dw), flops), shape,
-        library_note="no single PyTorch call computes the per-pixel-kernel outer product"))
+        library_note="no single PyTorch call computes the per-pixel-kernel outer product",
+        device_ms=device_ms(torch, lambda: ka.outer(x, gc, k), "outer", flush)))
     del dw
     dx = ka.gather(gc, wt, k)
     err = max_err(torch, [dx], [ka.gather_plain(gc, wt, k)], K1_TOL)
@@ -813,6 +898,7 @@ def sbmc_train_kernel_phase(torch, ka, pf, dev):
         time_ms(torch, lambda: ka.gather_plain(gc, wt, k), 3, flush),
         bound_ms(nbytes(gc, wt, dx), flops), dict(shape, out=list(dx.shape)),
         library_note="no single PyTorch call computes the per-pixel-kernel weighted gather",
+        device_ms=device_ms(torch, lambda: ka.gather(gc, wt, k), "gather", flush),
         launches_from="torch.autograd.grad of kernel_gather and of kernel_scatter with "
                       "values that require grad (this phase); the SBMC step's radiance is "
                       "data"))
@@ -845,16 +931,16 @@ def sbmc_train_kernel_phase(torch, ka, pf, dev):
     wide = embed_bwd_row(torch, pf, dev, g, flush, b, s, p * p, (97, 128, 128, 128), leaky,
                          compute_dx=True)
     row["c0_97"] = {key: wide[key] for key in
-                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "row_rel_l2",
-                     "bit_for_bit", "shape")}
+                    ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                     "row_rel_l2", "bit_for_bit", "shape")}
     rows.append(row)
     row = head_bwd_row(torch, pf, dev, g, flush, b, s, p * p, 128, 128, 128, True, False,
                        leaky[:2], torch.bfloat16, gsq=False)
     last = head_bwd_row(torch, pf, dev, g, flush, b, s, p * p, 128, 128, 128, False, False,
                         leaky[:2], torch.bfloat16)
     row["without_moments"] = {key: last[key] for key in
-                              ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                               "row_rel_l2")}
+                              ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                               "bound_by", "row_rel_l2")}
     rows.append(row)
     torch.cuda.synchronize()
     return rows
@@ -950,7 +1036,8 @@ def conv_kernel_phase(torch, dev):
             library_call="F.conv2d(x, w, b) in bf16, channels-last, then the in-place "
                          "activation (cuDNN)",
             library_max_abs_err=(lib_y.double() - y.double()).abs().max().item(),
-            bitwise_repeat=True))
+            bitwise_repeat=True,
+            device_ms=device_ms(torch, lambda: conv(x, w, bias, 5, act), "conv5", flush)))
         del x, w, bias, lib, y, lib_y
 
     # one branch's whole chain per batch of 8 tiles (with paths): K6
@@ -977,6 +1064,7 @@ def conv_kernel_phase(torch, dev):
     rows[0]["branch_chain"] = {
         "layers": len(cases), "out": list(out.shape), "flops": flops, "bytes": n_bytes,
         "ms": time_ms(torch, chain_k6, 10, flush),
+        "device_ms": device_ms(torch, chain_k6, "conv5", flush),
         "library_ms": time_ms(torch, chain_library, 10, flush),
         "bound_ms": bms, "bound_by": by}
     torch.cuda.synchronize()
@@ -1030,13 +1118,25 @@ def check_head_body(kinds, where):
                              "not the tiled body alone")
 
 
+def check_embed_body(kinds, where):
+    """Every K4-fwd form a path runs is a tiled form: the profile's device
+    entries of K4-fwd must be the tiled body's (``pathnet_embed_tiled``),
+    none the row-chunk body's (``pathnet_embed``)."""
+    if kinds.get("pathnet_embed", 0.0) > 0 or kinds.get("pathnet_embed_tiled", 0.0) <= 0:
+        raise AssertionError(f"{where}: K4-fwd's device ms by body "
+                             f"{ {k: v for k, v in kinds.items() if k.startswith('pathnet_embed')} }, "
+                             "not the tiled body alone")
+
+
 def device_kind(name):
     """The group of a device entry in a profile: a hand kernel by the
     name of its launch counter (the bodies that two kernels share, K1 and
     K9, K2 and K8, K3 and K7, told apart by their softmax template
     argument; ``reduce_parts``, the second launch of the backward
     kernels; K4-bwd's and K5-bwd's two bodies each; K5-fwd's two bodies
-    apart, ``pathnet_head_tiled`` and the wmma body ``pathnet_head``), the
+    apart, ``pathnet_head_tiled`` and the wmma body ``pathnet_head``, and
+    K4-fwd's, ``pathnet_embed_tiled`` and the row-chunk body
+    ``pathnet_embed``), the
     library convolutions and products, copies, or the rest (PyTorch's
     elementwise, reduction and copy kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
@@ -1206,6 +1306,8 @@ def serve_phase(torch, dev, work, name, size=512):
         profiled = profile_frame(torch, evaluate, iface, ds)
         if "pathnet_head" in spec["launches"]:
             check_head_body(profiled["device_ms_by_kind"], name)
+        if "pathnet_embed" in spec["launches"]:
+            check_embed_body(profiled["device_ms_by_kind"], name)
 
         # one tile against the same weights on the CPU (plain versions), in
         # bf16 and in f32; errors and max |ref| of the radiance and p-buffers
@@ -1504,6 +1606,7 @@ def train_phase(torch, dev, family, b=8, patch=128, spp=8, check=cross_check):
 
     profiled = profile_steps(torch, iface, batch, n_prof)
     check_head_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step")
+    check_embed_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step")
     # the cross-check on the first two patches of the batch, after the timed steps
     t0 = time.perf_counter()
     xcheck = check(torch, iface, {k: v[:2] for k, v in batch.items()}, family)

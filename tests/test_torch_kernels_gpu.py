@@ -1037,6 +1037,96 @@ def test_embed_bwd_plan_is_the_kernels_shared_memory(cuda, c0):
     assert fn(c0) == pf.embed_bwd_plan(c0).total
 
 
+# K4-fwd's tiled body: (activations, (C0, C1, C2, C3)) of Multisteps'
+# embedding, KPCN's merged PathNet and the 64-wide PathNet at their path widths
+EMBED_FWD_FORMS = {"multisteps": (LEAKY3, (95, 128, 128, 128)),
+                   "kpcn": (pf.EMBED_ACTS, (36, 128, 128, 128)),
+                   "pathnet64": (pf.EMBED_ACTS, (36, 64, 64, 64))}
+
+
+def _embed_fwd_case(cuda, acts, dims, b, s, hw, seed):
+    g = _gen(seed)
+    x = torch.randn((b, s, hw, dims[0]), device=cuda, generator=g).to(torch.bfloat16)
+    ws = [torch.randn((ci, co), device=cuda, generator=g) / ci**0.5
+          for ci, co in zip(dims[:-1], dims[1:])]
+    bs = [0.1 * torch.randn(co, device=cuda, generator=g) for co in dims[1:]]
+    return x, ws, bs
+
+
+def _check_embed_tiled(cuda, form, acts, dims, b, s, hw, seed):
+    x, ws, bs = _embed_fwd_case(cuda, acts, dims, b, s, hw, seed)
+    assert pf.embed_fwd_plan(acts, *dims).form == form
+    _build.reset_counts()
+    e, mean = pf.pathnet_embed(x, ws, bs, acts)
+    assert dict(_build.launches) == {"pathnet_embed": 1} and not _build.plain_calls
+    assert e.dtype == torch.bfloat16 and tuple(e.shape) == (b, s, hw, dims[-1])
+    assert mean.dtype == torch.float32 and tuple(mean.shape) == (b, hw, dims[-1])
+    we, wm = pf._embed_plain(x, ws, bs, acts)
+    _close(e, we, BF16_TOL)
+    _close(mean, wm, BF16_TOL)
+    again = pf.pathnet_embed(x, ws, bs, acts)
+    assert torch.equal(again[0], e) and torch.equal(again[1], mean)
+    rows = pf._embed_fwd_kernel(x, ws, bs, acts, rows=True)
+    _close(rows[0], we, BF16_TOL)
+    _close(rows[1], wm, BF16_TOL)
+    assert torch.equal(rows[0], e) and torch.equal(rows[1], mean)
+
+
+@pytest.mark.parametrize("form", list(EMBED_FWD_FORMS))
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (8, 8, 16384), (1, 1, 64), (3, 2, 65),
+                                    (1, 5, 1), (2, 3, 37), (2, 1, 200)])
+def test_pathnet_embed_tiled(cuda, form, b, s, hw):
+    """K4-fwd's tiled body in every form a path runs, at the path shape
+    and beside it (x spans that do not start on 16 bytes: HW 37 at C0 36
+    and 95, HW 100 at C0 95; a tail unit shorter than 64 pixels; one unit;
+    one pixel; S = 1 and 3): within 2e-2 of max |plain| (bf16 hidden layers
+    summed in another order), two launches bit for bit, and the row-chunk
+    body's embedding and mean bit for bit (both sum every layer from zero
+    in k16 steps, the bias after, and the mean in sample order)."""
+    acts, dims = EMBED_FWD_FORMS[form]
+    _check_embed_tiled(cuda, form, acts, dims, b, s, hw, 41)
+
+
+@pytest.mark.parametrize("form,c0", [("multisteps", 36), ("multisteps", 96), ("kpcn", 95),
+                                     ("kpcn", 1), ("kpcn", 48), ("pathnet64", 49),
+                                     ("pathnet64", 17)])
+def test_pathnet_embed_tiled_other_inputs(cuda, form, c0):
+    """The tiled forms at other input widths: C0 padded to 48 or 96 (even
+    and odd C0, both landing-stage loads)."""
+    acts, dims = EMBED_FWD_FORMS[form]
+    _check_embed_tiled(cuda, form, acts, (c0, *dims[1:]), 2, 3, 300, 42)
+
+
+def test_pathnet_embed_tiled_shares_the_pack_with_the_backward(cuda):
+    """A forward and backward through autograd pack the embedding once:
+    the backward finds the forward's pack."""
+    acts, dims = EMBED_FWD_FORMS["multisteps"]
+    x, ws, bs = _embed_fwd_case(cuda, acts, dims, 2, 3, 100, 43)
+    params = [t.clone().requires_grad_() for t in ws + bs]
+    pf._packed.clear()
+    e, mean = pf.pathnet_embed(x, params[:3], params[3:], acts)
+    (e.float().sum() + mean.sum()).backward()
+    assert (pf._packed.misses, pf._packed.hits) == (1, 1)
+    pf._packed.clear()
+
+
+@pytest.mark.parametrize("acts,dims", [
+    (LEAKY3, (95, 128, 128, 128)), (LEAKY3, (36, 128, 128, 128)),
+    (pf.EMBED_ACTS, (36, 128, 128, 128)), (pf.EMBED_ACTS, (95, 128, 128, 128)),
+    (pf.EMBED_ACTS, (36, 64, 64, 64)), (pf.EMBED_ACTS, (96, 64, 64, 64)),
+    (LEAKY3, (97, 128, 128, 128)), (pf.EMBED_ACTS, (36, 32, 32, 32))])   # the row-chunk body
+def test_embed_fwd_plan_is_the_kernels_shared_memory(cuda, acts, dims):
+    """``embed_fwd_plan``'s total is the dynamic shared memory K4-fwd's
+    entry point gives a block of the form (the tiled kernel also checks its
+    own carve against it at every launch)."""
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_embed_tiled_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    codes = [mf.ACTS.index(a) for a in acts]
+    assert fn(*dims, *codes) == pf.embed_fwd_plan(acts, *dims).total
+
+
 def _sbmc_step_setup(cuda, b, patch):
     import numpy as np
 

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // 16- and 4-byte cp.async copies, mbarriers, 1-D bulk copies from device to
 // shared memory (no tensor map), ldmatrix, mma.sync, wgmma descriptors,
-// fences and products (m64 n16 / n48 / n64 / n128, both operands in
-// shared memory), named barriers.
+// fences and products (m64 n16 / n48 / n64 / n128 with both operands in
+// shared memory; m64 n64 / n128 with A from registers), named barriers.
 // Addresses in shared memory are shared-window (32-bit) addresses.
 #pragma once
 
@@ -46,6 +46,12 @@ __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_group 0
 // completed, counted as one of its expected arrivals
 __device__ inline void cp_async_mbar_arrive(unsigned bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// an arrive on the mbarrier (release: the thread's earlier writes to shared
+// memory are seen by the threads that wait on the phase)
+__device__ inline void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 __device__ inline void mbar_init(unsigned bar, int count) {
@@ -278,6 +284,93 @@ __device__ inline void mm(float (&acc)[kAcc][4], unsigned a, unsigned b) {
     } else {
       static_assert(kN8 == 16 && kAcc == 16, "m64 n16, n48, n64 or n128");
       wgmma_ss_n128<kTA, kTB>(acc, sa, sb);
+    }
+  }
+}
+
+// Keeps the compiler from reusing the registers of A fragments that an
+// asynchronous product still reads.
+template <int kK16>
+__device__ inline void fence_frag(unsigned (&a)[kK16][4]) {
+#pragma unroll
+  for (int k = 0; k < kK16; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// d += A . B for the warpgroup: wgmma m64n64k16, bf16 in, f32 accumulation,
+// A from registers (the warp's 16 rows in the layout of mma.m16n8k16's A
+// fragment, which is that of a wgmma accumulator's k16 slice: two n8
+// tiles of a layer's output, rounded to bf16 pairs, are the next layer's
+// A), B from shared memory through a descriptor; kTB: B is stored
+// N-major (transposed), else K-major.
+template <int kTB>
+__device__ inline void wgmma_rs_n64(float (&d)[8][4], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(kTB));
+}
+
+// d += A . B for the warpgroup: wgmma m64n128k16, A from registers, as
+// wgmma_rs_n64.
+template <int kTB>
+__device__ inline void wgmma_rs_n128(float (&d)[16][4], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(kTB));
+}
+
+// acc (kN8 = 8 or 16 n8 tiles) += A . B over kK16 k16 steps on wgmma, A
+// the warpgroup's 64 rows as kK16 register fragments, B a blocked bf16
+// matrix stored [k][n] in shared memory (8 x 8 core matrices, kBRG bytes
+// between its 8-row groups along K), b the address of its first column
+// at k = 0.  The caller brackets the products with wgmma_fence / commit /
+// wait and keeps a live (fence_frag) until the wait.
+template <int kN8, int kK16, int kBRG>
+__device__ inline void mm_rs(float (&acc)[kN8][4], const unsigned (&a)[kK16][4], unsigned b) {
+  const uint64_t db = smem_desc(b, kBRG, 128);
+#pragma unroll
+  for (int ks = 0; ks < kK16; ++ks) {
+    const uint64_t sb = db + (uint64_t)((ks * 2 * kBRG) >> 4);
+    if constexpr (kN8 == 8) {
+      wgmma_rs_n64<1>(acc, a[ks], sb);
+    } else {
+      static_assert(kN8 == 16, "m64 n64 or n128");
+      wgmma_rs_n128<1>(acc, a[ks], sb);
     }
   }
 }

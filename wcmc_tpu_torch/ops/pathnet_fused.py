@@ -9,10 +9,13 @@ Counterpart of ``wcmc_tpu/ops/pathnet_fused.py`` (reference dataflow:
 * ``pathnet_embed``: forward CUDA kernel K4-fwd (``csrc/pathnet_embed.cu``),
   plain version ``_embed_plain``; backward K4-bwd
   (``csrc/pathnet_embed_bwd.cu``), plain version ``_embed_bwd_plain``.
-  K4-bwd reads the embedding's parameters as ``pack_embed_weights`` lays
-  them out (packed once per parameter value); ``embed_bwd_plan`` gives its
-  tile and shared memory, and ``_embed_bwd_walk`` is a plain walk of its
-  order of sums (CPU tests);
+  Both read the embedding's parameters as ``pack_embed_weights`` lays
+  them out (packed once per parameter value, so a train step's backward
+  finds its forward's pack; K4-fwd's row-chunk body, for the forms its
+  tiled body does not take, reads them as they come); ``embed_fwd_plan``
+  and ``embed_bwd_plan`` give their tiles and shared memory, and
+  ``_embed_fwd_walk`` and ``_embed_bwd_walk`` are plain walks of their
+  orders of sums (CPU tests);
 * ``pathnet_head``: forward K5-fwd (``csrc/pathnet_head.cu``), plain
   ``_head_plain``; backward K5-bwd (``csrc/pathnet_head_bwd.cu``), plain
   ``_head_bwd_plain``.  Both read the head's parameters as
@@ -137,22 +140,38 @@ def _check_head_card(e, acts):
 def _embed_fwd(x, ws, bs, acts):
     if x.device.type == "cpu":
         return _embed_plain(x, ws, bs, acts)
+    return _embed_fwd_kernel(x, ws, bs, acts)
+
+
+def _embed_fwd_kernel(x, ws, bs, acts, rows=False):
+    """K4-fwd on the body ``embed_fwd_plan`` picks, or with ``rows`` on
+    the row-chunk body whatever the form (the card tests compare the two)."""
     dev = _require_cuda("pathnet_embed", x, *ws, *bs)
     dims, codes = _check_embed_card(x, ws, acts)
     b, s, hw, _ = x.shape
-    x = x.contiguous()
-    wb = [w.to(torch.bfloat16).contiguous() for w in ws]
-    bf = [bb.float().contiguous() for bb in bs]
+    plan = embed_fwd_plan(tuple(acts), *dims)
     e = torch.empty((b, s, hw, dims[-1]), dtype=torch.bfloat16, device=dev)
     mean = torch.empty((b, hw, dims[-1]), dtype=torch.float32, device=dev)
     P, INT = _build.PTR, _build.INT
-    fn = _build.kernel("wcmc_pathnet_embed", *([P] * 9), *([INT] * 12), P)
     idx = dev.index or 0
-    _build.check(fn(x.data_ptr(), wb[0].data_ptr(), bf[0].data_ptr(),
-                    wb[1].data_ptr(), bf[1].data_ptr(), wb[2].data_ptr(),
-                    bf[2].data_ptr(), e.data_ptr(), mean.data_ptr(),
-                    b, s, hw, *dims, *codes, _build.sm_count(idx), idx,
-                    _build.stream_of(dev)), "pathnet_embed")
+    common = (b, s, hw, *dims, *codes, _build.sm_count(idx), idx, _build.stream_of(dev))
+    if plan.tiled and not rows:
+        # the pack K4-bwd reads, made once per parameter value (a train
+        # step's backward finds the forward's); x 16-byte aligned
+        wp, bp = _packed_embed(ws, bs)
+        x = _aligned(x.contiguous())
+        fn = _build.kernel("wcmc_pathnet_embed_tiled", *([P] * 5), *([INT] * 12), P)
+        err = fn(x.data_ptr(), wp.data_ptr(), bp.data_ptr(), e.data_ptr(), mean.data_ptr(),
+                 *common)
+    else:
+        x = x.contiguous()
+        wb = [w.to(torch.bfloat16).contiguous() for w in ws]
+        bf = [bb.float().contiguous() for bb in bs]
+        fn = _build.kernel("wcmc_pathnet_embed", *([P] * 9), *([INT] * 12), P)
+        err = fn(x.data_ptr(), wb[0].data_ptr(), bf[0].data_ptr(), wb[1].data_ptr(),
+                 bf[1].data_ptr(), wb[2].data_ptr(), bf[2].data_ptr(), e.data_ptr(),
+                 mean.data_ptr(), *common)
+    _build.check(err, "pathnet_embed")
     _build.launches["pathnet_embed"] += 1
     return e, mean
 
@@ -803,6 +822,114 @@ def _packed_embed(ws, bs):
     parameters (:class:`~wcmc_tpu_torch.ops._pack.PackCache`)."""
     return _packed.get((*ws, *bs), ("embed",),
                        lambda *p: pack_embed_weights(list(p[:3]), list(p[3:])))
+
+
+# ---------------------------------------------------------------------------
+# K4-fwd's plan (csrc/pathnet_embed.cu), kept here so the CPU tests reach it
+# ---------------------------------------------------------------------------
+
+# The forms K4-fwd runs on its tiled body: (activations, C1 = C2 = C3), each
+# for C0 up to EMBED_BWD_K0[-1] (padded to the first of EMBED_BWD_K0 that
+# holds it): Multisteps' embedding, KPCN's merged PathNet branches and the
+# 64-wide PathNet (LBMC's, SBMC's).  Every other form runs the row-chunk body.
+EMBED_FWD_TILED = {
+    "multisteps": (LEAKY, 128),
+    "kpcn": (EMBED_ACTS, 128),
+    "pathnet64": (EMBED_ACTS, 64),
+}
+EMBED_FWD_PIX = 64    # pixels of one image per unit (tiled body) or tile (row-chunk body)
+
+
+class EmbedFwdPlan(NamedTuple):
+    """How K4-fwd runs a form: on the tiled body (``form``, a key of
+    ``EMBED_FWD_TILED``) or the row-chunk one (``form`` None), C0 padded to
+    ``k0``, ``pix`` pixels of one image per unit with its samples taken one
+    at a time, ``workers`` walkers a block (the tiled body's two
+    warpgroups each walk their own units), ``stages`` x spans in flight a
+    walker, and the block's shared memory, ``smem`` as (buffer, bytes)
+    pairs in the order the kernel carves them, each a multiple of 128
+    bytes, ``total`` their sum (what ``wcmc_pathnet_embed_tiled_smem``
+    returns)."""
+    tiled: bool
+    form: str | None
+    k0: int
+    pix: int
+    workers: int
+    stages: int
+    smem: tuple
+    total: int
+
+
+@functools.lru_cache(maxsize=None)
+def embed_fwd_plan(acts, c0, c1, c2, c3) -> EmbedFwdPlan:
+    """K4-fwd's plan for an embedding C0 -> C1 -> C2 -> C3 with
+    activations ``acts``.  The tiled body: blocked W0 (k0 x 128, the pack's
+    full width), the first C rows of blocked W1 and W2, the biases, each
+    warpgroup's ring of x landing stages (3 at k0 96, 4 at 48) and its two
+    staged e tiles, the mbarriers.  The row-chunk body: W0, W1 and W2 in
+    padded rows, the x, h1 and h2 tiles, the warps' staging, the mean and
+    the biases.  ValueError for what neither body computes."""
+    acts = tuple(acts)
+    _act_codes("pathnet_embed", acts, 3)
+    if c0 < 1 or min(c1, c2, c3) < 16 or c1 % 16 or c2 % 16 or c3 % 16:
+        raise ValueError("pathnet_embed kernel needs C0 >= 1 and C1, C2, C3 multiples of 16, "
+                         f"got {c0}, {c1}, {c2}, {c3}")
+    pix, n = EMBED_FWD_PIX, EMBED_BWD_WIDTH
+    for form, (f_acts, width) in EMBED_FWD_TILED.items():
+        if acts == f_acts and c1 == c2 == c3 == width and c0 <= EMBED_BWD_K0[-1]:
+            k0 = next(k for k in EMBED_BWD_K0 if c0 <= k)
+            stages = 3 if k0 == EMBED_BWD_K0[-1] else 4
+            smem = (("w0", 2 * k0 * n), ("w1", 2 * width * n), ("w2", 2 * width * n),
+                    ("bias", 4 * 3 * n), ("ring", 2 * stages * 2 * pix * k0),
+                    ("e", 2 * 2 * 2 * pix * width), ("bars", _r128(8 * (1 + 2 * stages))))
+            return EmbedFwdPlan(True, form, k0, pix, 2, stages, smem, sum(m for _, m in smem))
+    k0 = -(-c0 // 16) * 16
+    smem = (("w0", 2 * k0 * (c1 + 8)), ("w1", 2 * c1 * (c2 + 8)), ("w2", 2 * c2 * (c3 + 8)),
+            ("x", 2 * pix * (k0 + 8)), ("h1", 2 * pix * (c1 + 8)), ("h2", 2 * pix * (c2 + 8)),
+            ("stage", 4 * 8 * 256), ("mean", 4 * pix * c3), ("b0", 4 * c1), ("b1", 4 * c2),
+            ("b2", 4 * c3))
+    smem = tuple((name, _r128(m)) for name, m in smem)
+    total = sum(m for _, m in smem)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"pathnet_embed kernel's row-chunk body needs {total} bytes of shared "
+                         f"memory for {c0} -> {c1} -> {c2} -> {c3}, over the {SMEM_LIMIT} a "
+                         "block may use")
+    return EmbedFwdPlan(False, None, k0, pix, 1, 1, smem, total)
+
+
+def _embed_fwd_walk(x, ws, bs, acts, n_blocks=3):
+    """A plain walk of K4-fwd's order on the CPU: the plan's walkers
+    (``workers`` a block) take units of ``pix`` pixels of one image in
+    turn, and each unit its samples in order: every layer summed k16 step
+    by k16 step from zero, then its bias, its activation and the rounding
+    to x's dtype; the mean added sample by sample, f32(e) * (1 / S) rounded
+    to f32 and then added (the first sample's taken as it is).  Returns
+    what ``_embed_plain`` returns."""
+    dt = x.dtype
+    b, s, hw, c0 = x.shape
+    c3 = ws[-1].shape[1]
+    plan = embed_fwd_plan(tuple(acts), c0, *(w.shape[1] for w in ws))
+    wt = [w.to(dt).float() for w in ws]
+    bias = [bb.float() for bb in bs]
+    inv_s = torch.tensor(1.0 / s, dtype=torch.float32)
+    e = torch.empty((b, s, hw, c3))
+    mean = torch.empty((b, hw, c3))
+    per_image = -(-hw // plan.pix)
+    n_units = b * per_image
+    walkers = min(plan.workers * n_blocks, n_units)
+    for w in range(walkers):
+        for t in range(w, n_units, walkers):
+            bi, p0 = t // per_image, (t % per_image) * plan.pix
+            p1 = min(p0 + plan.pix, hw)
+            for si in range(s):
+                h = x[bi, si, p0:p1].float()
+                for wi, bb, a in zip(wt, bias, acts):
+                    h = _act(a, _prod(h, wi) + bb).to(dt).float()
+                e[bi, si, p0:p1] = h
+                contrib = h * inv_s
+                m = contrib if si == 0 else m + contrib
+            mean[bi, p0:p1] = m
+    return e.to(dt), mean
 
 
 def _embed_bwd_walk(x, ge, gmean, ws, bs, acts, compute_dx=False, n_blocks=3):
