@@ -37,11 +37,13 @@ Phases (one JSON line each):
    d(x) on), K1, K2 and K3 at K = 13 on a layer's slice of the kernel
    head, and K4 and K5 forward and backward at the single PathNet's
    widths.  SBMC (the same sizes, K = 21): K7 (the splat of radiance and
-   a ones channel, C = 4, over the 64 samples' f32 weights), K4-fwd in
+   a ones channel, C = 4, over the 64 samples' f32 weights; its banded
+   body also against its gather body, and two launches bit for bit), K4-fwd in
    Multisteps' form (95 -> 128 -> 128 -> 128, leaky relu) and K5-fwd in
    its update form ([128 | 128] -> 128 -> 128, leaky relu, bf16 output,
    with and without moments); and at the SBMC training shapes K8 (the
-   splat's weight gradient, (64, 128, 128, 441) f32), K9 (the weighted
+   splat's weight gradient, (64, 128, 128, 441) f32; its tiled body also
+   against the first port's body and itself, bit for bit), K9 (the weighted
    gather, the splat's d(values)), K4-bwd in Multisteps' form (leaky relu,
    with d(x); also at 97 input channels, in slabs of 96) and K5-bwd in its
    update form (Cout 128, a bf16
@@ -63,7 +65,7 @@ Phases (one JSON line each):
    seeded weights, 49 tiles in 7 batches of 8.  Each kernel of the path must
    have launched its count per batch and no plain version may have run,
    and the profiled frame's K5-fwd and K4-fwd entries must all be their
-   tiled bodies'.
+   tiled bodies' (SBMC's K7 entries its banded body's).
    One tile is checked against the same weights run on the CPU in bf16
    and in f32 (max error of each output, and relative L2 beside that of
    the reference moved by one pixel), and the frame is timed again in
@@ -83,7 +85,8 @@ Phases (one JSON line each):
    steps, 10 timed steps (step ms, MP/s, peak memory, launches per step),
    2 more under ``torch.profiler``.  Each kernel of the step must launch
    its count per step, no plain version may run, K5-fwd's and K4-fwd's
-   profiled entries must all be their tiled bodies', every loss must be
+   profiled entries must all be their tiled bodies' (SBMC's K7 and K8
+   entries their banded and tiled bodies'), every loss must be
    finite and every model's parameters must change.  One step on the card
    is held against the same step (weights, batch, draws) on the CPU in
    bf16 and in f32, at the seeded initial weights (before the warm-up
@@ -236,27 +239,29 @@ def time_ms(torch, fn, repeats, flush):
     return statistics.median(times)
 
 
-def median_device_ms(events, kinds, calls):
+def median_device_ms(events, kinds, calls, per_call=None):
     """The median over ``calls`` calls, made one after another, of the
     device time of each call's entries of ``kinds`` (``device_kind``):
     ``events`` the profiled window's device entries as (name, start us,
     duration us).  None where no entry of those kinds ran, or where their
-    count does not divide evenly into the calls."""
+    count does not divide evenly into the calls, or (with ``per_call``) is
+    not ``per_call`` entries a call: a profile that lost entries."""
     mine = sorted((start, dur) for name, start, dur in events if device_kind(name) in kinds)
-    if not mine or len(mine) % calls:
+    if not mine or len(mine) % calls or (per_call and len(mine) != per_call * calls):
         return None
     per = len(mine) // calls
     return statistics.median(sum(d for _, d in mine[i:i + per])
                              for i in range(0, len(mine), per)) / 1e3
 
 
-def device_ms(torch, fn, counter, flush, calls=5):
+def device_ms(torch, fn, counter, flush, calls=5, per_call=None):
     """The median device time of one call of ``fn`` in the entries of the
-    kernel whose launch counter is ``counter`` (either of its bodies:
-    ``counter`` and ``counter``_tiled), from one torch.profiler pass over
+    kernel whose launch counter is ``counter`` (any of its bodies:
+    ``counter``, ``counter``_tiled and ``counter``_banded), from one torch.profiler pass over
     ``calls`` calls after a warm-up call, the L2 flushed before each and a
-    synchronize after each.  ``time_ms``'s CUDA events also count any wait
-    for the wrapper's host work; this does not."""
+    synchronize after each (``per_call``: the entries a call must have,
+    see ``median_device_ms``).  ``time_ms``'s CUDA events also count any
+    wait for the wrapper's host work; this does not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -269,7 +274,8 @@ def device_ms(torch, fn, counter, flush, calls=5):
             torch.cuda.synchronize()
     events = [(e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    return median_device_ms(events, (counter, counter + "_tiled"), calls)
+    return median_device_ms(events, (counter, counter + "_tiled", counter + "_banded"), calls,
+                            per_call)
 
 
 def max_err(torch, got, want, tol, pairs=None):
@@ -807,6 +813,66 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
     return rows
 
 
+def splat_row(torch, ka, flush, x, wt, k):
+    """K7 on its plan's body (the banded one at the SBMC shapes) against
+    its plain version and against the gather body, each within K1_TOL (the
+    same f32 products summed in another order), and two launches bit for
+    bit (the band partials are summed in band order); beside it the gather
+    body's times on the same inputs."""
+    plan = ka.splat_plan(*x.shape[1:], k, wt.is_contiguous())
+    body, spans = ka.scatter_route(x, wt, k)
+    out = ka.scatter(x, wt, k)
+    err = max_err(torch, [out], [ka.scatter_plain(x, wt, k)], K1_TOL)
+    gather_err = max_err(torch, [out], [ka.scatter(x, wt, k, body="gather")], K1_TOL)
+    if not torch.equal(ka.scatter(x, wt, k), out):
+        raise AssertionError("K7: a second launch gave other bits")
+    return kernel_row(
+        "scatter", "scatter", "wcmc_tpu/ops/pallas_kernels.py:297", err,
+        time_ms(torch, lambda: ka.scatter(x, wt, k), 10, flush),
+        time_ms(torch, lambda: ka.scatter_plain(x, wt, k), 3, flush),
+        # each weight and value read once, the canvas written once; one
+        # multiply-add per weight and channel
+        bound_ms(nbytes(x, wt, out), [(2 * wt.numel() * x.shape[-1], F32_FLOPS)]),
+        {"x": list(x.shape), "w": list(wt.shape), "out": list(out.shape)},
+        library_note="no single PyTorch call computes the per-pixel-kernel splat",
+        # the banded body is two launches a call: the bands, then their sums
+        device_ms=device_ms(torch, lambda: ka.scatter(x, wt, k), "scatter", flush,
+                            per_call=2 if body == "banded" else 1),
+        body=body, spans=spans, bands=[plan.rows, plan.cols, plan.bands, plan.tiles],
+        bit_for_bit=True, gather_max_abs_err=gather_err,
+        gather_ms=time_ms(torch, lambda: ka.scatter(x, wt, k, body="gather"), 10, flush),
+        gather_device_ms=device_ms(torch, lambda: ka.scatter(x, wt, k, body="gather"),
+                                   "scatter", flush, per_call=1))
+
+
+def outer_row(torch, ka, flush, x, gc, k, flops, shape):
+    """K8 on its tiled body against its plain version within K1_TOL,
+    against the first port's body bit for bit (each output the same f32
+    chain of fused multiply-adds over the channels) and against itself over
+    two launches; beside it the first body's times on the same inputs."""
+    dw = ka.outer(x, gc, k)
+    err = max_err(torch, [dw], [ka.outer_plain(x, gc, k)], K1_TOL)
+    ref = ka.outer(x, gc, k, body="warp")
+    if not torch.equal(ref, dw):
+        raise AssertionError(f"K8's tiled body is not the first body's bits: max |diff| "
+                             f"{(ref - dw).abs().max().item()}")
+    del ref
+    if not torch.equal(ka.outer(x, gc, k), dw):
+        raise AssertionError("K8: a second launch gave other bits")
+    bound = bound_ms(nbytes(x, gc, dw), flops)
+    del dw
+    return kernel_row(
+        "outer", "outer", "wcmc_tpu/ops/pallas_kernels.py:379", err,
+        time_ms(torch, lambda: ka.outer(x, gc, k), 10, flush),
+        time_ms(torch, lambda: ka.outer_plain(x, gc, k), 3, flush), bound, shape,
+        library_note="no single PyTorch call computes the per-pixel-kernel outer product",
+        device_ms=device_ms(torch, lambda: ka.outer(x, gc, k), "outer", flush),
+        body="tiled", bit_for_bit=True, warp_body_bit_for_bit=True,
+        warp_ms=time_ms(torch, lambda: ka.outer(x, gc, k, body="warp"), 10, flush),
+        warp_device_ms=device_ms(torch, lambda: ka.outer(x, gc, k, body="warp"), "outer",
+                                 flush))
+
+
 def sbmc_kernel_phase(torch, ka, pf, dev):
     """The kernels of the SBMC serving path at its shapes (8 tiles of 128
     px at 8 spp, K = 21) against their plain versions: K7 (the splat of
@@ -824,19 +890,8 @@ def sbmc_kernel_phase(torch, ka, pf, dev):
     x = torch.cat([2 * torch.rand((n, p, p, 3), device=dev, generator=g),
                    torch.ones((n, p, p, 1), device=dev)], dim=-1)
     wt = torch.rand((n, p, p, k * k), device=dev, generator=g)
-    out = ka.scatter(x, wt, k)
-    err = max_err(torch, [out], [ka.scatter_plain(x, wt, k)], K1_TOL)
-    rows.append(kernel_row(
-        "scatter", "scatter", "wcmc_tpu/ops/pallas_kernels.py:297", err,
-        time_ms(torch, lambda: ka.scatter(x, wt, k), 10, flush),
-        time_ms(torch, lambda: ka.scatter_plain(x, wt, k), 3, flush),
-        # each weight and value read once, the canvas written once; one
-        # multiply-add per weight and channel
-        bound_ms(nbytes(x, wt, out), [(2 * wt.numel() * x.shape[-1], F32_FLOPS)]),
-        {"x": list(x.shape), "w": list(wt.shape), "out": list(out.shape)},
-        library_note="no single PyTorch call computes the per-pixel-kernel splat",
-        device_ms=device_ms(torch, lambda: ka.scatter(x, wt, k), "scatter", flush)))
-    del x, wt, out
+    rows.append(splat_row(torch, ka, flush, x, wt, k))
+    del x, wt
 
     leaky = ("leaky_relu",) * 3
     e, row = embed_fwd_row(torch, pf, dev, g, flush, b, s, p * p, (95, 128, 128, 128), leaky)
@@ -880,16 +935,7 @@ def sbmc_train_kernel_phase(torch, ka, pf, dev):
     flops = [(2 * wt.numel() * x.shape[-1], F32_FLOPS)]
     shape = {"x": list(x.shape), "w": list(wt.shape), "canvas_g": list(gc.shape)}
 
-    dw = ka.outer(x, gc, k)
-    err = max_err(torch, [dw], [ka.outer_plain(x, gc, k)], K1_TOL)
-    rows.append(kernel_row(
-        "outer", "outer", "wcmc_tpu/ops/pallas_kernels.py:379", err,
-        time_ms(torch, lambda: ka.outer(x, gc, k), 10, flush),
-        time_ms(torch, lambda: ka.outer_plain(x, gc, k), 3, flush),
-        bound_ms(nbytes(x, gc, dw), flops), shape,
-        library_note="no single PyTorch call computes the per-pixel-kernel outer product",
-        device_ms=device_ms(torch, lambda: ka.outer(x, gc, k), "outer", flush)))
-    del dw
+    rows.append(outer_row(torch, ka, flush, x, gc, k, flops, shape))
     dx = ka.gather(gc, wt, k)
     err = max_err(torch, [dx], [ka.gather_plain(gc, wt, k)], K1_TOL)
     rows.append(kernel_row(
@@ -1128,6 +1174,22 @@ def check_embed_body(kinds, where):
                              "not the tiled body alone")
 
 
+# the body each redesigned kernel of the SBMC paths must run, by launch counter
+SPLAT_BODIES = {"scatter": "scatter_banded", "outer": "outer_tiled"}
+
+
+def check_splat_body(kinds, where, counters):
+    """K7 and K8 run their redesigned bodies on the SBMC paths: for each
+    launch counter of ``counters`` the profile's device entries must be
+    its new body's (``SPLAT_BODIES``), none its first body's."""
+    for counter in counters:
+        new = SPLAT_BODIES[counter]
+        if kinds.get(counter, 0.0) > 0 or kinds.get(new, 0.0) <= 0:
+            raise AssertionError(f"{where}: {counter}'s device ms by body "
+                                 f"{ {k: kinds.get(k, 0.0) for k in (counter, new)} }, "
+                                 f"not the {new} body alone")
+
+
 def device_kind(name):
     """The group of a device entry in a profile: a hand kernel by the
     name of its launch counter (the bodies that two kernels share, K1 and
@@ -1136,7 +1198,9 @@ def device_kind(name):
     kernels; K4-bwd's and K5-bwd's two bodies each; K5-fwd's two bodies
     apart, ``pathnet_head_tiled`` and the wmma body ``pathnet_head``, and
     K4-fwd's, ``pathnet_embed_tiled`` and the row-chunk body
-    ``pathnet_embed``), the
+    ``pathnet_embed``; K7's banded body and its band sums,
+    ``scatter_banded``, apart from its gather body ``scatter``, and K8's
+    tiled body, ``outer_tiled``, apart from the first one ``outer``), the
     library convolutions and products, copies, or the rest (PyTorch's
     elementwise, reduction and copy kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
@@ -1144,6 +1208,8 @@ def device_kind(name):
         kind = m.group(1).removesuffix("_kernel")
         if kind == "softmax_stats":
             return "scatter_softmax"
+        if kind in ("splat_banded", "splat_band_sum"):
+            return "scatter_banded"
         for body in ("pathnet_head_bwd", "pathnet_embed_bwd"):
             if kind.startswith(body):
                 return body
@@ -1308,6 +1374,8 @@ def serve_phase(torch, dev, work, name, size=512):
             check_head_body(profiled["device_ms_by_kind"], name)
         if "pathnet_embed" in spec["launches"]:
             check_embed_body(profiled["device_ms_by_kind"], name)
+        check_splat_body(profiled["device_ms_by_kind"], name,
+                         [k for k in SPLAT_BODIES if k in spec["launches"]])
 
         # one tile against the same weights on the CPU (plain versions), in
         # bf16 and in f32; errors and max |ref| of the radiance and p-buffers
@@ -1607,6 +1675,8 @@ def train_phase(torch, dev, family, b=8, patch=128, spp=8, check=cross_check):
     profiled = profile_steps(torch, iface, batch, n_prof)
     check_head_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step")
     check_embed_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step")
+    check_splat_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step",
+                     [k for k in SPLAT_BODIES if k in TRAIN_LAUNCHES[family]])
     # the cross-check on the first two patches of the batch, after the timed steps
     t0 = time.perf_counter()
     xcheck = check(torch, iface, {k: v[:2] for k, v in batch.items()}, family)

@@ -596,8 +596,9 @@ def test_scatter_strided_weights_and_splat(cuda):
     big = torch.rand((2, 12, 14, 25), device=cuda, generator=g)
     view = big[:, 2:11, 3:13]
     assert not view.is_contiguous() and view.stride(-1) == 1
-    torch.testing.assert_close(ka.scatter(x, view, 5), ka.scatter(x, view.contiguous(), 5),
-                               rtol=0, atol=0)
+    # the view runs the gather body: the same bits as a contiguous copy on it
+    torch.testing.assert_close(ka.scatter(x, view, 5),
+                               ka.scatter(x, view.contiguous(), 5, body="gather"), rtol=0, atol=0)
     xg = x.clone().requires_grad_()
     wg = big.clone().requires_grad_()
     wview = wg[:, 2:11, 3:13]
@@ -634,6 +635,162 @@ def test_outer(cuda, b, h, w, c, ksize):
     assert dict(_build.launches) == {"outer": 1} and not _build.plain_calls
     assert got.shape == (b, h, w, ksize * ksize) and got.dtype == torch.float32
     _close(got, ka.outer_plain(x, canvas, ksize), K1_TOL)
+
+
+# K7's banded body and K8's tiled body: h and w off the band, the run and
+# 4 (odd w: 4-byte spans), C 1 to 8, K 5, 13 and 21, and the SBMC shape
+SPLAT_CASES = [(2, 11, 13, 4, 5), (3, 20, 17, 3, 21), (2, 37, 45, 1, 13), (1, 33, 64, 2, 21),
+               (2, 19, 100, 5, 13), (1, 40, 96, 6, 5), (2, 9, 31, 7, 21), (1, 50, 70, 8, 21),
+               (64, 128, 128, 4, 21)]
+
+
+def _splat_case(cuda, b, h, w, c, ksize, seed):
+    g = _gen(seed)
+    x = torch.randn((b, h, w, c), device=cuda, generator=g)
+    wt = torch.rand((b, h, w, ksize * ksize), device=cuda, generator=g)
+    return x, wt
+
+
+def _check_banded(x, wt, ksize):
+    """The banded body within K1_TOL of the plain version and of the gather
+    body (the same f32 products summed in another order), and two launches
+    bit for bit."""
+    _build.reset_counts()
+    got = ka.scatter(x, wt, ksize)
+    assert dict(_build.launches) == {"scatter": 1} and not _build.plain_calls
+    _close(got, ka.scatter_plain(x, wt, ksize), K1_TOL)
+    _close(got, ka.scatter(x, wt, ksize, body="gather"), K1_TOL)
+    assert torch.equal(ka.scatter(x, wt, ksize), got)
+
+
+@pytest.mark.parametrize("b,h,w,c,ksize", SPLAT_CASES)
+def test_scatter_banded(cuda, b, h, w, c, ksize):
+    """K7's banded body on contiguous weights, its spans by bulk copies
+    where w is a multiple of 4 and by 4-byte copies otherwise."""
+    x, wt = _splat_case(cuda, b, h, w, c, ksize, 30)
+    assert ka.scatter_route(x, wt, ksize) == ("banded", "bulk" if w % 4 == 0 else "4-byte")
+    _check_banded(x, wt, ksize)
+
+
+@pytest.mark.parametrize("b,h,w,c,ksize,bands,tiles", [
+    (1, 33, 150, 8, 21, 2, 3), (2, 37, 300, 4, 21, 2, 2), (1, 45, 100, 6, 21, 2, 2),
+    (2, 20, 200, 3, 21, 1, 2), (1, 40, 40, 4, 5, 2, 1)])
+def test_scatter_banded_bands_and_tiles(cuda, b, h, w, c, ksize, bands, tiles):
+    """Several bands (the last of a few rows), and column tiles where a
+    whole canvas row does not fit in shared memory (K = 21 with C above 4,
+    or w above 160): the second launch sums partials across bands and
+    tiles."""
+    plan = ka.splat_plan(h, w, c, ksize)
+    assert plan.banded and (plan.bands, plan.tiles) == (bands, tiles)
+    x, wt = _splat_case(cuda, b, h, w, c, ksize, 31)
+    _check_banded(x, wt, ksize)
+
+
+def test_scatter_banded_unaligned_and_strided(cuda):
+    """Contiguous weights that do not start on 16 bytes take the banded
+    body's 4-byte copies; a strided weight view takes the gather body."""
+    g = _gen(32)
+    b, h, w, c, k = 2, 21, 36, 4, 13
+    x = torch.randn((b, h, w, c), device=cuda, generator=g)
+    flat = torch.rand(b * h * w * k * k + 1, device=cuda, generator=g)
+    wt = flat[1:].view(b, h, w, k * k)
+    assert wt.is_contiguous() and wt.data_ptr() % 16
+    assert ka.scatter_route(x, wt, k) == ("banded", "4-byte")
+    _check_banded(x, wt, k)
+    big = torch.rand((b, h + 2, w + 3, k * k), device=cuda, generator=g)
+    view = big[:, 1:1 + h, 2:2 + w]
+    assert ka.scatter_route(x, view, k) == ("gather", None)
+    _build.reset_counts()
+    got = ka.scatter(x, view, k)
+    assert dict(_build.launches) == {"scatter": 1}
+    _close(got, ka.scatter_plain(x, view, k), K1_TOL)
+    with pytest.raises(ValueError):
+        ka.scatter(x, view, k, body="banded")
+
+
+@pytest.mark.parametrize("b,h,w,c,ksize", SPLAT_CASES)
+def test_outer_tiled(cuda, b, h, w, c, ksize):
+    """K8's tiled body: bit for bit the first port's body and itself over
+    two launches, within K1_TOL of the plain version."""
+    g = _gen(33)
+    x = torch.randn((b, h, w, c), device=cuda, generator=g)
+    canvas = torch.randn((b, h + ksize - 1, w + ksize - 1, c), device=cuda, generator=g)
+    _build.reset_counts()
+    got = ka.outer(x, canvas, ksize)
+    assert dict(_build.launches) == {"outer": 1} and not _build.plain_calls
+    ref = ka.outer(x, canvas, ksize, body="warp")
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+    del ref
+    assert torch.equal(ka.outer(x, canvas, ksize), got)
+    _close(got, ka.outer_plain(x, canvas, ksize), K1_TOL)
+
+
+def test_outer_tiled_unaligned_inputs(cuda):
+    """Values and a canvas cotangent that do not start on 16 bytes are
+    staged 4 bytes at a time, with the same bits."""
+    g = _gen(34)
+    b, h, w, c, k = 2, 13, 40, 4, 13
+    flat = torch.randn(b * h * w * c + 1, device=cuda, generator=g)
+    x = flat[1:].view(b, h, w, c)
+    flat = torch.randn(b * (h + k - 1) * (w + k - 1) * c + 3, device=cuda, generator=g)
+    canvas = flat[3:].view(b, h + k - 1, w + k - 1, c)
+    got = ka.outer(x, canvas, k)
+    assert torch.equal(got, ka.outer(x, canvas, k, body="warp"))
+
+
+@pytest.mark.parametrize("w,c,ksize", [(128, 4, 21), (128, 8, 21), (17, 3, 21), (45, 1, 13),
+                                       (100, 5, 13), (31, 7, 21), (96, 6, 5), (1000, 2, 5),
+                                       (300, 4, 21)])
+def test_splat_plan_is_the_kernels_shared_memory(cuda, w, c, ksize):
+    """``splat_plan``'s total is the dynamic shared memory K7's banded body
+    gives a block (the kernel also checks its own carve against it at every
+    launch)."""
+    import ctypes
+
+    fn = _build.library().wcmc_scatter_banded_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    plan = ka.splat_plan(16, w, c, ksize)
+    assert plan.banded and fn(plan.cols, c, ksize) == plan.total
+
+
+@pytest.mark.parametrize("c", range(1, 9))
+@pytest.mark.parametrize("ksize", [5, 13, 21])
+def test_outer_plan_is_the_kernels_shared_memory(cuda, c, ksize):
+    """``outer_plan``'s total is the dynamic shared memory K8's tiled body
+    gives a block."""
+    import ctypes
+
+    fn = _build.library().wcmc_outer_tiled_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    assert fn(c, ksize) == ka.outer_plan(c, ksize).total
+
+
+def test_softmax_kernels_keep_their_bodies(cuda):
+    """K2 and K3 still run the bodies of ``outer.cuh`` and ``scatter.cuh``:
+    their profiled device entries are those bodies', none of K7's or K8's
+    new ones."""
+    import importlib.util
+    import pathlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    g = _gen(35)
+    b, h, w, k = 2, 16, 20, 5
+    buf = torch.randn((b, h + k - 1, w + k - 1, 3), device=cuda, generator=g)
+    logits = torch.randn((b, h, w, k * k), device=cuda, generator=g)
+    cot = torch.randn((b, h, w, 3), device=cuda, generator=g)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ka.outer_softmax(cot, buf, logits, k)
+        ka.scatter_softmax(cot, logits, k)
+        torch.cuda.synchronize()
+    kinds = {cs.device_kind(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA}
+    assert {"outer_softmax", "scatter_softmax"} <= kinds
+    assert not kinds & {"scatter", "scatter_banded", "outer", "outer_tiled"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

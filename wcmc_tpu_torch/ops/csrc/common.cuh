@@ -12,6 +12,7 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace wcmc {
@@ -54,6 +55,29 @@ __device__ inline float to_f32(float v) { return v; }
 __device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ inline void store_f32(float* p, float v) { *p = v; }
 __device__ inline void store_f32(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+__host__ __device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// kC consecutive f32 values into registers, 16 bytes at a time where kC is
+// a multiple of 4 (p then 16-byte aligned), 8 where kC is 2 (p 8-byte aligned)
+template <int kC>
+__device__ inline void load_channels(const float* p, float (&v)[kC]) {
+  if constexpr (kC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kC / 4; ++i) {
+      const float4 t = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = t.x, v[4 * i + 1] = t.y, v[4 * i + 2] = t.z, v[4 * i + 3] = t.w;
+    }
+  } else if constexpr (kC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) v[c] = p[c];
+  }
+}
 
 __device__ inline float warp_sum(float v) {
 #pragma unroll

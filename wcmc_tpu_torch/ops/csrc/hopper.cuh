@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // 16- and 4-byte cp.async copies, mbarriers, 1-D bulk copies from device to
-// shared memory (no tensor map), ldmatrix, mma.sync, wgmma descriptors,
+// shared memory and back (no tensor map), ldmatrix, mma.sync, wgmma descriptors,
 // fences and products (m64 n16 / n48 / n64 / n128 with both operands in
 // shared memory; m64 n64 / n128 with A from registers), named barriers.
 // Addresses in shared memory are shared-window (32-bit) addresses.
@@ -85,6 +85,29 @@ __device__ inline void bulk_copy(unsigned dst, const void* src, unsigned bytes, 
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from shared to
+// device memory, in the thread's current bulk group; the writes to shared
+// memory it reads must be ordered before it by fence_proxy_async
+__device__ inline void bulk_store(void* dst, unsigned src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ inline void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// until at most N of the thread's bulk groups still read their shared memory
+template <int N>
+__device__ inline void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of the thread's bulk groups are pending
+template <int N>
+__device__ inline void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8x8 bf16 matrices from shared memory (each lane gives one row's

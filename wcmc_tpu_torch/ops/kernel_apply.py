@@ -18,9 +18,11 @@ Counterpart of ``wcmc_tpu/ops/kernel_apply.py``:
 * ``kernel_scatter(x, w, K)``: the splat
   ``out[q, c] = sum_d w[q - d, d] * x[q - d, c]`` onto the
   ``(h + K - 1) x (w + K - 1)`` canvas, an autograd Function.  Forward:
-  the CUDA kernel K7 (``scatter``, ``csrc/scatter.cu``).  Backward, as the
-  reference's ``_scatter_bwd`` composes it: ``dw = outer(x, g)`` with K8
-  (``outer``, ``csrc/outer.cu``) and, only when ``x`` requires grad,
+  the CUDA kernel K7 (``scatter``, ``csrc/scatter.cu``: the banded body
+  that ``splat_plan`` lays out, or the gather body for strided weights).
+  Backward, as the reference's ``_scatter_bwd`` composes it:
+  ``dw = outer(x, g)`` with K8 (``outer``, ``csrc/outer.cu``: the tiled
+  body of ``outer_plan``) and, only when ``x`` requires grad,
   ``dx = gather(g, w)`` with K9 (``gather``, ``csrc/gather.cu``);
 * ``kernel_gather(buf, w, K)``: the plain weighted gather
   ``out[p, c] = sum_d w[p, d] * buf[p + d, c]``, an autograd Function.
@@ -43,9 +45,21 @@ of a pixel are contiguous.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from wcmc_tpu_torch.ops import _build
+from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT
+
+SPLAT_RUN = 32      # source pixels a run of K7's banded body and of K8's tiled body
+SPLAT_STAGES = 3    # runs in K7's landing ring: the two a step reads, one landing
+SPLAT_ROWS = 32     # source rows a band of K7's banded body
+
+
+def _r128(n):
+    return -(-n // 128) * 128
 
 
 def _gather_plain(buf, w, ksize):
@@ -109,6 +123,180 @@ def outer_plain(g, buf, ksize):
     """Plain version of K8, the tap-wise outer product."""
     _build.plain_calls["outer"] += 1
     return _outer_plain(g, buf, ksize)
+
+
+class SplatPlan(NamedTuple):
+    """How K7 splats (h, w) sources of C channels with K x K taps: on the
+    banded body (``banded``), in bands of ``rows`` source rows and tiles of
+    ``cols`` source columns (``bands`` x ``tiles`` blocks an image), its
+    runs of ``run`` pixels landing in a ring of ``stages``; ``smem`` the
+    block's shared memory as (buffer, bytes) pairs in the order the kernel
+    carves them, each a multiple of 128 bytes, ``total`` their sum (what
+    ``wcmc_scatter_banded_smem`` returns), ``scratch`` the f32 band
+    partials of an image.  On the gather body ``banded`` is False and the
+    rest 0."""
+    banded: bool
+    rows: int
+    cols: int
+    bands: int
+    tiles: int
+    run: int
+    stages: int
+    smem: tuple
+    total: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=None)
+def splat_plan(h, w, c, k, contiguous=True) -> SplatPlan:
+    """K7's plan.  The banded body takes contiguous weights and K <= 33 (a
+    step's sources are its run and the one before); its block carves the
+    weight ring (3 runs of 32 x K*K f32), the value ring, K canvas rows of
+    ``cols + K - 1`` cells of C f32 padded to 4 or 8, and the mbarriers.
+    ``cols`` is the widest multiple of 32, up to the whole row, whose carve
+    fits in a block's shared memory.  Everything else runs the gather body.
+    ValueError for what neither body computes."""
+    if not 1 <= c <= 8:
+        raise ValueError(f"scatter kernel takes 1 to 8 channels, got {c}")
+    if k < 1 or k % 2 == 0 or h < 1 or w < 1:
+        raise ValueError(f"scatter: no splat of {h}x{w} sources with ksize {k}")
+    if contiguous and k - 1 <= SPLAT_RUN:
+        cs = 4 if c <= 4 else 8
+        r = min(SPLAT_ROWS, h)
+        for cols in range(-(-w // SPLAT_RUN) * SPLAT_RUN, 0, -SPLAT_RUN):
+            smem = (("weights", _r128(4 * SPLAT_STAGES * SPLAT_RUN * k * k)),
+                    ("values", _r128(4 * SPLAT_STAGES * SPLAT_RUN * c)),
+                    ("canvas", _r128(4 * k * (cols + k - 1) * cs)),
+                    ("bars", _r128(8 * SPLAT_STAGES)))
+            total = sum(m for _, m in smem)
+            if total <= SMEM_LIMIT:
+                bands, tiles = -(-h // r), -(-w // cols)
+                return SplatPlan(True, r, cols, bands, tiles, SPLAT_RUN, SPLAT_STAGES, smem,
+                                 total, bands * tiles * (r + k - 1) * (cols + k - 1) * c)
+    return SplatPlan(False, 0, 0, 0, 0, 0, 0, (), 0, 0)
+
+
+def scatter_route(x, w, ksize):
+    """The body a K7 launch on these tensors runs, and how the banded
+    body's spans land: ("banded", "bulk") where every run starts on 16
+    bytes (w a multiple of 4, both tensors 16-byte aligned), ("banded",
+    "4-byte") otherwise, ("gather", None) where ``splat_plan`` gives the
+    gather body.  The kernel makes the same choice from the same facts."""
+    b, h, w_, c = x.shape
+    if not splat_plan(h, w_, c, ksize, w.is_contiguous()).banded:
+        return "gather", None
+    bulk = w_ % 4 == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return "banded", "bulk" if bulk else "4-byte"
+
+
+def _scatter_banded_walk(x, w, ksize):
+    """A plain walk of K7's banded order on the CPU, in f32: each band of
+    ``plan.rows`` source rows and tile of ``plan.cols`` source columns
+    takes its rows in order, and each row its steps r = 0 .. nr (the tail
+    step r = nr reads only the last run); at step r the 32 lanes own canvas
+    columns 32 r + lane of the tile, sum the taps dx = 0 .. K - 1 for every
+    dy into registers, and add each dy's sum into a ring of K canvas rows;
+    a canvas row leaves the ring for the band's partial once its source row
+    is done, the last K - 1 after the band.  The partials are then summed
+    cell by cell in band order, then tile order.  Returns what
+    ``scatter_plain`` returns (the kernel rounds each multiply-add once,
+    this walk twice)."""
+    b, h, w_, c = x.shape
+    k = ksize
+    plan = splat_plan(h, w_, c, k)
+    t, wt = plan.run, plan.cols
+    xf, wf = x.float(), w.float()
+    lanes = torch.arange(t)
+    out = torch.zeros((b, h + k - 1, w_ + k - 1, c))
+    for i in range(plan.bands):
+        y0 = i * plan.rows
+        rows = min(plan.rows, h - y0)
+        for j in range(plan.tiles):
+            x0 = j * wt
+            cols = min(wt, w_ - x0)
+            wcj, nr = cols + k - 1, -(-cols // t)
+            ring = torch.zeros((b, k, wt + k - 1, c))
+            part = torch.zeros((b, rows + k - 1, wcj, c))
+            for yl in range(rows):
+                wrow = wf[:, y0 + yl, x0:x0 + cols].reshape(b, cols, k, k)   # [b, p, dy, dx]
+                xrow = xf[:, y0 + yl, x0:x0 + cols]
+                for r in range(nr + 1):
+                    col = r * t + lanes
+                    acc = torch.zeros((b, t, k, c))
+                    for dx in range(k):
+                        p = col - dx
+                        ok = ((p >= 0) & (p < cols))[:, None]
+                        pc = p.clamp(0, cols - 1)
+                        wv, xv = wrow[:, pc, :, dx] * ok, xrow[:, pc] * ok
+                        acc = acc + wv[..., None] * xv[:, :, None]
+                    keep = col < wcj
+                    slots = (yl + torch.arange(k)) % k
+                    ring[:, slots[:, None], col[keep][None, :]] += acc[:, keep].transpose(1, 2)
+                part[:, yl] = ring[:, yl % k, :wcj]
+                ring[:, yl % k] = 0
+            for row in range(rows, rows + k - 1):
+                part[:, row] = ring[:, row % k, :wcj]
+            out[:, y0:y0 + rows + k - 1, x0:x0 + wcj] += part
+    return out
+
+
+class OuterPlan(NamedTuple):
+    """K8's tiled body for C channels and K x K taps: runs of ``run``
+    pixels of one row, units of ``rows`` runs down a column, canvas-
+    cotangent window rows of ``pitch`` f32, and the block's shared memory
+    ``smem`` as (buffer, bytes) pairs in the order the kernel carves them
+    (the window ring of K + 1 row slots each kept twice, two value runs,
+    two staging tiles of a run's dw span, the mbarriers), ``total`` their
+    sum (what ``wcmc_outer_tiled_smem`` returns)."""
+    run: int
+    rows: int
+    pitch: int
+    smem: tuple
+    total: int
+
+
+@functools.lru_cache(maxsize=None)
+def outer_plan(c, k) -> OuterPlan:
+    """K8's plan; ValueError for what the kernel does not take (C above 8,
+    K*K above 448)."""
+    if not 1 <= c <= 8:
+        raise ValueError(f"outer kernel takes 1 to 8 channels, got {c}")
+    if k < 1 or k * k > 448:
+        raise ValueError(f"outer kernel takes K*K <= 448, got K={k}")
+    t = SPLAT_RUN
+    pitch = -(-(t + k - 1) * c // 4) * 4
+    smem = (("window", _r128(4 * 2 * (k + 1) * pitch)), ("values", _r128(4 * 2 * t * c)),
+            ("tiles", _r128(4 * 2 * t * k * k)), ("bars", _r128(8 * 2)))
+    total = sum(m for _, m in smem)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"outer kernel needs {total} bytes of shared memory at C={c}, K={k}")
+    return OuterPlan(t, SPLAT_RUN, pitch, smem, total)
+
+
+def _outer_tiled_walk(g, buf, ksize):
+    """A plain walk of K8's tiled order on the CPU: units of ``rows`` runs
+    down a column of runs of 32 pixels, each run from the window of K
+    canvas rows x (32 + K - 1) columns that slides down the unit a row at a
+    time (a ring of K + 1 row slots) and its values, every tap's output the
+    sum over the channels as ``outer_plain`` takes it.  Returns what
+    ``outer_plain`` returns, bit for bit."""
+    b, h, w_, c = g.shape
+    k = ksize
+    plan = outer_plan(c, k)
+    dw = torch.empty((b, h, w_, k * k), dtype=torch.promote_types(g.dtype, buf.dtype))
+    for x0 in range(0, w_, plan.run):
+        n = min(plan.run, w_ - x0)
+        for y0 in range(0, h, plan.rows):
+            ring = {row: buf[:, row, x0:x0 + n + k - 1] for row in range(y0, y0 + k)}
+            for y in range(y0, min(h, y0 + plan.rows)):
+                ring = {row: v for row, v in ring.items() if row >= y}
+                ring[y + k - 1] = buf[:, y + k - 1, x0:x0 + n + k - 1]
+                assert len(ring) == k
+                gv = g[:, y, x0:x0 + n]
+                dw[:, y, x0:x0 + n] = torch.stack(
+                    [(gv * ring[y + dy][:, dx:dx + n]).sum(dim=-1)
+                     for dy in range(k) for dx in range(k)], dim=-1)
+    return dw
 
 
 def outer_softmax_plain(g, buf, logits, ksize):
@@ -239,10 +427,13 @@ def scatter_softmax(g, logits, ksize: int):
     return out
 
 
-def scatter(x, w, ksize: int):
+def scatter(x, w, ksize: int, body=None):
     """The splat of f32 values ``x`` (B, h, w, C) with f32 weights ``w``
     (B, h, w, K*K), as f32 (B, h + K - 1, w + K - 1, C): kernel K7 for
-    CUDA tensors, ``scatter_plain`` for CPU tensors."""
+    CUDA tensors, ``scatter_plain`` for CPU tensors.  On the card the body
+    is ``splat_plan``'s (the banded one for contiguous weights); ``body``
+    "gather" runs the gather body (the card tests' reference).  A launch
+    runs that body or raises."""
     _check_splat_geometry(x, w, ksize)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return scatter_plain(x, w, ksize)
@@ -251,16 +442,32 @@ def scatter(x, w, ksize: int):
         raise TypeError(f"scatter kernel takes float32 values and weights, got {x.dtype} "
                         f"and {w.dtype}")
     b, h, w_, c = x.shape
+    plan = splat_plan(h, w_, c, ksize, w.is_contiguous())
+    body = body or ("banded" if plan.banded else "gather")
+    if body not in ("banded", "gather") or (body == "banded" and not plan.banded):
+        raise ValueError(f"scatter: no {body} body for weights {tuple(w.shape)} with strides "
+                         f"{w.stride()} at C={c}")
     src = x.contiguous()
     out = torch.empty((b, h + ksize - 1, w_ + ksize - 1, c), dtype=torch.float32,
                       device=x.device)
-    fn = _build.kernel(
-        "wcmc_scatter", _build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT,
-        _build.INT, _build.INT, _build.INT, _build.LONG, _build.LONG, _build.LONG,
-        _build.INT, _build.PTR)
-    sb, sy, sx, _ = w.stride()
-    _build.check(fn(src.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, w_, c, ksize,
-                    sb, sy, sx, x.device.index or 0, _build.stream_of(x.device)), "scatter")
+    dev = x.device.index or 0
+    if body == "banded":
+        part = torch.empty(b * plan.scratch, dtype=torch.float32, device=x.device)
+        fn = _build.kernel(
+            "wcmc_scatter_banded", _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.INT,
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+            _build.PTR)
+        _build.check(fn(src.data_ptr(), w.data_ptr(), part.data_ptr(), out.data_ptr(), b, h, w_,
+                        c, ksize, plan.rows, plan.cols, dev, _build.stream_of(x.device)),
+                     "scatter")
+    else:
+        fn = _build.kernel(
+            "wcmc_scatter", _build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT,
+            _build.INT, _build.INT, _build.INT, _build.LONG, _build.LONG, _build.LONG,
+            _build.INT, _build.PTR)
+        sb, sy, sx, _ = w.stride()
+        _build.check(fn(src.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, w_, c, ksize,
+                        sb, sy, sx, dev, _build.stream_of(x.device)), "scatter")
     _build.launches["scatter"] += 1
     return out
 
@@ -290,10 +497,12 @@ def gather(buf, w, ksize: int):
     return out.to(torch.promote_types(buf.dtype, w.dtype))
 
 
-def outer(g, buf, ksize: int):
+def outer(g, buf, ksize: int, body=None):
     """``dw[p, d] = sum_c g[p, c] * buf[p + d, c]`` for ``g`` (B, h, w, C)
     and ``buf`` (B, h + K - 1, w + K - 1, C), as f32 (B, h, w, K*K):
-    kernel K8 for CUDA tensors, ``outer_plain`` for CPU tensors."""
+    kernel K8 for CUDA tensors (its tiled body; ``body`` "warp" runs the
+    first port's one-warp-per-pixel body, the card tests' reference, with
+    the same bits), ``outer_plain`` for CPU tensors."""
     b, h, w, c = g.shape
     if buf.dim() != 4 or tuple(buf.shape) != (b, h + ksize - 1, w + ksize - 1, c):
         raise ValueError(f"outer: buffer shape {tuple(buf.shape)} does not match "
@@ -301,17 +510,26 @@ def outer(g, buf, ksize: int):
     if g.device.type == "cpu" and buf.device.type == "cpu":
         return outer_plain(g.float(), buf.float(), ksize)
     _check_card("outer", g, buf)
-    if ksize * ksize > 448:
-        raise ValueError(f"outer kernel takes K*K <= 448, got K={ksize}")
+    outer_plan(c, ksize)
+    if body not in (None, "tiled", "warp"):
+        raise ValueError(f"outer: no {body} body")
     gf = g.float().contiguous()
     src = buf.float().contiguous()
     out = torch.empty((b, h, w, ksize * ksize), dtype=torch.float32, device=g.device)
-    fn = _build.kernel(
-        "wcmc_outer", _build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT, _build.INT,
-        _build.INT, _build.INT, _build.INT, _build.PTR)
-    _build.check(fn(gf.data_ptr(), src.data_ptr(), out.data_ptr(), b, h + ksize - 1,
-                    w + ksize - 1, c, ksize, g.device.index or 0, _build.stream_of(g.device)),
-                 "outer")
+    dev = g.device.index or 0
+    if body == "warp":
+        fn = _build.kernel(
+            "wcmc_outer", _build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT,
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR)
+        err = fn(gf.data_ptr(), src.data_ptr(), out.data_ptr(), b, h + ksize - 1, w + ksize - 1,
+                 c, ksize, dev, _build.stream_of(g.device))
+    else:
+        fn = _build.kernel(
+            "wcmc_outer_tiled", _build.PTR, _build.PTR, _build.PTR, _build.INT, _build.INT,
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.INT, _build.PTR)
+        err = fn(gf.data_ptr(), src.data_ptr(), out.data_ptr(), b, h + ksize - 1, w + ksize - 1,
+                 c, ksize, _build.sm_count(dev), dev, _build.stream_of(g.device))
+    _build.check(err, "outer")
     _build.launches["outer"] += 1
     return out
 
