@@ -34,9 +34,10 @@ Phases (one JSON line each):
    ``kernel_gather_softmax`` with a buffer that requires grad (KPCN's
    buffers are data, so its step runs no K3).  LBMC (the same sizes):
    K10-fwd and K10-bwd (the fused per-pixel MLP, 32 -> 32 -> 32 -> 32,
-   d(x) on), K1, K2 and K3 at K = 13 on a layer's slice of the kernel
-   head, and K4 and K5 forward and backward at the single PathNet's
-   widths.  SBMC (the same sizes, K = 21): K7 (the splat of radiance and
+   d(x) on; K10-bwd's tiled body also against its wmma body, d(x) bit for
+   bit, and two launches bit for bit), K1, K2 and K3 at K = 13 on a
+   layer's slice of the kernel head, and K4 and K5 forward and backward at
+   the single PathNet's widths.  SBMC (the same sizes, K = 21): K7 (the splat of radiance and
    a ones channel, C = 4, over the 64 samples' f32 weights; its banded
    body also against its gather body, and two launches bit for bit), K4-fwd in
    Multisteps' form (95 -> 128 -> 128 -> 128, leaky relu) and K5-fwd in
@@ -86,7 +87,8 @@ Phases (one JSON line each):
    2 more under ``torch.profiler``.  Each kernel of the step must launch
    its count per step, no plain version may run, K5-fwd's and K4-fwd's
    profiled entries must all be their tiled bodies' (SBMC's K7 and K8
-   entries their banded and tiled bodies'), every loss must be
+   entries their banded and tiled bodies', LBMC's K10-bwd entries its
+   tiled body's), every loss must be
    finite and every model's parameters must change.  One step on the card
    is held against the same step (weights, batch, draws) on the CPU in
    bf16 and in f32, at the seeded initial weights (before the warm-up
@@ -729,6 +731,7 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
         library_note=note,
         device_ms=device_ms(torch, lambda: mf.fused_mlp(x, ws, bs, acts), "mlp_fused", flush)))
     cot = torch.randn((n, dims[-1]), device=dev, generator=g).to(torch.bfloat16)
+    plan = mf.mlp_bwd_plan(dims[0], dims[1:], acts)
     dx, dws, dbs = mf.mlp_fused_bwd(x, cot, ws, bs, acts, True)
     pdx, pdws, pdbs = mf._mlp_bwd_plain(x, cot, ws, bs, acts, True)
     max_err(torch, dws + dbs, pdws + pdbs, BF16_TOL)
@@ -739,6 +742,22 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
         raise AssertionError(f"K10-bwd d(x) off by {row_l2} (relative L2)")
     err = max((a.double() - w.double()).abs().max().item()
               for a, w in zip([dx, *dws, *dbs], [pdx, *pdws, *pdbs]))
+    del pdx
+    # the tiled body against the wmma body on the same inputs: d(x) bit for
+    # bit (the same k16 steps and rounding points), dW and db within K1_TOL
+    # (the same f32 products, rows summed in another order); and against
+    # itself over two launches (partials summed in warp and block order)
+    wdx, wdws, wdbs = mf.mlp_fused_bwd(x, cot, ws, bs, acts, True, body="wmma")
+    if not torch.equal(dx, wdx):
+        raise AssertionError(f"K10-bwd's tiled d(x) is not the wmma body's bits: max |diff| "
+                             f"{(dx.float() - wdx.float()).abs().max().item()}")
+    wmma_err = max_err(torch, dws + dbs, wdws + wdbs, K1_TOL)
+    del wdx
+    again = mf.mlp_fused_bwd(x, cot, ws, bs, acts, True)
+    if not all(torch.equal(a, b) for a, b in zip([dx, *dws, *dbs],
+                                                 [again[0], *again[1], *again[2]])):
+        raise AssertionError("K10-bwd: a second launch gave other bits")
+    del again
     # recompute the chain, then dW and the next cotangent (d(x) last) per layer
     rows.append(kernel_row(
         "mlp_fused_bwd", "mlp_fused_bwd", "wcmc_tpu/ops/mlp_fused.py:191", err,
@@ -750,8 +769,14 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
         library_note="no single PyTorch call computes a fused MLP's backward",
         row_rel_l2=row_l2,
         device_ms=device_ms(torch, lambda: mf.mlp_fused_bwd(x, cot, ws, bs, acts, True),
-                            "mlp_fused_bwd", flush)))
-    del x, y, cot, dx, pdx
+                            "mlp_fused_bwd", flush, per_call=1),
+        body=plan.body, bit_for_bit=True, wmma_dx_bit_for_bit=True, wmma_max_abs_err=wmma_err,
+        wmma_ms=time_ms(torch, lambda: mf.mlp_fused_bwd(x, cot, ws, bs, acts, True,
+                                                        body="wmma"), 20, flush),
+        wmma_device_ms=device_ms(
+            torch, lambda: mf.mlp_fused_bwd(x, cot, ws, bs, acts, True, body="wmma"),
+            "mlp_fused_bwd", flush, per_call=1)))
+    del x, y, cot, dx
 
     # K1, K2, K3 at K = 13: bf16 logits, the layer's slice of the kernel head
     k = 13
@@ -1174,16 +1199,19 @@ def check_embed_body(kinds, where):
                              "not the tiled body alone")
 
 
-# the body each redesigned kernel of the SBMC paths must run, by launch counter
-SPLAT_BODIES = {"scatter": "scatter_banded", "outer": "outer_tiled"}
+# the body each redesigned kernel must run on every path, by launch counter
+# (K7 and K8 on the SBMC paths, K10-bwd on LBMC's step), where the first
+# body files under the counter's own name
+REDESIGNED_BODIES = {"scatter": "scatter_banded", "outer": "outer_tiled",
+                     "mlp_fused_bwd": "mlp_fused_bwd_tiled"}
 
 
-def check_splat_body(kinds, where, counters):
-    """K7 and K8 run their redesigned bodies on the SBMC paths: for each
-    launch counter of ``counters`` the profile's device entries must be
-    its new body's (``SPLAT_BODIES``), none its first body's."""
+def check_redesigned_body(kinds, where, counters):
+    """K7, K8 and K10-bwd run their redesigned bodies on the paths: for
+    each launch counter of ``counters`` the profile's device entries must
+    be its new body's (``REDESIGNED_BODIES``), none its first body's."""
     for counter in counters:
-        new = SPLAT_BODIES[counter]
+        new = REDESIGNED_BODIES[counter]
         if kinds.get(counter, 0.0) > 0 or kinds.get(new, 0.0) <= 0:
             raise AssertionError(f"{where}: {counter}'s device ms by body "
                                  f"{ {k: kinds.get(k, 0.0) for k in (counter, new)} }, "
@@ -1199,8 +1227,10 @@ def device_kind(name):
     apart, ``pathnet_head_tiled`` and the wmma body ``pathnet_head``, and
     K4-fwd's, ``pathnet_embed_tiled`` and the row-chunk body
     ``pathnet_embed``; K7's banded body and its band sums,
-    ``scatter_banded``, apart from its gather body ``scatter``, and K8's
-    tiled body, ``outer_tiled``, apart from the first one ``outer``), the
+    ``scatter_banded``, apart from its gather body ``scatter``, K8's
+    tiled body, ``outer_tiled``, apart from the first one ``outer``, and
+    K10-bwd's tiled body, ``mlp_fused_bwd_tiled``, apart from its wmma body
+    ``mlp_fused_bwd``), the
     library convolutions and products, copies, or the rest (PyTorch's
     elementwise, reduction and copy kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
@@ -1374,8 +1404,8 @@ def serve_phase(torch, dev, work, name, size=512):
             check_head_body(profiled["device_ms_by_kind"], name)
         if "pathnet_embed" in spec["launches"]:
             check_embed_body(profiled["device_ms_by_kind"], name)
-        check_splat_body(profiled["device_ms_by_kind"], name,
-                         [k for k in SPLAT_BODIES if k in spec["launches"]])
+        check_redesigned_body(profiled["device_ms_by_kind"], name,
+                              [k for k in REDESIGNED_BODIES if k in spec["launches"]])
 
         # one tile against the same weights on the CPU (plain versions), in
         # bf16 and in f32; errors and max |ref| of the radiance and p-buffers
@@ -1675,8 +1705,8 @@ def train_phase(torch, dev, family, b=8, patch=128, spp=8, check=cross_check):
     profiled = profile_steps(torch, iface, batch, n_prof)
     check_head_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step")
     check_embed_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step")
-    check_splat_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step",
-                     [k for k in SPLAT_BODIES if k in TRAIN_LAUNCHES[family]])
+    check_redesigned_body(profiled["device_ms_per_step_by_kind"], f"the {family} train step",
+                          [k for k in REDESIGNED_BODIES if k in TRAIN_LAUNCHES[family]])
     # the cross-check on the first two patches of the batch, after the timed steps
     t0 = time.perf_counter()
     xcheck = check(torch, iface, {k: v[:2] for k, v in batch.items()}, family)

@@ -414,6 +414,107 @@ def test_mlp_fused_refuses_what_it_does_not_compute(cuda):
         mf.fused_mlp(x, [w.cpu() for w in ws], bs, LEAKY3)
 
 
+def _bwd_outputs(res):
+    dx, dws, dbs = res
+    return ([] if dx is None else [dx]) + list(dws) + list(dbs)
+
+
+def _check_bwd_tiled(x, cot, ws, bs, acts, compute_dx):
+    """K10-bwd's tiled body against its wmma body on the same inputs (d(x)
+    bit for bit, dW and db within K1_TOL: the same products, rows summed in
+    another order), against the plain version (as in
+    ``test_mlp_fused_backward``) and against itself over two launches."""
+    _build.reset_counts()
+    got = mf.mlp_fused_bwd(x, cot, ws, bs, acts, compute_dx)
+    assert dict(_build.launches) == {"mlp_fused_bwd": 1} and not _build.plain_calls
+    ref = mf.mlp_fused_bwd(x, cot, ws, bs, acts, compute_dx, body="wmma")
+    if compute_dx:
+        assert torch.equal(got[0], ref[0]), (got[0].float() - ref[0].float()).abs().max().item()
+        _close_l2(got[0], mf._mlp_bwd_plain(x, cot, ws, bs, acts, True)[0], 1e-2)
+    else:
+        assert got[0] is None
+    for a, b in zip(got[1] + got[2], ref[1] + ref[2]):
+        _close(a, b, K1_TOL)
+    _, pdws, pdbs = mf._mlp_bwd_plain(x, cot, ws, bs, acts, compute_dx)
+    for a, b in zip(got[1] + got[2], pdws + pdbs):
+        _close(a, b, BF16_TOL)
+    again = mf.mlp_fused_bwd(x, cot, ws, bs, acts, compute_dx)
+    assert all(torch.equal(a, b) for a, b in zip(_bwd_outputs(got), _bwd_outputs(again)))
+    return got
+
+
+@pytest.mark.parametrize("compute_dx", [True, False])
+@pytest.mark.parametrize("acts", [LEAKY3, ("relu", "leaky_relu", "linear")])
+@pytest.mark.parametrize("n,c0", [(1000, 27), (3 * 64 + 37, 32), (8 * 8 * 128 * 128, 32),
+                                  (1000, 5), (64 * 8 * 132 + 1, 27)])
+def test_mlp_fused_bwd_tiled(cuda, n, c0, acts, compute_dx):
+    """K10-bwd's tiled body (LayerNet's chain, 32 wide; C0 27 without the
+    PathNet, 32 with it): at ragged row counts, at the LBMC shape, at a
+    narrow C0 and where the slabs outnumber the warps of a full grid."""
+    assert mf.mlp_bwd_plan(c0, (32, 32, 32), acts).body == "tiled"
+    x, ws, bs, cot = _mlp_case(cuda, n, c0, 15)
+    _check_bwd_tiled(x, cot.to(torch.bfloat16), ws, bs, acts, compute_dx)
+
+
+def test_mlp_fused_bwd_tiled_unaligned_inputs(cuda):
+    """x and a bf16 cotangent that do not start on 16 bytes land by 2-byte
+    loads, with the bits of aligned copies."""
+    for c0 in (27, 32):
+        n = 5 * 64 + 11
+        x, ws, bs, cot = _mlp_case(cuda, n, c0, 17)
+        xs = torch.empty(n * c0 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(n, c0)
+        gs = torch.empty(n * 32 + 3, dtype=torch.bfloat16, device=cuda)[3:].view(n, 32)
+        xs.copy_(x)
+        gs.copy_(cot)
+        assert xs.is_contiguous() and xs.data_ptr() % 16 and gs.data_ptr() % 16
+        got = _check_bwd_tiled(xs, gs, ws, bs, LEAKY3, True)
+        want = mf.mlp_fused_bwd(x, gs.clone(), ws, bs, LEAKY3, True)
+        assert all(torch.equal(a, b) for a, b in zip(_bwd_outputs(got), _bwd_outputs(want)))
+
+
+@pytest.mark.parametrize("c0,widths", [(32, (32, 32, 32)), (27, (32, 32, 32)), (1, (32, 32, 32)),
+                                       (40, (32, 32, 32)), (36, (64, 64, 64)), (32, (16,)),
+                                       (64, (64, 48, 32, 16))])
+def test_mlp_bwd_plan_is_the_kernels_shared_memory(cuda, c0, widths):
+    """``mlp_bwd_plan``'s total is the dynamic shared memory K10-bwd's body
+    gives a block of the form (the tiled kernel also checks its own carve
+    against it at every launch)."""
+    import ctypes
+
+    fn = _build.library().wcmc_mlp_fused_bwd_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    plan = mf.mlp_bwd_plan(c0, widths, ("linear",) * len(widths))
+    padded = list(widths) + [0] * (4 - len(widths))
+    assert fn(c0, len(widths), *padded, int(plan.body == "tiled")) == plan.total
+
+
+def test_mlp_fused_forward_keeps_its_body(cuda):
+    """K10-fwd still runs its first body, and K10-bwd at LayerNet's chain
+    its tiled one: the profiled device entries of a forward and backward
+    through autograd are ``mlp_fused`` and ``mlp_fused_bwd_tiled`` (with
+    the partials' sum), none of the wmma backward's."""
+    import importlib.util
+    import pathlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    x, ws, bs, cot = _mlp_case(cuda, 3000, 32, 18)
+    params = [t.clone().requires_grad_() for t in ws + bs]
+    xg = x.clone().requires_grad_()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = mf.fused_mlp(xg, params[:3], params[3:], LEAKY3)
+        torch.autograd.grad(out, [xg] + params, cot.to(torch.bfloat16))
+        torch.cuda.synchronize()
+    kinds = {cs.device_kind(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA}
+    assert {"mlp_fused", "mlp_fused_bwd_tiled", "reduce_parts"} <= kinds
+    assert "mlp_fused_bwd" not in kinds
+
+
 def _kernel_head_logits(cuda, g, b, h, w, ksize, dtype, layer):
     """One layer's logits as the LayerNet takes them: a strided slice of a
     channels-last (B, 2 K*K, h, w) 1x1-conv output."""

@@ -249,14 +249,15 @@ def test_chip_smoke_tells_the_splat_bodies_apart():
     }
     for name, kind in names.items():
         assert cs.device_kind(name) == kind
-    cs.check_splat_body({"scatter_banded": 2.0, "outer_tiled": 1.0}, "train", ["scatter", "outer"])
-    cs.check_splat_body({"scatter_banded": 2.0, "outer": 1.0}, "serve", ["scatter"])
+    cs.check_redesigned_body({"scatter_banded": 2.0, "outer_tiled": 1.0}, "train",
+                             ["scatter", "outer"])
+    cs.check_redesigned_body({"scatter_banded": 2.0, "outer": 1.0}, "serve", ["scatter"])
     for kinds, counters in (({"scatter_banded": 2.0, "scatter": 0.1}, ["scatter"]),
                             ({"scatter": 2.7}, ["scatter"]),
                             ({"scatter_banded": 2.0, "outer": 2.0}, ["scatter", "outer"]),
                             ({"scatter_banded": 2.0}, ["scatter", "outer"])):
         with pytest.raises(AssertionError):
-            cs.check_splat_body(kinds, "train", counters)
+            cs.check_redesigned_body(kinds, "train", counters)
 
 
 def test_chip_smoke_reads_both_launches_of_the_banded_body():

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // 16- and 4-byte cp.async copies, mbarriers, 1-D bulk copies from device to
-// shared memory and back (no tensor map), ldmatrix, mma.sync, wgmma descriptors,
-// fences and products (m64 n16 / n48 / n64 / n128 with both operands in
-// shared memory; m64 n64 / n128 with A from registers), named barriers.
+// shared memory and back (no tensor map), ldmatrix, movmatrix, mma.sync, wgmma
+// descriptors, fences and products (m64 n16 / n48 / n64 / n128 with both
+// operands in shared memory; m64 n64 / n128 with A from registers), named
+// barriers.
 // Addresses in shared memory are shared-window (32-bit) addresses.
 #pragma once
 
@@ -41,6 +42,12 @@ __device__ inline void cp_async4_zfill(unsigned dst, const void* src, int src_by
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// until at most N of the thread's cp.async groups are pending
+template <int N>
+__device__ inline void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // an arrive on the mbarrier once the thread's earlier cp.asyncs have
 // completed, counted as one of its expected arrivals
@@ -125,6 +132,15 @@ __device__ inline void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// An 8x8 bf16 matrix held by the warp in the layout of an ldmatrix result
+// (lane: row lane / 4, columns 2 (lane % 4) and + 1, one 32-bit register),
+// transposed in registers: the lane then holds its transpose's elements.
+__device__ inline unsigned movmatrix_trans(unsigned a) {
+  unsigned d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 template <bool kTrans>

@@ -18,17 +18,45 @@
 // carry the learned p-buffer) it reads x and g and writes dx, 201 MB, for
 // ~19 GFLOP: ~0.060 ms of bytes against ~0.02 ms of tensor-core time.
 //
-// Design: the Pallas grid runs in order and adds every step's dW into one
+// The Pallas grid runs in order and adds every step's dW into one
 // resident block.  CUDA blocks run in no order, so each persistent block
-// adds its tiles' dW and db into its own f32 partials, kept in shared
-// memory (at most 4 x 64 x 64 floats), writes them once at the end, and a
-// second launch sums the partials in block order (common.cuh
-// reduce_parts): deterministic, no float atomics.  A tile of 128 rows
-// keeps x and every recomputed hidden in shared memory; the backward
-// chain overwrites each hidden with its bf16 cotangent in place, and dx
-// overwrites x.  Bias gradients go through per-fragment column sums in
-// fixed slots, summed in order.  Weights are staged in shared memory once
-// per block.  No TMA, wgmma or pipelining yet.
+// keeps its own f32 partials of dW and db, writes them once at the end,
+// and a second launch sums the partials in block order (common.cuh
+// reduce_parts): deterministic, no float atomics.  Two bodies:
+//
+// - The tiled body (mlp_fused_bwd_tiled_kernel) runs LayerNet's embedding
+//   chain: three layers 32 wide, C0 from 1 to 32 (W0 zero-padded to 32
+//   rows), any activation per layer, d(x) on or off.  A persistent block of
+//   8 warps (one a SM: 203,136 bytes of shared memory); each warp walks its
+//   own slabs of 64 rows (warp v of the launch takes slabs v, v + 8 grid,
+//   ...) with no block barrier in the loop.  x and g land in a ring of 3
+//   slabs a warp by 16-byte cp.async (a slab of x is one contiguous span of
+//   128 C0 bytes; for C0 = 32 its pieces go straight into the tiles'
+//   swizzled layout, other widths land flat and are unpacked in place).  A
+//   slab runs in sub-tiles of 16 rows on mma.sync m16n8k16: the hiddens
+//   and the cotangent chain stay in registers (each layer's rounded
+//   accumulator is the next product's A fragment), the weights' B
+//   fragments come from shared memory by ldmatrix (.trans for W, plain for
+//   W^T) from one copy staged once a block, rounded there from the f32
+//   parameters.  dW_i = h_i^T . bf16(gz_i)
+//   contracts over rows, so its operands are the 8x8 blocks of h_i and
+//   bf16(gz_i) transposed in registers (movmatrix; x^T by ldmatrix.trans of
+//   the x tile); each warp keeps all three dW partials (96 f32 a thread)
+//   and the db column sums of the unrounded gz (24) in registers, in row
+//   order.  d(x) overwrites the sub-tile's x rows and leaves by 16-byte
+//   stores under the next slab's products.  At the end each warp's partial
+//   goes to its own ring, the block sums them in warp order (its one
+//   barrier after the weights') and writes its partial.  The k16 steps and
+//   rounding points are the wmma body's, so d(x) has its bits.
+// - The wmma body (mlp_fused_bwd_kernel) keeps every other form: widths of
+//   16, 48 or 64, other layer counts.  A tile of 128 rows keeps x and
+//   every recomputed hidden in shared memory; the backward chain
+//   overwrites each hidden with its bf16 cotangent in place, and dx
+//   overwrites x; dW is added into the block's f32 partials in shared
+//   memory each tile (at most 4 x 64 x 64 floats).  Bias gradients go
+//   through per-fragment column sums in fixed slots, summed in order.
+//   Weights are staged in shared memory once per block.  No pipelining.
+#include "hopper.cuh"
 #include "mlp.cuh"
 
 namespace wcmc {
@@ -194,6 +222,414 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tiled body: LayerNet's embedding chain, C0 <= 32 -> 32 -> 32 -> 32
+// ---------------------------------------------------------------------------
+
+constexpr int kTbW = 32;        // every width of the tiled form; C0 padded to it
+constexpr int kTbRows = 64;     // rows of a slab, walked by one warp
+constexpr int kTbWarps = 8;     // warps of a block, each walking its own slabs
+constexpr int kTbStages = 3;    // slabs in flight a warp
+constexpr int kTbTile = kTbRows * kTbW * 2;           // a slab's x or g tile, bf16
+constexpr int kTbParts = 3 * kTbW * kTbW + 3 * kTbW;  // dW0 | dW1 | dW2 | db0 | db1 | db2
+
+// The block's shared memory, buffer by buffer in the order the kernel
+// carves them (each a multiple of 128 bytes); ops/mlp_fused.py's
+// mlp_bwd_plan lists the same.
+struct MlpBwdTiledSmem {
+  static constexpr int kW = kTbW * kTbW * 2;             // a weight tile
+  static constexpr int kBias = 3 * kTbW * 4;             // b0 | b1 | b2, f32
+  static constexpr int kRing = kTbStages * 2 * kTbTile;  // a warp's ring: x tile | g tile a stage
+  static size_t total() {
+    return smem_bytes(3 * kW, 1) + smem_bytes(kBias, 1) + (size_t)kTbWarps * smem_bytes(kRing, 1);
+  }
+};
+static_assert(kTbParts * 4 <= MlpBwdTiledSmem::kRing, "a warp's partial fits in its ring");
+
+struct MlpBwdTiledArgs {
+  const bf16* x;       // (n, c0)
+  const bf16* g;       // (n, 32)
+  const float* w[3];   // W0 (c0, 32), W1, W2 (32, 32) f32 row-major, rounded to bf16 here
+  const float* b[3];   // 32 each
+  bf16* dx;            // (n, c0) on 16 bytes, or null for no d(x)
+  float* parts;        // kTbParts f32 a block
+  long long n;
+  int c0;
+  int act[3];          // activation codes of mlp_act
+  int vec_x, vec_g;    // x / g start on 16 bytes
+};
+
+// Byte offset of 16-byte piece p of row r of a 32-wide bf16 tile: rows of
+// 64 bytes, piece p stored at p ^ ((r >> 1) & 3), so that the 8 rows an
+// ldmatrix phase reads (from a multiple of 8 on) hit all 32 banks.
+__device__ __forceinline__ int tb_off(int r, int p) { return r * 64 + ((p ^ ((r >> 1) & 3)) << 4); }
+
+// The lane's row and piece in the four 8x8 matrices of an ldmatrix.x4 over
+// rows r0.. and pieces p0.. of a tile (r0 a multiple of 8): r() takes the
+// matrices (r0, p0), (r0 + 8, p0), (r0, p0 + 1), (r0 + 8, p0 + 1), c() takes
+// (r0, p0), (r0, p0 + 1), (r0 + 8, p0), (r0 + 8, p0 + 1).
+struct TbLane {
+  int rr, pr, rc, pc;
+  __device__ explicit TbLane(int lane)
+      : rr((lane & 7) + 8 * ((lane >> 3) & 1)), pr(lane >> 4),
+        rc((lane & 7) + 8 * (lane >> 4)), pc((lane >> 3) & 1) {}
+  __device__ int r(int r0, int p0) const { return tb_off(r0 + rr, p0 + pr); }
+  __device__ int c(int r0, int p0) const { return tb_off(r0 + rc, p0 + pc); }
+};
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ float bf16_lo(unsigned p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned p) { return __uint_as_float(p & 0xffff0000u); }
+
+// A 16 x 32 bf16 matrix of a sub-tile is held as unsigned m[2][4]: the A
+// fragments of its two k16 steps (mma.m16n8k16), m[k][0..3] its 8x8 blocks
+// (rows 0-7, columns 16 k..), (8-15, 16 k..), (0-7, 16 k + 8..), (8-15,
+// 16 k + 8..).  An accumulator's n8 tile j, row half h rounds to the
+// block m[j / 2][2 (j % 2) + h].
+
+// acc = a . B, each n8 tile summed from zero in k16 steps in order; b: B's
+// fragments, b[k][p] those of k16 step k and n8 tiles 2 p, 2 p + 1, all
+// loaded before the first product.
+__device__ __forceinline__ void tb_mma(const unsigned (&a)[2][4], const unsigned (&b)[2][2][4],
+                                       float (&acc)[4][4]) {
+  zero_acc(acc);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      mma_bf16(acc[2 * p], a[k], b[k][p][0], b[k][p][1]);
+      mma_bf16(acc[2 * p + 1], a[k], b[k][p][2], b[k][p][3]);
+    }
+}
+
+// out = bf16(act(in . W + b)): each n8 tile summed from zero in k16 steps
+// in order, the f32 bias added after, as the wmma body sums; W's B
+// fragments by ldmatrix.trans of its tile.
+template <int kA>
+__device__ __forceinline__ void tb_forward(const unsigned (&in)[2][4], unsigned u_w,
+                                           const float* bias, int code, const TbLane& ln,
+                                           int t4, unsigned (&out)[2][4]) {
+  unsigned b[2][2][4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) ldmatrix_x4_trans(b[k][p], u_w + ln.r(16 * k, 2 * p));
+  float acc[4][4];
+  tb_mma(in, b, acc);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      out[j >> 1][2 * (j & 1) + h] = pack_bf16(fixed_act<kA>(code, acc[j][2 * h] + bb.x),
+                                               fixed_act<kA>(code, acc[j][2 * h + 1] + bb.y));
+  }
+}
+
+// acc = gzb . W^T, summed from zero in k16 steps in order; W^T's B
+// fragments by ldmatrix of W's tile as it is stored.
+__device__ __forceinline__ void tb_back(const unsigned (&gzb)[2][4], unsigned u_w,
+                                        const TbLane& ln, float (&acc)[4][4]) {
+  unsigned b[2][2][4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) ldmatrix_x4(b[k][p], u_w + ln.c(16 * p, 2 * k));
+  tb_mma(gzb, b, acc);
+}
+
+// gz = act'(h, v), h the layer's rounded output and v f32 in the
+// accumulator layout: db += gz unrounded (each column's rows in order, each
+// add rounded as written), gzb = bf16(gz).
+template <int kA>
+__device__ __forceinline__ void tb_cotangent(const float (&v)[4][4], const unsigned (&h)[2][4],
+                                             int code, float (&db)[4][2], unsigned (&gzb)[2][4]) {
+  const int c = kA >= 0 ? kA : code;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const unsigned hp = h[j >> 1][2 * (j & 1) + r];
+      const float z0 = mlp_act_grad(c, bf16_lo(hp), v[j][2 * r]);
+      const float z1 = mlp_act_grad(c, bf16_hi(hp), v[j][2 * r + 1]);
+      db[j][0] = __fadd_rn(db[j][0], z0);
+      db[j][1] = __fadd_rn(db[j][1], z1);
+      gzb[j >> 1][2 * (j & 1) + r] = pack_bf16(z0, z1);
+    }
+}
+
+// The A fragments of h^T (its two m16 tiles: h's columns 0-15, 16-31;
+// k16: the sub-tile's rows) from h's blocks, transposed in registers.
+__device__ __forceinline__ void tb_transpose(const unsigned (&h)[2][4], unsigned (&at)[2][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    at[m][0] = movmatrix_trans(h[m][0]);
+    at[m][1] = movmatrix_trans(h[m][2]);
+    at[m][2] = movmatrix_trans(h[m][1]);
+    at[m][3] = movmatrix_trans(h[m][3]);
+  }
+}
+
+// dw (32 x 32 in the accumulator layout: m16 tile m of h's columns, n8
+// tile j of gz's) += h^T . gzb over the sub-tile's 16 rows, one k16 step:
+// gzb's blocks transposed in registers are the B fragments.
+__device__ __forceinline__ void tb_dw(float (&dw)[2][4][4], const unsigned (&at)[2][4],
+                                      const unsigned (&gzb)[2][4]) {
+  unsigned bt[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) bt[j][r] = movmatrix_trans(gzb[j >> 1][2 * (j & 1) + r]);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mma_bf16(dw[m][j], at[m], bt[j][0], bt[j][1]);
+}
+
+// Rows [0, rows) of a (., c) bf16 row-major matrix (src: the slab's first
+// row) into a stage tile, by the warp: with c = 32 and src on 16 bytes, by
+// 16-byte cp.asyncs straight into the swizzled layout (rows past `rows`
+// zero-filled); otherwise the span as it lies, flat from the tile's start,
+// 16 bytes a cp.async where src starts on 16 bytes (the last piece
+// zero-filled past the span) and 2 bytes a load where it does not, for
+// tb_unpack once it has landed.
+__device__ inline void tb_land(unsigned char* tile, const bf16* src, int rows, int c, bool vec,
+                               int lane) {
+  const unsigned u = smem_addr(tile);
+  if (vec && c == kTbW) {
+#pragma unroll
+    for (int k = 0; k < kTbRows * 4 / 32; ++k) {
+      const int i = lane + 32 * k, r = i >> 2, p = i & 3;
+      cp_async16_zfill(u + tb_off(r, p), r < rows ? src + r * kTbW + 8 * p : src,
+                       r < rows ? 16 : 0);
+    }
+  } else if (vec) {
+    const int bytes = 2 * rows * c;
+    for (int i = lane; 16 * i < bytes; i += 32)
+      cp_async16_zfill(u + 16 * i, reinterpret_cast<const char*>(src) + 16 * i,
+                       min(16, bytes - 16 * i));
+  } else {
+    bf16* d = reinterpret_cast<bf16*>(tile);
+    for (int i = lane; i < rows * c; i += 32) d[i] = src[i];
+  }
+}
+
+// The flat span of `rows` rows of c values at the tile's start, moved in
+// place into the swizzled layout (columns past c and rows past `rows`
+// zero), by the warp: groups of 8 rows from the last, each read whole
+// before it is written, so that a group's writes (bytes 512 q on) never
+// reach the span of the groups still to be read (below byte 16 c q).
+__device__ inline void tb_unpack(unsigned char* tile, int rows, int c, int lane) {
+  const unsigned short* f = reinterpret_cast<const unsigned short*>(tile);
+  for (int q = kTbRows / 8 - 1; q >= 0; --q) {
+    unsigned short v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * q + i;
+      v[i] = r < rows && lane < c ? f[r * c + lane] : (unsigned short)0;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<unsigned short*>(tile + tb_off(8 * q + i, lane >> 3) + 2 * (lane & 7)) =
+          v[i];
+    __syncwarp();
+  }
+}
+
+// Rows [0, rows) of the swizzled d(x) tile to dst (the slab's first row of
+// the (., c0) output, on 16 bytes), by the warp in 16-byte stores: whole
+// rows for c0 = 32, else the flat span in pieces gathered from the tile
+// (a partial last piece by 2-byte stores).
+__device__ inline void tb_store_dx(bf16* dst, const unsigned char* tile, int rows, int c0,
+                                   int lane) {
+  if (c0 == kTbW) {
+    for (int i = lane; i < rows * 4; i += 32) {
+      const int r = i >> 2, p = i & 3;
+      reinterpret_cast<uint4*>(dst + r * kTbW)[p] =
+          *reinterpret_cast<const uint4*>(tile + tb_off(r, p));
+    }
+    return;
+  }
+  auto at = [&](int e) -> unsigned {
+    const int r = e / c0, col = e % c0;
+    return *reinterpret_cast<const unsigned short*>(tile + tb_off(r, col >> 3) + 2 * (col & 7));
+  };
+  const int len = rows * c0, full = len / 8;
+  for (int i = lane; i < full; i += 32) {
+    unsigned w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = at(8 * i + 2 * k) | at(8 * i + 2 * k + 1) << 16;
+    reinterpret_cast<uint4*>(dst)[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  for (int e = 8 * full + lane; e < len; e += 32)
+    reinterpret_cast<unsigned short*>(dst)[e] = (unsigned short)at(e);
+}
+
+// kA0..kA2: the layers' activation codes (-1: read from the arguments).
+template <int kA0, int kA1, int kA2>
+__global__ void __launch_bounds__(kTbWarps * 32, 1)
+    mlp_fused_bwd_tiled_kernel(MlpBwdTiledArgs a) {
+  using Sm = MlpBwdTiledSmem;
+  extern __shared__ __align__(128) unsigned char smem[];
+  SmemCarver carve{smem, 0};
+  unsigned char* s_w = carve.take<unsigned char>(3 * Sm::kW);  // W0 | W1 | W2, swizzled
+  float* s_b = carve.take<float>(3 * kTbW);
+  unsigned char* s_ring = carve.take<unsigned char>((size_t)kTbWarps * Sm::kRing);
+  if (carve.offset != dynamic_smem_size()) __trap();  // the carve is what MlpBwdTiledSmem sums
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g8 = lane / 4, t4 = lane % 4;
+  // the weights, rounded to bf16 (as the wmma body's caller rounds them),
+  // and the biases, once a block; W0's rows past c0 zero
+  for (int i = tid; i < 3 * kTbW * kTbW; i += blockDim.x) {
+    const int l = i / (kTbW * kTbW), r = i / kTbW % kTbW, col = i % kTbW;
+    const float v = l > 0 || r < a.c0 ? a.w[l][r * kTbW + col] : 0.0f;
+    *reinterpret_cast<bf16*>(s_w + l * Sm::kW + tb_off(r, col >> 3) + 2 * (col & 7)) =
+        __float2bfloat16(v);
+  }
+  for (int i = tid; i < 3 * kTbW; i += blockDim.x) s_b[i] = a.b[i / kTbW][i % kTbW];
+  __syncthreads();
+
+  const TbLane ln(lane);
+  const unsigned u_w0 = smem_addr(s_w), u_w1 = u_w0 + Sm::kW, u_w2 = u_w1 + Sm::kW;
+  // warp v of the launch walks slabs v, v + nv, ...
+  const long long n_slabs = (a.n + kTbRows - 1) / kTbRows;
+  const long long v = (long long)blockIdx.x * kTbWarps + warp, nv = (long long)gridDim.x * kTbWarps;
+  const int n_mine = v < n_slabs ? (int)((n_slabs - v + nv - 1) / nv) : 0;
+  unsigned char* const ring = s_ring + (size_t)warp * Sm::kRing;
+  const bool flat_x = !(a.c0 == kTbW && a.vec_x), flat_g = !a.vec_g;
+  auto row0_of = [&](int i) { return (v + (long long)i * nv) * kTbRows; };
+  auto rows_of = [&](long long row0) { return (int)min((long long)kTbRows, a.n - row0); };
+  auto stage = [&](int i) { return ring + (i % kTbStages) * 2 * kTbTile; };
+  auto fetch = [&](int i) {
+    const long long row0 = row0_of(i);
+    const int rows = rows_of(row0);
+    tb_land(stage(i), a.x + row0 * a.c0, rows, a.c0, a.vec_x, lane);
+    tb_land(stage(i) + kTbTile, a.g + row0 * kTbW, rows, kTbW, a.vec_g, lane);
+  };
+
+  float dw[3][2][4][4], db[3][4][2];
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    zero_acc(dw[l][0]);
+    zero_acc(dw[l][1]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) db[l][j][0] = db[l][j][1] = 0.0f;
+  }
+
+  for (int i = 0; i < kTbStages - 1; ++i) {
+    if (i < n_mine) fetch(i);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int i = 0; i < n_mine; ++i) {
+    // the stage slab i + 2 lands in was emptied by slab i - 1
+    if (i + kTbStages - 1 < n_mine) fetch(i + kTbStages - 1);
+    cp_async_commit();
+    cp_async_wait_group<kTbStages - 1>();
+    __syncwarp();
+    const long long row0 = row0_of(i);
+    const int rows = rows_of(row0);
+    unsigned char* const st = stage(i);
+    if (flat_x) tb_unpack(st, rows, a.c0, lane);
+    if (flat_g) tb_unpack(st + kTbTile, rows, kTbW, lane);
+    const unsigned u_x = smem_addr(st), u_g = u_x + kTbTile;
+#pragma unroll 1
+    for (int q = 0; q < kTbRows; q += 16) {
+      // the sub-tile's x and g fragments, then h1, h2, h3 recomputed in registers
+      unsigned xa[2][4], gp[2][4], h1[2][4], h2[2][4], h3[2][4];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        ldmatrix_x4(xa[k], u_x + ln.r(q, 2 * k));
+        ldmatrix_x4(gp[k], u_g + ln.r(q, 2 * k));
+      }
+      tb_forward<kA0>(xa, u_w0, s_b, a.act[0], ln, t4, h1);
+      tb_forward<kA1>(h1, u_w1, s_b + kTbW, a.act[1], ln, t4, h2);
+      tb_forward<kA2>(h2, u_w2, s_b + 2 * kTbW, a.act[2], ln, t4, h3);
+      // gz2 = act2'(h3, g); dW2 += h2^T . bf16(gz2)
+      unsigned gzb[2][4], at[2][4];
+      float acc[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          acc[j][2 * r] = bf16_lo(gp[j >> 1][2 * (j & 1) + r]);
+          acc[j][2 * r + 1] = bf16_hi(gp[j >> 1][2 * (j & 1) + r]);
+        }
+      tb_cotangent<kA2>(acc, h3, a.act[2], db[2], gzb);
+      tb_transpose(h2, at);
+      tb_dw(dw[2], at, gzb);
+      // gz1 = act1'(h2, bf16(gz2) . W2^T); dW1 += h1^T . bf16(gz1)
+      tb_back(gzb, u_w2, ln, acc);
+      tb_cotangent<kA1>(acc, h2, a.act[1], db[1], gzb);
+      tb_transpose(h1, at);
+      tb_dw(dw[1], at, gzb);
+      // gz0 = act0'(h1, bf16(gz1) . W1^T); dW0 += x^T . bf16(gz0), x^T's A
+      // fragments by ldmatrix.trans of the x tile
+      tb_back(gzb, u_w1, ln, acc);
+      tb_cotangent<kA0>(acc, h1, a.act[0], db[0], gzb);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) ldmatrix_x4_trans(at[m], u_x + ln.c(q, 2 * m));
+      tb_dw(dw[0], at, gzb);
+      if (a.dx != nullptr) {
+        // d(x) = bf16(bf16(gz0) . W0^T), in place of the sub-tile's x rows
+        tb_back(gzb, u_w0, ln, acc);
+        __syncwarp();  // every lane has read those rows
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<unsigned*>(st + tb_off(q + g8 + 8 * r, j) + 4 * t4) =
+                pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
+      }
+    }
+    if (a.dx != nullptr) {
+      __syncwarp();
+      tb_store_dx(a.dx + row0 * a.c0, st, rows, a.c0, lane);
+    }
+    __syncwarp();  // every lane is done with the stage before it is refilled
+  }
+
+  // the warp's partial into its own ring (db summed over the 8 row lanes of
+  // each column in a fixed order), then the block's: the warps' in warp order
+  cp_async_wait_all();
+  __syncwarp();
+  float* const part = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(part + l * kTbW * kTbW + (16 * m + g8 + 8 * r) * kTbW +
+                                     8 * j + 2 * t4) =
+              make_float2(dw[l][m][j][2 * r], dw[l][m][j][2 * r + 1]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = db[l][j][e];
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (g8 == 0) part[3 * kTbW * kTbW + l * kTbW + 8 * j + 2 * t4 + e] = s;
+      }
+  }
+  __syncthreads();
+  float* const out = a.parts + (size_t)blockIdx.x * kTbParts;
+  for (int e = tid; e < kTbParts; e += blockDim.x) {
+    float s = 0.0f;
+    for (int w = 0; w < kTbWarps; ++w)
+      s += reinterpret_cast<const float*>(s_ring + (size_t)w * Sm::kRing)[e];
+    out[e] = s;
+  }
+}
+
 }  // namespace wcmc
 
 using namespace wcmc;
@@ -235,4 +671,76 @@ extern "C" int wcmc_mlp_fused_bwd(const void* x, const void* g, const void* w0, 
   if (err != cudaSuccess) return err;
   return reduce_parts(static_cast<const float*>(parts), static_cast<float*>(out), grid,
                       mlp_bwd_parts(L), s);
+}
+
+template <int kA0, int kA1, int kA2>
+static cudaError_t launch_tiled(const MlpBwdTiledArgs& args, int grid, int device,
+                                cudaStream_t stream) {
+  auto* kernel = mlp_fused_bwd_tiled_kernel<kA0, kA1, kA2>;
+  const size_t smem = MlpBwdTiledSmem::total();
+  cudaError_t err = set_smem(kernel, smem, device);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kTbWarps * 32, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+// The tiled body (LayerNet's embedding chain): x (n, c0) bf16, 1 <= c0 <=
+// 32; g (n, 32) bf16; w0 (c0, 32), w1, w2 (32, 32) f32 row-major (the
+// parameters as they are), b0..b2 (32) f32; a0..a2 the activation codes; dx (n, c0) bf16
+// on 16 bytes, or null for no d(x).  All contiguous.  grid: the persistent
+// blocks to launch (ops/mlp_fused.py, MlpBwdPlan.grid); parts: grid
+// partials of kTbParts floats (scratch); out: their sum in block order,
+// dW0 (32, 32) | dW1 | dW2 | db0 | db1 | db2, f32 (dW0's rows past c0
+// zero).
+extern "C" int wcmc_mlp_fused_bwd_tiled(const void* x, const void* g, const void* w0,
+                                        const void* w1, const void* w2, const void* b0,
+                                        const void* b1, const void* b2, void* dx, void* parts,
+                                        void* out, long long n, int c0, int a0, int a1, int a2,
+                                        int grid, int device, void* stream) {
+  if (c0 < 1 || c0 > kTbW || n < 0 || grid < 1 || a0 < 0 || a0 > 2 ||
+      a1 < 0 || a1 > 2 || a2 < 0 || a2 > 2 || !w0 || !w1 || !w2 || !b0 || !b1 || !b2 ||
+      (dx != nullptr && !aligned16(dx)))
+    return cudaErrorInvalidValue;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  MlpBwdTiledArgs args{static_cast<const bf16*>(x),
+                       static_cast<const bf16*>(g),
+                       {static_cast<const float*>(w0), static_cast<const float*>(w1),
+                        static_cast<const float*>(w2)},
+                       {static_cast<const float*>(b0), static_cast<const float*>(b1),
+                        static_cast<const float*>(b2)},
+                       static_cast<bf16*>(dx),
+                       static_cast<float*>(parts),
+                       n,
+                       c0,
+                       {a0, a1, a2},
+                       aligned16(x),
+                       aligned16(g)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = a0 == 2 && a1 == 2 && a2 == 2  // LayerNet: leaky relu x 3
+                              ? launch_tiled<2, 2, 2>(args, grid, device, s)
+                              : launch_tiled<-1, -1, -1>(args, grid, device, s);
+  if (err != cudaSuccess) return err;
+  return reduce_parts(static_cast<const float*>(parts), static_cast<float*>(out), grid, kTbParts,
+                      s);
+}
+
+// The dynamic shared memory, in bytes, that K10-bwd gives a block of the
+// form: the tiled body's (tiled = 1) or the wmma body's; what
+// ops/mlp_fused.py's mlp_bwd_plan totals.  -1 for a form the body does not
+// take.
+extern "C" long long wcmc_mlp_fused_bwd_smem(int c0, int n_layers, int c1, int c2, int c3, int c4,
+                                             int tiled) {
+  if (tiled) {
+    return c0 >= 1 && c0 <= kTbW && n_layers == 3 && c1 == kTbW && c2 == kTbW && c3 == kTbW
+               ? (long long)MlpBwdTiledSmem::total()
+               : -1;
+  }
+  static const int any = 0;  // any non-null pointer: mlp_layers checks only the widths' pointers
+  const void* w[kMlpMaxLayers] = {&any, &any, &any, &any};
+  const int widths[kMlpMaxLayers] = {c1, c2, c3, c4};
+  const int acts[kMlpMaxLayers] = {0, 0, 0, 0};
+  MlpLayers L;
+  if (!mlp_layers(L, w, w, c0, n_layers, widths, acts)) return -1;
+  return (long long)mlp_bwd_smem(L);
 }

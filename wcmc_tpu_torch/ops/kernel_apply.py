@@ -52,14 +52,11 @@ import torch
 
 from wcmc_tpu_torch.ops import _build
 from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT
+from wcmc_tpu_torch.ops.mlp_fused import _r128
 
 SPLAT_RUN = 32      # source pixels a run of K7's banded body and of K8's tiled body
 SPLAT_STAGES = 3    # runs in K7's landing ring: the two a step reads, one landing
 SPLAT_ROWS = 32     # source rows a band of K7's banded body
-
-
-def _r128(n):
-    return -(-n // 128) * 128
 
 
 def _gather_plain(buf, w, ksize):

@@ -9,7 +9,10 @@ an autograd Function:
 * forward: the CUDA kernel K10-fwd (``csrc/mlp_fused.cu``) for CUDA
   tensors, the plain version ``_mlp_fwd_plain`` for CPU tensors;
 * backward: K10-bwd (``csrc/mlp_fused_bwd.cu``), plain version
-  ``_mlp_bwd_plain``.
+  ``_mlp_bwd_plain``; :func:`mlp_bwd_plan` picks its body (the tiled one
+  for LayerNet's chain, three layers 32 wide at C0 <= 32, the wmma body
+  for every other form) and states its shared memory and grid, and
+  ``_mlp_bwd_walk`` is the tiled body's order on the CPU.
 
 The kernels compute in bfloat16 with f32 accumulation and raise for
 other dtypes, for more than ``MLP_MAX_LAYERS`` layers and for widths over
@@ -21,6 +24,9 @@ db (from the unrounded cotangent) stay f32, and d(x) is rounded once.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -61,6 +67,19 @@ def matmul_f32(h, w):
     preferred_element_type=float32)``.  bf16 values convert to f32
     exactly, so this is a bf16 product with f32 accumulation."""
     return h.float() @ w.to(h.dtype).float()
+
+
+def _into(acc, a, w):
+    """``acc + a @ w``, summed k16 step by k16 step (of ``a``'s columns) as
+    the kernels' products add into their accumulators."""
+    for k in range(0, a.shape[1], 16):
+        acc = acc + a[:, k:k + 16] @ w[k:k + 16]
+    return acc
+
+
+def _prod(a, w):
+    """``a @ w`` in k16 steps (:func:`_into` from zero)."""
+    return _into(torch.zeros((a.shape[0], w.shape[1])), a, w)
 
 
 def _mlp_plain(x, ws, bs, acts):
@@ -105,33 +124,172 @@ def _mlp_bwd_plain(x, g, ws, bs, acts, compute_dx=True):
     return _mlp_bwd_rows(x, g.to(x.dtype).float(), ws, bs, acts, compute_dx)
 
 
+def _check_form(name, c0, widths, acts):
+    """What K10 computes: 1 to MLP_MAX_LAYERS layers of the three
+    activations, C0 from 1 to MLP_MAX_WIDTH and every layer width a multiple
+    of 16 up to MLP_MAX_WIDTH.  Returns the activation codes."""
+    if not 1 <= len(widths) <= MLP_MAX_LAYERS:
+        raise ValueError(f"{name} kernel takes 1 to {MLP_MAX_LAYERS} layers, got {len(widths)}")
+    if len(acts) != len(widths) or any(a not in ACTS for a in acts):
+        raise ValueError(f"{name} kernel computes the activations {ACTS}, got {tuple(acts)}")
+    if not 1 <= c0 <= MLP_MAX_WIDTH:
+        raise ValueError(f"{name} kernel takes 1 to {MLP_MAX_WIDTH} input channels, got {c0}")
+    for co in widths:
+        if co % 16 or not 16 <= co <= MLP_MAX_WIDTH:
+            raise ValueError(f"{name} kernel takes layer widths that are multiples of 16 "
+                             f"up to {MLP_MAX_WIDTH}, got {co}")
+    return [ACTS.index(a) for a in acts]
+
+
 def _check_card(name, x, ws, bs, acts):
-    """What K10 computes: bf16 rows on one CUDA device, 1 to
-    MLP_MAX_LAYERS layers of the three activations, C0 <= MLP_MAX_WIDTH
-    and every layer width a multiple of 16 up to MLP_MAX_WIDTH.  Returns
-    the widths and the activation codes."""
+    """What K10 computes (:func:`_check_form`), as bf16 rows on one CUDA
+    device.  Returns the widths and the activation codes."""
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in (*ws, *bs)):
         raise ValueError(f"{name}: inputs must all be on one CUDA device, got "
                          + ", ".join(str(t.device) for t in (x, *ws, *bs)))
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel computes in bfloat16, got {x.dtype}")
-    if not 1 <= len(ws) <= MLP_MAX_LAYERS:
-        raise ValueError(f"{name} kernel takes 1 to {MLP_MAX_LAYERS} layers, got {len(ws)}")
-    if any(a not in ACTS for a in acts):
-        raise ValueError(f"{name} kernel computes the activations {ACTS}, got {tuple(acts)}")
     dims = [x.shape[-1]] + [w.shape[1] for w in ws]
-    if not 1 <= dims[0] <= MLP_MAX_WIDTH:
-        raise ValueError(f"{name} kernel takes 1 to {MLP_MAX_WIDTH} input channels, "
-                         f"got {dims[0]}")
+    codes = _check_form(name, dims[0], dims[1:], acts)
     for w, b, ci, co in zip(ws, bs, dims[:-1], dims[1:]):
         if tuple(w.shape) != (ci, co) or tuple(b.shape) != (co,):
             raise ValueError(f"{name}: weight {tuple(w.shape)} / bias {tuple(b.shape)} "
                              f"is not ({ci}, {co}) / ({co},)")
-        if co % 16 or co > MLP_MAX_WIDTH:
-            raise ValueError(f"{name} kernel takes layer widths that are multiples of 16 "
-                             f"up to {MLP_MAX_WIDTH}, got {co}")
-    return dims, [ACTS.index(a) for a in acts]
+    return dims, codes
+
+
+# ---------------------------------------------------------------------------
+# K10-bwd's plan (csrc/mlp_fused_bwd.cu), kept here so the CPU tests reach it
+# ---------------------------------------------------------------------------
+
+MLP_BWD_TILED = (32, 32, 32)   # the tiled body's layer widths; C0 up to 32, padded to 32
+MLP_BWD_SLAB = 64              # rows of a slab, walked by one warp of the tiled body
+MLP_BWD_WARPS = 8              # warps of a tiled block, each walking its own slabs
+MLP_BWD_STAGES = 3             # slabs in flight a warp
+MLP_BWD_TILE = 128             # rows of the wmma body's tile
+
+
+def _r128(n):
+    """``n`` bytes rounded up to the 128-byte pieces the kernels carve."""
+    return -(-n // 128) * 128
+
+
+class MlpBwdPlan(NamedTuple):
+    """How K10-bwd runs a form: on the tiled body (``body`` "tiled") or the
+    wmma one ("wmma"), C0 padded to ``k0``; a block's ``walkers`` each take
+    ``rows`` rows at a time (the tiled body's warps their own slabs, with
+    ``stages`` slabs in flight; the wmma body's block its tiles) and keep
+    ``parts`` f32 partial sums of dW and db; ``smem`` the block's shared
+    memory as (buffer, bytes) pairs in the order the kernel carves them,
+    each a multiple of 128 bytes, ``total`` their sum (what
+    ``wcmc_mlp_fused_bwd_smem`` returns)."""
+    body: str
+    k0: int
+    rows: int
+    walkers: int
+    stages: int
+    parts: int
+    smem: tuple
+    total: int
+
+    def grid(self, n, sms):
+        """The blocks of a launch over ``n`` rows on a card of ``sms`` SMs:
+        persistent, at most one a SM (tiled; its shared memory allows no
+        second) or four (wmma; the kernel launches as many of those as are
+        resident), and no more than the rows need, at least one."""
+        cap = sms if self.body == "tiled" else 4 * sms
+        need = -(-n // (self.rows * self.walkers))
+        return max(1, min(cap, need))
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_bwd_plan(c0, widths, acts) -> MlpBwdPlan:
+    """K10-bwd's plan for the chain C0 -> ``widths`` with activations
+    ``acts``.  The tiled body takes three layers of ``MLP_BWD_TILED`` at C0
+    up to 32 (any activations, d(x) on or off): the three weight tiles and
+    the biases, then each warp's ring of x and g tiles (64 x 32 bf16 a
+    tile, two a stage).  Every other form runs the wmma body: each layer's
+    padded weight rows, bias, f32 dW and db partials, a 128-row tile per
+    hidden (x included), the bias-sum slots and the warps' staging.
+    ValueError for what neither body computes."""
+    from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT   # conv5 imports this module
+
+    widths, acts = tuple(widths), tuple(acts)
+    _check_form("mlp_fused_bwd", c0, widths, acts)
+    if widths == MLP_BWD_TILED and c0 <= MLP_BWD_TILED[0]:
+        w = MLP_BWD_TILED[0]
+        tile = 2 * MLP_BWD_SLAB * w
+        smem = (("weights", 3 * 2 * w * w), ("bias", _r128(3 * 4 * w)),
+                ("rings", MLP_BWD_WARPS * MLP_BWD_STAGES * 2 * tile))
+        return MlpBwdPlan("tiled", w, MLP_BWD_SLAB, MLP_BWD_WARPS, MLP_BWD_STAGES,
+                          3 * w * w + 3 * w, smem, sum(m for _, m in smem))
+    dims = [-(-c0 // 16) * 16, *widths]
+    smem = []
+    for i, (ci, co) in enumerate(zip(dims[:-1], dims[1:])):
+        smem += [(f"w{i}", 2 * ci * (co + 8)), (f"b{i}", 4 * co), (f"dw{i}", 4 * ci * co),
+                 (f"db{i}", 4 * co)]
+    smem += [(f"h{i}", 2 * MLP_BWD_TILE * (c + 8)) for i, c in enumerate(dims)]
+    smem += [("dbpart", 4 * max(MLP_BWD_TILE // 16 * max(dims), 256)), ("stage", 4 * 8 * 256)]
+    smem = tuple((name, _r128(m)) for name, m in smem)
+    total = sum(m for _, m in smem)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"mlp_fused_bwd kernel needs {total} bytes of shared memory for "
+                         f"{c0} -> {widths}, over the {SMEM_LIMIT} a block may use")
+    parts = sum(ci * co + co for ci, co in zip(dims[:-1], dims[1:]))
+    return MlpBwdPlan("wmma", dims[0], MLP_BWD_TILE, 1, 1, parts, smem, total)
+
+
+def _mlp_bwd_walk(x, g, ws, bs, acts, compute_dx=True, n_blocks=3):
+    """A plain walk of K10-bwd's tiled order on the CPU, for a card of
+    ``n_blocks`` SMs: ``mlp_bwd_plan``'s grid, each block's warps walking
+    slabs of 64 rows in turn (warp v of the launch takes slabs v, v +
+    walkers, ...), each slab in sub-tiles of 16 rows: the hiddens
+    recomputed (each layer summed k16 step by k16 step from zero, then its
+    bias, its activation and the rounding), the cotangent chain, dW_i +=
+    h_i^T . bf16(gz_i) per sub-tile into the warp's partial and db_i from
+    the unrounded gz row by row; a block's partial is its warps' summed in
+    warp order, and the blocks' are summed in block order.  Returns what
+    ``_mlp_bwd_plain`` returns."""
+    dt = x.dtype
+    n, c0 = x.shape
+    plan = mlp_bwd_plan(c0, tuple(w.shape[1] for w in ws), tuple(acts))
+    if plan.body != "tiled":
+        raise ValueError(f"mlp_fused_bwd: {c0} -> {plan} does not run the tiled body")
+    wt = [w.to(dt).float() for w in ws]
+    bias = [b.float() for b in bs]
+    gb = g.to(dt).float()
+    dx = torch.empty((n, c0), dtype=dt) if compute_dx else None
+    grid = plan.grid(n, n_blocks)
+    walkers = grid * plan.walkers
+    n_slabs = -(-n // plan.rows)
+    total = None
+    for blk in range(grid):
+        block = None
+        for warp in range(plan.walkers):
+            dws = [torch.zeros(w.shape) for w in ws]
+            dbs = [torch.zeros(w.shape[1]) for w in ws]
+            for j in range(blk * plan.walkers + warp, n_slabs, walkers):
+                for r0 in range(j * plan.rows, min((j + 1) * plan.rows, n), 16):
+                    r1 = min(r0 + 16, n)
+                    hs = [x[r0:r1].float()]
+                    for w, b, a in zip(wt, bias, acts):
+                        hs.append(_act(a, _prod(hs[-1], w) + b).to(dt).float())
+                    v = gb[r0:r1]
+                    for i in reversed(range(len(ws))):
+                        gz = _act_grad(acts[i], hs[i + 1], v)
+                        for row in gz:
+                            dbs[i] = dbs[i] + row
+                        gzb = gz.to(dt).float()
+                        dws[i] = dws[i] + hs[i].t() @ gzb
+                        if i > 0 or compute_dx:
+                            v = _prod(gzb, wt[i].t())
+                    if compute_dx:
+                        dx[r0:r1] = v.to(dt)
+            part = dws + dbs
+            block = part if block is None else [a + p for a, p in zip(block, part)]
+        total = block if total is None else [a + p for a, p in zip(total, block)]
+    return dx, total[:len(ws)], total[len(ws):]
 
 
 def _padded_params(x, ws, bs, codes):
@@ -172,30 +330,45 @@ def _mlp_fwd_kernel(x, ws, bs, acts):
     return out
 
 
-def _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx):
+def _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx, body=None):
     dims, codes = _check_card("mlp_fused_bwd", x, ws, bs, acts)
     dev = x.device
     n = x.shape[0]
     if tuple(g.shape) != (n, dims[-1]) or g.device != dev:
         raise ValueError(f"mlp_fused_bwd: cotangent {tuple(g.shape)} on {g.device} does "
                          f"not match the output ({n}, {dims[-1]}) on {dev}")
+    plan = mlp_bwd_plan(dims[0], tuple(dims[1:]), tuple(acts))
+    body = body or plan.body
+    if body not in ("tiled", "wmma") or (body == "tiled" and plan.body != "tiled"):
+        raise ValueError(f"mlp_fused_bwd: no {body!r} body for {dims[0]} -> {tuple(dims[1:])}")
     x = x.contiguous()
     g = g.to(torch.bfloat16).contiguous()
-    k0, wb, bf, ptrs, widths, codes = _padded_params(x, ws, bs, codes)
+    k0 = plan.k0 if body == "tiled" else -(-dims[0] // 16) * 16
     kdims = [k0] + dims[1:]
     sizes = ([ci * co for ci, co in zip(kdims[:-1], kdims[1:])] + dims[1:])
     n_parts = sum(sizes)
     idx = dev.index or 0
-    n_blocks = 4 * _build.sm_count(idx)
+    sms = _build.sm_count(idx)
+    n_blocks = plan.grid(n, sms) if body == "tiled" else 4 * sms
     parts = torch.empty(n_blocks * n_parts, dtype=torch.float32, device=dev)
     out = torch.empty(n_parts, dtype=torch.float32, device=dev)
     dx = torch.empty((n, dims[0]), dtype=torch.bfloat16, device=dev) if compute_dx else None
-    P, INT, L = _build.PTR, _build.INT, MLP_MAX_LAYERS
-    fn = _build.kernel("wcmc_mlp_fused_bwd", P, P, *([P] * (2 * L)), P, P, P, _build.LONG,
-                       INT, INT, *([INT] * (2 * L)), INT, INT, P)
-    _build.check(fn(x.data_ptr(), g.data_ptr(), *ptrs, dx.data_ptr() if compute_dx else None,
-                    parts.data_ptr(), out.data_ptr(), n, dims[0], len(ws), *widths, *codes,
-                    n_blocks, idx, _build.stream_of(dev)), "mlp_fused_bwd")
+    dx_ptr = dx.data_ptr() if compute_dx else None
+    P, INT, LONG, L = _build.PTR, _build.INT, _build.LONG, MLP_MAX_LAYERS
+    if body == "tiled":
+        # the f32 parameters as they are: the kernel rounds the weights as it stages them
+        params = [t.float().contiguous() for t in (*ws, *bs)]
+        fn = _build.kernel("wcmc_mlp_fused_bwd_tiled", *([P] * 11), LONG, *([INT] * 6), P)
+        err = fn(x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in params), dx_ptr,
+                 parts.data_ptr(), out.data_ptr(), n, dims[0], *codes, n_blocks, idx,
+                 _build.stream_of(dev))
+    else:
+        _, wb, bf, ptrs, widths, codes = _padded_params(x, ws, bs, codes)
+        fn = _build.kernel("wcmc_mlp_fused_bwd", P, P, *([P] * (2 * L)), P, P, P, LONG,
+                           INT, INT, *([INT] * (2 * L)), INT, INT, P)
+        err = fn(x.data_ptr(), g.data_ptr(), *ptrs, dx_ptr, parts.data_ptr(), out.data_ptr(),
+                 n, dims[0], len(ws), *widths, *codes, n_blocks, idx, _build.stream_of(dev))
+    _build.check(err, "mlp_fused_bwd")
     _build.launches["mlp_fused_bwd"] += 1
     chunks = torch.split(out, sizes)
     nl = len(ws)
@@ -204,13 +377,15 @@ def _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx):
     return dx, dws, list(chunks[nl:])
 
 
-def mlp_fused_bwd(x, g, ws, bs, acts, compute_dx=True):
+def mlp_fused_bwd(x, g, ws, bs, acts, compute_dx=True, body=None):
     """Gradients of :func:`fused_mlp` for the output cotangent ``g``:
     ``(dx in x.dtype or None, dWs, dbs)``, dW and db f32.  K10-bwd for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, on the body :func:`mlp_bwd_plan` names (``body="wmma"``
+    forces the wmma body, the card tests' and ``chip_smoke.py``'s
+    reference), the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return _mlp_bwd_plain(x, g, ws, bs, acts, compute_dx)
-    return _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx)
+    return _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx, body)
 
 
 class _FusedMLP(torch.autograd.Function):

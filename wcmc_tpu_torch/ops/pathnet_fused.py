@@ -60,7 +60,7 @@ from wcmc_tpu_torch.ops import _build
 from wcmc_tpu_torch.ops._pack import PackCache
 from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT
 from wcmc_tpu_torch.ops.mlp_fused import (
-    ACTS, _act, _act_grad, _mlp_bwd_rows, _mlp_plain, matmul_f32,
+    ACTS, _act, _act_grad, _into, _mlp_bwd_rows, _mlp_plain, _prod, _r128, matmul_f32,
 )
 
 EMBED_ACTS = ("relu", "relu", "linear")
@@ -473,10 +473,6 @@ class HeadBwdPlan(NamedTuple):
     widths: tuple
 
 
-def _r128(n):
-    return -(-n // 128) * 128
-
-
 @functools.lru_cache(maxsize=None)
 def head_bwd_plan(acts, ce=TILED_WIDTH, cc=TILED_WIDTH, c1=TILED_WIDTH) -> HeadBwdPlan:
     """K5-bwd's plan for the form of ``acts`` (``HEAD_BWD_FORMS``) at
@@ -635,19 +631,6 @@ def _packed_head(ws, bs, acts, ce):
     four parameters (:class:`~wcmc_tpu_torch.ops._pack.PackCache`)."""
     return _packed.get((*ws, *bs), (tuple(acts), ce),
                        lambda w1, w2, b1, b2: pack_head_weights([w1, w2], [b1, b2], acts, ce))
-
-
-def _into(acc, a, w):
-    """``acc + a @ w``, summed k16 step by k16 step (of ``a``'s columns) as
-    the kernels' products add into their accumulators."""
-    for k in range(0, a.shape[1], 16):
-        acc = acc + a[:, k:k + 16] @ w[k:k + 16]
-    return acc
-
-
-def _prod(a, w):
-    """``a @ w`` in k16 steps (:func:`_into` from zero)."""
-    return _into(torch.zeros((a.shape[0], w.shape[1])), a, w)
 
 
 def _head_bwd_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, n_blocks=3):
