@@ -32,7 +32,11 @@ Phases (one JSON line each):
    its row-chunk body, bit for bit); K2 and K3 are first
    driven through ``torch.autograd.grad`` of
    ``kernel_gather_softmax`` with a buffer that requires grad (KPCN's
-   buffers are data, so its step runs no K3).  LBMC (the same sizes):
+   buffers are data, so its step runs no K3); K2's tiled body also
+   against its first body, bit for bit, K3's body (the banded one where it
+   fits: LBMC's K = 13, not KPCN's K = 21) against its gather body, and
+   each against itself over two launches, with the first body's times on
+   the same inputs beside it.  LBMC (the same sizes):
    K10-fwd and K10-bwd (the fused per-pixel MLP, 32 -> 32 -> 32 -> 32,
    d(x) on; K10-bwd's tiled body also against its wmma body, d(x) bit for
    bit, and two launches bit for bit), K1, K2 and K3 at K = 13 on a
@@ -87,8 +91,9 @@ Phases (one JSON line each):
    2 more under ``torch.profiler``.  Each kernel of the step must launch
    its count per step, no plain version may run, K5-fwd's and K4-fwd's
    profiled entries must all be their tiled bodies' (SBMC's K7 and K8
-   entries their banded and tiled bodies', LBMC's K10-bwd entries its
-   tiled body's), every loss must be
+   entries their banded and tiled bodies', LBMC's K10-bwd and K3 entries
+   their tiled and banded bodies', KPCN's and LBMC's K2 entries its tiled
+   body's), every loss must be
    finite and every model's parameters must change.  One step on the card
    is held against the same step (weights, batch, draws) on the CPU in
    bf16 and in f32, at the seeded initial weights (before the warm-up
@@ -609,6 +614,53 @@ def rel_l2(torch, got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
+def outer_softmax_bodies(torch, ka, flush, cot, buf, lg, k):
+    """K2's tiled body against its first body, bit for bit (each tap's sums
+    in the same order, one rounding), and against itself over two launches;
+    with the first body's times on the same inputs."""
+    got = ka.outer_softmax(cot, buf, lg, k)
+    ref = ka.outer_softmax(cot, buf, lg, k, body="warp")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K2's tiled body is not the first body's bits: max |diff| "
+                             f"{(got.float() - ref.float()).abs().max().item()}")
+    if not torch.equal(ka.outer_softmax(cot, buf, lg, k), got):
+        raise AssertionError("K2: a second launch gave other bits")
+    del got, ref
+
+    def first():
+        return ka.outer_softmax(cot, buf, lg, k, body="warp")
+
+    return {"body": "tiled", "bit_for_bit": True, "first_body_bit_for_bit": True,
+            "first_body_ms": time_ms(torch, first, 20, flush),
+            "first_body_device_ms": device_ms(torch, first, "outer_softmax", flush, per_call=1)}
+
+
+def scatter_softmax_bodies(torch, ka, flush, cot, lg, k):
+    """K3 on its plan's body (the banded one where it fits) against its
+    gather body within K1_TOL (the same f32 probabilities, d buf summed in
+    another order) and against itself over two launches; with the gather
+    body's times on the same inputs.  Both bodies are two launches a call."""
+    from wcmc_tpu_torch.ops import _build
+
+    b, h, w, c = cot.shape
+    plan = ka.scatter_softmax_plan(b, h, w, c, k, lg.element_size(),
+                                   _build.sm_count(cot.device.index or 0))
+    got = ka.scatter_softmax(cot, lg, k)
+    err = max_err(torch, [got], [ka.scatter_softmax(cot, lg, k, body="gather")], K1_TOL)
+    if not torch.equal(ka.scatter_softmax(cot, lg, k), got):
+        raise AssertionError("K3: a second launch gave other bits")
+    del got
+
+    def first():
+        return ka.scatter_softmax(cot, lg, k, body="gather")
+
+    return {"body": "banded" if plan.banded else "gather",
+            "bands": [plan.rows, plan.cols, plan.bands, plan.tiles], "bit_for_bit": True,
+            "gather_max_abs_err": err, "first_body_ms": time_ms(torch, first, 20, flush),
+            "first_body_device_ms": device_ms(torch, first, "scatter_softmax", flush,
+                                              per_call=2)}
+
+
 def backward_kernel_phase(torch, ka, pf, dev):
     """K2, K3, K4-bwd and K5-bwd at the training shapes against their
     plain versions; returns the kernel table's rows, K3's with the
@@ -661,11 +713,12 @@ def backward_kernel_phase(torch, ka, pf, dev):
         "max_abs_err": err2,
         "ms": time_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k), 20, flush),
         "device_ms": device_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k),
-                               "outer_softmax", flush),
+                               "outer_softmax", flush, per_call=1),
         "plain_ms": time_ms(torch, lambda: ka.outer_softmax_plain(cot, buf, lg, k), 3, flush),
         "bound_ms": bms2, "bound_by": by2, "library_ms": None,
         "library_note": "no single PyTorch call computes the softmax-gather VJP",
         "through_crop_ms": through_crop_ms,
+        **outer_softmax_bodies(torch, ka, flush, cot, buf, lg, k),
         "shape": shape,
     })
     rows.append({
@@ -675,10 +728,11 @@ def backward_kernel_phase(torch, ka, pf, dev):
         "max_abs_err": err3,
         "ms": time_ms(torch, lambda: ka.scatter_softmax(cot, lg, k), 20, flush),
         "device_ms": device_ms(torch, lambda: ka.scatter_softmax(cot, lg, k),
-                               "scatter_softmax", flush),
+                               "scatter_softmax", flush, per_call=2),
         "plain_ms": time_ms(torch, lambda: ka.scatter_softmax_plain(cot, lg, k), 3, flush),
         "bound_ms": bms3, "bound_by": by3, "library_ms": None,
         "library_note": "no single PyTorch call computes the softmax-weighted splat",
+        **scatter_softmax_bodies(torch, ka, flush, cot, lg, k),
         "launches_from": "torch.autograd.grad of kernel_gather_softmax with a buffer "
                          "that requires grad (kernel phase); the KPCN step's buffers are data",
         "autograd_launches": autograd_launches["scatter_softmax"],
@@ -814,7 +868,8 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
         dict(shape, g=[b, p, p, 3]),
         library_note="no single PyTorch call computes the softmax-gather VJP",
         device_ms=device_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k), "outer_softmax",
-                            flush)))
+                            flush, per_call=1),
+        **outer_softmax_bodies(torch, ka, flush, cot, buf, lg, k)))
     rows.append(kernel_row(
         "scatter_softmax", "scatter_softmax", "wcmc_tpu/ops/pallas_kernels.py:297", err3,
         time_ms(torch, lambda: ka.scatter_softmax(cot, lg, k), 20, flush),
@@ -823,7 +878,8 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
         dict(shape, g=[b, p, p, 3]),
         library_note="no single PyTorch call computes the softmax-weighted splat",
         device_ms=device_ms(torch, lambda: ka.scatter_softmax(cot, lg, k), "scatter_softmax",
-                            flush)))
+                            flush, per_call=2),
+        **scatter_softmax_bodies(torch, ka, flush, cot, lg, k)))
     del head, logits, lg, dhead, dlogits, out, dbuf
 
     # K4 and K5 at the single PathNet's widths
@@ -1200,16 +1256,18 @@ def check_embed_body(kinds, where):
 
 
 # the body each redesigned kernel must run on every path, by launch counter
-# (K7 and K8 on the SBMC paths, K10-bwd on LBMC's step), where the first
-# body files under the counter's own name
+# (K7 and K8 on the SBMC paths, K10-bwd and K3 on LBMC's step, K2 on KPCN's
+# and LBMC's), where the first body files under the counter's own name
 REDESIGNED_BODIES = {"scatter": "scatter_banded", "outer": "outer_tiled",
-                     "mlp_fused_bwd": "mlp_fused_bwd_tiled"}
+                     "mlp_fused_bwd": "mlp_fused_bwd_tiled",
+                     "outer_softmax": "outer_softmax_tiled",
+                     "scatter_softmax": "scatter_softmax_banded"}
 
 
 def check_redesigned_body(kinds, where, counters):
-    """K7, K8 and K10-bwd run their redesigned bodies on the paths: for
-    each launch counter of ``counters`` the profile's device entries must
-    be its new body's (``REDESIGNED_BODIES``), none its first body's."""
+    """K7, K8, K10-bwd, K2 and K3 run their redesigned bodies on the paths:
+    for each launch counter of ``counters`` the profile's device entries
+    must be its new body's (``REDESIGNED_BODIES``), none its first body's."""
     for counter in counters:
         new = REDESIGNED_BODIES[counter]
         if kinds.get(counter, 0.0) > 0 or kinds.get(new, 0.0) <= 0:
@@ -1228,9 +1286,12 @@ def device_kind(name):
     K4-fwd's, ``pathnet_embed_tiled`` and the row-chunk body
     ``pathnet_embed``; K7's banded body and its band sums,
     ``scatter_banded``, apart from its gather body ``scatter``, K8's
-    tiled body, ``outer_tiled``, apart from the first one ``outer``, and
+    tiled body, ``outer_tiled``, apart from the first one ``outer``,
     K10-bwd's tiled body, ``mlp_fused_bwd_tiled``, apart from its wmma body
-    ``mlp_fused_bwd``), the
+    ``mlp_fused_bwd``, K2's tiled body, ``outer_softmax_tiled``, apart from
+    its first one ``outer_softmax``, and K3's banded body and its band sums,
+    ``scatter_softmax_banded``, apart from its gather body and statistics
+    ``scatter_softmax``), the
     library convolutions and products, copies, or the rest (PyTorch's
     elementwise, reduction and copy kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
@@ -1240,6 +1301,8 @@ def device_kind(name):
             return "scatter_softmax"
         if kind in ("splat_banded", "splat_band_sum"):
             return "scatter_banded"
+        if kind == "scatter_softmax_band_sum":
+            return "scatter_softmax_banded"
         for body in ("pathnet_head_bwd", "pathnet_embed_bwd"):
             if kind.startswith(body):
                 return body

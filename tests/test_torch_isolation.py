@@ -1,5 +1,5 @@
-"""The port stands alone: no module of wcmc_tpu_torch, and neither
-chip_smoke.py nor chip_xcheck.py, imports JAX, flax, optax or wcmc_tpu, while serving a
+"""The port stands alone: no module of wcmc_tpu_torch, and none of
+chip_smoke.py, chip_xcheck.py and chip_parts.py, imports JAX, flax, optax or wcmc_tpu, while serving a
 batch (unfused and fused) and taking a train step of KPCN, of LBMC and of
 SBMC; and its entry points refuse to fall back to the CPU silently."""
 
@@ -39,6 +39,8 @@ _CHILD = textwrap.dedent("""
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     spec = importlib.util.spec_from_file_location("chip_xcheck", "chip_xcheck.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    spec = importlib.util.spec_from_file_location("chip_parts", "chip_parts.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
     from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces

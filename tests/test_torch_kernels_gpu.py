@@ -24,8 +24,11 @@ order; K9 with bf16 weights 1e-5 too (the weights are read exactly, the
 math is f32).  The SBMC forms of K4-bwd and K5-bwd: weight and bias
 gradients 2e-2 of max, per-row outputs (d x, d e, d ctx) 1e-2 in
 relative L2, for the reasons above (leaky relu takes the other slope
-where a recomputed pre-activation lies within rounding of zero).  TF32
-is off for every f32 product compared here."""
+where a recomputed pre-activation lies within rounding of zero).  K2's
+tiled body equals its first body bit for bit (the same sums in the same
+order); K3's banded body is held within 1e-5 of max of its gather body
+(the same f32 probabilities, d buf summed in another order).  TF32 is off
+for every f32 product compared here."""
 
 import pytest
 import torch
@@ -866,32 +869,172 @@ def test_outer_plan_is_the_kernels_shared_memory(cuda, c, ksize):
     assert fn(c, ksize) == ka.outer_plan(c, ksize).total
 
 
-def test_softmax_kernels_keep_their_bodies(cuda):
-    """K2 and K3 still run the bodies of ``outer.cuh`` and ``scatter.cuh``:
-    their profiled device entries are those bodies', none of K7's or K8's
-    new ones."""
+def _chip_smoke():
     import importlib.util
     import pathlib
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def test_softmax_kernels_run_their_new_bodies(cuda):
+    """K2 and K3 at the path shapes run their new bodies: K2's profiled
+    device entries at LBMC's layer-1 view and KPCN's crop are its tiled
+    body's, K3's at LBMC's its banded body's and its band sums', none a
+    first body's, and none is filed under K7's or K8's kinds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = _chip_smoke()
     g = _gen(35)
-    b, h, w, k = 2, 16, 20, 5
-    buf = torch.randn((b, h + k - 1, w + k - 1, 3), device=cuda, generator=g)
-    logits = torch.randn((b, h, w, k * k), device=cuda, generator=g)
-    cot = torch.randn((b, h, w, 3), device=cuda, generator=g)
+    calls = []
+    for b, h, w, k, view in ((8, 128, 128, 13, "layer1"), (8, 72, 72, 21, "crop")):
+        lg = _softmax_logits(cuda, g, b, h, w, k, torch.bfloat16, view)
+        buf = torch.rand((b, h + k - 1, w + k - 1, 3), device=cuda, generator=g)
+        cot = torch.randn((b, h, w, 3), device=cuda, generator=g)
+        calls.append(lambda cot=cot, buf=buf, lg=lg, k=k: ka.outer_softmax(cot, buf, lg, k))
+        if k == 13:
+            calls.append(lambda cot=cot, lg=lg, k=k: ka.scatter_softmax(cot, lg, k))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ka.outer_softmax(cot, buf, logits, k)
-        ka.scatter_softmax(cot, logits, k)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
-    kinds = {cs.device_kind(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA}
-    assert {"outer_softmax", "scatter_softmax"} <= kinds
-    assert not kinds & {"scatter", "scatter_banded", "outer", "outer_tiled"}
+    kinds = [cs.device_kind(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert kinds.count("outer_softmax_tiled") == 2
+    assert kinds.count("scatter_softmax_banded") == 2   # the bands, then their sums
+    assert not set(kinds) & {"outer_softmax", "scatter_softmax", "scatter", "scatter_banded",
+                             "outer", "outer_tiled"}
+
+
+def _softmax_logits(cuda, g, b, h, w, ksize, dtype, view):
+    """Logits as the paths hand them to K2 and K3: "contiguous"; "layer0" /
+    "layer1", a layer's slice of a channels-last (B, 2 K*K, h, w) kernel
+    head (LBMC); "crop", the crop of a channels-last convolution output
+    (KPCN); "offset", contiguous but 2 (bf16) or 4 (f32) bytes off 16."""
+    if view in ("layer0", "layer1"):
+        return _kernel_head_logits(cuda, g, b, h, w, ksize, dtype, int(view[-1]))[1].detach()
+    if view == "crop":
+        return _crop_logits(cuda, g, b, h, w, ksize, dtype).detach()
+    n = b * h * w * ksize * ksize
+    flat = (2 * torch.randn(n + 1, device=cuda, generator=g)).to(dtype)
+    return flat[1:].view(b, h, w, ksize * ksize) if view == "offset" else flat[:n].view(
+        b, h, w, ksize * ksize)
+
+
+# K2's and K3's new bodies: K 5, 13 and 21, widths 128, 72, 45 and 17,
+# ragged h, contiguous logits, LBMC's two layer views, KPCN's crop, and
+# both path shapes
+SOFTMAX_CASES = [(2, 11, 128, 5, "contiguous"), (2, 37, 72, 13, "crop"),
+                 (1, 20, 45, 21, "contiguous"), (3, 9, 17, 13, "layer0"),
+                 (2, 19, 128, 13, "layer1"), (2, 13, 45, 5, "layer1"),
+                 (1, 33, 17, 21, "crop"), (2, 21, 72, 21, "layer0"),
+                 (8, 128, 128, 13, "layer0"), (8, 128, 128, 13, "layer1"),
+                 (8, 72, 72, 21, "crop")]
+
+
+def _softmax_case(cuda, b, h, w, ksize, dtype, view, seed):
+    g = _gen(seed)
+    lg = _softmax_logits(cuda, g, b, h, w, ksize, dtype, view)
+    buf = torch.rand((b, h + ksize - 1, w + ksize - 1, 3), device=cuda, generator=g)
+    cot = torch.randn((b, h, w, 3), device=cuda, generator=g)
+    return cot, buf, lg
+
+
+def _check_outer_softmax_tiled(cot, buf, lg, ksize):
+    """K2's tiled body: bit for bit the first body and itself over two
+    launches, within K1_TOL (f32 logits) or K2_BF16_TOL (bf16) of the plain
+    version."""
+    _build.reset_counts()
+    got = ka.outer_softmax(cot, buf, lg, ksize)
+    assert dict(_build.launches) == {"outer_softmax": 1} and not _build.plain_calls
+    assert got.dtype == lg.dtype and got.is_contiguous()
+    ref = ka.outer_softmax(cot, buf, lg, ksize, body="warp")
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
+    del ref
+    assert torch.equal(ka.outer_softmax(cot, buf, lg, ksize), got)
+    _close(got, ka.outer_softmax_plain(cot, buf, lg, ksize),
+           K1_TOL if lg.dtype == torch.float32 else K2_BF16_TOL)
+
+
+def _check_scatter_softmax_banded(cot, lg, ksize):
+    """K3's banded body within K1_TOL of the gather body and of the plain
+    version (the same f32 probabilities, d buf summed in another order),
+    and two launches bit for bit."""
+    _build.reset_counts()
+    got = ka.scatter_softmax(cot, lg, ksize)
+    assert dict(_build.launches) == {"scatter_softmax": 1} and not _build.plain_calls
+    _close(got, ka.scatter_softmax(cot, lg, ksize, body="gather"), K1_TOL)
+    _close(got, ka.scatter_softmax_plain(cot, lg, ksize), K1_TOL)
+    assert torch.equal(ka.scatter_softmax(cot, lg, ksize), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,ksize,view", SOFTMAX_CASES)
+def test_outer_softmax_tiled(cuda, b, h, w, ksize, view, dtype):
+    cot, buf, lg = _softmax_case(cuda, b, h, w, ksize, dtype, view, 36)
+    assert ka.outer_softmax_route(cot, buf, lg, ksize).body == "tiled"
+    _check_outer_softmax_tiled(cot, buf, lg, ksize)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,ksize,view", SOFTMAX_CASES)
+def test_scatter_softmax_banded(cuda, b, h, w, ksize, view, dtype):
+    """K3's banded body where its plan fits (K up to 13 here); at K = 21
+    the plan gives the gather body, which the banded one cannot replace."""
+    cot, _, lg = _softmax_case(cuda, b, h, w, ksize, dtype, view, 37)
+    route = ka.scatter_softmax_route(cot, lg, ksize, _build.sm_count(0))
+    assert route.body == ("banded" if ksize <= 13 else "gather")
+    if route.body == "banded":
+        _check_scatter_softmax_banded(cot, lg, ksize)
+    else:
+        with pytest.raises(ValueError):
+            ka.scatter_softmax(cot, lg, ksize, body="banded")
+        _close(ka.scatter_softmax(cot, lg, ksize), ka.scatter_softmax_plain(cot, lg, ksize),
+               K1_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_vjp_unaligned_inputs(cuda, dtype):
+    """Logits 2 (bf16) or 4 (f32) bytes off 16, and a cotangent and buffer
+    4 bytes off 16: every landed span takes its 4-byte or zero-filled
+    16-byte copies, with the same bits."""
+    g = _gen(38)
+    b, h, w, k = 2, 21, 40, 13
+    lg = _softmax_logits(cuda, g, b, h, w, k, dtype, "offset")
+    assert lg.data_ptr() % 16
+    flat = torch.randn(b * h * w * 3 + 1, device=cuda, generator=g)
+    cot = flat[1:].view(b, h, w, 3)
+    flat = torch.rand(b * (h + k - 1) * (w + k - 1) * 3 + 1, device=cuda, generator=g)
+    buf = flat[1:].view(b, h + k - 1, w + k - 1, 3)
+    assert cot.data_ptr() % 16 and buf.data_ptr() % 16
+    assert ka.scatter_softmax_route(cot, lg, k).spans == "4-byte"
+    _check_outer_softmax_tiled(cot, buf, lg, k)
+    _check_scatter_softmax_banded(cot, lg, k)
+
+
+@pytest.mark.parametrize("es", [2, 4])
+@pytest.mark.parametrize("c", range(1, 9))
+@pytest.mark.parametrize("ksize", [5, 13, 21])
+def test_softmax_plans_are_the_kernels_shared_memory(cuda, ksize, c, es):
+    """``outer_softmax_plan``'s and ``scatter_softmax_plan``'s totals are
+    the dynamic shared memory K2's tiled body and K3's banded body give a
+    block (each kernel also checks its own carve against it at every
+    launch)."""
+    import ctypes
+
+    lib = _build.library()
+    outer, splat = lib.wcmc_outer_softmax_tiled_smem, lib.wcmc_scatter_softmax_banded_smem
+    for fn in (outer, splat):
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    for w in (17, 72, 128):
+        plan = ka.outer_softmax_plan(2, 16, w, c, ksize, es)
+        assert outer(plan.run, c, ksize, es) == plan.total
+        plan = ka.scatter_softmax_plan(2, 16, w, c, ksize, es)
+        if plan.banded:
+            assert splat(plan.cols, c, ksize, es) == plan.total
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -233,12 +233,14 @@ def test_chip_smoke_tells_the_mlp_bwd_bodies_apart():
         assert cs.device_kind(name) == kind
     assert cs.REDESIGNED_BODIES["mlp_fused_bwd"] == "mlp_fused_bwd_tiled"
     counters = [k for k in cs.REDESIGNED_BODIES if k in cs.TRAIN_LAUNCHES["lbmc"]]
-    assert counters == ["mlp_fused_bwd"]
-    cs.check_redesigned_body({"mlp_fused_bwd_tiled": 0.1, "reduce_parts": 0.01}, "train",
-                             counters)
-    for kinds in ({"mlp_fused_bwd": 0.7, "reduce_parts": 0.01},
-                  {"mlp_fused_bwd_tiled": 0.1, "mlp_fused_bwd": 0.7},
-                  {"mlp_fused": 0.3}):
+    # the LBMC step's other redesigned kernels, K2 and K3, on their new bodies
+    assert counters == ["mlp_fused_bwd", "outer_softmax", "scatter_softmax"]
+    others = {"outer_softmax_tiled": 0.08, "scatter_softmax_banded": 0.07}
+    cs.check_redesigned_body({"mlp_fused_bwd_tiled": 0.1, "reduce_parts": 0.01, **others},
+                             "train", counters)
+    for kinds in ({"mlp_fused_bwd": 0.7, "reduce_parts": 0.01, **others},
+                  {"mlp_fused_bwd_tiled": 0.1, "mlp_fused_bwd": 0.7, **others},
+                  {"mlp_fused": 0.3, **others}):
         with pytest.raises(AssertionError):
             cs.check_redesigned_body(kinds, "train", counters)
     kinds = ("mlp_fused_bwd", "mlp_fused_bwd_tiled", "mlp_fused_bwd_banded")

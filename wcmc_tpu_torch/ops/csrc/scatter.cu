@@ -33,23 +33,17 @@
 //   source row is done, and goes to a scratch of band partials; the second
 //   launch sums each canvas cell's 1-3 partials in band (and tile) order,
 //   so two launches repeat bit for bit.  Offsets are 64-bit: a launch's
-//   weights pass 2^31 bytes.
+//   weights pass 2^31 bytes.  The step, the flush of a canvas row and the
+//   band sums are splat_banded.cuh's, shared with K3's banded body.
 // * the gather body of scatter.cuh, shared with K3 (one warp per canvas
 //   pixel walks its K*K source taps), for strided weight views and for
 //   what the banded body does not take (K > 33, or no band that fits in
 //   shared memory); the card tests' reference.
 #include "hopper.cuh"
 #include "scatter.cuh"
+#include "splat_banded.cuh"
 
 namespace wcmc {
-
-constexpr int kSplatRun = 32;     // source pixels a landed run: a warp's lanes
-constexpr int kSplatStages = 3;   // runs in the ring: the two a step reads, one landing
-constexpr int kSplatMaxK = kSplatRun + 1;
-constexpr int kSplatMaxDy = (kSplatMaxK + kWarps - 1) / kWarps;  // dys a warp
-
-// channels of a canvas cell in shared memory (padded for 16-byte access)
-__host__ __device__ constexpr int splat_cs(int C) { return C <= 4 ? 4 : 8; }
 
 // The banded body's dynamic shared memory, in the order the kernel carves
 // it: the weight ring, the value ring, the K canvas rows of Wt + K - 1
@@ -60,20 +54,11 @@ inline size_t splat_banded_smem(int Wt, int C, int K) {
          smem_bytes((size_t)K * (Wt + K - 1) * splat_cs(C), 4) + smem_bytes(kSplatStages, 8);
 }
 
-struct SplatBandArgs {
-  const float* x;   // (B, h, w, C)
-  const float* wt;  // (B, h, w, K*K)
-  float* part;      // (B, nb, nt, R + K - 1, Wt + K - 1, C): the band partials
-  int B, h, w, K, R, Wt, nb, nt;
-  int vec;  // spans land by bulk copies (w % 4 == 0, x and wt 16-byte aligned)
-};
-
 // kK: K fixed at compile time (the SBMC splat's 21: the tap loop unrolled,
 // its offsets immediates), or 0 for any K <= 33.
 template <int kC, int kK>
 __global__ void __launch_bounds__(kThreads, 1) splat_banded_kernel(SplatBandArgs a) {
   constexpr int kCs = splat_cs(kC), T = kSplatRun, S = kSplatStages;
-  constexpr int kMaxDy = kK > 0 ? (kK + kWarps - 1) / kWarps : kSplatMaxDy;
   extern __shared__ __align__(128) unsigned char smem[];
   const int K = kK > 0 ? kK : a.K, K2 = K * K, Wc = a.Wt + K - 1;
   SmemCarver carve{smem, 0};
@@ -83,7 +68,7 @@ __global__ void __launch_bounds__(kThreads, 1) splat_banded_kernel(SplatBandArgs
   unsigned long long* s_bars = carve.take<unsigned long long>(S);
   if (carve.offset != dynamic_smem_size()) __trap();  // the carve is what splat_banded_smem sums
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32;
   // block: image b, band i of source rows [y0, y0 + rows), tile j of source
   // columns [x0, x0 + cols); the tile's canvas columns are [x0, x0 + wcj)
   const int j = (int)(blockIdx.x % a.nt);
@@ -127,125 +112,33 @@ __global__ void __launch_bounds__(kThreads, 1) splat_banded_kernel(SplatBandArgs
       cp_async_mbar_arrive(bar);
     }
   };
-  // canvas row L of the band (ring row L % K) into the band partials; with
-  // `zero`, each cell cleared by the thread that read it
-  auto flush = [&](int L, bool zero) {
-    float* src = s_ring + (size_t)(L % K) * Wc * kCs;
-    float* dst = a.part + ((((size_t)b * a.nb + i) * a.nt + j) * (a.R + K - 1) + L) * Wc * kC;
-    for (int k = tid; k < wcj * kC; k += kThreads) {
-      const int at = (k / kC) * kCs + k % kC;
-      dst[k] = src[at];
-      if (zero) src[at] = 0.0f;
-    }
-  };
 
   int next = 0;
   for (; next < S && next < n_runs; ++next) fetch(next);
   const int ndy = warp < K ? (K - warp + kWarps - 1) / kWarps : 0;
 
-  // Step (yl, r): canvas columns [32 r, 32 r + 32) of the tile from source
-  // row yl; their sources are runs r - 1 and r (the tail step r = nr reads
-  // run nr - 1 alone).
   for (int yl = 0; yl < rows; ++yl) {
     for (int r = 0; r <= nr; ++r) {
       const int g = yl * nr + r;  // the step's run r; also the next row's run 0 at r = nr
       if (r < nr) mbar_wait(bar0 + 8 * (g % S), (g / S) & 1);
-      const int s_cur = g % S, s_prev = (g + S - 1) % S;
-      const int col = r * T + lane;
-      float acc[kMaxDy][kC];
-#pragma unroll
-      for (int q = 0; q < kMaxDy; ++q)
-#pragma unroll
-        for (int c = 0; c < kC; ++c) acc[q][c] = 0.0f;
-      if (ndy > 0) {
-        // tap dx reads source column col - dx: pixel lane - dx of run r, or
-        // (dx > lane) pixel lane - dx + 32 of run r - 1
-        const float* wq = s_w + ((size_t)s_cur * T + lane) * K2 + warp * K;
-        const float* xq = s_x + (s_cur * T + lane) * kC;
-        const int w_back = (s_prev - s_cur + 1) * T * K2, x_back = (s_prev - s_cur + 1) * T * kC;
-        auto tap = [&](int dx) {
-          if ((unsigned)(col - dx) >= (unsigned)cols) return;
-          const bool back = dx > lane;
-          const float* wp = wq - dx * (K2 - 1) + (back ? w_back : 0);
-          float xv[kC];
-          load_channels<kC>(xq - dx * kC + (back ? x_back : 0), xv);
-#pragma unroll
-          for (int q = 0; q < kMaxDy; ++q) {
-            if (q < ndy) {
-              const float wv = wp[q * kWarps * K];
-#pragma unroll
-              for (int c = 0; c < kC; ++c) acc[q][c] = fmaf(wv, xv[c], acc[q][c]);
-            }
-          }
-        };
-        if constexpr (kK > 0) {
-#pragma unroll
-          for (int dx = 0; dx < kK; ++dx) tap(dx);
-        } else {
-          for (int dx = 0; dx < K; ++dx) tap(dx);
-        }
-        if (col < wcj) {
-#pragma unroll
-          for (int q = 0; q < kMaxDy; ++q) {
-            if (q < ndy) {
-              float4* cell = reinterpret_cast<float4*>(
-                  s_ring + ((size_t)((yl + warp + q * kWarps) % K) * Wc + col) * kCs);
-#pragma unroll
-              for (int v = 0; v < kCs / 4; ++v) {
-                float4 t = cell[v];
-                if (4 * v < kC) t.x += acc[q][4 * v];
-                if (4 * v + 1 < kC) t.y += acc[q][4 * v + 1];
-                if (4 * v + 2 < kC) t.z += acc[q][4 * v + 2];
-                if (4 * v + 3 < kC) t.w += acc[q][4 * v + 3];
-                cell[v] = t;
-              }
-            }
-          }
-        }
-      }
+      splat_step<kC, kK>(s_w, s_x, s_ring, K, Wc, cols, wcj, yl, r, g, ndy);
       __syncthreads();
       // the next step reads run g first (and g + 1): stages of older runs
       // are free
       for (; next < n_runs && next < g + S; ++next) fetch(next);
       if (r == nr) {  // canvas row yl has all of the band's sums
-        flush(yl, true);
+        splat_flush<kC>(a, s_ring, K, b, i, j, wcj, yl, true);
         __syncthreads();
       }
     }
   }
-  for (int L = rows; L < rows + K - 1; ++L) flush(L, false);
+  for (int L = rows; L < rows + K - 1; ++L) splat_flush<kC>(a, s_ring, K, b, i, j, wcj, L, false);
 }
 
-// out[b, Y, X, :]: the sums of the band partials that hold canvas cell
-// (Y, X), in band order and, within a band, in tile order; a thread a cell.
+// out[b, Y, X, :]: the band partials summed in band order, then tile order.
 __global__ void __launch_bounds__(kThreads)
     splat_band_sum_kernel(SplatBandArgs a, float* __restrict__ out, int C) {
-  const int K = a.K, H = a.h + K - 1, W = a.w + K - 1, Wc = a.Wt + K - 1, Rr = a.R + K - 1;
-  const int at = blockIdx.x * kThreads + threadIdx.x;  // the entry checks B H W < 2^31
-  if (at >= a.B * H * W) return;
-  const int X = at % W, Y = at / W % H, b = at / (W * H);
-  const int i_lo = Y >= Rr ? (Y - Rr) / a.R + 1 : 0, i_hi = min(a.nb - 1, Y / a.R);
-  const int j_lo = X >= Wc ? (X - Wc) / a.Wt + 1 : 0, j_hi = min(a.nt - 1, X / a.Wt);
-  float v[kMaxChannels];
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) v[c] = 0.0f;
-  for (int i = i_lo; i <= i_hi; ++i) {
-    const int L = Y - i * a.R;
-    if (L >= min(a.R, a.h - i * a.R) + K - 1) continue;
-    for (int j = j_lo; j <= j_hi; ++j) {
-      const int lc = X - j * a.Wt;
-      if (lc >= min(a.Wt, a.w - j * a.Wt) + K - 1) continue;
-      const float* p = a.part + ((((size_t)b * a.nb + i) * a.nt + j) * Rr + L) * Wc * C +
-                       (size_t)lc * C;
-#pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c)
-        if (c < C) v[c] += p[c];
-    }
-  }
-  float* o = out + (size_t)at * C;
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c)
-    if (c < C) o[c] = v[c];
+  splat_band_sum(a, out, C);
 }
 
 template <int kC, int kK>

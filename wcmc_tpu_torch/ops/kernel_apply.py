@@ -9,8 +9,11 @@ Counterpart of ``wcmc_tpu/ops/kernel_apply.py``:
   autograd Function.  Forward: the CUDA kernel K1
   (``csrc/gather_softmax.cu``) for CUDA tensors, ``gather_softmax_plain``
   for CPU tensors.  Backward: d(logits) with K2 (``outer_softmax``,
-  ``csrc/outer_softmax.cu``) and, only when the buffer requires grad,
-  d(buf) with K3 (``scatter_softmax``, ``csrc/scatter_softmax.cu``); on
+  ``csrc/outer_softmax.cu``: the tiled body of ``outer_softmax_plan``)
+  and, only when the buffer requires grad, d(buf) with K3
+  (``scatter_softmax``, ``csrc/scatter_softmax.cu``: the banded body that
+  ``scatter_softmax_plan`` lays out where it fits, else the gather body);
+  both read the logits view where it lies, never a copy of it; on
   CPU tensors their plain versions ``outer_softmax_plain`` and
   ``scatter_softmax_plain`` (an f32 softmax, then the shift-sums
   ``_outer_plain`` / ``_scatter_plain``, as the reference's
@@ -186,11 +189,12 @@ def scatter_route(x, w, ksize):
     return "banded", "bulk" if bulk else "4-byte"
 
 
-def _scatter_banded_walk(x, w, ksize):
-    """A plain walk of K7's banded order on the CPU, in f32: each band of
-    ``plan.rows`` source rows and tile of ``plan.cols`` source columns
-    takes its rows in order, and each row its steps r = 0 .. nr (the tail
-    step r = nr reads only the last run); at step r the 32 lanes own canvas
+def _scatter_banded_walk(x, w, ksize, plan=None):
+    """A plain walk of K7's banded order on the CPU, in f32 (``plan``:
+    ``splat_plan``'s unless given; K3's banded body walks its own): each
+    band of ``plan.rows`` source rows and tile of ``plan.cols`` source
+    columns takes its rows in order, and each row its steps r = 0 .. nr
+    (the tail step r = nr reads only the last run); at step r the 32 lanes own canvas
     columns 32 r + lane of the tile, sum the taps dx = 0 .. K - 1 for every
     dy into registers, and add each dy's sum into a ring of K canvas rows;
     a canvas row leaves the ring for the band's partial once its source row
@@ -200,7 +204,7 @@ def _scatter_banded_walk(x, w, ksize):
     this walk twice)."""
     b, h, w_, c = x.shape
     k = ksize
-    plan = splat_plan(h, w_, c, k)
+    plan = plan or splat_plan(h, w_, c, k)
     t, wt = plan.run, plan.cols
     xf, wf = x.float(), w.float()
     lanes = torch.arange(t)
@@ -270,30 +274,313 @@ def outer_plan(c, k) -> OuterPlan:
     return OuterPlan(t, SPLAT_RUN, pitch, smem, total)
 
 
-def _outer_tiled_walk(g, buf, ksize):
-    """A plain walk of K8's tiled order on the CPU: units of ``rows`` runs
-    down a column of runs of 32 pixels, each run from the window of K
-    canvas rows x (32 + K - 1) columns that slides down the unit a row at a
-    time (a ring of K + 1 row slots) and its values, every tap's output the
-    sum over the channels as ``outer_plain`` takes it.  Returns what
-    ``outer_plain`` returns, bit for bit."""
-    b, h, w_, c = g.shape
+def _window_runs(buf, ksize, h, w, run, rows):
+    """The runs of K8's and K2's tiled bodies in their order: units of
+    ``rows`` runs of ``run`` pixels down a column, each run yielded as (y,
+    x0, n, window), the window its K buffer rows of n + K - 1 pixels as they
+    slide down the unit a row at a time (a ring of K + 1 row slots)."""
     k = ksize
-    plan = outer_plan(c, k)
-    dw = torch.empty((b, h, w_, k * k), dtype=torch.promote_types(g.dtype, buf.dtype))
-    for x0 in range(0, w_, plan.run):
-        n = min(plan.run, w_ - x0)
-        for y0 in range(0, h, plan.rows):
+    for x0 in range(0, w, run):
+        n = min(run, w - x0)
+        for y0 in range(0, h, rows):
             ring = {row: buf[:, row, x0:x0 + n + k - 1] for row in range(y0, y0 + k)}
-            for y in range(y0, min(h, y0 + plan.rows)):
+            for y in range(y0, min(h, y0 + rows)):
                 ring = {row: v for row, v in ring.items() if row >= y}
                 ring[y + k - 1] = buf[:, y + k - 1, x0:x0 + n + k - 1]
                 assert len(ring) == k
-                gv = g[:, y, x0:x0 + n]
-                dw[:, y, x0:x0 + n] = torch.stack(
-                    [(gv * ring[y + dy][:, dx:dx + n]).sum(dim=-1)
-                     for dy in range(k) for dx in range(k)], dim=-1)
+                yield y, x0, n, [ring[y + dy] for dy in range(k)]
+
+
+def _window_outer(gv, window, ksize):
+    """Every tap's sum over the channels, as ``outer_plain`` takes it, of a
+    run's values ``gv`` (B, n, C) and its window."""
+    n = gv.shape[1]
+    return torch.stack([(gv * window[dy][:, dx:dx + n]).sum(dim=-1)
+                        for dy in range(ksize) for dx in range(ksize)], dim=-1)
+
+
+def _outer_tiled_walk(g, buf, ksize):
+    """A plain walk of K8's tiled order on the CPU (``_window_runs`` over
+    ``outer_plan``'s runs and units), every tap's output the sum over the
+    channels as ``outer_plain`` takes it.  Returns what ``outer_plain``
+    returns, bit for bit."""
+    b, h, w_, c = g.shape
+    plan = outer_plan(c, ksize)
+    dw = torch.empty((b, h, w_, ksize * ksize), dtype=torch.promote_types(g.dtype, buf.dtype))
+    for y, x0, n, window in _window_runs(buf, ksize, h, w_, plan.run, plan.rows):
+        dw[:, y, x0:x0 + n] = _window_outer(g[:, y, x0:x0 + n], window, ksize)
     return dw
+
+
+SOFTMAX_RUNS = (32, 24, 16, 8)              # K2's run lengths: whole 16-byte bf16 groups
+SOFTMAX_MAX_ROWS = 32                       # runs a K2 unit, source rows a K3 band, at most
+SOFTMAX_STAGES = 2                          # runs in K3's probability ring
+SOFTMAX_LAND = 3                            # runs in K3's landing ring
+SOFTMAX_MAX_K = 21                          # K2's tiled body: 14 taps a lane
+SOFTMAX_BAND_MAX_K = 15                     # K3's banded body: 8 taps a lane
+SM_SMEM = 233472                            # an H100 SM's shared memory; a block also takes 1 KB
+H100_SMS = 132
+
+
+def _lpitch(k2, es):
+    """Bytes of a landed pixel slot of K2's and K3's new bodies: K*K taps of
+    ``es`` bytes led by at most 16 - es bytes of their 16-byte-aligned
+    superset, rounded to 16 (``softmax_lpitch`` in ``csrc/softmax_runs.cuh``)."""
+    return -(-(k2 * es + 16 - es) // 16) * 16
+
+
+def _fill(units, per_sm, sms, rows):
+    """The cost by which K2's and K3's plans pick the rows of a unit or band:
+    waves of units over the resident blocks, each wave a unit's rows and one
+    row of pipeline fill."""
+    return -(-units // (per_sm * sms)) * (rows + 1)
+
+
+def _pick_rows(h, cost):
+    """The unit or band height, 1 to ``SOFTMAX_MAX_ROWS`` (at most h), of
+    least ``cost(rows)``, the tallest of equals."""
+    return min(range(1, min(SOFTMAX_MAX_ROWS, h) + 1), key=lambda r: (cost(r), -r))
+
+
+class OuterSoftmaxPlan(NamedTuple):
+    """K2's tiled body for (B, h, w) pixels of C channels, K x K taps and
+    logits of ``es`` bytes: runs of ``run`` pixels of one row, units of
+    ``rows`` runs down a column (``units`` in all), buffer-window rows of
+    ``pitch`` f32, ``per_sm`` blocks resident an SM, ``blocks`` persistent
+    blocks; ``smem`` the block's shared memory as (buffer, bytes) pairs in
+    the order the kernel carves them (the window ring of K + 1 row slots
+    each kept twice, two value runs, two landed logit runs, two staging
+    tiles of a run's gradients, the mbarriers), ``total`` their sum (what
+    ``wcmc_outer_softmax_tiled_smem`` returns)."""
+    run: int
+    rows: int
+    pitch: int
+    units: int
+    per_sm: int
+    blocks: int
+    smem: tuple
+    total: int
+
+
+@functools.lru_cache(maxsize=None)
+def outer_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> OuterSoftmaxPlan:
+    """K2's plan: of the runs whose carve fits, the one that tiles a row
+    with the fewest idle pixels (the longest of those); three blocks an SM
+    at K <= 13 and two above (the kernel's launch bounds) where the carve
+    allows; the unit height of least ``_fill`` at ``sms`` SMs.  ValueError for what the kernel does not
+    take (C above 8, K above 21, logits neither f32 nor bf16), which the
+    first body does not take either."""
+    if not 1 <= c <= 8:
+        raise ValueError(f"outer_softmax kernel takes 1 to 8 channels, got {c}")
+    if k < 1 or k > SOFTMAX_MAX_K or min(b, h, w) < 1 or es not in (2, 4):
+        raise ValueError(f"outer_softmax kernel takes K <= {SOFTMAX_MAX_K} and f32 or bf16 "
+                         f"logits, got K={k}, {b}x{h}x{w}, {es}-byte logits")
+    fits = []
+    for t in SOFTMAX_RUNS:
+        pitch = -(-(t + k - 1) * c // 4) * 4
+        smem = (("window", _r128(4 * 2 * (k + 1) * pitch)), ("values", _r128(4 * 2 * t * c)),
+                ("logits", _r128(2 * t * _lpitch(k * k, es))),
+                ("tiles", _r128(es * 2 * t * k * k)), ("bars", _r128(8 * 2)))
+        total = sum(m for _, m in smem)
+        if total <= SMEM_LIMIT:
+            fits.append((-(-w // t) * t - w, -t, pitch, smem, total))
+    _, neg_t, pitch, smem, total = min(fits)
+    run, nr = -neg_t, -(-w // -neg_t)
+    per_sm = min(3 if k * k <= 6 * 32 else 2, SM_SMEM // (total + 1024))
+    rows = _pick_rows(h, lambda r: _fill(b * -(-h // r) * nr, per_sm, sms, r))
+    units = b * -(-h // rows) * nr
+    return OuterSoftmaxPlan(run, rows, pitch, units, per_sm, min(units, per_sm * sms), smem,
+                            total)
+
+
+class SoftmaxSplatPlan(NamedTuple):
+    """K3 on (B, h, w) source pixels of C channels, K x K taps and logits of
+    ``es`` bytes: on the banded body (``banded``), bands of ``rows`` source
+    rows and tiles of ``cols`` source columns (``bands`` x ``tiles`` blocks
+    an image), runs of ``run`` pixels, a probability ring of ``stages`` runs
+    and a landing ring of ``land``, ``per_sm`` blocks resident an SM;
+    ``smem`` the block's shared memory as
+    (buffer, bytes) pairs in the order the kernel carves them, ``total``
+    their sum (what ``wcmc_scatter_softmax_banded_smem`` returns),
+    ``scratch`` the f32 band partials of an image.  On the gather body
+    ``banded`` is False and the rest 0."""
+    banded: bool
+    rows: int
+    cols: int
+    bands: int
+    tiles: int
+    run: int
+    stages: int
+    land: int
+    per_sm: int
+    smem: tuple
+    total: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=None)
+def scatter_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> SoftmaxSplatPlan:
+    """K3's plan.  The banded body takes K <= 15; its block carves the
+    probability ring (2 runs of 32 x K*K f32), the value ring, K canvas rows
+    of ``cols + K - 1`` cells of C f32 padded to 4 or 8, the landing ring (3
+    runs of 32 pixel slots of logits, and their values) and its mbarriers.
+    ``cols`` is the widest multiple of 32, up to the whole row, whose carve
+    fits in a block's shared memory; two blocks an SM where two carves fit
+    (the kernel's launch bounds); the band height the one of least ``_fill``
+    at ``sms`` SMs.  Everything else runs the gather body: KPCN's K = 21
+    (14 taps a lane, and one block an SM at most) runs faster gathered.
+    ValueError for what neither body computes."""
+    if not 1 <= c <= 8:
+        raise ValueError(f"scatter_softmax kernel takes 1 to 8 channels, got {c}")
+    if k < 1 or k % 2 == 0 or min(b, h, w) < 1 or es not in (2, 4):
+        raise ValueError(f"scatter_softmax: no splat of {b}x{h}x{w} sources with ksize {k} "
+                         f"and {es}-byte logits")
+    if k <= SOFTMAX_BAND_MAX_K:
+        cs = 4 if c <= 4 else 8
+        for cols in range(-(-w // SPLAT_RUN) * SPLAT_RUN, 0, -SPLAT_RUN):
+            smem = (("probabilities", _r128(4 * SOFTMAX_STAGES * SPLAT_RUN * k * k)),
+                    ("values", _r128(4 * SOFTMAX_STAGES * SPLAT_RUN * c)),
+                    ("canvas", _r128(4 * k * (cols + k - 1) * cs)),
+                    ("logits", _r128(SOFTMAX_LAND * SPLAT_RUN * _lpitch(k * k, es))),
+                    ("landed_values", _r128(4 * SOFTMAX_LAND * SPLAT_RUN * c)),
+                    ("bars", _r128(8 * SOFTMAX_LAND)))
+            total = sum(m for _, m in smem)
+            if total <= SMEM_LIMIT:
+                tiles = -(-w // cols)
+                per_sm = min(2, SM_SMEM // (total + 1024))
+                rows = _pick_rows(h, lambda r: _fill(b * -(-h // r) * tiles, per_sm, sms, r))
+                bands = -(-h // rows)
+                return SoftmaxSplatPlan(True, rows, cols, bands, tiles, SPLAT_RUN, SOFTMAX_STAGES,
+                                        SOFTMAX_LAND, per_sm, smem, total,
+                                        bands * tiles * (rows + k - 1) * (cols + k - 1) * c)
+    return SoftmaxSplatPlan(False, 0, 0, 0, 0, 0, 0, 0, 0, (), 0, 0)
+
+
+class SoftmaxRoute(NamedTuple):
+    """How a K2 or K3 launch on these tensors runs: ``body`` (K2 "tiled";
+    K3 "banded" or "gather"); on the new bodies ``leads``, each byte offset
+    at which some pixel's taps start within their 16-byte-aligned superset
+    (the bytes a landed pixel's reader skips), and ``spans``, how the runs'
+    contiguous spans move: "16-byte" where every one starts (and, for K2's
+    bulk stores, ends) on 16 bytes, "4-byte" where none does, "mixed"
+    otherwise -- K2's gradient runs (a bulk copy or stores by every thread),
+    K3's cotangent runs (16-byte or 4-byte cp.asyncs).  The kernels make the
+    same choices from the same facts."""
+    body: str
+    leads: tuple
+    spans: str
+
+
+def _leads(logits):
+    b, h, w, _ = logits.shape
+    sb, sy, sx, _ = logits.stride()
+    at = (torch.arange(b).view(-1, 1, 1) * sb + torch.arange(h).view(-1, 1) * sy
+          + torch.arange(w) * sx)
+    return tuple((at * logits.element_size() + logits.data_ptr()).remainder(16).unique().tolist())
+
+
+def _span_kinds(ok):
+    return "16-byte" if bool(ok.all()) else "mixed" if bool(ok.any()) else "4-byte"
+
+
+def _run_starts(b, h, w, firsts, ends):
+    """Each run's first pixel (flat over B x h x w) and its pixel count, for
+    runs starting at columns ``firsts`` and ending before ``ends``."""
+    firsts, ends = torch.as_tensor(firsts), torch.as_tensor(ends)
+    return ((torch.arange(b * h).view(-1, 1) * w + firsts).flatten(),
+            (ends - firsts).repeat(b * h))
+
+
+def outer_softmax_route(g, buf, logits, ksize, sms=H100_SMS):
+    """K2's route on these tensors (``SoftmaxRoute``); the gradients go to a
+    fresh tensor, which starts on 16 bytes."""
+    b, h, w, c = g.shape
+    es = logits.element_size()
+    plan = outer_softmax_plan(b, h, w, c, ksize, es, sms)
+    firsts = list(range(0, w, plan.run))
+    first, n = _run_starts(b, h, w, firsts, [min(x + plan.run, w) for x in firsts])
+    span = ksize * ksize * es
+    return SoftmaxRoute("tiled", _leads(logits),
+                        _span_kinds((first * span % 16 == 0) & (n * span % 16 == 0)))
+
+
+def scatter_softmax_route(g, logits, ksize, sms=H100_SMS):
+    """K3's route on these tensors (``SoftmaxRoute``); an f32 contiguous
+    cotangent is read where it lies, any other from a fresh copy."""
+    b, h, w, c = g.shape
+    plan = scatter_softmax_plan(b, h, w, c, ksize, logits.element_size(), sms)
+    if not plan.banded:
+        return SoftmaxRoute("gather", (), "")
+    firsts = [x0 + r for x0 in range(0, w, plan.cols)
+              for r in range(0, min(plan.cols, w - x0), plan.run)]
+    first, _ = _run_starts(b, h, w, firsts, firsts)
+    at = g.data_ptr() if g.dtype == torch.float32 and g.is_contiguous() else 0
+    return SoftmaxRoute("banded", _leads(logits), _span_kinds((at + 4 * c * first) % 16 == 0))
+
+
+def _lane_partials(v):
+    """(..., K*K) -> (..., 32): lane l's sum of taps l + 32 j in j order, as
+    each lane of K2's and K3's warps takes it."""
+    k2 = v.shape[-1]
+    nj = -(-k2 // 32)
+    lanes = torch.zeros(v.shape[:-1] + (nj * 32,), dtype=v.dtype)
+    lanes[..., :k2] = v
+    lanes = lanes.view(v.shape[:-1] + (nj, 32))
+    s = lanes[..., 0, :]
+    for j in range(1, nj):
+        s = s + lanes[..., j, :]
+    return s
+
+
+def _warp_sum(v):
+    """``warp_sum`` (``csrc/common.cuh``) of the 32 lanes' values (..., 32):
+    the xor butterfly, 16, 8, 4, 2, 1."""
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o]
+    return v[..., 0]
+
+
+def _softmax_lanes(logits):
+    """The softmax over the taps in the order of K2's and K3's bodies (new
+    and first): the max, e = exp(l - max), the lanes' partial sums of e
+    summed by ``_warp_sum``, P = e * (1 / sum); in f32."""
+    lf = logits.float()
+    e = torch.exp(lf - lf.amax(dim=-1, keepdim=True))
+    return e * (1.0 / _warp_sum(_lane_partials(e)))[..., None]
+
+
+def _outer_softmax_tiled_walk(g, buf, logits, ksize, sms=H100_SMS):
+    """A plain walk of K2's tiled order on the CPU, in f32: ``_window_runs``
+    over ``outer_softmax_plan``'s runs and units, each pixel's probabilities
+    in the lanes' order (``_softmax_lanes``), dp the sum over the channels
+    (``_window_outer``), the dot of P and dp as the lanes' partial sums
+    summed by ``_warp_sum``, and one rounding to the logits' dtype.  Returns
+    what ``outer_softmax_plain`` returns (the kernel fuses each multiply-add,
+    this walk rounds twice)."""
+    b, h, w, c = g.shape
+    plan = outer_softmax_plan(b, h, w, c, ksize, logits.element_size(), sms)
+    out = torch.empty((b, h, w, ksize * ksize), dtype=logits.dtype)
+    for y, x0, n, window in _window_runs(buf.float(), ksize, h, w, plan.run, plan.rows):
+        dp = _window_outer(g[:, y, x0:x0 + n].float(), window, ksize)
+        p = _softmax_lanes(logits[:, y, x0:x0 + n])
+        dot = _warp_sum(_lane_partials(p * dp))
+        out[:, y, x0:x0 + n] = (p * (dp - dot[..., None])).to(logits.dtype)
+    return out
+
+
+def _scatter_softmax_banded_walk(g, logits, ksize, sms=H100_SMS):
+    """A plain walk of K3's banded order on the CPU, in f32: each pixel's
+    probabilities in the lanes' order (``_softmax_lanes``), splatted in
+    K7's banded order (``_scatter_banded_walk``) over
+    ``scatter_softmax_plan``'s bands and tiles.  Returns what
+    ``scatter_softmax_plain`` returns.  ValueError where the plan gives the
+    gather body."""
+    b, h, w, c = g.shape
+    plan = scatter_softmax_plan(b, h, w, c, ksize, logits.element_size(), sms)
+    if not plan.banded:
+        raise ValueError(f"scatter_softmax: no banded body for {tuple(g.shape)} at K={ksize}")
+    return _scatter_banded_walk(g.float(), _softmax_lanes(logits), ksize, plan)
 
 
 def outer_softmax_plain(g, buf, logits, ksize):
@@ -367,10 +654,22 @@ def _gather_softmax_fwd(buf, logits, ksize):
     return out.to(buf.dtype)
 
 
-def outer_softmax(g, buf, logits, ksize: int):
+def _logit_span(logits):
+    """The elements from the logits view's first to one past its last,
+    which K2's and K3's new bodies never read beyond; ValueError for a
+    negative stride."""
+    if min(logits.stride()) < 0:
+        raise ValueError(f"logits strides {logits.stride()}: the kernels take none negative")
+    return sum((n - 1) * st for n, st in zip(logits.shape, logits.stride())) + 1
+
+
+def outer_softmax(g, buf, logits, ksize: int, body=None):
     """d(logits) of the softmax gather for the output cotangent ``g``
     (B, h, w, C): kernel K2 for CUDA tensors, ``outer_softmax_plain``
-    for CPU tensors.  Returned contiguous in the logits' dtype."""
+    for CPU tensors.  Returned contiguous in the logits' dtype.  On the card
+    the body is the tiled one (``outer_softmax_plan``); ``body`` "warp"
+    runs the first port's one-warp-per-pixel body (the card tests'
+    reference), with the same bits."""
     _check_geometry(buf, logits, ksize)
     if tuple(g.shape) != tuple(logits.shape[:3]) + (buf.shape[-1],):
         raise ValueError(f"outer_softmax: cotangent shape {tuple(g.shape)} does not match "
@@ -378,48 +677,83 @@ def outer_softmax(g, buf, logits, ksize: int):
     if g.device.type == "cpu" and logits.device.type == "cpu":
         return outer_softmax_plain(g, buf, logits, ksize)
     _check_card("outer_softmax", logits, g, buf)
-    if ksize * ksize > 448:
-        raise ValueError(f"outer_softmax kernel takes K*K <= 448, got K={ksize}")
+    if body not in (None, "tiled", "warp"):
+        raise ValueError(f"outer_softmax: no {body} body")
     b, H, W, c = buf.shape
+    dev = logits.device.index or 0
+    plan = outer_softmax_plan(b, H - ksize + 1, W - ksize + 1, c, ksize,
+                              logits.element_size(), _build.sm_count(dev))
     gf = g.float().contiguous()
     src = buf.float().contiguous()
     out = torch.empty(tuple(logits.shape), dtype=logits.dtype, device=logits.device)
-    fn = _build.kernel(
-        "wcmc_outer_softmax", _build.PTR, _build.PTR, _build.PTR, _build.INT, _build.PTR,
-        _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
-        _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.PTR)
     sb, sy, sx, _ = logits.stride()
-    _build.check(fn(gf.data_ptr(), src.data_ptr(), logits.data_ptr(),
-                    int(logits.dtype == torch.bfloat16), out.data_ptr(),
-                    b, H, W, c, ksize, sb, sy, sx, logits.device.index or 0,
-                    _build.stream_of(logits.device)), "outer_softmax")
+    bf16 = int(logits.dtype == torch.bfloat16)
+    if body == "warp":
+        fn = _build.kernel(
+            "wcmc_outer_softmax", _build.PTR, _build.PTR, _build.PTR, _build.INT, _build.PTR,
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+            _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.PTR)
+        err = fn(gf.data_ptr(), src.data_ptr(), logits.data_ptr(), bf16, out.data_ptr(),
+                 b, H, W, c, ksize, sb, sy, sx, dev, _build.stream_of(logits.device))
+    else:
+        fn = _build.kernel(
+            "wcmc_outer_softmax_tiled", _build.PTR, _build.PTR, _build.PTR, _build.INT,
+            _build.PTR, _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+            _build.LONG, _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.INT,
+            _build.INT, _build.INT, _build.PTR)
+        err = fn(gf.data_ptr(), src.data_ptr(), logits.data_ptr(), bf16, out.data_ptr(),
+                 b, H, W, c, ksize, sb, sy, sx, _logit_span(logits), plan.run, plan.rows,
+                 plan.blocks, dev, _build.stream_of(logits.device))
+    _build.check(err, "outer_softmax")
     _build.launches["outer_softmax"] += 1
     return out
 
 
-def scatter_softmax(g, logits, ksize: int):
+def scatter_softmax(g, logits, ksize: int, body=None):
     """d(buf) of the softmax gather for the output cotangent ``g``
     (B, h, w, C), as f32 (B, h + K - 1, w + K - 1, C): kernel K3 for
-    CUDA tensors (two launches, softmax statistics then the gather,
-    counted as one), ``scatter_softmax_plain`` for CPU tensors."""
+    CUDA tensors, ``scatter_softmax_plain`` for CPU tensors.  On the card
+    the body is ``scatter_softmax_plan``'s (the banded one where it fits,
+    two launches: the bands, then their sums); ``body`` "gather" runs the
+    gather body (two launches: the softmax statistics, then the gather; the
+    card tests' reference).  A launch runs that body or raises; either
+    counts as one launch."""
     b, h, w, c = g.shape
     if tuple(logits.shape) != (b, h, w, ksize * ksize):
         raise ValueError(f"logits shape {tuple(logits.shape)} != {(b, h, w, ksize * ksize)}")
     if g.device.type == "cpu" and logits.device.type == "cpu":
         return scatter_softmax_plain(g, logits, ksize)
     _check_card("scatter_softmax", logits, g)
+    dev = g.device.index or 0
+    plan = scatter_softmax_plan(b, h, w, c, ksize, logits.element_size(), _build.sm_count(dev))
+    body = body or ("banded" if plan.banded else "gather")
+    if body not in ("banded", "gather") or (body == "banded" and not plan.banded):
+        raise ValueError(f"scatter_softmax: no {body} body for logits {tuple(logits.shape)} "
+                         f"at C={c}")
     gf = g.float().contiguous()
-    stats = torch.empty((b, h, w, 2), dtype=torch.float32, device=g.device)
     out = torch.empty((b, h + ksize - 1, w + ksize - 1, c), dtype=torch.float32,
                       device=g.device)
-    fn = _build.kernel(
-        "wcmc_scatter_softmax", _build.PTR, _build.PTR, _build.INT, _build.PTR, _build.PTR,
-        _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
-        _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.PTR)
     sb, sy, sx, _ = logits.stride()
-    _build.check(fn(gf.data_ptr(), logits.data_ptr(), int(logits.dtype == torch.bfloat16),
-                    stats.data_ptr(), out.data_ptr(), b, h, w, c, ksize, sb, sy, sx,
-                    g.device.index or 0, _build.stream_of(g.device)), "scatter_softmax")
+    bf16 = int(logits.dtype == torch.bfloat16)
+    if body == "banded":
+        part = torch.empty(b * plan.scratch, dtype=torch.float32, device=g.device)
+        fn = _build.kernel(
+            "wcmc_scatter_softmax_banded", _build.PTR, _build.PTR, _build.INT, _build.PTR,
+            _build.PTR, _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+            _build.LONG, _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.INT,
+            _build.INT, _build.PTR)
+        err = fn(gf.data_ptr(), logits.data_ptr(), bf16, part.data_ptr(), out.data_ptr(), b, h,
+                 w, c, ksize, sb, sy, sx, _logit_span(logits), plan.rows, plan.cols, dev,
+                 _build.stream_of(g.device))
+    else:
+        stats = torch.empty((b, h, w, 2), dtype=torch.float32, device=g.device)
+        fn = _build.kernel(
+            "wcmc_scatter_softmax", _build.PTR, _build.PTR, _build.INT, _build.PTR, _build.PTR,
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+            _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.PTR)
+        err = fn(gf.data_ptr(), logits.data_ptr(), bf16, stats.data_ptr(), out.data_ptr(), b, h,
+                 w, c, ksize, sb, sy, sx, dev, _build.stream_of(g.device))
+    _build.check(err, "scatter_softmax")
     _build.launches["scatter_softmax"] += 1
     return out
 
