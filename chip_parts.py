@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""What bounds the new bodies of K2 and K3 (the softmax gather's backward) on
-one NVIDIA card: each is built again from a copy of
-``wcmc_tpu_torch/ops/csrc`` with one part of its work dropped, and every
-variant is timed at the path shapes beside the whole body.
+"""What bounds the new bodies of K1 (the softmax gather), K2 and K3 (its
+backward) and K10-fwd (the fused per-pixel MLP) on one NVIDIA card: each is
+built again from a copy of ``wcmc_tpu_torch/ops/csrc`` with one part of its
+work dropped, and every variant is timed at the path shapes beside the whole
+body.
 
-    python3 chip_parts.py
+    python3 chip_parts.py [k1 k2 k3 k10]
 
-K2 (``outer_softmax_tiled_kernel``) at LBMC's shape (8 x 128^2, K 13, layer
-1's bf16 slice of a channels-last kernel head) and at KPCN's (8 x 72^2, K 21,
-the crop of a channels-last convolution output): ``whole``; ``no_compute``
+(the kernels named, all four without arguments).  K1
+(``gather_softmax_tiled_kernel``) at LBMC's and KPCN's shapes as K2's below:
+``whole``; ``no_compute`` (no pixel's softmax or sums: the landing, the
+barriers and the stores); ``no_logits`` (no logit lands); ``no_window`` (no
+buffer row lands: the arithmetic on stale shared memory).  K10-fwd
+(``mlp_fused_tiled_kernel``) at LBMC's shape (1,048,576 rows, 32 -> 32 -> 32
+-> 32 leaky): ``whole``; ``no_products`` (the chain skipped: a slab's x rows
+stored as they landed); ``no_load`` (no slab lands); ``no_store`` (the output
+never leaves shared memory).  K2 (``outer_softmax_tiled_kernel``) at LBMC's
+shape (8 x 128^2, K 13, layer 1's bf16 slice of a channels-last kernel head)
+and at KPCN's (8 x 72^2, K 21, the crop of a channels-last convolution
+output): ``whole``; ``no_compute``
 (no pixel's softmax, dp or gradient: the landing, the barriers and the
 stores); ``no_logits`` (no logit lands: the arithmetic on stale shared
 memory); ``no_store`` (the gradients never leave shared memory).  K3
 (``scatter_softmax_banded_kernel`` and its band sums) at LBMC's shape:
 ``whole``; ``no_convert`` (no probability is computed); ``no_taps`` (no tap
 loop); ``no_logits``.  A dropped part leaves wrong outputs; only ``whole`` is
-checked (K2 bit for bit against its first body, K3 within 1e-5 of its gather
-body).  Each line: the variant, the path, the CUDA-event ms and the
+checked (K1, K2 and K10-fwd bit for bit against their first bodies, K3 within
+1e-5 of its gather body).  Each line: the variant, the path, the CUDA-event ms and the
 profiler's device ms (``chip_smoke.py``'s ``time_ms`` and ``device_ms``).
 The card's ``nvidia-smi`` name and power limit come first.  Exits non-zero
 without CUDA or if a variant does not build.
@@ -34,14 +44,29 @@ import tempfile
 
 # (source, [(text, replacement), ...]) by variant; every text must occur in
 # the sources, so a variant that no longer drops its part fails loudly
-K2_SRC, K3_SRC = "outer_softmax.cu", "scatter_softmax.cu"
+K1_SRC, K2_SRC, K3_SRC, K10_SRC = ("gather_softmax.cu", "outer_softmax.cu", "scatter_softmax.cu",
+                                  "mlp_fused.cu")
 NO_LOGITS = ("for (int ch = lane; 16 * ch <", "for (int ch = 32; 16 * ch <")
+NO_PIXELS = ("      for (int p = warp; p < n; p += kWarps) {\n        // the first body's softmax",
+             "      for (int p = warp; p < 0; p += kWarps) {\n        // the first body's softmax")
 VARIANTS = {
+    "k1_whole": (K1_SRC, []),
+    "k1_no_compute": (K1_SRC, [NO_PIXELS]),
+    "k1_no_logits": (K1_SRC, [NO_LOGITS]),
+    "k1_no_window": (K1_SRC, [("      land_span(slot, rs, len);\n"
+                               "      land_span(slot + (size_t)slots * pitch, rs, len);\n", "")]),
+    "k10_whole": (K10_SRC, []),
+    "k10_no_products": (K10_SRC, [(
+        "      tb_layer<kA0>(xa, wf[0], bias[0], a.act[0], h1);\n"
+        "      tb_layer<kA1>(h1, wf[1], bias[1], a.act[1], h2);\n"
+        "      tb_layer<kA2>(h2, wf[2], bias[2], a.act[2], h3);\n",
+        "      for (int k = 0; k < 8; ++k) h3[k / 4][k % 4] = xa[k / 4][k % 4];\n")]),
+    "k10_no_load": (K10_SRC, [("    tb_land(stage(i), a.x + row0 * a.c0, rows_of(row0), a.c0, "
+                               "a.vec_x, lane);\n", "")]),
+    "k10_no_store": (K10_SRC, [("    tb_store(a.out + row0 * kTbW, st, rows, kTbW, a.vec_out, "
+                                "lane);\n", "")]),
     "k2_whole": (K2_SRC, []),
-    "k2_no_compute": (K2_SRC, [("      for (int p = warp; p < n; p += kWarps) {\n"
-                                "        // the first body's softmax",
-                                "      for (int p = warp; p < 0; p += kWarps) {\n"
-                                "        // the first body's softmax")]),
+    "k2_no_compute": (K2_SRC, [NO_PIXELS]),
     "k2_no_logits": (K2_SRC, [NO_LOGITS]),
     "k2_no_store": (K2_SRC, [("if (aligned16(dst) && bytes % 16 == 0) {", "if (false) {"),
                              ("for (int e = tid; e < n * K2; e += kThreads) dst[e] = out[e];",
@@ -54,10 +79,13 @@ VARIANTS = {
 }
 
 
-def build(nvcc, flags, csrc, work):
-    """Each variant's library, all nvcc processes started together."""
+def build(nvcc, flags, csrc, work, kernels):
+    """Each variant's library of the kernels named, all nvcc processes
+    started together."""
     procs = {}
     for name, (src, subs) in VARIANTS.items():
+        if name.split("_")[0] not in kernels:
+            continue
         d = os.path.join(work, name)
         shutil.copytree(csrc, d)
         for text, _ in subs:
@@ -85,22 +113,38 @@ def build(nvcc, flags, csrc, work):
 def main() -> int:
     import torch
 
+    kernels = sys.argv[1:] or ["k1", "k2", "k3", "k10"]
+    if set(kernels) - {"k1", "k2", "k3", "k10"}:
+        print(f"chip_parts: no kernel among {kernels}; name k1, k2, k3 or k10", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_parts: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     import chip_smoke as cs
     from wcmc_tpu_torch.ops import _build
     from wcmc_tpu_torch.ops import kernel_apply as ka
+    from wcmc_tpu_torch.ops import mlp_fused as mf
 
     print(cs.nvidia_smi_line(), flush=True)
     with tempfile.TemporaryDirectory() as work:
-        libs = build(_build._nvcc(), _build.NVCC_FLAGS, str(_build.CSRC), work)
+        libs = build(_build._nvcc(), _build.NVCC_FLAGS, str(_build.CSRC), work, kernels)
         dev = torch.device("cuda", 0)
         sms = _build.sm_count(0)
         stream = _build.stream_of(dev)
         g = torch.Generator(device=dev).manual_seed(cs.SEED)
         flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+        def k1(lib, cot, buf, lg, k):
+            b, H, W, c = buf.shape
+            plan = ka.gather_softmax_plan(b, H - k + 1, W - k + 1, c, k, 2, sms)
+            out = torch.empty((b, H - k + 1, W - k + 1, c), dtype=torch.float32, device=dev)
+            fn = lib.wcmc_gather_softmax_tiled
+            fn.argtypes, fn.restype = [P, P, I, P] + [I] * 5 + [L] * 4 + [I] * 4 + [P], I
+            _build.check(fn(buf.data_ptr(), lg.data_ptr(), 1, out.data_ptr(), b, H, W, c, k,
+                            *lg.stride()[:3], ka._logit_span(lg), plan.run, plan.rows,
+                            plan.blocks, 0, stream), "gather_softmax")
+            return out
 
         def k2(lib, cot, buf, lg, k):
             b, H, W, c = buf.shape
@@ -113,7 +157,7 @@ def main() -> int:
                             plan.blocks, 0, stream), "outer_softmax")
             return out
 
-        def k3(lib, cot, lg, k):
+        def k3(lib, cot, buf, lg, k):
             b, h, w, c = cot.shape
             plan = ka.scatter_softmax_plan(b, h, w, c, k, 2, sms)
             out = torch.empty((b, h + k - 1, w + k - 1, c), dtype=torch.float32, device=dev)
@@ -123,6 +167,16 @@ def main() -> int:
             _build.check(fn(cot.data_ptr(), lg.data_ptr(), 1, part.data_ptr(), out.data_ptr(), b,
                             h, w, c, k, *lg.stride()[:3], ka._logit_span(lg), plan.rows,
                             plan.cols, 0, stream), "scatter_softmax")
+            return out
+
+        def k10(lib, x, ws, bs, acts):
+            n, c0 = x.shape
+            out = torch.empty((n, 32), dtype=torch.bfloat16, device=dev)
+            grid = mf.mlp_fwd_plan(c0, (32, 32, 32), acts).grid(n, sms)
+            fn = lib.wcmc_mlp_fused_tiled
+            fn.argtypes, fn.restype = [P] * 8 + [L] + [I] * 5 + [I, P], I
+            _build.check(fn(x.data_ptr(), *(t.data_ptr() for t in (*ws, *bs)), out.data_ptr(), n,
+                            c0, *[mf.ACTS.index(a) for a in acts], grid, 0, stream), "mlp_fused")
             return out
 
         shapes = {}
@@ -138,29 +192,47 @@ def main() -> int:
                 lg = conv.to(torch.bfloat16).contiguous(memory_format=torch.channels_last).permute(
                     0, 2, 3, 1)[:, k // 2:k // 2 + p, k // 2:k // 2 + p]
             shapes[path] = (cot, buf, lg, k)
+        # LBMC's K10-fwd: 8 patches x 8 spp x 128^2 rows, 32 -> 32 -> 32 -> 32 leaky
+        dims, acts = (32, 32, 32, 32), ("leaky_relu",) * 3
+        x = torch.randn((8 * 8 * 128 * 128, 32), device=dev, generator=g).to(torch.bfloat16)
+        ws, bs = cs.rand_mlp(torch, dev, g, dims)
+        runs = {"k1": (k1, "gather_softmax", 1), "k2": (k2, "outer_softmax", 1),
+                "k3": (k3, "scatter_softmax", 2)}
         for name, lib in libs.items():
-            for path, (cot, buf, lg, k) in shapes.items():
-                if name.startswith("k2"):
-                    def call(lib=lib, cot=cot, buf=buf, lg=lg, k=k):
-                        return k2(lib, cot, buf, lg, k)
-                    counter, per_call = "outer_softmax", 1
-                elif path == "lbmc":
-                    def call(lib=lib, cot=cot, lg=lg, k=k):
-                        return k3(lib, cot, lg, k)
-                    counter, per_call = "scatter_softmax", 2
-                else:   # KPCN's K = 21 runs K3's gather body
-                    continue
+            kernel = name.split("_")[0]
+            if kernel == "k10":
+                def call(lib=lib):
+                    return k10(lib, x, ws, bs, acts)
+                todo = [("lbmc", call, "mlp_fused", 1)]
+            else:
+                fn, counter, per_call = runs[kernel]
+                # KPCN's K = 21 runs K3's gather body
+                todo = [(path, lambda lib=lib, a=args, fn=fn: fn(lib, *a), counter, per_call)
+                        for path, args in shapes.items() if kernel != "k3" or path == "lbmc"]
+            for path, call, counter, per_call in todo:
                 rec = {"variant": name, "path": path, "ms": cs.time_ms(torch, call, 20, flush),
                        "device_ms": cs.device_ms(torch, call, counter, flush, per_call=per_call)}
-                if name == "k2_whole":
-                    ref = ka.outer_softmax(cot, buf, lg, k, body="warp")
-                    if not torch.equal(call(), ref):
-                        raise AssertionError(f"K2 at {path} is not its first body's bits")
-                elif name == "k3_whole":
-                    cs.max_err(torch, [call()], [ka.scatter_softmax(cot, lg, k, body="gather")],
-                               cs.K1_TOL)
+                if name.endswith("_whole"):
+                    check_whole(torch, cs, ka, mf, kernel, path, call(), shapes.get(path),
+                                (x, ws, bs, acts))
                 print(json.dumps(rec), flush=True)
     return 0
+
+
+def check_whole(torch, cs, ka, mf, kernel, path, got, tensors, mlp):
+    """A whole body's output against its first body's (K1, K2 and K10-fwd
+    bit for bit, K3 within K1_TOL of its gather body)."""
+    if kernel == "k10":
+        ref = mf._mlp_fwd_kernel(*mlp, body="wmma")
+    else:
+        cot, buf, lg, k = tensors
+        if kernel == "k3":
+            cs.max_err(torch, [got], [ka.scatter_softmax(cot, lg, k, body="gather")], cs.K1_TOL)
+            return
+        ref = (ka.gather_softmax(buf, lg, k, body="warp") if kernel == "k1"
+               else ka.outer_softmax(cot, buf, lg, k, body="warp"))
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{kernel} at {path} is not its first body's bits")
 
 
 if __name__ == "__main__":

@@ -576,6 +576,7 @@ def kernel_phase(torch, ka, pf, dev):
         logits = conv_out.permute(0, 2, 3, 1)[:, 10:82, 10:82]
         out = ka.kernel_gather_softmax(buf, logits, k)
         err = max_err(torch, [out], [ka.gather_softmax_plain(buf, logits, k)], K1_TOL)
+        bodies = gather_softmax_bodies(torch, ka, flush, buf, logits, k)
         taps = b * 72 * 72 * k * k
         # softmax ~5 f32 ops per tap (max, sub, exp, add, scale), 2 per channel
         bms, by = bound_ms(logits.element_size() * taps + nbytes(buf, out),
@@ -584,10 +585,10 @@ def kernel_phase(torch, ka, pf, dev):
             "max_abs_err": err,
             "ms": time_ms(torch, lambda: ka.kernel_gather_softmax(buf, logits, k), 20, flush),
             "device_ms": device_ms(torch, lambda: ka.kernel_gather_softmax(buf, logits, k),
-                                   "gather_softmax", flush),
+                                   "gather_softmax", flush, per_call=1),
             "plain_ms": time_ms(torch, lambda: ka.gather_softmax_plain(buf, logits, k), 3,
                                 flush),
-            "bound_ms": bms, "bound_by": by,
+            "bound_ms": bms, "bound_by": by, **bodies,
         }
         del conv_out, logits, out
     rows.append({
@@ -612,6 +613,49 @@ def kernel_phase(torch, ka, pf, dev):
 def rel_l2(torch, got, want):
     got, want = got.double(), want.double()
     return ((got - want).norm() / want.norm()).item()
+
+
+def gather_softmax_bodies(torch, ka, flush, buf, lg, k):
+    """K1's tiled body against its first body, bit for bit (each pixel's
+    sums in the same order, the same fused multiply-adds), and against itself
+    over two launches; with the first body's times on the same inputs."""
+    got = ka.gather_softmax(buf, lg, k)
+    ref = ka.gather_softmax(buf, lg, k, body="warp")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K1's tiled body is not the first body's bits: max |diff| "
+                             f"{(got - ref).abs().max().item()}")
+    if not torch.equal(ka.gather_softmax(buf, lg, k), got):
+        raise AssertionError("K1: a second launch gave other bits")
+    del got, ref
+
+    def first():
+        return ka.gather_softmax(buf, lg, k, body="warp")
+
+    return {"body": "tiled", "bit_for_bit": True, "first_body_bit_for_bit": True,
+            "first_body_ms": time_ms(torch, first, 20, flush),
+            "first_body_device_ms": device_ms(torch, first, "gather_softmax", flush, per_call=1)}
+
+
+def mlp_fused_bodies(torch, mf, flush, x, ws, bs, acts):
+    """K10-fwd's tiled body against its wmma body, bit for bit (the same k16
+    steps and rounding points), and against itself over two launches; with
+    the wmma body's times on the same inputs."""
+    got = mf.fused_mlp(x, ws, bs, acts)
+    ref = mf._mlp_fwd_kernel(x, ws, bs, acts, body="wmma")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K10-fwd's tiled body is not the wmma body's bits: max |diff| "
+                             f"{(got.float() - ref.float()).abs().max().item()}")
+    if not torch.equal(mf.fused_mlp(x, ws, bs, acts), got):
+        raise AssertionError("K10-fwd: a second launch gave other bits")
+    del got, ref
+
+    def first():
+        return mf._mlp_fwd_kernel(x, ws, bs, acts, body="wmma")
+
+    plan = mf.mlp_fwd_plan(x.shape[-1], tuple(w.shape[1] for w in ws), tuple(acts))
+    return {"body": plan.body, "bit_for_bit": True, "wmma_bit_for_bit": True,
+            "wmma_ms": time_ms(torch, first, 20, flush),
+            "wmma_device_ms": device_ms(torch, first, "mlp_fused", flush, per_call=1)}
 
 
 def outer_softmax_bodies(torch, ka, flush, cot, buf, lg, k):
@@ -783,7 +827,9 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
         time_ms(torch, lambda: mf._mlp_fwd_plain(x, ws, bs, acts), 3, flush),
         bound_ms(nbytes(x, y) + weight_bytes(ws), [(2 * n * mac, BF16_FLOPS)]), shape,
         library_note=note,
-        device_ms=device_ms(torch, lambda: mf.fused_mlp(x, ws, bs, acts), "mlp_fused", flush)))
+        device_ms=device_ms(torch, lambda: mf.fused_mlp(x, ws, bs, acts), "mlp_fused", flush,
+                            per_call=1),
+        **mlp_fused_bodies(torch, mf, flush, x, ws, bs, acts)))
     cot = torch.randn((n, dims[-1]), device=dev, generator=g).to(torch.bfloat16)
     plan = mf.mlp_bwd_plan(dims[0], dims[1:], acts)
     dx, dws, dbs = mf.mlp_fused_bwd(x, cot, ws, bs, acts, True)
@@ -859,7 +905,8 @@ def lbmc_kernel_phase(torch, ka, pf, mf, dev):
         # softmax ~5 f32 ops per tap (max, sub, exp, add, scale), 2 per channel
         bound_ms(2 * taps + nbytes(buf, out), [(taps * (5 + 2 * 3), F32_FLOPS)]), shape,
         device_ms=device_ms(torch, lambda: ka.kernel_gather_softmax(buf, lg, k),
-                            "gather_softmax", flush)))
+                            "gather_softmax", flush, per_call=1),
+        **gather_softmax_bodies(torch, ka, flush, buf, lg, k)))
     rows.append(kernel_row(
         "outer_softmax", "outer_softmax", "wcmc_tpu/ops/pallas_kernels.py:410", err2,
         time_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k), 20, flush),
@@ -1257,15 +1304,18 @@ def check_embed_body(kinds, where):
 
 # the body each redesigned kernel must run on every path, by launch counter
 # (K7 and K8 on the SBMC paths, K10-bwd and K3 on LBMC's step, K2 on KPCN's
-# and LBMC's), where the first body files under the counter's own name
+# and LBMC's, K1 on every KPCN and LBMC path, K10-fwd on LBMC's), where the
+# first body files under the counter's own name
 REDESIGNED_BODIES = {"scatter": "scatter_banded", "outer": "outer_tiled",
                      "mlp_fused_bwd": "mlp_fused_bwd_tiled",
                      "outer_softmax": "outer_softmax_tiled",
-                     "scatter_softmax": "scatter_softmax_banded"}
+                     "scatter_softmax": "scatter_softmax_banded",
+                     "gather_softmax": "gather_softmax_tiled",
+                     "mlp_fused": "mlp_fused_tiled"}
 
 
 def check_redesigned_body(kinds, where, counters):
-    """K7, K8, K10-bwd, K2 and K3 run their redesigned bodies on the paths:
+    """K7, K8, K10-bwd, K2, K3, K1 and K10-fwd run their redesigned bodies on the paths:
     for each launch counter of ``counters`` the profile's device entries
     must be its new body's (``REDESIGNED_BODIES``), none its first body's."""
     for counter in counters:
@@ -1289,9 +1339,11 @@ def device_kind(name):
     tiled body, ``outer_tiled``, apart from the first one ``outer``,
     K10-bwd's tiled body, ``mlp_fused_bwd_tiled``, apart from its wmma body
     ``mlp_fused_bwd``, K2's tiled body, ``outer_softmax_tiled``, apart from
-    its first one ``outer_softmax``, and K3's banded body and its band sums,
+    its first one ``outer_softmax``, K3's banded body and its band sums,
     ``scatter_softmax_banded``, apart from its gather body and statistics
-    ``scatter_softmax``), the
+    ``scatter_softmax``, K1's tiled body, ``gather_softmax_tiled``, apart
+    from its first one ``gather_softmax``, and K10-fwd's tiled body,
+    ``mlp_fused_tiled``, apart from its wmma body ``mlp_fused``), the
     library convolutions and products, copies, or the rest (PyTorch's
     elementwise, reduction and copy kernels)."""
     m = re.search(r"wcmc::(\w+)", name)

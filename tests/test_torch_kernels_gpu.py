@@ -27,8 +27,11 @@ relative L2, for the reasons above (leaky relu takes the other slope
 where a recomputed pre-activation lies within rounding of zero).  K2's
 tiled body equals its first body bit for bit (the same sums in the same
 order); K3's banded body is held within 1e-5 of max of its gather body
-(the same f32 probabilities, d buf summed in another order).  TF32 is off
-for every f32 product compared here."""
+(the same f32 probabilities, d buf summed in another order).  K1's tiled
+body equals its first body bit for bit (each pixel's sums in the same
+order, the same fused multiply-adds), and K10-fwd's tiled body its wmma
+body (the same k16 steps and rounding points).  TF32 is off for every f32
+product compared here."""
 
 import pytest
 import torch
@@ -492,10 +495,10 @@ def test_mlp_bwd_plan_is_the_kernels_shared_memory(cuda, c0, widths):
 
 
 def test_mlp_fused_forward_keeps_its_body(cuda):
-    """K10-fwd still runs its first body, and K10-bwd at LayerNet's chain
-    its tiled one: the profiled device entries of a forward and backward
-    through autograd are ``mlp_fused`` and ``mlp_fused_bwd_tiled`` (with
-    the partials' sum), none of the wmma backward's."""
+    """K10-fwd and K10-bwd run their tiled bodies at LayerNet's chain: the
+    profiled device entries of a forward and backward through autograd are
+    ``mlp_fused_tiled`` and ``mlp_fused_bwd_tiled`` (with the partials'
+    sum), none of the wmma bodies'."""
     import importlib.util
     import pathlib
 
@@ -514,8 +517,8 @@ def test_mlp_fused_forward_keeps_its_body(cuda):
         torch.autograd.grad(out, [xg] + params, cot.to(torch.bfloat16))
         torch.cuda.synchronize()
     kinds = {cs.device_kind(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA}
-    assert {"mlp_fused", "mlp_fused_bwd_tiled", "reduce_parts"} <= kinds
-    assert "mlp_fused_bwd" not in kinds
+    assert {"mlp_fused_tiled", "mlp_fused_bwd_tiled", "reduce_parts"} <= kinds
+    assert not kinds & {"mlp_fused", "mlp_fused_bwd"}
 
 
 def _kernel_head_logits(cuda, g, b, h, w, ksize, dtype, layer):
@@ -1745,3 +1748,185 @@ def test_fused_kpcn_tile_on_the_card_matches_the_cpu(cuda, monkeypatch):
     _close(rad.cpu(), ref_rad, 1e-2)
     for k in ref_p:
         _close(p[k].cpu(), ref_p[k], 1e-2)
+
+
+# ---------------------------------------------------------------------------
+# K1's tiled body and K10-fwd's tiled body against their first bodies
+# ---------------------------------------------------------------------------
+
+def _check_gather_softmax_tiled(buf, lg, ksize):
+    """K1's tiled body: bit for bit the first body and itself over two
+    launches, within K1_TOL of the plain version."""
+    _build.reset_counts()
+    got = ka.gather_softmax(buf, lg, ksize)
+    assert dict(_build.launches) == {"gather_softmax": 1} and not _build.plain_calls
+    assert got.dtype == buf.dtype and got.is_contiguous()
+    ref = ka.gather_softmax(buf, lg, ksize, body="warp")
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+    del ref
+    assert torch.equal(ka.gather_softmax(buf, lg, ksize), got)
+    _close(got, ka.gather_softmax_plain(buf, lg, ksize), K1_TOL)
+
+
+# the K2 / K3 cases and KPCN's 256-pixel tiles without paths
+GATHER_SOFTMAX_CASES = SOFTMAX_CASES + [(8, 256, 256, 21, "crop")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,ksize,view", GATHER_SOFTMAX_CASES)
+def test_gather_softmax_tiled(cuda, b, h, w, ksize, view, dtype):
+    """K1's tiled body at K 5, 13 and 21, widths 256, 128, 72, 45 and 17,
+    ragged h, contiguous logits, LBMC's two layer views, KPCN's crop, and the
+    three path shapes."""
+    _, buf, lg = _softmax_case(cuda, b, h, w, ksize, dtype, view, 40)
+    assert ka.gather_softmax_route(buf, lg, ksize, _build.sm_count(0)).body == "tiled"
+    _check_gather_softmax_tiled(buf, lg, ksize)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+@pytest.mark.parametrize("ksize", [5, 13])
+def test_gather_softmax_tiled_channels(cuda, c, ksize):
+    """The run-time-K forms at other channel counts (16-byte window rows
+    only where a row's first pixel starts on 16 bytes)."""
+    g = _gen(41)
+    b, h, w = 2, 19, 45
+    lg = _softmax_logits(cuda, g, b, h, w, ksize, torch.bfloat16, "layer1")
+    buf = torch.rand((b, h + ksize - 1, w + ksize - 1, c), device=cuda, generator=g)
+    _check_gather_softmax_tiled(buf, lg, ksize)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_softmax_tiled_unaligned_inputs(cuda, dtype):
+    """Logits 2 (bf16) or 4 (f32) bytes off 16 and a buffer 4 bytes off 16:
+    every landed span takes its 4-byte or zero-filled 16-byte copies, with
+    the bits of the first body."""
+    g = _gen(42)
+    b, h, w, k = 2, 21, 40, 13
+    lg = _softmax_logits(cuda, g, b, h, w, k, dtype, "offset")
+    flat = torch.rand(b * (h + k - 1) * (w + k - 1) * 3 + 1, device=cuda, generator=g)
+    buf = flat[1:].view(b, h + k - 1, w + k - 1, 3)
+    assert lg.data_ptr() % 16 and buf.data_ptr() % 16
+    _check_gather_softmax_tiled(buf, lg, k)
+
+
+def test_gather_softmax_above_k21_runs_the_first_body(cuda):
+    """K above 21 goes to the first body by the route, not by a failure; the
+    tiled body, asked for, refuses it."""
+    g = _gen(43)
+    b, h, w, k = 1, 6, 9, 23
+    lg = _softmax_logits(cuda, g, b, h, w, k, torch.bfloat16, "contiguous")
+    buf = torch.rand((b, h + k - 1, w + k - 1, 3), device=cuda, generator=g)
+    assert ka.gather_softmax_route(buf, lg, k) == ka.SoftmaxRoute("warp", (), "")
+    got = ka.gather_softmax(buf, lg, k)
+    assert torch.equal(got, ka.gather_softmax(buf, lg, k, body="warp"))
+    _close(got, ka.gather_softmax_plain(buf, lg, k), K1_TOL)
+    with pytest.raises(ValueError):
+        ka.gather_softmax(buf, lg, k, body="tiled")
+
+
+@pytest.mark.parametrize("es", [2, 4])
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+@pytest.mark.parametrize("ksize", [5, 13, 21])
+def test_gather_softmax_plan_is_the_kernels_shared_memory(cuda, ksize, c, es):
+    """``gather_softmax_plan``'s total is the dynamic shared memory K1's
+    tiled body gives a block (the kernel also checks its own carve against it
+    at every launch)."""
+    import ctypes
+
+    fn = _build.library().wcmc_gather_softmax_tiled_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    for w in (17, 72, 128, 256):
+        plan = ka.gather_softmax_plan(2, 16, w, c, ksize, es)
+        assert fn(plan.run, c, ksize, es) == plan.total
+
+
+def test_gather_softmax_runs_its_new_body(cuda):
+    """K1 at the path shapes runs its tiled body: its profiled device entries
+    at LBMC's layer-1 view and KPCN's crop, three calls of each, are
+    ``gather_softmax_tiled``, none the first body's (``gather_softmax``) or
+    K9's (``gather``).  A profiled window can lose its first entry, so one of
+    the six may be missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = _chip_smoke()
+    g = _gen(44)
+    calls = []
+    for b, h, w, k, view in ((8, 128, 128, 13, "layer1"), (8, 72, 72, 21, "crop")):
+        lg = _softmax_logits(cuda, g, b, h, w, k, torch.bfloat16, view)
+        buf = torch.rand((b, h + k - 1, w + k - 1, 3), device=cuda, generator=g)
+        calls.append(lambda buf=buf, lg=lg, k=k: ka.kernel_gather_softmax(buf, lg, k))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    kinds = [cs.device_kind(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert kinds.count("gather_softmax_tiled") >= 5
+    assert not set(kinds) & {"gather_softmax", "gather"}
+
+
+def _check_mlp_fwd_tiled(x, ws, bs, acts):
+    """K10-fwd's tiled body: bit for bit its wmma body and itself over two
+    launches, within BF16_TOL of the plain version."""
+    _build.reset_counts()
+    got = mf._mlp_fwd_kernel(x, ws, bs, acts)
+    assert dict(_build.launches) == {"mlp_fused": 1} and not _build.plain_calls
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    ref = mf._mlp_fwd_kernel(x, ws, bs, acts, body="wmma")
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
+    assert torch.equal(mf._mlp_fwd_kernel(x, ws, bs, acts), got)
+    _close(got, mf._mlp_fwd_plain(x, ws, bs, acts), BF16_TOL)
+    return got
+
+
+@pytest.mark.parametrize("acts", [LEAKY3, ("relu", "leaky_relu", "linear")])
+@pytest.mark.parametrize("n,c0", [(1000, 27), (3 * 64 + 37, 32), (8 * 8 * 128 * 128, 32),
+                                  (1000, 5), (64 * 8 * 132 + 1, 27), (1, 32), (77, 1)])
+def test_mlp_fused_tiled(cuda, n, c0, acts):
+    """K10-fwd's tiled body (LayerNet's chain, 32 wide; C0 27 without the
+    PathNet, 32 with it): at ragged row counts, at the LBMC shape, at narrow
+    C0 and where the slabs outnumber the warps of a full grid."""
+    assert mf.mlp_fwd_plan(c0, (32, 32, 32), acts).body == "tiled"
+    x, ws, bs, _ = _mlp_case(cuda, n, c0, 45)
+    _check_mlp_fwd_tiled(x, ws, bs, acts)
+
+
+def test_mlp_fused_tiled_unaligned_inputs(cuda):
+    """x and an output that do not start on 16 bytes: x lands by 2-byte
+    loads and the output (the C entry's own argument; the wrapper's is
+    fresh) leaves by 2-byte stores, with the bits of aligned tensors."""
+    P, INT = _build.PTR, _build.INT
+    fn = _build.kernel("wcmc_mlp_fused_tiled", *([P] * 8), _build.LONG, *([INT] * 6), P)
+    sms = _build.sm_count(0)
+    for c0 in (27, 32):
+        n = 5 * 64 + 11
+        x, ws, bs, _ = _mlp_case(cuda, n, c0, 46)
+        xs = torch.empty(n * c0 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(n, c0)
+        xs.copy_(x)
+        out = torch.empty(n * 32 + 3, dtype=torch.bfloat16, device=cuda)[3:].view(n, 32)
+        assert xs.is_contiguous() and xs.data_ptr() % 16 and out.data_ptr() % 16
+        got = _check_mlp_fwd_tiled(xs, ws, bs, LEAKY3)
+        _build.check(fn(x.data_ptr(), *(t.data_ptr() for t in (*ws, *bs)), out.data_ptr(), n, c0,
+                        2, 2, 2, mf.mlp_fwd_plan(c0, (32, 32, 32), LEAKY3).grid(n, sms), 0,
+                        _build.stream_of(cuda)), "mlp_fused")
+        assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("c0,widths", [(32, (32, 32, 32)), (27, (32, 32, 32)), (1, (32, 32, 32)),
+                                       (40, (32, 32, 32)), (36, (64, 64, 64)), (32, (16,)),
+                                       (64, (64, 48, 32, 16))])
+def test_mlp_fwd_plan_is_the_kernels_shared_memory(cuda, c0, widths):
+    """``mlp_fwd_plan``'s total is the dynamic shared memory K10-fwd's body
+    gives a block of the form (the tiled kernel also checks its own carve
+    against it at every launch)."""
+    import ctypes
+
+    fn = _build.library().wcmc_mlp_fused_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    plan = mf.mlp_fwd_plan(c0, widths, ("linear",) * len(widths))
+    padded = list(widths) + [0] * (4 - len(widths))
+    assert fn(c0, len(widths), *padded, int(plan.body == "tiled")) == plan.total

@@ -217,10 +217,10 @@ def _chip_smoke():
 
 def test_chip_smoke_tells_the_mlp_bwd_bodies_apart():
     """K10-bwd's tiled body files as ``mlp_fused_bwd_tiled``, its wmma body
-    as ``mlp_fused_bwd``, their partials' sum as ``reduce_parts``, K10-fwd
-    as ``mlp_fused``.  A profile of the LBMC step in which the wmma body
-    ran, or the tiled one did not, is refused; ``device_ms`` of K10-bwd
-    reads either body's entries and not the partials' sum."""
+    as ``mlp_fused_bwd``, their partials' sum as ``reduce_parts``, K10-fwd's
+    wmma body as ``mlp_fused``.  A profile of the LBMC step in which the
+    wmma body ran, or the tiled one did not, is refused; ``device_ms`` of
+    K10-bwd reads either body's entries and not the partials' sum."""
     cs = _chip_smoke()
     tiled = "void wcmc::mlp_fused_bwd_tiled_kernel<2, 2, 2>(wcmc::MlpBwdTiledArgs)"
     generic = "void wcmc::mlp_fused_bwd_tiled_kernel<-1, -1, -1>(wcmc::MlpBwdTiledArgs)"
@@ -233,9 +233,12 @@ def test_chip_smoke_tells_the_mlp_bwd_bodies_apart():
         assert cs.device_kind(name) == kind
     assert cs.REDESIGNED_BODIES["mlp_fused_bwd"] == "mlp_fused_bwd_tiled"
     counters = [k for k in cs.REDESIGNED_BODIES if k in cs.TRAIN_LAUNCHES["lbmc"]]
-    # the LBMC step's other redesigned kernels, K2 and K3, on their new bodies
-    assert counters == ["mlp_fused_bwd", "outer_softmax", "scatter_softmax"]
-    others = {"outer_softmax_tiled": 0.08, "scatter_softmax_banded": 0.07}
+    # the LBMC step's other redesigned kernels, K2, K3, K1 and K10-fwd, on
+    # their new bodies
+    assert counters == ["mlp_fused_bwd", "outer_softmax", "scatter_softmax", "gather_softmax",
+                        "mlp_fused"]
+    others = {"outer_softmax_tiled": 0.08, "scatter_softmax_banded": 0.07,
+              "gather_softmax_tiled": 0.1, "mlp_fused_tiled": 0.06}
     cs.check_redesigned_body({"mlp_fused_bwd_tiled": 0.1, "reduce_parts": 0.01, **others},
                              "train", counters)
     for kinds in ({"mlp_fused_bwd": 0.7, "reduce_parts": 0.01, **others},

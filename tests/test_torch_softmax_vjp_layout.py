@@ -345,7 +345,8 @@ def test_chip_smoke_tells_the_softmax_bodies_apart():
     bodies (``outer_softmax``; ``scatter_softmax``, the statistics and the
     gather) and from K7's and K8's kinds.  ``device_ms`` of K3 reads both
     launches of a call.  A KPCN or LBMC train profile whose K2 or K3
-    entries are a first body's, or lack the new one's, is refused."""
+    entries are a first body's, or lack the new one's, is refused (its K1,
+    and LBMC's K10, on their new bodies)."""
     cs = _chip_smoke()
     names = {
         "void wcmc::outer_softmax_tiled_kernel<__nv_bfloat16, 3, 6>("
@@ -369,14 +370,16 @@ def test_chip_smoke_tells_the_softmax_bodies_apart():
     assert cs.REDESIGNED_BODIES["scatter_softmax"] == "scatter_softmax_banded"
     lbmc = [k for k in cs.REDESIGNED_BODIES if k in cs.TRAIN_LAUNCHES["lbmc"]]
     kpcn = [k for k in cs.REDESIGNED_BODIES if k in cs.TRAIN_LAUNCHES["kpcn"]]
-    assert {"outer_softmax", "scatter_softmax"} <= set(lbmc) and kpcn == ["outer_softmax"]
-    good = {"outer_softmax_tiled": 0.08, "scatter_softmax_banded": 0.07,
-            "mlp_fused_bwd_tiled": 0.1}
+    assert {"outer_softmax", "scatter_softmax"} <= set(lbmc)
+    assert kpcn == ["outer_softmax", "gather_softmax"]
+    others = {"mlp_fused_bwd_tiled": 0.1, "gather_softmax_tiled": 0.1, "mlp_fused_tiled": 0.1}
+    good = {"outer_softmax_tiled": 0.08, "scatter_softmax_banded": 0.07, **others}
     cs.check_redesigned_body(good, "train_lbmc", lbmc)
-    cs.check_redesigned_body({"outer_softmax_tiled": 0.05}, "train", kpcn)
+    cs.check_redesigned_body({"outer_softmax_tiled": 0.05, "gather_softmax_tiled": 0.09},
+                             "train", kpcn)
     for bad in ({**good, "outer_softmax": 0.2}, {**good, "scatter_softmax": 0.2},
-                {"outer_softmax_tiled": 0.08, "mlp_fused_bwd_tiled": 0.1},
-                {"outer_softmax": 0.44, "scatter_softmax": 0.43, "mlp_fused_bwd_tiled": 0.1}):
+                {"outer_softmax_tiled": 0.08, **others},
+                {"outer_softmax": 0.44, "scatter_softmax": 0.43, **others}):
         with pytest.raises(AssertionError):
             cs.check_redesigned_body(bad, "train_lbmc", lbmc)
     band = "void wcmc::scatter_softmax_banded_kernel<__nv_bfloat16, 3, 13>(x)"

@@ -1,4 +1,5 @@
-// K1: per-pixel softmax kernel application (the KPCN 21x21 gather).
+// K1: per-pixel softmax kernel application (the KPCN 21x21 and LBMC 13x13
+// gathers).
 //
 //   out[b, y, x, c] = sum_{d < K*K} softmax_d(logits[b, y, x, :]) * buf[b, y + d / K, x + d % K, c]
 //
@@ -6,30 +7,316 @@
 // (Pallas bodies _gather_kernel and _softmax_stats).
 //
 // What bounds it on the H100: memory.  Each output pixel reads its K*K
-// logits once (882 bytes in bf16 at K=21) and does ~5 flops per logit, so
-// the logits tensor dominates the bytes and the kernel is far below the
-// card's flop/byte balance.  The radiance buffer (3 channels, under 1 MB
-// per 8-tile batch) stays in L2 and is re-read through L1 by neighbouring
-// pixels.
+// logits once (882 bytes in bf16 at K = 21, 338 at K = 13) and does ~11
+// flops per logit, so the logits tensor dominates the bytes (48 MB at
+// LBMC's shape, 38 MB at KPCN's) and the kernel is far below the card's
+// flop/byte balance.  The radiance buffer (3 channels, under 2 MB per
+// 8-tile batch) stays in L2.
 //
-// Design: the gather of gather.cuh, shared with K9, with the softmax
-// step: one warp per output pixel, lanes on consecutive taps of the
-// logits as the convolution wrote them (the TPU kernel's transpose to
-// channel-major and its (8, 128) row/lane padding are not needed); three
-// passes over the pixel's logits (max, sum of exp, weighted tap sum).
+// Two bodies; the wrapper (ops/kernel_apply.py::gather_softmax_plan) runs
+// the tiled one, and the first port's one only when asked (the card tests'
+// reference) or for K above 21:
+//
+// * the tiled body (gather_softmax_tiled_kernel), K2's tiled body
+//   (outer_softmax.cu) without the cotangent.  A run is T = 8 to 32 pixels
+//   of one row (the plan picks T so runs tile the row), so its outputs are
+//   one contiguous span of T C floats; persistent blocks take units of R
+//   runs down a column in turn (R from the shape and the SM count, so every
+//   path shape fills the card).  The window of K buffer rows x (T + K - 1)
+//   pixels slides down the unit through a ring of K + 1 row slots, each row
+//   kept twice; each run lands one new row and its pixels' logits while the
+//   run before computes, under an mbarrier a buffer.  The logits are a
+//   strided view whose pixels start on any 2-byte boundary
+//   (softmax_runs.cuh): each pixel's taps land once, as their
+//   16-byte-aligned superset, and the reader skips the leading bytes.
+//   Warps take the run's pixels, lanes the taps d = lane + 32 j, exactly as
+//   the first body does: the max per lane then warp_max, expf(l - m) once a
+//   tap kept in registers and summed per lane in j order then warp_sum, p =
+//   e * (1 / sum), then a fused multiply-add chain a channel per lane in j
+//   order from the window ring (every load issued before the first chain),
+//   then warp_sum a channel.  So the two bodies agree bit for bit (the first
+//   body's `acc += p * q` is contracted to the same fused multiply-add by
+//   nvcc's default -fmad).  Outputs go to a double-buffered staging tile
+//   and leave by 16-byte stores (plain ones where the span does not start
+//   and end on 16 bytes), one block barrier a run.
+// * the first port's body, the gather of gather.cuh shared with K9: one
+//   warp per output pixel, its logits read three times through the strided
+//   view and each tap's C buffer values through L1.
 #include "gather.cuh"
+#include "hopper.cuh"
+#include "softmax_runs.cuh"
+
+namespace wcmc {
+
+// The tiled body's dynamic shared memory, in the order the kernel carves it:
+// the window ring (K + 1 row slots, each twice), two landed logit runs, two
+// staging tiles of a run's outputs, the mbarriers.
+inline size_t gather_softmax_tiled_smem(int T, int C, int K, int es) {
+  return smem_bytes((size_t)2 * (K + 1) * softmax_win_pitch(T, C, K), 4) +
+         smem_bytes((size_t)2 * T * softmax_lpitch(K * K, es), 1) +
+         smem_bytes((size_t)2 * T * C, 4) + smem_bytes(2, 8);
+}
+
+template <typename TL>
+struct GatherSoftmaxArgs {
+  const float* buf;  // (B, h + K - 1, w + K - 1, C)
+  const TL* logits;  // (B, h, w, K*K) view: element strides ls_b, ls_y, ls_x, unit tap stride
+  float* out;        // (B, h, w, C) contiguous
+  long long ls_b, ls_y, ls_x;
+  const unsigned char* l_end;  // one past the view's last byte
+  int B, h, w, K, T, R;
+};
+
+// kJ: taps a lane, 6 for K <= 13 (three blocks an SM, at most 85
+// registers), 14 for K <= 21 (two blocks, at most 128 registers).  kK: K
+// fixed at compile time for the path forms (13, 21: the tap guards and window
+// offsets fold), or 0.
+template <typename TL, int kC, int kJ, int kK>
+__global__ void __launch_bounds__(kThreads, kJ <= 6 ? 3 : 2)
+    gather_softmax_tiled_kernel(GatherSoftmaxArgs<TL> a) {
+  constexpr int es = sizeof(TL);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int K = kK > 0 ? kK : a.K, K2 = K * K, T = a.T, H = a.h + K - 1, W = a.w + K - 1;
+  const int pitch = softmax_win_pitch(T, kC, K), lpitch = softmax_lpitch(K2, es);
+  const int slots = K + 1;  // window ring rows; each row is kept twice, at s and s + K + 1
+  SmemCarver carve{smem, 0};
+  float* s_win = carve.take<float>((size_t)2 * slots * pitch);
+  unsigned char* s_lg = carve.take<unsigned char>((size_t)2 * T * lpitch);
+  float* s_out = carve.take<float>(2 * T * kC);
+  unsigned long long* s_bars = carve.take<unsigned long long>(2);
+  // the carve is what gather_softmax_tiled_smem sums
+  if (carve.offset != dynamic_smem_size()) __trap();
+
+  // the warp index through a shuffle, which the compiler knows to be the same
+  // in every lane: the pixel loop's warp_max / warp_sum then compile without
+  // the divergent-collective fix-ups they get with tid / 32
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int nr = (a.w + T - 1) / T, nc = (a.h + a.R - 1) / a.R;
+  const int n_units = a.B * nc * nr;  // the entry checks B h nr < 2^31
+  const unsigned bar0 = smem_addr(s_bars);
+  if (tid == 0) {
+    for (int st = 0; st < 2; ++st) mbar_init(bar0 + 8 * st, kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the lane's taps d = lane + 32 j as offsets into a pixel's window, whose
+  // K rows lie one pitch apart from its first row's ring slot
+  int woff[kJ];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    const int d = lane + 32 * j, dy = d / K;
+    woff[j] = d < K2 ? dy * pitch + (d - dy * K) * kC : 0;
+  }
+  auto taps_of = [&](int b, int y, int x) {
+    return a.logits + b * a.ls_b + y * a.ls_y + x * a.ls_x;
+  };
+  const int lstep = (int)((a.ls_x * es) & 15);  // a pixel's step, in bytes mod 16
+
+  // Into buffer st (mbarrier st): the logits of run y of the unit at (b, x0),
+  // n pixels wide, and buffer rows [r0, r1) of its window (n + K - 1 pixels
+  // each) into ring slots r % (K + 1) and r % (K + 1) + K + 1; every
+  // thread's cp.asyncs, then its arrival.
+  auto fetch = [&](int st, int b, int y, int x0, int n, int r0, int r1) {
+    const int len = (n + K - 1) * kC;
+    for (int row = r0; row < r1; ++row) {
+      const float* rs = a.buf + (((long long)b * H + row) * W + x0) * kC;
+      float* slot = s_win + (size_t)(row % slots) * pitch;
+      land_span(slot, rs, len);
+      land_span(slot + (size_t)slots * pitch, rs, len);
+    }
+    land_logit_run(s_lg + (size_t)st * T * lpitch, taps_of(b, y, x0), a.ls_x, n, K2, lpitch,
+                   a.l_end);
+    cp_async_mbar_arrive(bar0 + 8 * st);
+  };
+
+  int k = 0;  // the block's runs so far: run k uses buffer k & 1
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int x0 = u % nr * T, n = min(T, a.w - x0);
+    const int y0 = u / nr % nc * a.R, y1 = min(a.h, y0 + a.R);
+    const int b = u / (nr * nc);
+    // the unit's first window whole (the previous unit's reads ended at the
+    // barrier after its last run)
+    fetch(k & 1, b, y0, x0, n, y0, y0 + K);
+    for (int y = y0; y < y1; ++y, ++k) {
+      const int st = k & 1;
+      // the next run's logits and its one new row, into the slot of row y -
+      // 1, which run y - 1 was the last to read
+      if (y + 1 < y1) fetch(st ^ 1, b, y + 1, x0, n, y + K, y + K + 1);
+      mbar_wait(bar0 + 8 * st, (k >> 1) & 1);  // this run's logits and rows have landed
+
+      const float* win = s_win + (size_t)(y % slots) * pitch;
+      const unsigned char* lg = s_lg + (size_t)st * T * lpitch;
+      float* o = s_out + st * T * kC;
+      const int lead0 = softmax_lead(taps_of(b, y, x0));
+      for (int p = warp; p < n; p += kWarps) {
+        // the first body's softmax: max, then sum of exp, lanes on taps
+        const TL* lp = reinterpret_cast<const TL*>(lg + p * lpitch + ((lead0 + p * lstep) & 15));
+        float lv[kJ];
+        float m = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const int d = lane + 32 * j;
+          lv[j] = d < K2 ? to_f32(lp[d]) : -INFINITY;
+          m = fmaxf(m, lv[j]);
+        }
+        m = warp_max(m);
+        float s = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          lv[j] = lane + 32 * j < K2 ? expf(lv[j] - m) : 0.0f;
+          s += lv[j];
+        }
+        const float inv = 1.0f / warp_sum(s);
+
+        const float* wp = win + p * kC;
+        float acc[kC];
+#pragma unroll
+        for (int c = 0; c < kC; ++c) acc[c] = 0.0f;
+        if constexpr (kJ * kC <= 48) {
+          // every tap's window values first, so the loads are all in flight
+          // before the first chain needs one
+          float q[kJ][kC];
+#pragma unroll
+          for (int j = 0; j < kJ; ++j)
+            if (lane + 32 * j < K2) load_channels<kC>(wp + woff[j], q[j]);
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) {
+            if (lane + 32 * j < K2) {
+              const float pj = lv[j] * inv;  // the probability P_d
+#pragma unroll
+              for (int c = 0; c < kC; ++c) acc[c] = __fmaf_rn(pj, q[j][c], acc[c]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) {
+            if (lane + 32 * j < K2) {
+              float q[kC];
+              load_channels<kC>(wp + woff[j], q);
+              const float pj = lv[j] * inv;
+#pragma unroll
+              for (int c = 0; c < kC; ++c) acc[c] = __fmaf_rn(pj, q[c], acc[c]);
+            }
+          }
+        }
+        warp_sum_n<kC>(acc);
+        if (lane == 0) {
+#pragma unroll
+          for (int c = 0; c < kC; ++c) o[p * kC + c] = acc[c];
+        }
+      }
+      // every warp is done with this run's logits, its window row y and the
+      // tile st - 2 runs ago stored; the run's outputs are in the tile
+      __syncthreads();
+      float* dst = a.out + (((long long)b * a.h + y) * a.w + x0) * kC;
+      const int nf = n * kC;
+      if (aligned16(dst) && nf % 4 == 0) {
+        for (int e = tid; e < nf / 4; e += kThreads)
+          reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(o)[e];
+      } else {
+        for (int e = tid; e < nf; e += kThreads) dst[e] = o[e];
+      }
+    }
+  }
+}
+
+template <typename TL, int kC, int kJ, int kK>
+inline cudaError_t launch_gather_softmax_tiled_k(const GatherSoftmaxArgs<TL>& a, int blocks,
+                                                 int device, cudaStream_t stream) {
+  const size_t smem = gather_softmax_tiled_smem(a.T, kC, a.K, sizeof(TL));
+  cudaError_t err = set_smem(gather_softmax_tiled_kernel<TL, kC, kJ, kK>, smem, device);
+  if (err != cudaSuccess) return err;
+  gather_softmax_tiled_kernel<TL, kC, kJ, kK><<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename TL, int kC>
+inline cudaError_t launch_gather_softmax_tiled_c(const GatherSoftmaxArgs<TL>& a, int blocks,
+                                                 int device, cudaStream_t stream) {
+  return a.K * a.K <= 6 * 32
+             ? launch_gather_softmax_tiled_k<TL, kC, 6, 0>(a, blocks, device, stream)
+             : launch_gather_softmax_tiled_k<TL, kC, 14, 0>(a, blocks, device, stream);
+}
+
+template <typename TL>
+inline cudaError_t launch_gather_softmax_tiled(const GatherSoftmaxArgs<TL>& a, int C, int blocks,
+                                               int device, cudaStream_t s) {
+  // the path forms, bf16 logits and 3 channels at LBMC's K and KPCN's
+  if constexpr (sizeof(TL) == 2) {
+    if (C == 3 && a.K == 13) return launch_gather_softmax_tiled_k<TL, 3, 6, 13>(a, blocks, device, s);
+    if (C == 3 && a.K == 21) return launch_gather_softmax_tiled_k<TL, 3, 14, 21>(a, blocks, device, s);
+  }
+  switch (C) {
+    case 1: return launch_gather_softmax_tiled_c<TL, 1>(a, blocks, device, s);
+    case 2: return launch_gather_softmax_tiled_c<TL, 2>(a, blocks, device, s);
+    case 3: return launch_gather_softmax_tiled_c<TL, 3>(a, blocks, device, s);
+    case 4: return launch_gather_softmax_tiled_c<TL, 4>(a, blocks, device, s);
+    case 5: return launch_gather_softmax_tiled_c<TL, 5>(a, blocks, device, s);
+    case 6: return launch_gather_softmax_tiled_c<TL, 6>(a, blocks, device, s);
+    case 7: return launch_gather_softmax_tiled_c<TL, 7>(a, blocks, device, s);
+    default: return launch_gather_softmax_tiled_c<TL, 8>(a, blocks, device, s);
+  }
+}
+
+}  // namespace wcmc
 
 using namespace wcmc;
 
 // buf (B, H, W, C) f32 contiguous; logits (B, h, w, K*K) with element
 // strides ls_b, ls_y, ls_x and unit tap stride, f32 or bf16
 // (logits_bf16 != 0); out (B, h, w, C) f32 contiguous; h = H - K + 1,
-// w = W - K + 1.
+// w = W - K + 1.  The first port's body: one warp per pixel.
 extern "C" int wcmc_gather_softmax(const void* buf, const void* logits, int logits_bf16, void* out,
                                    int B, int H, int W, int C, int K, long long ls_b, long long ls_y,
                                    long long ls_x, int device, void* stream) {
   return launch_gather<true>(buf, logits, logits_bf16, out, B, H, W, C, K, ls_b, ls_y, ls_x,
                              device, stream);
+}
+
+// The tiled body's dynamic shared memory for runs of T pixels and logits of
+// es bytes (what ops/kernel_apply.py's gather_softmax_plan sums as its total).
+extern "C" long long wcmc_gather_softmax_tiled_smem(int T, int C, int K, int es) {
+  return (long long)gather_softmax_tiled_smem(T, C, K, es);
+}
+
+// The tiled body, with the first port's contract and K*K <= 448; l_span: the
+// elements from the logits' first to one past their last (sum over dims of
+// (size - 1) x stride, plus one), the strides non-negative; T: pixels a run
+// (a multiple of 8, at most 32); R: runs a unit; n_blocks: the persistent
+// blocks to launch at most.
+extern "C" int wcmc_gather_softmax_tiled(const void* buf, const void* logits, int logits_bf16,
+                                         void* out, int B, int H, int W, int C, int K,
+                                         long long ls_b, long long ls_y, long long ls_x,
+                                         long long l_span, int T, int R, int n_blocks, int device,
+                                         void* stream) {
+  const int h = H - K + 1, w = W - K + 1;
+  if (C < 1 || C > kMaxChannels || K < 1 || K * K > 32 * 14 || h < 1 || w < 1 || B < 0 ||
+      T < 8 || T > kSoftmaxMaxRun || T % 8 || R < 1 || n_blocks < 1 || ls_b < 0 || ls_y < 0 ||
+      ls_x < 0 || l_span < 1)
+    return cudaErrorInvalidValue;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  const long long nr = (w + T - 1) / T;
+  if ((long long)B * h * nr == 0) return cudaSuccess;
+  if ((long long)B * h * nr + n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long n_units = (long long)B * ((h + R - 1) / R) * nr;
+  const int blocks = (int)(n_units < n_blocks ? n_units : n_blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bp = static_cast<const float*>(buf);
+  float* op = static_cast<float*>(out);
+  if (logits_bf16) {
+    const bf16* lg = static_cast<const bf16*>(logits);
+    const GatherSoftmaxArgs<bf16> a{bp, lg, op, ls_b, ls_y, ls_x,
+                                    reinterpret_cast<const unsigned char*>(lg + l_span), B, h, w,
+                                    K, T, R};
+    return launch_gather_softmax_tiled(a, C, blocks, device, s);
+  }
+  const float* lg = static_cast<const float*>(logits);
+  const GatherSoftmaxArgs<float> a{bp, lg, op, ls_b, ls_y, ls_x,
+                                   reinterpret_cast<const unsigned char*>(lg + l_span), B, h, w,
+                                   K, T, R};
+  return launch_gather_softmax_tiled(a, C, blocks, device, s);
 }
 
 extern "C" const char* wcmc_error_string(int err) {

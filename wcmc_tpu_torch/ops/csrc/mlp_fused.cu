@@ -13,18 +13,41 @@
 // writes the output, 67 MB each, for ~6.4 GFLOP: ~0.040 ms of bytes
 // against ~0.007 ms of bf16 tensor-core time.
 //
-// Design: the Pallas grid streams row tiles with the weights resident in
-// VMEM.  Here persistent blocks (as many as fit per SM) walk over tiles of
-// 128 rows, the weights (at most 4 layers of 64 x 64 bf16, 37 KB) are
-// staged in shared memory once per block, and the hiddens never leave
-// shared memory: they ping-pong between two tiles.  Rows are copied in and
-// out 16 bytes a thread.  Each layer runs on the tensor cores through
-// warp-level wmma (bf16 in, f32 accumulate) with the bias, activation and
-// rounding in the store.  An input width that is not a multiple of 16 (27
-// for LBMC without PathNet) comes with W0 zero-padded to k0 rows and the
-// tile's extra columns zeroed, where Pallas padded rows instead.  No TMA,
-// wgmma or pipelining yet: a tile's load, products and store run in turn.
+// The Pallas grid streams row tiles with the weights resident in VMEM.
+// Two bodies; ops/mlp_fused.py's mlp_fwd_plan picks one:
+//
+// - The tiled body (mlp_fused_tiled_kernel) runs LayerNet's embedding
+//   chain: three layers 32 wide, C0 from 1 to 32 (W0 zero-padded to 32
+//   rows), any activation per layer; K10-bwd's tiled body (mlp_tiled.cuh)
+//   without the backward.  A persistent block of 8 warps, one a SM; each
+//   warp walks its own slabs of 64 rows (warp v of the launch takes slabs
+//   v, v + 8 grid, ...) with no block barrier in the loop.  A slab of x is
+//   one contiguous span (4 KB at C0 = 32); it lands by 16-byte cp.async in
+//   the warp's ring of 4 slabs, straight into the swizzled layout ldmatrix
+//   reads without bank conflicts for C0 = 32, flat and unpacked in place
+//   otherwise.  The block stages the weights once, rounded to bf16 from the
+//   f32 parameters; each warp then keeps every layer's B fragments (48
+//   registers) and each thread its bias columns (24) for the whole walk.
+//   A slab runs in sub-tiles of 16 rows on mma.sync m16n8k16 with the chain
+//   in registers: each layer's f32 accumulator, plus bias, through the
+//   activation and rounded to bf16, is packed straight into the next
+//   layer's A fragment.  The last layer's bf16 rows overwrite the
+//   sub-tile's x rows, and the slab leaves by 16-byte stores while the next
+//   slab's copies are in flight.  The k16 steps and rounding points are the
+//   wmma body's, so the output has its bits.
+// - The wmma body (mlp_fused_kernel) keeps every other form (widths 16, 48
+//   or 64, other layer counts): persistent blocks (as many as fit per SM)
+//   walk over tiles of 128 rows, the weights (at most 4 layers of 64 x 64
+//   bf16, 37 KB) are staged in shared memory once per block, and the
+//   hiddens never leave shared memory: they ping-pong between two tiles.
+//   Rows are copied in and out 16 bytes a thread.  Each layer runs on the
+//   tensor cores through warp-level wmma (bf16 in, f32 accumulate) with the
+//   bias, activation and rounding in the store.  An input width that is not
+//   a multiple of 16 (27 for LBMC without PathNet) comes with W0
+//   zero-padded to k0 rows and the tile's extra columns zeroed, where Pallas
+//   padded rows instead.  A tile's load, products and store run in turn.
 #include "mlp.cuh"
+#include "mlp_tiled.cuh"
 
 namespace wcmc {
 
@@ -88,6 +111,126 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tiled body: LayerNet's embedding chain, C0 <= 32 -> 32 -> 32 -> 32
+// ---------------------------------------------------------------------------
+
+constexpr int kTfWarps = 8;    // warps of a block, each walking its own slabs
+constexpr int kTfStages = 4;   // slabs in a warp's ring: three in flight while one computes
+
+// The block's shared memory, buffer by buffer in the order the kernel
+// carves them (each a multiple of 128 bytes); ops/mlp_fused.py's
+// mlp_fwd_plan lists the same.
+struct MlpFwdTiledSmem {
+  static constexpr int kRing = kTfStages * kTbTile;  // a warp's ring of x slabs
+  static size_t total() {
+    return smem_bytes(3 * kTbWTile, 1) + (size_t)kTfWarps * smem_bytes(kRing, 1);
+  }
+};
+
+struct MlpFwdTiledArgs {
+  const bf16* x;       // (n, c0)
+  const float* w[3];   // W0 (c0, 32), W1, W2 (32, 32) f32 row-major, rounded to bf16 here
+  const float* b[3];   // 32 each
+  bf16* out;           // (n, 32)
+  long long n;
+  int c0;
+  int act[3];          // activation codes of mlp_act
+  int vec_x, vec_out;  // x / out start on 16 bytes
+};
+
+// kA0..kA2: the layers' activation codes (-1: read from the arguments).
+template <int kA0, int kA1, int kA2>
+__global__ void __launch_bounds__(kTfWarps * 32, 1) mlp_fused_tiled_kernel(MlpFwdTiledArgs a) {
+  using Sm = MlpFwdTiledSmem;
+  extern __shared__ __align__(128) unsigned char smem[];
+  SmemCarver carve{smem, 0};
+  unsigned char* s_w = carve.take<unsigned char>(3 * kTbWTile);  // W0 | W1 | W2, swizzled
+  unsigned char* s_ring = carve.take<unsigned char>((size_t)kTfWarps * Sm::kRing);
+  if (carve.offset != dynamic_smem_size()) __trap();  // the carve is what MlpFwdTiledSmem sums
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g8 = lane / 4, t4 = lane % 4;
+  tb_stage_weights(s_w, a.w, a.c0);
+  // the thread's bias columns 8 j + 2 t4 and + 1 of every layer
+  float2 bias[3][4];
+#pragma unroll
+  for (int l = 0; l < 3; ++l)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bias[l][j] = make_float2(a.b[l][8 * j + 2 * t4], a.b[l][8 * j + 2 * t4 + 1]);
+  __syncthreads();
+
+  const TbLane ln(lane);
+  // every layer's B fragments, once for the whole walk
+  unsigned wf[3][2][2][4];
+#pragma unroll
+  for (int l = 0; l < 3; ++l) tb_weight_frags(smem_addr(s_w + l * kTbWTile), ln, wf[l]);
+
+  // warp v of the launch walks slabs v, v + nv, ...
+  const long long n_slabs = (a.n + kTbRows - 1) / kTbRows;
+  const long long v = (long long)blockIdx.x * kTfWarps + warp, nv = (long long)gridDim.x * kTfWarps;
+  const int n_mine = v < n_slabs ? (int)((n_slabs - v + nv - 1) / nv) : 0;
+  unsigned char* const ring = s_ring + (size_t)warp * Sm::kRing;
+  const bool flat_x = !(a.c0 == kTbW && a.vec_x);
+  auto row0_of = [&](int i) { return (v + (long long)i * nv) * kTbRows; };
+  auto rows_of = [&](long long row0) { return (int)min((long long)kTbRows, a.n - row0); };
+  auto stage = [&](int i) { return ring + (i % kTfStages) * kTbTile; };
+  auto fetch = [&](int i) {
+    const long long row0 = row0_of(i);
+    tb_land(stage(i), a.x + row0 * a.c0, rows_of(row0), a.c0, a.vec_x, lane);
+  };
+
+  for (int i = 0; i < kTfStages - 1; ++i) {
+    if (i < n_mine) fetch(i);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int i = 0; i < n_mine; ++i) {
+    // the stage slab i + 3 lands in was emptied by slab i - 1's store
+    if (i + kTfStages - 1 < n_mine) fetch(i + kTfStages - 1);
+    cp_async_commit();
+    cp_async_wait_group<kTfStages - 1>();
+    __syncwarp();
+    const long long row0 = row0_of(i);
+    const int rows = rows_of(row0);
+    unsigned char* const st = stage(i);
+    if (flat_x) tb_unpack(st, rows, a.c0, lane);
+    const unsigned u_x = smem_addr(st);
+#pragma unroll 1
+    for (int q = 0; q < kTbRows; q += 16) {
+      unsigned xa[2][4], h1[2][4], h2[2][4], h3[2][4];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) ldmatrix_x4(xa[k], u_x + ln.r(q, 2 * k));
+      tb_layer<kA0>(xa, wf[0], bias[0], a.act[0], h1);
+      tb_layer<kA1>(h1, wf[1], bias[1], a.act[1], h2);
+      tb_layer<kA2>(h2, wf[2], bias[2], a.act[2], h3);
+      __syncwarp();  // every lane has read the sub-tile's x rows
+      // the output rows in their place (an accumulator tile j is piece j)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<unsigned*>(st + tb_off(q + g8 + 8 * r, j) + 4 * t4) =
+              h3[j >> 1][2 * (j & 1) + r];
+    }
+    __syncwarp();
+    tb_store(a.out + row0 * kTbW, st, rows, kTbW, a.vec_out, lane);
+    __syncwarp();  // every lane is done with the stage before it is refilled
+  }
+  cp_async_wait_all();
+}
+
+template <int kA0, int kA1, int kA2>
+static cudaError_t launch_fwd_tiled(const MlpFwdTiledArgs& args, int grid, int device,
+                                    cudaStream_t stream) {
+  auto* kernel = mlp_fused_tiled_kernel<kA0, kA1, kA2>;
+  const size_t smem = MlpFwdTiledSmem::total();
+  cudaError_t err = set_smem(kernel, smem, device);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kTfWarps * 32, smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
 }  // namespace wcmc
 
 using namespace wcmc;
@@ -123,4 +266,56 @@ extern "C" int wcmc_mlp_fused(const void* x, const void* w0, const void* w1, con
   mlp_fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), L, static_cast<bf16*>(out), n, vec_in, vec_out);
   return cudaGetLastError();
+}
+
+// The tiled body (LayerNet's embedding chain): x (n, c0) bf16, 1 <= c0 <=
+// 32, contiguous; w0 (c0, 32), w1, w2 (32, 32) f32 row-major (the
+// parameters as they are), b0..b2 (32) f32; a0..a2 the activation codes;
+// out (n, 32) bf16 contiguous.  grid: the persistent blocks to launch
+// (ops/mlp_fused.py, MlpFwdPlan.grid).
+extern "C" int wcmc_mlp_fused_tiled(const void* x, const void* w0, const void* w1, const void* w2,
+                                    const void* b0, const void* b1, const void* b2, void* out,
+                                    long long n, int c0, int a0, int a1, int a2, int grid,
+                                    int device, void* stream) {
+  if (c0 < 1 || c0 > kTbW || n < 0 || grid < 1 || a0 < 0 || a0 > 2 || a1 < 0 || a1 > 2 ||
+      a2 < 0 || a2 > 2 || !w0 || !w1 || !w2 || !b0 || !b1 || !b2)
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return guard.err;
+  MlpFwdTiledArgs args{static_cast<const bf16*>(x),
+                       {static_cast<const float*>(w0), static_cast<const float*>(w1),
+                        static_cast<const float*>(w2)},
+                       {static_cast<const float*>(b0), static_cast<const float*>(b1),
+                        static_cast<const float*>(b2)},
+                       static_cast<bf16*>(out),
+                       n,
+                       c0,
+                       {a0, a1, a2},
+                       aligned16(x),
+                       aligned16(out)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a0 == 2 && a1 == 2 && a2 == 2  // LayerNet: leaky relu x 3
+             ? launch_fwd_tiled<2, 2, 2>(args, grid, device, s)
+             : launch_fwd_tiled<-1, -1, -1>(args, grid, device, s);
+}
+
+// The dynamic shared memory, in bytes, that K10-fwd gives a block of the
+// form: the tiled body's (tiled = 1) or the wmma body's; what
+// ops/mlp_fused.py's mlp_fwd_plan totals.  -1 for a form the body does not
+// take.
+extern "C" long long wcmc_mlp_fused_smem(int c0, int n_layers, int c1, int c2, int c3, int c4,
+                                         int tiled) {
+  if (tiled) {
+    return c0 >= 1 && c0 <= kTbW && n_layers == 3 && c1 == kTbW && c2 == kTbW && c3 == kTbW
+               ? (long long)MlpFwdTiledSmem::total()
+               : -1;
+  }
+  static const int any = 0;  // any non-null pointer: mlp_layers checks only the widths' pointers
+  const void* w[kMlpMaxLayers] = {&any, &any, &any, &any};
+  const int widths[kMlpMaxLayers] = {c1, c2, c3, c4};
+  const int acts[kMlpMaxLayers] = {0, 0, 0, 0};
+  MlpLayers L;
+  if (!mlp_layers(L, w, w, c0, n_layers, widths, acts)) return -1;
+  return (long long)mlp_fwd_smem(L);
 }

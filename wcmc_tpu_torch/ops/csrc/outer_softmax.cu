@@ -48,13 +48,6 @@
 
 namespace wcmc {
 
-constexpr int kSoftmaxMaxRun = 32;
-
-// floats of a staged buffer-window row: (T + K - 1) pixels of C, padded to 16 bytes
-__host__ __device__ inline int softmax_win_pitch(int T, int C, int K) {
-  return round_up((T + K - 1) * C, 4);
-}
-
 // The tiled body's dynamic shared memory, in the order the kernel carves it:
 // the window ring (K + 1 row slots, each twice), two value runs, two landed
 // logit runs, two staging tiles, the mbarriers.

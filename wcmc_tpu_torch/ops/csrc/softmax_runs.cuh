@@ -1,8 +1,8 @@
 // Landing runs of the softmax gather's logits view in shared memory, shared
-// by the redesigned bodies of K2 (outer_softmax.cu) and K3
-// (scatter_softmax.cu).
+// by the redesigned bodies of K1 (gather_softmax.cu), K2 (outer_softmax.cu)
+// and K3 (scatter_softmax.cu).
 //
-// The logits reach both kernels as a strided bf16 (or f32) view whose K*K
+// The logits reach the kernels as a strided bf16 (or f32) view whose K*K
 // taps are contiguous a pixel but whose pixels start on any 2-byte (4-byte)
 // boundary: LBMC's layers are slices of a channels-last kernel head (pixel
 // stride 676 bytes, layer 1 at 338), KPCN's logits a crop of a
@@ -17,6 +17,15 @@
 #include "hopper.cuh"
 
 namespace wcmc {
+
+// pixels a run of K1's and K2's tiled bodies, at most
+constexpr int kSoftmaxMaxRun = 32;
+
+// floats of a staged buffer-window row of K1's and K2's tiled bodies: (T + K -
+// 1) pixels of C, padded to 16 bytes
+__host__ __device__ inline int softmax_win_pitch(int T, int C, int K) {
+  return round_up((T + K - 1) * C, 4);
+}
 
 // bytes of a landed pixel slot: its K*K taps of es bytes, led by at most
 // 16 - es bytes of their aligned superset, rounded to 16

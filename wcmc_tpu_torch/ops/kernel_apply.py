@@ -6,9 +6,10 @@ Counterpart of ``wcmc_tpu/ops/kernel_apply.py``:
 
 * ``kernel_gather_softmax(buf, logits, K)``:
   ``out[p, c] = sum_d softmax_d(logits[p]) * buf[p + d, c]``, an
-  autograd Function.  Forward: the CUDA kernel K1
-  (``csrc/gather_softmax.cu``) for CUDA tensors, ``gather_softmax_plain``
-  for CPU tensors.  Backward: d(logits) with K2 (``outer_softmax``,
+  autograd Function.  Forward: the CUDA kernel K1 (``gather_softmax``,
+  ``csrc/gather_softmax.cu``: the tiled body of ``gather_softmax_plan`` up
+  to K = 21, the first body above) for CUDA tensors,
+  ``gather_softmax_plain`` for CPU tensors.  Backward: d(logits) with K2 (``outer_softmax``,
   ``csrc/outer_softmax.cu``: the tiled body of ``outer_softmax_plan``)
   and, only when the buffer requires grad, d(buf) with K3
   (``scatter_softmax``, ``csrc/scatter_softmax.cu``: the banded body that
@@ -312,34 +313,35 @@ def _outer_tiled_walk(g, buf, ksize):
     return dw
 
 
-SOFTMAX_RUNS = (32, 24, 16, 8)              # K2's run lengths: whole 16-byte bf16 groups
-SOFTMAX_MAX_ROWS = 32                       # runs a K2 unit, source rows a K3 band, at most
+SOFTMAX_RUNS = (32, 24, 16, 8)              # K1's and K2's run lengths: whole 16-byte bf16 groups
+SOFTMAX_MAX_ROWS = 32                       # runs a K1 or K2 unit, source rows a K3 band, at most
+GATHER_SOFTMAX_MAX_ROWS = 64                # runs a K1 unit, at most
 SOFTMAX_STAGES = 2                          # runs in K3's probability ring
 SOFTMAX_LAND = 3                            # runs in K3's landing ring
-SOFTMAX_MAX_K = 21                          # K2's tiled body: 14 taps a lane
+SOFTMAX_MAX_K = 21                          # K1's and K2's tiled bodies: 14 taps a lane
 SOFTMAX_BAND_MAX_K = 15                     # K3's banded body: 8 taps a lane
 SM_SMEM = 233472                            # an H100 SM's shared memory; a block also takes 1 KB
 H100_SMS = 132
 
 
 def _lpitch(k2, es):
-    """Bytes of a landed pixel slot of K2's and K3's new bodies: K*K taps of
+    """Bytes of a landed pixel slot of K1's, K2's and K3's new bodies: K*K taps of
     ``es`` bytes led by at most 16 - es bytes of their 16-byte-aligned
     superset, rounded to 16 (``softmax_lpitch`` in ``csrc/softmax_runs.cuh``)."""
     return -(-(k2 * es + 16 - es) // 16) * 16
 
 
 def _fill(units, per_sm, sms, rows):
-    """The cost by which K2's and K3's plans pick the rows of a unit or band:
+    """The cost by which K1's, K2's and K3's plans pick the rows of a unit or band:
     waves of units over the resident blocks, each wave a unit's rows and one
     row of pipeline fill."""
     return -(-units // (per_sm * sms)) * (rows + 1)
 
 
-def _pick_rows(h, cost):
-    """The unit or band height, 1 to ``SOFTMAX_MAX_ROWS`` (at most h), of
-    least ``cost(rows)``, the tallest of equals."""
-    return min(range(1, min(SOFTMAX_MAX_ROWS, h) + 1), key=lambda r: (cost(r), -r))
+def _pick_rows(h, cost, most=SOFTMAX_MAX_ROWS):
+    """The unit or band height, 1 to ``most`` (at most h), of least
+    ``cost(rows)``, the tallest of equals."""
+    return min(range(1, min(most, h) + 1), key=lambda r: (cost(r), -r))
 
 
 class OuterSoftmaxPlan(NamedTuple):
@@ -362,35 +364,80 @@ class OuterSoftmaxPlan(NamedTuple):
     total: int
 
 
-@functools.lru_cache(maxsize=None)
-def outer_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> OuterSoftmaxPlan:
-    """K2's plan: of the runs whose carve fits, the one that tiles a row
-    with the fewest idle pixels (the longest of those); three blocks an SM
-    at K <= 13 and two above (the kernel's launch bounds) where the carve
-    allows; the unit height of least ``_fill`` at ``sms`` SMs.  ValueError for what the kernel does not
-    take (C above 8, K above 21, logits neither f32 nor bf16), which the
-    first body does not take either."""
+class GatherSoftmaxPlan(NamedTuple):
+    """K1's tiled body, laid out as K2's (``OuterSoftmaxPlan``): runs of
+    ``run`` pixels, units of ``rows`` runs down a column, window rows of
+    ``pitch`` f32, ``per_sm`` blocks resident an SM, ``blocks`` persistent
+    blocks; ``smem`` the window ring (K + 1 row slots each kept twice), two
+    landed logit runs, two staging tiles of a run's outputs and the
+    mbarriers, ``total`` their sum (what ``wcmc_gather_softmax_tiled_smem``
+    returns)."""
+    run: int
+    rows: int
+    pitch: int
+    units: int
+    per_sm: int
+    blocks: int
+    smem: tuple
+    total: int
+
+
+def _softmax_runs(name, b, h, w, c, k, es, sms, carve, most_rows=SOFTMAX_MAX_ROWS):
+    """The layout K1's and K2's tiled bodies share: of the runs whose carve
+    (``carve(run, pitch)``, (buffer, bytes) pairs) fits, the one that tiles
+    a row with the fewest idle pixels (the longest of those); three blocks
+    an SM at K <= 13 and two above (the kernels' launch bounds) where the
+    carve allows; the unit height, up to ``most_rows``, of least ``_fill`` at
+    ``sms`` SMs.  ValueError for what the kernels do not take (C above 8, K above 21,
+    logits neither f32 nor bf16), which their first bodies do not take
+    either (K2) or take only on their own (K1)."""
     if not 1 <= c <= 8:
-        raise ValueError(f"outer_softmax kernel takes 1 to 8 channels, got {c}")
+        raise ValueError(f"{name} kernel takes 1 to 8 channels, got {c}")
     if k < 1 or k > SOFTMAX_MAX_K or min(b, h, w) < 1 or es not in (2, 4):
-        raise ValueError(f"outer_softmax kernel takes K <= {SOFTMAX_MAX_K} and f32 or bf16 "
+        raise ValueError(f"{name} kernel takes K <= {SOFTMAX_MAX_K} and f32 or bf16 "
                          f"logits, got K={k}, {b}x{h}x{w}, {es}-byte logits")
     fits = []
     for t in SOFTMAX_RUNS:
         pitch = -(-(t + k - 1) * c // 4) * 4
-        smem = (("window", _r128(4 * 2 * (k + 1) * pitch)), ("values", _r128(4 * 2 * t * c)),
-                ("logits", _r128(2 * t * _lpitch(k * k, es))),
-                ("tiles", _r128(es * 2 * t * k * k)), ("bars", _r128(8 * 2)))
+        smem = carve(t, pitch)
         total = sum(m for _, m in smem)
         if total <= SMEM_LIMIT:
             fits.append((-(-w // t) * t - w, -t, pitch, smem, total))
     _, neg_t, pitch, smem, total = min(fits)
     run, nr = -neg_t, -(-w // -neg_t)
     per_sm = min(3 if k * k <= 6 * 32 else 2, SM_SMEM // (total + 1024))
-    rows = _pick_rows(h, lambda r: _fill(b * -(-h // r) * nr, per_sm, sms, r))
+    rows = _pick_rows(h, lambda r: _fill(b * -(-h // r) * nr, per_sm, sms, r), most_rows)
     units = b * -(-h // rows) * nr
-    return OuterSoftmaxPlan(run, rows, pitch, units, per_sm, min(units, per_sm * sms), smem,
-                            total)
+    return run, rows, pitch, units, per_sm, min(units, per_sm * sms), smem, total
+
+
+@functools.lru_cache(maxsize=None)
+def outer_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> OuterSoftmaxPlan:
+    """K2's plan (``_softmax_runs``); ValueError for what the kernel does not
+    take (C above 8, K above 21, logits neither f32 nor bf16), which the
+    first body does not take either."""
+    def carve(t, pitch):
+        return (("window", _r128(4 * 2 * (k + 1) * pitch)), ("values", _r128(4 * 2 * t * c)),
+                ("logits", _r128(2 * t * _lpitch(k * k, es))),
+                ("tiles", _r128(es * 2 * t * k * k)), ("bars", _r128(8 * 2)))
+
+    return OuterSoftmaxPlan(*_softmax_runs("outer_softmax", b, h, w, c, k, es, sms, carve))
+
+
+@functools.lru_cache(maxsize=None)
+def gather_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> GatherSoftmaxPlan:
+    """K1's plan (``_softmax_runs``), with units of up to
+    ``GATHER_SOFTMAX_MAX_ROWS`` runs, so that KPCN's 256-pixel tiles without
+    paths fill the card in one wave too; ValueError for what the tiled body
+    does not take (C above 8, K above 21, logits neither f32 nor bf16): K
+    above 21 runs the first body (``gather_softmax_route``)."""
+    def carve(t, pitch):
+        return (("window", _r128(4 * 2 * (k + 1) * pitch)),
+                ("logits", _r128(2 * t * _lpitch(k * k, es))), ("tiles", _r128(4 * 2 * t * c)),
+                ("bars", _r128(8 * 2)))
+
+    return GatherSoftmaxPlan(*_softmax_runs("gather_softmax", b, h, w, c, k, es, sms, carve,
+                                            GATHER_SOFTMAX_MAX_ROWS))
 
 
 class SoftmaxSplatPlan(NamedTuple):
@@ -457,15 +504,16 @@ def scatter_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> SoftmaxSplatPlan:
 
 
 class SoftmaxRoute(NamedTuple):
-    """How a K2 or K3 launch on these tensors runs: ``body`` (K2 "tiled";
-    K3 "banded" or "gather"); on the new bodies ``leads``, each byte offset
-    at which some pixel's taps start within their 16-byte-aligned superset
-    (the bytes a landed pixel's reader skips), and ``spans``, how the runs'
-    contiguous spans move: "16-byte" where every one starts (and, for K2's
-    bulk stores, ends) on 16 bytes, "4-byte" where none does, "mixed"
-    otherwise -- K2's gradient runs (a bulk copy or stores by every thread),
-    K3's cotangent runs (16-byte or 4-byte cp.asyncs).  The kernels make the
-    same choices from the same facts."""
+    """How a K1, K2 or K3 launch on these tensors runs: ``body`` (K1 "tiled"
+    or "warp"; K2 "tiled"; K3 "banded" or "gather"); on the new bodies
+    ``leads``, each byte offset at which some pixel's taps start within their
+    16-byte-aligned superset (the bytes a landed pixel's reader skips), and
+    ``spans``, how the runs' contiguous spans move: "16-byte" where every one
+    starts (and, for K1's stores and K2's bulk stores, ends) on 16 bytes,
+    "4-byte" where none does, "mixed" otherwise -- K1's output runs (16-byte
+    or 4-byte stores), K2's gradient runs (a bulk copy or stores by every
+    thread), K3's cotangent runs (16-byte or 4-byte cp.asyncs).  The kernels
+    make the same choices from the same facts."""
     body: str
     leads: tuple
     spans: str
@@ -502,6 +550,23 @@ def outer_softmax_route(g, buf, logits, ksize, sms=H100_SMS):
     span = ksize * ksize * es
     return SoftmaxRoute("tiled", _leads(logits),
                         _span_kinds((first * span % 16 == 0) & (n * span % 16 == 0)))
+
+
+def gather_softmax_route(buf, logits, ksize, sms=H100_SMS):
+    """K1's route on these tensors (``SoftmaxRoute``): the tiled body up to
+    K = 21, the first body ("warp") above, by ``gather_softmax``'s explicit
+    choice; the outputs go to a fresh tensor, which starts on 16 bytes, so a
+    run's span is stored 16 bytes at a time where it starts and ends on 16
+    bytes."""
+    b, H, W, c = buf.shape
+    if ksize > SOFTMAX_MAX_K:
+        return SoftmaxRoute("warp", (), "")
+    h, w = H - ksize + 1, W - ksize + 1
+    plan = gather_softmax_plan(b, h, w, c, ksize, logits.element_size(), sms)
+    firsts = list(range(0, w, plan.run))
+    first, n = _run_starts(b, h, w, firsts, [min(x + plan.run, w) for x in firsts])
+    return SoftmaxRoute("tiled", _leads(logits),
+                        _span_kinds((first * 4 * c % 16 == 0) & (n * 4 * c % 16 == 0)))
 
 
 def scatter_softmax_route(g, logits, ksize, sms=H100_SMS):
@@ -569,6 +634,25 @@ def _outer_softmax_tiled_walk(g, buf, logits, ksize, sms=H100_SMS):
     return out
 
 
+def _gather_softmax_tiled_walk(buf, logits, ksize, sms=H100_SMS):
+    """A plain walk of K1's tiled order on the CPU, in f32: ``_window_runs``
+    over ``gather_softmax_plan``'s runs and units, each pixel's
+    probabilities in the lanes' order (``_softmax_lanes``), each channel's
+    sum of P times the window's values as the lanes' partial sums in j order
+    summed by ``_warp_sum``.  Returns what ``gather_softmax_plain`` returns
+    (the kernel fuses each multiply-add, this walk rounds twice)."""
+    b, H, W, c = buf.shape
+    h, w = H - ksize + 1, W - ksize + 1
+    plan = gather_softmax_plan(b, h, w, c, ksize, logits.element_size(), sms)
+    out = torch.empty((b, h, w, c))
+    for y, x0, n, window in _window_runs(buf.float(), ksize, h, w, plan.run, plan.rows):
+        q = torch.stack([window[dy][:, dx:dx + n] for dy in range(ksize) for dx in range(ksize)],
+                        dim=2)                                  # (B, n, K*K, C)
+        p = _softmax_lanes(logits[:, y, x0:x0 + n])[..., None]  # (B, n, K*K, 1)
+        out[:, y, x0:x0 + n] = _warp_sum(_lane_partials((p * q).transpose(-1, -2)))
+    return out.to(buf.dtype)
+
+
 def _scatter_softmax_banded_walk(g, logits, ksize, sms=H100_SMS):
     """A plain walk of K3's banded order on the CPU, in f32: each pixel's
     probabilities in the lanes' order (``_softmax_lanes``), splatted in
@@ -633,30 +717,54 @@ def _check_card(name, logits, *tensors):
                          "(logits.stride(-1) == 1)")
 
 
-def _gather_softmax_fwd(buf, logits, ksize):
+def gather_softmax(buf, logits, ksize: int, body=None):
+    """The softmax gather of ``buf`` (B, H, W, C) with the logits (B, h, w,
+    K*K), in ``buf``'s dtype: kernel K1 for CUDA tensors,
+    ``gather_softmax_plain`` for CPU tensors.  On the card the body is the
+    tiled one (``gather_softmax_plan``) up to K = 21 and the first port's
+    one-warp-per-pixel body above; ``body`` "warp" forces the first body
+    (the card tests' reference), with the same bits, and "tiled" the tiled
+    one, which raises above K = 21."""
+    _check_geometry(buf, logits, ksize)
     if buf.device.type == "cpu" and logits.device.type == "cpu":
         return gather_softmax_plain(buf, logits, ksize)
     _check_card("gather_softmax", logits, buf)
+    body = body or ("tiled" if ksize <= SOFTMAX_MAX_K else "warp")
+    if body not in ("tiled", "warp"):
+        raise ValueError(f"gather_softmax: no {body} body")
     b, H, W, c = buf.shape
+    dev = logits.device.index or 0
     src = buf.float().contiguous()
     out = torch.empty((b, H - ksize + 1, W - ksize + 1, c), dtype=torch.float32,
                       device=buf.device)
-    fn = _build.kernel(
-        "wcmc_gather_softmax", _build.PTR, _build.PTR, _build.INT, _build.PTR,
-        _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
-        _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.PTR)
     sb, sy, sx, _ = logits.stride()
-    _build.check(fn(src.data_ptr(), logits.data_ptr(),
-                    int(logits.dtype == torch.bfloat16), out.data_ptr(),
-                    b, H, W, c, ksize, sb, sy, sx, buf.device.index or 0,
-                    _build.stream_of(buf.device)), "gather_softmax")
+    bf16 = int(logits.dtype == torch.bfloat16)
+    if body == "warp":
+        fn = _build.kernel(
+            "wcmc_gather_softmax", _build.PTR, _build.PTR, _build.INT, _build.PTR,
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+            _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.PTR)
+        err = fn(src.data_ptr(), logits.data_ptr(), bf16, out.data_ptr(), b, H, W, c, ksize,
+                 sb, sy, sx, dev, _build.stream_of(buf.device))
+    else:
+        plan = gather_softmax_plan(b, H - ksize + 1, W - ksize + 1, c, ksize,
+                                   logits.element_size(), _build.sm_count(dev))
+        fn = _build.kernel(
+            "wcmc_gather_softmax_tiled", _build.PTR, _build.PTR, _build.INT, _build.PTR,
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.INT, _build.LONG,
+            _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.INT, _build.INT,
+            _build.INT, _build.PTR)
+        err = fn(src.data_ptr(), logits.data_ptr(), bf16, out.data_ptr(), b, H, W, c, ksize,
+                 sb, sy, sx, _logit_span(logits), plan.run, plan.rows, plan.blocks, dev,
+                 _build.stream_of(buf.device))
+    _build.check(err, "gather_softmax")
     _build.launches["gather_softmax"] += 1
     return out.to(buf.dtype)
 
 
 def _logit_span(logits):
     """The elements from the logits view's first to one past its last,
-    which K2's and K3's new bodies never read beyond; ValueError for a
+    which the new bodies of K1, K2 and K3 never read beyond; ValueError for a
     negative stride."""
     if min(logits.stride()) < 0:
         raise ValueError(f"logits strides {logits.stride()}: the kernels take none negative")
@@ -923,7 +1031,7 @@ class _GatherSoftmax(torch.autograd.Function):
     def forward(ctx, buf, logits, ksize):
         ctx.ksize = ksize
         ctx.save_for_backward(buf, logits)
-        return _gather_softmax_fwd(buf, logits, ksize)
+        return gather_softmax(buf, logits, ksize)
 
     @staticmethod
     def backward(ctx, g):

@@ -8,6 +8,9 @@ an autograd Function:
 
 * forward: the CUDA kernel K10-fwd (``csrc/mlp_fused.cu``) for CUDA
   tensors, the plain version ``_mlp_fwd_plain`` for CPU tensors;
+  :func:`mlp_fwd_plan` picks its body (the tiled one for LayerNet's chain,
+  the wmma body for every other form) and states its shared memory and
+  grid, and ``_mlp_fwd_walk`` is the tiled body's order on the CPU;
 * backward: K10-bwd (``csrc/mlp_fused_bwd.cu``), plain version
   ``_mlp_bwd_plain``; :func:`mlp_bwd_plan` picks its body (the tiled one
   for LayerNet's chain, three layers 32 wide at C0 <= 32, the wmma body
@@ -160,7 +163,8 @@ def _check_card(name, x, ws, bs, acts):
 
 
 # ---------------------------------------------------------------------------
-# K10-bwd's plan (csrc/mlp_fused_bwd.cu), kept here so the CPU tests reach it
+# K10's plans (csrc/mlp_fused.cu, csrc/mlp_fused_bwd.cu), kept here so the CPU
+# tests reach them
 # ---------------------------------------------------------------------------
 
 MLP_BWD_TILED = (32, 32, 32)   # the tiled body's layer widths; C0 up to 32, padded to 32
@@ -168,6 +172,7 @@ MLP_BWD_SLAB = 64              # rows of a slab, walked by one warp of the tiled
 MLP_BWD_WARPS = 8              # warps of a tiled block, each walking its own slabs
 MLP_BWD_STAGES = 3             # slabs in flight a warp
 MLP_BWD_TILE = 128             # rows of the wmma body's tile
+MLP_FWD_STAGES = 4             # slabs in a warp's ring of K10-fwd's tiled body
 
 
 def _r128(n):
@@ -240,6 +245,92 @@ def mlp_bwd_plan(c0, widths, acts) -> MlpBwdPlan:
     return MlpBwdPlan("wmma", dims[0], MLP_BWD_TILE, 1, 1, parts, smem, total)
 
 
+class MlpFwdPlan(NamedTuple):
+    """How K10-fwd runs a form: on the tiled body (``body`` "tiled") or the
+    wmma one ("wmma"), C0 padded to ``k0``; a block's ``walkers`` each take
+    ``rows`` rows at a time (the tiled body's warps their own slabs, with
+    ``stages`` slabs in a ring; the wmma body's block its tiles); ``smem``
+    the block's shared memory as (buffer, bytes) pairs in the order the
+    kernel carves them, each a multiple of 128 bytes, ``total`` their sum
+    (what ``wcmc_mlp_fused_smem`` returns)."""
+    body: str
+    k0: int
+    rows: int
+    walkers: int
+    stages: int
+    smem: tuple
+    total: int
+
+    def grid(self, n, sms):
+        """The blocks of a launch over ``n`` rows on a card of ``sms`` SMs:
+        persistent, at most one a SM (tiled; its shared memory allows no
+        second) or four (wmma; the kernel launches as many of those as are
+        resident), and no more than the rows need, at least one."""
+        cap = sms if self.body == "tiled" else 4 * sms
+        return max(1, min(cap, -(-n // (self.rows * self.walkers))))
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_fwd_plan(c0, widths, acts) -> MlpFwdPlan:
+    """K10-fwd's plan for the chain C0 -> ``widths`` with activations
+    ``acts``.  The tiled body takes the forms K10-bwd's does (three layers of
+    ``MLP_BWD_TILED`` at C0 up to 32, any activations): the three weight
+    tiles, then each warp's ring of ``MLP_FWD_STAGES`` x tiles (64 x 32 bf16
+    a tile; a slab's output overwrites its x rows).  Every other form runs the
+    wmma body: each layer's padded weight rows and bias, the 128-row x tile,
+    two hidden tiles and the warps' staging.  ValueError for what neither
+    body computes."""
+    from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT   # conv5 imports this module
+
+    widths, acts = tuple(widths), tuple(acts)
+    _check_form("mlp_fused", c0, widths, acts)
+    if widths == MLP_BWD_TILED and c0 <= MLP_BWD_TILED[0]:
+        w = MLP_BWD_TILED[0]
+        smem = (("weights", 3 * 2 * w * w),
+                ("rings", MLP_BWD_WARPS * MLP_FWD_STAGES * 2 * MLP_BWD_SLAB * w))
+        return MlpFwdPlan("tiled", w, MLP_BWD_SLAB, MLP_BWD_WARPS, MLP_FWD_STAGES, smem,
+                          sum(m for _, m in smem))
+    dims = [-(-c0 // 16) * 16, *widths]
+    smem = []
+    for i, (ci, co) in enumerate(zip(dims[:-1], dims[1:])):
+        smem += [(f"w{i}", 2 * ci * (co + 8)), (f"b{i}", 4 * co)]
+    smem += [("x", 2 * MLP_BWD_TILE * (dims[0] + 8))]
+    smem += [(f"h{i}", 2 * MLP_BWD_TILE * (max(dims) + 8)) for i in range(2)]
+    smem += [("stage", 4 * 8 * 256)]
+    smem = tuple((name, _r128(m)) for name, m in smem)
+    total = sum(m for _, m in smem)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"mlp_fused kernel needs {total} bytes of shared memory for "
+                         f"{c0} -> {widths}, over the {SMEM_LIMIT} a block may use")
+    return MlpFwdPlan("wmma", dims[0], MLP_BWD_TILE, 1, 1, smem, total)
+
+
+def _mlp_fwd_walk(x, ws, bs, acts, n_blocks=3):
+    """A plain walk of K10-fwd's tiled order on the CPU, for a card of
+    ``n_blocks`` SMs: ``mlp_fwd_plan``'s grid, each block's warps walking
+    slabs of 64 rows in turn (warp v of the launch takes slabs v, v +
+    walkers, ...), each slab in sub-tiles of 16 rows, each layer summed k16
+    step by k16 step from zero, then its bias, its activation and the
+    rounding to ``x``'s dtype.  Returns what ``_mlp_fwd_plain`` returns."""
+    dt = x.dtype
+    n, c0 = x.shape
+    plan = mlp_fwd_plan(c0, tuple(w.shape[1] for w in ws), tuple(acts))
+    if plan.body != "tiled":
+        raise ValueError(f"mlp_fused: {c0} -> {plan} does not run the tiled body")
+    wt = [w.to(dt).float() for w in ws]
+    bias = [b.float() for b in bs]
+    out = torch.empty((n, ws[-1].shape[1]), dtype=dt)
+    walkers = plan.grid(n, n_blocks) * plan.walkers
+    for v in range(walkers):
+        for j in range(v, -(-n // plan.rows), walkers):
+            for r0 in range(j * plan.rows, min((j + 1) * plan.rows, n), 16):
+                h = x[r0:r0 + 16].float()
+                for w, b, a in zip(wt, bias, acts):
+                    h = _act(a, _prod(h, w) + b).to(dt).float()
+                out[r0:r0 + 16] = h.to(dt)
+    return out
+
+
 def _mlp_bwd_walk(x, g, ws, bs, acts, compute_dx=True, n_blocks=3):
     """A plain walk of K10-bwd's tiled order on the CPU, for a card of
     ``n_blocks`` SMs: ``mlp_bwd_plan``'s grid, each block's warps walking
@@ -310,22 +401,35 @@ def _padded_params(x, ws, bs, codes):
     return k0, wb, bf, ptrs, widths, list(codes) + [0] * pad
 
 
-def _mlp_fwd_kernel(x, ws, bs, acts):
+def _mlp_fwd_kernel(x, ws, bs, acts, body=None):
+    """K10-fwd on the body :func:`mlp_fwd_plan` names (``body="wmma"`` forces
+    the wmma body, the card tests' and ``chip_smoke.py``'s reference)."""
     dims, codes = _check_card("mlp_fused", x, ws, bs, acts)
+    plan = mlp_fwd_plan(dims[0], tuple(dims[1:]), tuple(acts))
+    body = body or plan.body
+    if body not in ("tiled", "wmma") or (body == "tiled" and plan.body != "tiled"):
+        raise ValueError(f"mlp_fused: no {body!r} body for {dims[0]} -> {tuple(dims[1:])}")
     dev = x.device
     x = x.contiguous()
     n = x.shape[0]
     out = torch.empty((n, dims[-1]), dtype=torch.bfloat16, device=dev)
     if n == 0:
         return out
-    _, wb, bf, ptrs, widths, codes = _padded_params(x, ws, bs, codes)
     P, INT, L = _build.PTR, _build.INT, MLP_MAX_LAYERS
-    fn = _build.kernel("wcmc_mlp_fused", P, *([P] * (2 * L)), P, _build.LONG, INT, INT,
-                       *([INT] * (2 * L)), INT, INT, P)
     idx = dev.index or 0
-    _build.check(fn(x.data_ptr(), *ptrs, out.data_ptr(), n, dims[0], len(ws), *widths,
-                    *codes, 4 * _build.sm_count(idx), idx, _build.stream_of(dev)),
-                 "mlp_fused")
+    if body == "tiled":
+        # the f32 parameters as they are: the kernel rounds the weights as it stages them
+        params = [t.float().contiguous() for t in (*ws, *bs)]
+        fn = _build.kernel("wcmc_mlp_fused_tiled", *([P] * 8), _build.LONG, *([INT] * 6), P)
+        err = fn(x.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(), n, dims[0],
+                 *codes, plan.grid(n, _build.sm_count(idx)), idx, _build.stream_of(dev))
+    else:
+        _, wb, bf, ptrs, widths, codes = _padded_params(x, ws, bs, codes)
+        fn = _build.kernel("wcmc_mlp_fused", P, *([P] * (2 * L)), P, _build.LONG, INT, INT,
+                           *([INT] * (2 * L)), INT, INT, P)
+        err = fn(x.data_ptr(), *ptrs, out.data_ptr(), n, dims[0], len(ws), *widths, *codes,
+                 4 * _build.sm_count(idx), idx, _build.stream_of(dev))
+    _build.check(err, "mlp_fused")
     _build.launches["mlp_fused"] += 1
     return out
 
