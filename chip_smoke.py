@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths and training steps on one
-NVIDIA card and check them: KPCN with the dual PathNet, LBMC (LayerNet)
-with the single PathNet, and SBMC (Multisteps) with the single PathNet.
+"""Drive the PyTorch port's serving paths, training steps and training
+entry points from disk on one NVIDIA card and check them: KPCN with the
+dual PathNet, LBMC (LayerNet) with the single PathNet, and SBMC
+(Multisteps) with the single PathNet.
 
     python3 chip_smoke.py
 
@@ -102,6 +103,25 @@ Phases (one JSON line each):
    scales with the CPU bf16 step's own distance from f32 at that state
    (``XCHECK``, ``xcheck_decision``).  The steps repeat bit for bit, and
    each record carries a digest of the weights its check starts from.
+
+6. cli_corpus, train_cli_kpcn, train_cli_lbmc, train_cli_sbmc: the training
+   entry points from disk, ``python -m wcmc_tpu_torch.train_kpcn`` (then
+   ``train_lbmc``, ``train_sbmc``) through their ``main`` with a user's
+   argv and ``--device`` the card.  One synthetic corpus (2 train scenes,
+   1 val, 1 test; 512x512, 8 spp) is written and preprocessed on the card
+   (LLPM, SBMC, KPCN caches and the importance maps).  KPCN runs the README
+   flagship (K 21, batch 8, FMSE, ``--train_branches``,
+   ``--patches_per_image 32``: 56 steps and 56 validation batches an epoch,
+   the loaders spanning spp 2..8) for 2 epochs with the first one profiled
+   (``--profile_dir``: device idle share and top entries), resumes from its
+   latest checkpoint for a third (the restored parameters and Adam state
+   bit for bit the first run's), and serves the best checkpoint through
+   ``wcmc_tpu_torch.test_models``; LBMC and SBMC (their flagship widths,
+   ``--patches_per_image 4``) one epoch of 7 steps and validation.  Each
+   run: every kernel of the family's step launched at least once a step,
+   no plain version, finite losses, the checkpoint files; the record holds
+   each epoch's steps, seconds, loader wait share and median step ms, and
+   peak memory.
 
 Then the kernel table (a row per kernel and path, its ``launches`` from
 that path's run: per served frame for a forward kernel, per 10 train
@@ -1847,6 +1867,183 @@ def train_phase(torch, dev, family, b=8, patch=128, spp=8, check=cross_check):
     return record, launches
 
 
+# The training entry points from disk (python -m wcmc_tpu_torch.train_*),
+# one synthetic 512x512 8-spp corpus (2 train scenes, 1 val, 1 test) for
+# all three.  The loaders span spp 2..8, one patch pool per sample count,
+# so an epoch is 7 x (2 scenes x patches_per_image / batch) steps: KPCN's
+# flagship (--patches_per_image 32, batch 8) 56 a train epoch and 56
+# validation batches of 4; LBMC and SBMC (--patches_per_image 4) 7 and 7.
+CLI_SPP = 8
+CLI = {
+    "kpcn": {"module": "train_kpcn", "model_name": "KPCN_cli",
+             "args": ["--train_branches", "--patches_per_image", "32", "--num_epoch", "2",
+                      "--visual"],
+             "resume": ["--start_epoch", "2", "--num_epoch", "3"], "serve": True},
+    "lbmc": {"module": "train_lbmc", "model_name": "LBMC_cli",
+             "args": ["--patches_per_image", "4", "--num_epoch", "1", "--visual"]},
+    "sbmc": {"module": "train_sbmc", "model_name": "SBMC_cli",
+             "args": ["--use_sbmc_buf", "--patches_per_image", "4", "--num_epoch", "1",
+                      "--visual"]},
+}
+
+
+def cli_corpus(torch, dev, work, size=512):
+    """The CLI phases' corpus: 2 train scenes, 1 val and 1 test at ``size``
+    px and ``CLI_SPP`` samples, with the LLPM, SBMC and KPCN caches (and the train/val
+    importance maps) preprocessed on the card; returns (root, record)."""
+    from wcmc_tpu_torch.data.dataset import offline_preprocess
+    from wcmc_tpu_torch.data.synthetic import build_synthetic_dataset
+
+    root = os.path.join(work, "corpus")
+    t0 = time.perf_counter()
+    spp = CLI_SPP
+    build_synthetic_dataset(root, n_train=2, n_val=1, n_test=1, size=size, spp=spp,
+                            test_extra_parts=0, seed=SEED)
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for mode in ("train", "val"):
+        offline_preprocess(root, mode=mode, spp=8, sbmc=True, device=dev)
+    offline_preprocess(root, mode="test", spp=spp, test_spps=(spp,), device=dev)
+    torch.cuda.synchronize()
+    return root, {"phase": "cli_corpus", "frame": [size, size], "spp": spp,
+                  "scenes": {"train": 2, "val": 1, "test": 1}, "data_s": t_data,
+                  "preprocess_s": time.perf_counter() - t0}
+
+
+def optimizer_state(torch, iface):
+    """Every model's parameters and Adam state (moments, step), and each
+    optimizer's learning rate and warmup count, as CPU tensors."""
+    out = {}
+    for name, m in iface.models.items():
+        opt = iface.optims["optim_" + name]
+        for i, p in enumerate(m.parameters()):
+            st = opt.adam.state[p]
+            out[f"{name}.{i}"] = [p.detach().cpu(), st["exp_avg"].cpu(),
+                                  st["exp_avg_sq"].cpu(), torch.as_tensor(float(st["step"]))]
+        out[name] = [torch.tensor([opt.lr, float(opt.count)], dtype=torch.float64)]
+    return out
+
+
+def train_cli_phase(torch, dev, root, family):
+    """``python -m wcmc_tpu_torch.<module>`` on ``root`` through its
+    ``main`` (argv as a user passes it, ``--device`` the card): checkpoints
+    written, losses finite, every kernel of the family's train step
+    launched at least once a step and no plain version run; for KPCN the
+    first epoch profiled (``--profile_dir``), then a resume from the
+    latest checkpoint (copied over the best one, which the entry resumes
+    from) whose restored parameters and Adam state are bit for bit those
+    of the first run, and the best checkpoint served by
+    ``wcmc_tpu_torch.test_models``.  Returns the phase record."""
+    import importlib
+    import shutil
+
+    import numpy as np
+
+    from wcmc_tpu_torch import test_models
+    from wcmc_tpu_torch.ops import _build
+    from wcmc_tpu_torch.train.checkpoint import load_checkpoint
+
+    spec = CLI[family]
+    entry = importlib.import_module("wcmc_tpu_torch." + spec["module"])
+    name = spec["model_name"]
+    save = os.path.join(os.path.dirname(root), "weights_" + family)
+    prof_dir = os.path.join(save, "profile")
+    argv = ["--single_gpu", "--batch_size", "8", "--val_epoch", "1", "--data_dir", root,
+            "--model_name", name, "--desc", f"chip_smoke {family}", "--save", save,
+            "--use_llpm_buf", "--manif_learn", "--manif_loss", "FMSE",
+            "--seed", str(SEED), "--device", str(dev), *spec["args"]]
+    if "resume" in spec:
+        argv += ["--profile_dir", prof_dir]
+
+    def run(args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        ifaces, params = entry.main(entry.parse_args(args))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = dict(_build.launches), dict(_build.plain_calls)
+        steps = sum(e["steps"] for e in params["epoch_stats"])
+        per_step = TRAIN_LAUNCHES[family]
+        short = {k: launches.get(k, 0) for k, v in per_step.items()
+                 if launches.get(k, 0) < steps * v}
+        if not steps or short:
+            raise AssertionError(f"the {family} CLI launched {launches} in {steps} steps "
+                                 f"(per step at least {per_step})")
+        if plain:
+            raise AssertionError(f"plain versions ran on the {family} CLI: {plain}")
+        iface = ifaces[0]
+        bad = {k: float(v) for k, v in iface.m_losses.items()
+               if not bool(torch.isfinite(v).all())}
+        if bad:
+            raise AssertionError(f"non-finite accumulated losses on the {family} CLI: {bad}")
+        logs = os.path.join(save, "logs", name)
+        step_ms = {}
+        for e in params["epoch_stats"]:
+            fn = os.path.join(logs, f"step_times_e{e['epoch']}.npy")
+            if os.path.isfile(fn):
+                step_ms[e["epoch"]] = float(np.median(np.load(fn)))
+        record = {
+            "seconds": seconds, "steps": steps, "launches": launches,
+            "epochs": [dict(e, loader_wait_share=e["loader_wait_s"] / e["seconds"],
+                            step_ms_median=step_ms.get(e["epoch"]))
+                       for e in params["epoch_stats"]],
+            "best_err": iface.best_err, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        return iface, record
+
+    iface, first = run(argv)
+    latest = os.path.join(save, f"latest_{name}.ckpt")
+    best = os.path.join(save, f"{name}.ckpt")
+    for fn in (latest, best):
+        if not os.path.isfile(fn):
+            raise AssertionError(f"the {family} CLI wrote no {os.path.basename(fn)}")
+    record = {"phase": f"train_cli_{family}", "argv": argv, "first_run": first,
+              "latest_start_epoch": load_checkpoint(latest)["start_epoch"]}
+    if "resume" in spec:
+        with open(os.path.join(prof_dir, "summary.json")) as f:
+            record["profile_first_epoch"] = json.load(f)
+        record["profile_trace_mb"] = os.path.getsize(os.path.join(prof_dir, "trace.json")) / 2**20
+        # resume from the latest state: the entry resumes from the best
+        # checkpoint's name, so the latest is copied there
+        shutil.copyfile(latest, best)
+        resume = [a for a in argv if a != "--profile_dir" and a != prof_dir]
+        i = resume.index("--num_epoch")
+        resume = resume[:i] + resume[i + 2:] + spec["resume"]
+        saved = optimizer_state(torch, iface)
+        restored, _ = entry.init_model(None, entry.parse_args(resume), dev)
+        got = optimizer_state(torch, restored[0])
+        differ = [k for k, v in saved.items()
+                  if any(not torch.equal(a, b) for a, b in zip(v, got[k]))]
+        if differ:
+            raise AssertionError(f"restored state differs from the saved one: {differ[:8]}")
+        del restored
+        _, record["resume_run"] = run(resume)
+        record["restored_tensors_bit_for_bit"] = len(saved)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        results, _ = test_models.main(test_models.parse_args([
+            "--model_name", name, "--save", save, "--data_dir", root, "--spps", str(CLI_SPP),
+            "--use_llpm_buf", "--output_dir", os.path.join(save, "eval"),
+            "--device", str(dev), "--seed", str(SEED), *spec.get("serve_args", ())]))
+        torch.cuda.synchronize()
+        res = results[("scene0", CLI_SPP)]["output"]
+        bad = [k for k, v in res.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"non-finite served metrics: {bad}")
+        if dict(_build.plain_calls):
+            raise AssertionError(f"plain versions ran serving the checkpoint: "
+                                 f"{dict(_build.plain_calls)}")
+        record["served"] = {"seconds": time.perf_counter() - t0,
+                            "linear_RelMSE": res["linear_RelMSE"],
+                            "gamma22_DSSIM": res["gamma22_DSSIM"],
+                            "launches": dict(_build.launches),
+                            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    return record
+
+
 FORWARD_KERNELS = ("gather_softmax", "pathnet_embed", "pathnet_head", "mlp_fused", "scatter",
                    "conv5")
 
@@ -1922,6 +2119,14 @@ def main() -> int:
     emit(record)
     record, sbmc_train = train_phase(torch, dev, "sbmc")
     emit(record)
+    with tempfile.TemporaryDirectory() as work:
+        root, record = cli_corpus(torch, dev, work)
+        emit(record)
+        for family in ("kpcn", "lbmc", "sbmc"):
+            t0 = time.perf_counter()
+            record = train_cli_phase(torch, dev, root, family)
+            record["phase_s"] = time.perf_counter() - t0
+            emit(record)
 
     autograd = {"scatter_softmax": next(r.pop("autograd_launches") for r in bwd_rows
                                         if r["name"] == "scatter_softmax")}

@@ -133,7 +133,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[-1])
-    assert n_modules >= 23
+    assert n_modules >= 45
 
 
 def test_entry_points_need_a_card_or_an_explicit_device(tmp_path, monkeypatch):
@@ -153,6 +153,15 @@ def test_entry_points_need_a_card_or_an_explicit_device(tmp_path, monkeypatch):
                                    "--data_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         test_models.main(args)
+    from wcmc_tpu_torch import train_kpcn, train_lbmc, train_sbmc
+    from wcmc_tpu_torch.data.prefetch import DevicePrefetcher
+
+    for entry in (train_kpcn, train_lbmc, train_sbmc):
+        args = entry.parse_args(["--desc", "x", "--data_dir", str(tmp_path)])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry.main(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DevicePrefetcher([])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

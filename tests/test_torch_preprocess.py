@@ -164,8 +164,9 @@ def test_synthetic_dataset_matches_script(tmp_path):
 
 
 def test_offline_preprocess_unported_modes_raise(tmp_path):
-    """The train/val caches (they need the importance map) raise; the
-    test split's SBMC caches are ported (``test_offline_cache_matches_jax``)."""
+    """Splits other than train, val and test raise; the train/val caches
+    are ported (``tests/test_torch_dataset.py``), and so are the test
+    split's SBMC caches (``test_offline_cache_matches_jax``)."""
     for sbmc in (False, True):
-        with pytest.raises(NotImplementedError):
-            tds.offline_preprocess(str(tmp_path), mode="train", sbmc=sbmc, device="cpu")
+        with pytest.raises(ValueError):
+            tds.offline_preprocess(str(tmp_path), mode="training", sbmc=sbmc, device="cpu")

@@ -18,7 +18,9 @@ The TPU kernels of the ported paths (serving and the manifold training
 step of KPCN and of LBMC) are hand-written CUDA C++ for ``sm_90a`` under
 ``ops/csrc`` (built at first use by ``ops/_build.py``); each has a plain
 PyTorch version beside it that runs for CPU tensors.
-Entry points run on the card unless the caller passes ``device="cpu"``.
+Entry points (``test_models``, and ``train_kpcn``, ``train_lbmc`` and
+``train_sbmc``, which train from an OptaGen corpus on disk) run on the
+card unless the caller passes ``device="cpu"`` / ``--device cpu``.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,10 @@ interior-crop assembly, the 28 px boundary crop, background/emitter
 passthrough via ``has_hit``, and the {RelMSE, RelL1, DSSIM, L1, MSE} x
 {linear, Reinhard, gamma 2.2, adaptive gamma 2.8} CSV grid.  Batches go
 to the device from pinned host memory; the device runs ahead of the
-host's assembly by a bounded window.
+host's assembly by a bounded window.  The upload stays synchronous: the
+threaded ``DevicePrefetcher`` of the training loop made a served frame
+slower on an H100 host (``PERF.md`` §5), since a frame is bound by
+the host's tile stacking and a producer thread per frame only adds to it.
 """
 
 from __future__ import annotations

@@ -110,6 +110,23 @@ def init_interfaces(cfg: TrainConfig, args=None, device=None):
     return out
 
 
+def sweep_checkpoint_name(save_dir, model_name, interfaces, i):
+    """Checkpoint file name of grid trial ``i``: the bare model name for
+    a single-point grid, else the hyperparameter-encoded
+    ``<name>_lp%f_pos%d_wgt%f`` form (``<name>_trial<i>`` for interfaces
+    built by hand, which carry no grid point)."""
+    import os
+
+    if len(interfaces) == 1:
+        return os.path.join(save_dir, model_name + ".ckpt")
+    gp = getattr(interfaces[i], "grid_params", None)
+    if gp is None:
+        return os.path.join(save_dir, f"{model_name}_trial{i}.ckpt")
+    return os.path.join(
+        save_dir, "%s_lp%f_pos%d_wgt%f.ckpt"
+        % (model_name, gp["lr_pnet"], gp["pnet_out_size"], gp["w_manif"]))
+
+
 def _manif_loss_fn(cfg):
     return losses.make_manifold_loss(cfg.manif_loss, non_local=not cfg.local,
                                      pairing=cfg.manif_pairing)

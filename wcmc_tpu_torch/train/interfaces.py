@@ -108,9 +108,9 @@ class BaseInterface:
         self.iters = 0
         self.best_err = 1e10
         self.m_losses: Dict[str, torch.Tensor] = {}
-        # p-buffer PNG dumps (wcmc_tpu's pbuf_dump_dir) come with the
-        # image utilities; setting it makes train_batch raise
+        # optional debug: dump the p-buffer as PNG every N iters
         self.pbuf_dump_dir: Optional[str] = None
+        self.pbuf_dump_every: int = 1000
         self.generator = torch.Generator().manual_seed(seed)
 
     def preprocess(self, batch: Batch = None):
@@ -139,9 +139,9 @@ class BaseInterface:
         device).  ``grad_hook_mode`` runs forward and backward and leaves
         the gradients in ``.grad`` without updating.  ``draws`` replaces
         the step's manifold-loss draws (see ``draw_pairings``)."""
-        if self.pbuf_dump_dir is not None:
-            raise NotImplementedError("p-buffer dumps are not ported yet")
         batch = self.to_device(batch)
+        if not grad_hook_mode:
+            self._maybe_dump_pbuffer(batch)
         for opt in self.optims.values():
             opt.zero_grad()
         loss, loss_dict = self._train_loss(batch, draws)
@@ -152,6 +152,28 @@ class BaseInterface:
             self.optims["optim_" + name].step()
         self._logging(loss_dict)
         return loss_dict
+
+    def _maybe_dump_pbuffer(self, batch):
+        """With ``pbuf_dump_dir`` set and the path buffer on, write the
+        first example's p-buffer (each branch's, sample mean of its first
+        three channels, clipped to [0, 1]) as
+        ``pbuf_<name>_<iters>.png`` at iterations 1, 1 + every, ..."""
+        if self.pbuf_dump_dir is None or not self.use_llpm_buf:
+            return
+        if self.iters % self.pbuf_dump_every != 1:
+            return
+        from wcmc_tpu_torch.utils.img_utils import write_img
+
+        os.makedirs(self.pbuf_dump_dir, exist_ok=True)
+        _, p_buffers, _ = self._val_step(batch)
+        if p_buffers is None:
+            return
+        if not isinstance(p_buffers, dict):
+            p_buffers = {"p": p_buffers}
+        for name, pb in p_buffers.items():
+            img = pb[0, :, :, :, :3].float().mean(dim=0).clamp(0.0, 1.0)
+            write_img(os.path.join(self.pbuf_dump_dir, f"pbuf_{name}_{self.iters}.png"),
+                      img.cpu().numpy())
 
     def _logging(self, loss_dict):
         for key, val in loss_dict.items():
@@ -178,12 +200,19 @@ class BaseInterface:
             return -1.0
         return float(self.m_losses["m_val"]) / (norm * 2)
 
+    def state_dicts(self):
+        """{model name: (module, optimizer)}: what a checkpoint holds."""
+        return {name: (m, self.optims.get("optim_" + name)) for name, m in self.models.items()}
+
     def to_mesh(self, mesh):
         raise NotImplementedError("multi-device training is not ported yet")
 
     def to_device(self, batch) -> Batch:
-        """Numpy arrays or tensors -> tensors on this interface's device."""
-        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        """Numpy arrays (bfloat16 ones too) or tensors -> tensors on this
+        interface's device."""
+        from wcmc_tpu_torch.data.prefetch import host_tensor
+
+        return {k: host_tensor(v).to(self.device) for k, v in batch.items()}
 
     def _val_model(self, name: str = "dncnn"):
         """The model ``name`` as a primal-only (validation / inference)

@@ -1,5 +1,5 @@
-"""Small shared helpers: channels-last crops, device selection and the
-FeatureMSE tonemap."""
+"""Small shared helpers: channels-last crops, device selection, the
+FeatureMSE tonemap and the display transforms the importance map uses."""
 
 from __future__ import annotations
 
@@ -45,3 +45,17 @@ def tonemap_gamma(img):
     as ``jnp.maximum`` does."""
     img = torch.maximum(img, img.new_zeros(()))
     return (img / (1.0 + img)) ** 0.454545
+
+
+def _luminance(c):
+    return 0.2126 * c[..., 0:1] + 0.7152 * c[..., 1:2] + 0.0722 * c[..., 2:3]
+
+
+def tonemap_reinhard_lum(c, limit: float = 1.5):
+    """Luminance-normalized Reinhard: ``c / (1 + lum(c) / limit)``."""
+    return c / (1.0 + _luminance(c) / limit)
+
+
+def linear_to_srgb(c, gamma: float = 2.2):
+    """``max(c, 0) ** (1 / gamma)`` clipped to [0, 1]."""
+    return torch.clamp(torch.clamp(c, min=0.0) ** (1.0 / gamma), 0.0, 1.0)
