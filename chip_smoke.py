@@ -123,6 +123,28 @@ Phases (one JSON line each):
    each epoch's steps, seconds, loader wait share and median step ms, and
    peak memory.
 
+7. train_kpcn_ref, train_kpcn_pre_a, train_kpcn_pre_b: the KPCN variants
+   of ``train_kpcn.py`` (``--kpcn_ref``; ``--kpcn_pre`` with
+   ``--manif_learn``, phase (a), the dual PathNet alone, and without it,
+   phase (b), KPCN under the frozen PathNet) at the flagship widths, batch
+   8, 128 px, 8 spp, bf16: 3 warm-up and 5 timed steps, each launching
+   exactly its counts (``VARIANTS``) with no plain call, finite losses,
+   only the trained models' parameters changed (the frozen ones bit for
+   bit); the ref variant also serves one tile through its
+   ``validate_batch`` (and ``_augment``) at its seeded initial weights,
+   held against the CPU in bf16 and f32 to the served KPCN tile's limits.
+8. multi_device: the parallel modes on the one card, a world of 2 ranks
+   sharing cuda:0 over gloo (``parallel/launch.py``'s ``RankPool``): (i)
+   the flagship KPCN + FMSE data-parallel step at global batch 8 (4 a rank)
+   against the 1-rank step from the same weights, batch and draws, within
+   ``XCHECK``'s limits scaled by the train phase's bf16 noise at the same
+   weights, the replicas' checksums equal; (ii) the flagship KPCN on one
+   512^2 8-spp frame in 2 bands with halo 32 against the unsharded
+   forward's interior; (iii) the dual PathNet, LBMC and SBMC serving
+   forwards at 8 spp split 4 + 4 against the unsharded ones (``MD_TOLS``);
+   (iv) two data-parallel steps at world 1 over NCCL, bit for bit two 1-rank
+   steps.  NCCL across cards is not covered (one card).
+
 Then the kernel table (a row per kernel and path, its ``launches`` from
 that path's run: per served frame for a forward kernel, per 10 train
 steps for a backward one and for K8; K3 on the KPCN path and K9 from
@@ -2044,6 +2066,431 @@ def train_cli_phase(torch, dev, root, family):
     return record
 
 
+# The KPCN variants of train_kpcn.py at the README flagship widths (K 21,
+# depth 9, width 100; the dual PathNet 36 -> 64^3 where used), batch 8, 128
+# px, 8 spp, bf16: --kpcn_ref (the targets joined onto KPCN's inputs),
+# --kpcn_pre with --manif_learn (phase (a): the dual PathNet alone under
+# FMSE) and without (phase (b): KPCN under the frozen PathNet, whose
+# forward runs without autograd).  Each step's launches and the models it
+# trains.
+VARIANTS = {
+    "ref": {"config": {"kpcn_ref": True}, "llpm": False, "trained": ("dncnn",),
+            "launches": {"gather_softmax": 2, "outer_softmax": 2},
+            "serve_launches": {"gather_softmax": 2}},
+    "pre_a": {"config": {"kpcn_pre": True, "use_llpm_buf": True, "manif_learn": True,
+                         "manif_loss": "FMSE"}, "llpm": True,
+              "trained": ("backbone_diffuse", "backbone_specular"),
+              "launches": {"pathnet_embed": 1, "pathnet_embed_bwd": 1, "pathnet_head": 1,
+                           "pathnet_head_bwd": 1}},
+    "pre_b": {"config": {"kpcn_pre": True, "use_llpm_buf": True}, "llpm": True,
+              "trained": ("dncnn",),
+              "launches": {"pathnet_embed": 1, "pathnet_head": 1, "gather_softmax": 2,
+                           "outer_softmax": 2}},
+}
+
+
+def variant_config(variant, **kw):
+    from wcmc_tpu_torch.train.factory import TrainConfig
+
+    return TrainConfig(base_model="kpcn", kpcn_ksize=21, seed=SEED,
+                       **VARIANTS[variant]["config"], **kw)
+
+
+def ref_tile_check(torch, iface, batch):
+    """One 128-px tile served through the ref interface's ``validate_batch``
+    (and so its ``_augment``: the tile carries its targets) on the card,
+    against the same weights on the CPU in bf16 and in f32, held to the
+    served KPCN tile's limits."""
+    from wcmc_tpu_torch import convert
+    from wcmc_tpu_torch.ops import _build
+    from wcmc_tpu_torch.train.factory import init_interfaces
+
+    tile = {k: v[:1] for k, v in batch.items()}
+    calls = []
+    real = iface._augment
+    iface._augment = lambda b: calls.append(1) or real(b)
+    iface.to_eval_mode()
+    _build.reset_counts()
+    try:
+        card_rad, card_p = iface.validate_batch(tile)
+        torch.cuda.synchronize()
+    finally:
+        del iface._augment
+    launches, plain = dict(_build.launches), dict(_build.plain_calls)
+    if calls != [1] or card_p is not None or launches != VARIANTS["ref"]["serve_launches"] \
+            or plain:
+        raise AssertionError(f"the ref tile ran _augment {len(calls)} times, launched "
+                             f"{launches}, plain {plain}, p-buffers {card_p is not None}")
+    out = {"launches": launches}
+    for dtype, tol in (("bfloat16", SERVE_BF16_TOL), ("float32", SERVE_F32_TOL)):
+        ref_if = init_interfaces(variant_config("ref", compute_dtype=dtype), device="cpu")[0]
+        for name, m in iface.models.items():
+            convert.load_flax_params(ref_if.models[name], convert.to_flax(m))
+        ref_rad, _ = ref_if.validate_batch({k: v.cpu() for k, v in tile.items()})
+        pairs = []
+        err = max_err(torch, [card_rad.cpu()], [ref_rad], tol, pairs)
+        l2 = rel_l2(torch, card_rad.cpu(), ref_rad)
+        shift_l2 = rel_l2(torch, torch.roll(ref_rad, 1, dims=-2), ref_rad)
+        l2_tol = SERVE_L2_TOLS["kpcn"][dtype]
+        if l2 > l2_tol or l2_tol >= shift_l2:
+            raise AssertionError(f"the ref tile is off the CPU's {dtype} path by relative L2 "
+                                 f"{l2} (limit {l2_tol}, a one-pixel shift {shift_l2})")
+        out[dtype] = {"max_abs_err": err, "pairs": pairs, "tol": tol, "rel_l2": l2,
+                      "l2_tol": l2_tol, "shift1_rel_l2": shift_l2}
+    return out
+
+
+def variant_phase(torch, dev, variant, smi, b=8, patch=128, spp=8):
+    """A KPCN variant's flagship train step through ``init_interfaces`` ->
+    ``train_batch``: 3 warm-up and 5 timed steps, each launching exactly its
+    counts with no plain call, finite losses, the trained models' parameters
+    changed and the frozen ones' bit for bit; the ref variant also serves
+    one tile (``ref_tile_check``) before its steps.  Returns the phase
+    record and the timed steps' launches."""
+    import numpy as np
+
+    from wcmc_tpu_torch.data.batches import synthetic_batch
+    from wcmc_tpu_torch.ops import _build
+    from wcmc_tpu_torch.train.factory import init_interfaces
+
+    spec = VARIANTS[variant]
+    n_warm, n_timed = 3, 5
+    t0 = time.perf_counter()
+    batch = synthetic_batch(np.random.default_rng(SEED), "kpcn", b, patch, spp, spec["llpm"])
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    iface = init_interfaces(variant_config(variant), device=dev)[0]
+    set_up_s = time.perf_counter() - t0
+    served = None
+    if variant == "ref":
+        # at the seeded initial weights, as the serving phases check theirs:
+        # after training steps the CPU's own bf16 path lies 1.3e-2 of max from
+        # its f32 path on this tile (2.6e-4 at the initial weights), beyond the
+        # served tile's limits
+        served = ref_tile_check(torch, iface, batch)
+    before = {n: [p.detach().clone() for p in m.parameters()] for n, m in iface.models.items()}
+    iface.to_train_mode()
+    losses = []
+
+    def step():
+        iface.preprocess(batch)
+        losses.append(iface.train_batch(batch))
+
+    for _ in range(n_warm):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    step_ms = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches, plain = dict(_build.launches), dict(_build.plain_calls)
+    want = {k: n_timed * v for k, v in spec["launches"].items()}
+    if launches != want or plain:
+        raise AssertionError(f"the {variant} step launched {launches} in {n_timed} steps, not "
+                             f"{want}; plain {plain}")
+    trajectory = [{k: float(v) for k, v in ld.items()} for ld in losses]
+    if any(v != v or abs(v) == float("inf") for ld in trajectory for v in ld.values()):
+        raise AssertionError(f"non-finite {variant} losses: {trajectory}")
+    changed = {n for n, m in iface.models.items()
+               if not all(torch.equal(p, q) for p, q in zip(m.parameters(), before[n]))}
+    if changed != set(spec["trained"]):
+        raise AssertionError(f"the {variant} steps changed {sorted(changed)}, not "
+                             f"{sorted(spec['trained'])}")
+    med = statistics.median(step_ms)
+    record = {"phase": f"train_kpcn_{variant}", "nvidia_smi": smi,
+              "config": {"model": str(iface.models["dncnn"]), "variant": str(iface), "batch": b,
+                         "patch": patch, "spp": spp, "compute_dtype": "bfloat16",
+                         **spec["config"]},
+              "set_up_s": set_up_s, "step_ms": med, "step_ms_runs": step_ms,
+              "mp_per_s": b * patch * patch / 1e6 / (med / 1e3),
+              "launches_per_step": {k: v / n_timed for k, v in launches.items()},
+              "plain_calls": plain, "trained": sorted(changed),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+              "loss_trajectory": trajectory}
+    if served is not None:
+        record["served_tile"] = served
+    return record, launches
+
+
+# The parallel modes on the one card: a world of 2 ranks sharing cuda:0 over
+# gloo (NCCL puts no two ranks on one card; gloo runs all-reduce and
+# broadcast on CUDA tensors, the only collectives the modes use), then a
+# world of 1 over NCCL.  The limits of (ii) and (iii): the served KPCN,
+# LBMC and SBMC tiles' bf16 limits against the CPU (max error over max
+# |ref|, relative L2), which a sharded forward on the card, differing from
+# the unsharded one only in the order of its sample sums, must keep too.
+MD_WORLD = 2
+MD_DEVICES = ["cuda:0"] * MD_WORLD
+MD_BATCH = (8, 128, 8)     # global batch, patch px, spp
+MD_FRAME, MD_HALO = 512, 32
+MD_HALO_LAUNCHES = {"gather_softmax": 2}
+MD_ONE_CARD_BACKEND = "nccl"   # (iv)
+MD_TOLS = {"halo": (SERVE_BF16_TOL, SERVE_L2_TOLS["kpcn"]["bfloat16"]),
+           "dual_pathnet": (SERVE_BF16_TOL, SERVE_L2_TOLS["kpcn"]["bfloat16"]),
+           "lbmc": (LBMC_SERVE_TOLS["bfloat16"], SERVE_L2_TOLS["lbmc"]["bfloat16"]),
+           "sbmc": (SBMC_SERVE_TOLS["bfloat16"], SERVE_L2_TOLS["sbmc"]["bfloat16"])}
+MD_SAMPLE = {
+    "dual_pathnet": {"family": "kpcn", "what": "dual_pathnet",
+                     "launches": {"pathnet_embed": 1, "pathnet_head": 1}},
+    "lbmc": {"family": "lbmc", "what": "dncnn",
+             "launches": {"mlp_fused": 1, "gather_softmax": 2}},
+    "sbmc": {"family": "sbmc", "what": "dncnn", "sbmc_buf": True,
+             "launches": {"pathnet_embed": 1, "pathnet_head": 3, "scatter": 1}},
+}
+
+
+def md_config(family):
+    """``train_config(family)``'s fields (what the ranks rebuild it from)."""
+    import dataclasses
+
+    return dataclasses.asdict(train_config(family))
+
+
+def rank_cuda_flags():
+    """A rank's TF32 switches as this script sets its own (off)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def sample_serve(iface, recipe, what, mesh=None):
+    """The serving forward ``what`` of ``iface`` on the batch of ``recipe``
+    (``parallel.dryrun.resolve_batch``): the dual PathNet on the paths, or
+    the sample-space dncnn on the features with the path buffer joined (by
+    the interface, unsharded, as served).  With ``mesh``, the spp axis is
+    sharded over its spatial group.  Returns (outputs as numpy, ms of the
+    forward after a warm-up one, its launches and plain calls)."""
+    import torch
+
+    from wcmc_tpu_torch.models.pathnet import dual_pathnet_apply
+    from wcmc_tpu_torch.ops import _build
+    from wcmc_tpu_torch.parallel.dryrun import resolve_batch
+    from wcmc_tpu_torch.parallel.sample import shard_samples, with_sample_group
+
+    batch = {k: v.to(iface.device) for k, v in resolve_batch(recipe).items()}
+    group = None if mesh is None else mesh.spatial_group
+    with torch.no_grad():
+        if what == "dncnn":
+            batch = iface._augment_features(batch, slice_recon_only=True)[0]
+        keys = ("paths",) if what == "dual_pathnet" else ("radiance", "features")
+        batch = {k: batch[k] for k in keys}
+        if mesh is not None:
+            batch = shard_samples(batch, mesh)
+
+        def forward():
+            if what == "dual_pathnet":
+                d, s = (with_sample_group(iface.models[n], group)
+                        for n in ("backbone_diffuse", "backbone_specular"))
+                p_d, p_s, _ = dual_pathnet_apply(d, s, batch, with_moments=True)
+                return {"diffuse": p_d, "specular": p_s}
+            return {"radiance": with_sample_group(iface.models["dncnn"], group)(batch)}
+
+        forward()   # warm-up
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        outs = forward()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    return ({k: v.float().cpu().numpy() for k, v in outs.items()}, ms,
+            dict(_build.launches), dict(_build.plain_calls))
+
+
+def rank_sample_serve(cfg, params, recipe, what, devices):
+    """``sample_serve`` on every rank of a 1 x n mesh, the interface of
+    ``cfg`` with ``params`` loaded."""
+    import torch
+
+    from wcmc_tpu_torch.parallel.dryrun import _interface
+    from wcmc_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data=1, n_spatial=torch.distributed.get_world_size(), devices=devices)
+    return sample_serve(_interface(cfg, params, mesh.device), recipe, what, mesh)
+
+
+def held(torch, got, want, tols, what):
+    """Max error over max |want| and relative L2 of ``got`` against
+    ``want`` (numpy), each within its limit of ``tols``; raises otherwise."""
+    import numpy as np
+
+    g, w = torch.from_numpy(np.ascontiguousarray(got)), torch.from_numpy(want)
+    err = float((g.double() - w.double()).abs().max()) / float(w.abs().max())
+    l2 = rel_l2(torch, g, w)
+    if not (err <= tols[0] and l2 <= tols[1]):
+        raise AssertionError(f"{what}: max error {err} of max |ref| (limit {tols[0]}), "
+                             f"relative L2 {l2} (limit {tols[1]})")
+    return {"err_over_max_ref": err, "rel_l2": l2, "tols": list(tols)}
+
+
+def multi_device_phase(torch, dev, smi, kpcn_record):
+    """(i) the flagship KPCN + FMSE data-parallel step over 2 gloo ranks
+    (global batch 8, 4 a rank) against the 1-rank step on the card from the
+    same weights, batch and draws, each model's gradient and each loss
+    within ``XCHECK``'s limits scaled by the bf16 noise n that the train
+    phase read at the same seeded weights (CPU bf16 against f32, batch
+    [:2]); the replicas' checksums equal; (ii) the flagship KPCN on one 512^2
+    8-spp frame in 2 bands with halo 32 against the unsharded forward's
+    interior; (iii) the dual PathNet, LBMC and SBMC serving forwards at 8 spp
+    split 4 + 4 against the unsharded ones; (iv) two data-parallel steps at
+    world 1 over NCCL, bit for bit two 1-rank steps.  Every rank's launches
+    exactly its counts, no plain call."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from wcmc_tpu_torch import convert
+    from wcmc_tpu_torch.parallel import dryrun
+    from wcmc_tpu_torch.parallel.halo import KPCN_KEYS
+    from wcmc_tpu_torch.parallel.launch import RankPool, init_rank
+    from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
+
+    record = {"phase": "multi_device", "nvidia_smi": smi, "world": MD_WORLD,
+              "backend": "gloo", "devices": MD_DEVICES}
+    t_phase = time.perf_counter()
+    cfg = md_config("kpcn")
+    recipe = ("synthetic", "kpcn", SEED, *MD_BATCH, True)
+    single = init_interfaces(TrainConfig(**cfg), device=dev)[0]
+    params = {n: convert.to_flax(m) for n, m in single.models.items()}
+    batch = {k: v.to(dev) for k, v in dryrun.resolve_batch(recipe).items()}
+    single.to_train_mode()
+    draws = step_draws(single, batch, "kpcn")
+    single.preprocess(batch)
+    loss1 = {k: float(v) for k, v in single.train_batch(batch, grad_hook_mode=True,
+                                                        draws=draws).items()}
+    g1 = {n: torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
+          for n, m in single.models.items()}
+    t0 = time.perf_counter()
+    with RankPool(MD_WORLD, "gloo", devices=MD_DEVICES) as pool:
+        record["pool_start_s"] = time.perf_counter() - t0
+        pool.run(rank_cuda_flags)
+        # (i) the data-parallel step
+        t0 = time.perf_counter()
+        ranks = pool.run(dryrun.dp_step, cfg, recipe, params, draws, 1, MD_DEVICES, False, True)
+        noise = kpcn_record["cross_check_init"]["decision"]
+        terms, bad = {}, []
+        for name, g in g1.items():
+            d = float((torch.from_numpy(ranks[0]["grads"][name]) - g).norm())
+            limit = XCHECK["alpha"] * noise[name]["n"] + XCHECK["beta"] * float(g.norm())
+            terms[name] = {"dp-single": d, "n": noise[name]["n"], "limit": limit}
+            bad += [name] if d > limit else []
+        for name, v in loss1.items():
+            d = abs(ranks[0]["losses"][0][name] - v)
+            limit = XCHECK["alpha"] * noise[name]["n"] + XCHECK["beta_loss"] * abs(v)
+            terms[name] = {"dp-single": d, "n": noise[name]["n"], "limit": limit}
+            bad += [name] if d > limit else []
+        want = {k: 2 * v for k, v in TRAIN_LAUNCHES["kpcn"].items()}   # grads, then the step
+        sums = {r["checksum"] for r in ranks}
+        if bad or len(sums) != 1 or any(r["launches"] != want or r["plain_calls"]
+                                        for r in ranks):
+            raise AssertionError(f"the data-parallel step: off the 1-rank step in {bad} "
+                                 f"({terms}); checksums {sums}; launches "
+                                 f"{[r['launches'] for r in ranks]}, plain "
+                                 f"{[r['plain_calls'] for r in ranks]}")
+        record["data_parallel"] = {
+            "config": {"global_batch": MD_BATCH[0], "per_rank": MD_BATCH[0] // MD_WORLD,
+                       "patch": MD_BATCH[1], "spp": MD_BATCH[2]},
+            "decision": terms, "checksum": sums.pop(), "launches_per_rank": ranks[0]["launches"],
+            "rank_step_ms": [r["step_ms"][0] for r in ranks], "losses": ranks[0]["losses"][0],
+            "s": time.perf_counter() - t0}
+
+        # (ii) row-sharded KPCN inference with the halo exchange
+        t0 = time.perf_counter()
+        frame = dryrun.resolve_batch(("synthetic", "kpcn", SEED + 1, 1, MD_FRAME, MD_BATCH[2],
+                                      True))
+        with torch.no_grad():
+            single.to_eval_mode()
+            net, _ = single._forward_with_paths({k: v.to(dev) for k, v in frame.items()},
+                                                for_training=False)
+            net = {k: net[k] for k in KPCN_KEYS}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            full = single.models["dncnn"](net)["radiance"]
+            torch.cuda.synchronize()
+            full_ms = 1e3 * (time.perf_counter() - t1)
+        ranks = pool.run(dryrun.halo_forward, cfg, {k: v.cpu().numpy() for k, v in net.items()},
+                         MD_HALO, {"dncnn": params["dncnn"]}, MD_DEVICES)
+        out = np.concatenate([r["band"] for r in ranks], axis=1)
+        r = single.models["dncnn"].shrink // 2
+        if any(x["launches"] != MD_HALO_LAUNCHES or x["plain_calls"] for x in ranks):
+            raise AssertionError(f"halo ranks launched {[x['launches'] for x in ranks]}")
+        f = MD_FRAME
+        record["halo"] = {"frame": [f, f], "bands": MD_WORLD, "halo": MD_HALO,
+                          "unsharded_ms": full_ms, "s": time.perf_counter() - t0,
+                          **held(torch, out[:, r:f - r, r:f - r], full.float().cpu().numpy(),
+                                 MD_TOLS["halo"], "the halo forward")}
+
+        # (iii) spp-sharded serving forwards
+        record["sample_parallel"] = {}
+        for name, spec in MD_SAMPLE.items():
+            t0 = time.perf_counter()
+            fcfg = md_config(spec["family"])
+            iface = single if spec["family"] == "kpcn" else init_interfaces(
+                TrainConfig(**fcfg), device=dev)[0]
+            fparams = {n: convert.to_flax(m) for n, m in iface.models.items()}
+            frecipe = ("synthetic", spec["family"], SEED, *MD_BATCH, True,
+                       *((True,) if spec.get("sbmc_buf") else ()))
+            want_out, full_ms, _, _ = sample_serve(iface, frecipe, spec["what"])
+            ranks = pool.run(rank_sample_serve, fcfg, fparams, frecipe, spec["what"], MD_DEVICES)
+            rec = {"unsharded_ms": full_ms, "rank_ms": [x[1] for x in ranks]}
+            if any(x[2] != spec["launches"] or x[3] for x in ranks):
+                raise AssertionError(f"{name} ranks launched {[x[2] for x in ranks]}, plain "
+                                     f"{[x[3] for x in ranks]}")
+            for key, w in want_out.items():
+                if spec["what"] == "dual_pathnet":     # each rank its samples
+                    got = np.concatenate([x[0][key] for x in ranks], axis=1)
+                else:                                  # the image, on every rank
+                    if any(not np.array_equal(x[0][key], ranks[0][0][key]) for x in ranks):
+                        raise AssertionError(f"{name}: the ranks' images differ")
+                    got = ranks[0][0][key]
+                rec[key] = held(torch, got, w, MD_TOLS[name], f"{name} {key}")
+            rec["s"] = time.perf_counter() - t0
+            record["sample_parallel"][name] = rec
+            if iface is not single:
+                del iface
+
+    # (iv) two data-parallel steps at world 1 over NCCL: the 1-rank steps bit for bit
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        init_rank(0, 1, "file://" + os.path.join(rdv, "rendezvous"), MD_ONE_CARD_BACKEND, dev)
+        try:
+            res = dryrun.dp_step(cfg, recipe, params, draws, 2, [str(dev)])
+        finally:
+            dist.destroy_process_group()
+    single.to_train_mode()
+    for _ in range(2):
+        single.preprocess(batch)
+        single_loss = {k: float(v) for k, v in single.train_batch(batch, draws=draws).items()}
+    same = all(np.array_equal(a, b) for n, m in single.models.items()
+               for a, b in zip(nested_leaves(convert.to_flax(m)),
+                               nested_leaves(res["params"][n])))
+    want = {k: 2 * v for k, v in TRAIN_LAUNCHES["kpcn"].items()}
+    if res["launches"] != want or res["plain_calls"] or res["losses"][1] != single_loss \
+            or not same:
+        raise AssertionError(f"the NCCL world-1 steps: launches {res['launches']} (want "
+                             f"{want}), plain {res['plain_calls']}, losses {res['losses'][1]} "
+                             f"against {single_loss}, parameters bit for bit {same}")
+    # the first step's ms holds NCCL's set-up (its communicator is made at
+    # the first collective)
+    record["nccl_world1"] = {"backend": MD_ONE_CARD_BACKEND, "world": 1, "steps": 2,
+                             "step_ms": res["step_ms"], "losses": res["losses"],
+                             "bit_for_bit_1_rank_steps": same,
+                             "s": time.perf_counter() - t0}
+    record["phase_s"] = time.perf_counter() - t_phase
+    return record
+
+
+def nested_leaves(tree):
+    """The arrays of a nested dict in key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += nested_leaves(v) if isinstance(v, dict) else [v]
+    return out
+
+
 FORWARD_KERNELS = ("gather_softmax", "pathnet_embed", "pathnet_head", "mlp_fused", "scatter",
                    "conv5")
 
@@ -2113,8 +2560,8 @@ def main() -> int:
             emit(records[name])
     emit({"phase": "fused_vs_default", **fused_vs_default(records)})
     kpcn_serve, lbmc_serve, sbmc_serve = served["kpcn"], served["lbmc"], served["sbmc"]
-    record, kpcn_train = train_phase(torch, dev, "kpcn")
-    emit(record)
+    kpcn_record, kpcn_train = train_phase(torch, dev, "kpcn")
+    emit(kpcn_record)
     record, lbmc_train = train_phase(torch, dev, "lbmc")
     emit(record)
     record, sbmc_train = train_phase(torch, dev, "sbmc")
@@ -2127,6 +2574,12 @@ def main() -> int:
             record = train_cli_phase(torch, dev, root, family)
             record["phase_s"] = time.perf_counter() - t0
             emit(record)
+    for variant in VARIANTS:
+        t0 = time.perf_counter()
+        record, _ = variant_phase(torch, dev, variant, smi)
+        record["phase_s"] = time.perf_counter() - t0
+        emit(record)
+    emit(multi_device_phase(torch, dev, smi, kpcn_record))
 
     autograd = {"scatter_softmax": next(r.pop("autograd_launches") for r in bwd_rows
                                         if r["name"] == "scatter_softmax")}

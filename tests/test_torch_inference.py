@@ -201,12 +201,15 @@ def test_split_disentangle(mode):
 
 
 def test_unported_families_raise(tmp_path):
-    """The KPCN ref / pre variants (slice D) raise by config, a name of no
-    family raises; SBMC (slice E1) and LBMC are ported."""
-    with pytest.raises(NotImplementedError):
-        tinit(TConfig(kpcn_ksize=5, kpcn_ref=True), device="cpu")
-    with pytest.raises(NotImplementedError):
+    """A name of no family raises; the KPCN ref / pre variants build by
+    config (the pre variant only with the path buffer), and SBMC and LBMC
+    are ported."""
+    ref = tinit(TConfig(kpcn_ksize=5, kpcn_ref=True), device="cpu")[0]
+    assert str(ref) == "KPCNInterface" and ref.models["dncnn"].n_in == 34 + 3
+    with pytest.raises(ValueError, match="backbone"):
         tinit(TConfig(kpcn_ksize=5, kpcn_pre=True), device="cpu")
+    pre = tinit(TConfig(kpcn_ksize=5, kpcn_pre=True, use_llpm_buf=True), device="cpu")[0]
+    assert str(pre) == "KPCNPreInterface"
     args = ttm.parse_args(["--model_name", "DNCNN_x", "--data_dir", str(tmp_path),
                            "--device", "cpu"])
     with pytest.raises(ValueError, match="KPCN, SBMC, or LBMC"):

@@ -128,7 +128,9 @@ _CHILD = textwrap.dedent("""
 
 
 def test_port_imports_no_jax():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # two intra-op threads: the child's steps are tiny, and the default
+    # (one a core) spins idle threads against the other test workers
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

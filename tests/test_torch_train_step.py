@@ -300,7 +300,7 @@ def test_nonfinite_loss_raises_and_summary():
     tif.preprocess(bad)
     with pytest.raises(RuntimeError, match="Non-finite"):
         tif.train_batch(bad)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tif.to_mesh(None)
 
 

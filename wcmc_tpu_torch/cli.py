@@ -6,8 +6,9 @@ choices as ``BasicArgumentParser``, ``add_manifold_flags`` and
 torch device the entry point runs on (the CUDA card unless it names
 another; without a card and without ``--device cpu`` the entry point
 raises, see ``utils.utils.resolve_device``).  ``--n_devices`` above 1
-reaches ``BaseInterface.to_mesh``, which multi-device training has not
-ported yet.
+trains data parallel over that many ranks, which the entry point spawns
+itself (``train/entry.py``): one card each over NCCL, or gloo ranks on
+the CPU with ``--device cpu``.
 """
 
 from __future__ import annotations

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from wcmc_tpu_torch.data import preprocess, schema
+from wcmc_tpu_torch.parallel.mesh import shard_slice
 from wcmc_tpu_torch.utils.utils import resolve_device
 
 PATCH_SIZE = schema.PATCH_SIZE
@@ -660,12 +661,18 @@ class BatchLoader:
     batch_size) boundaries align naturally; for other settings the
     loader starts a fresh batch at every shape change and drops the
     heterogeneous remainder.
+
+    ``shard=(index, count)`` yields only shard ``index`` of each batch
+    (``parallel.mesh.shard_slice``): a data-parallel rank stacks its own
+    part of the global batch and nothing else.
     """
 
-    def __init__(self, dataset, batch_size: int, drop_last: bool = True):
+    def __init__(self, dataset, batch_size: int, drop_last: bool = True,
+                 shard: tuple = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.drop_last = drop_last
+        self.shard = shard
 
     def __len__(self):
         n = len(self.dataset)
@@ -675,6 +682,10 @@ class BatchLoader:
     def _shapes(item):
         return tuple(sorted((k, v.shape) for k, v in item.items()))
 
+    def _stack(self, items):
+        items = items[shard_slice(len(items), *self.shard)]
+        return {k: np.stack([it[k] for it in items], axis=0) for k in items[0]}
+
     def __iter__(self) -> Iterator[dict]:
         pending: list = []
         for i in range(len(self.dataset)):
@@ -682,23 +693,14 @@ class BatchLoader:
             if pending and self._shapes(item) != self._shapes(pending[0]):
                 if not self.drop_last:
                     # flush the partial batch at the shape boundary
-                    yield {
-                        k: np.stack([it[k] for it in pending], axis=0)
-                        for k in pending[0]
-                    }
+                    yield self._stack(pending)
                 pending = []
             pending.append(item)
             if len(pending) == self.batch_size:
-                yield {
-                    k: np.stack([it[k] for it in pending], axis=0)
-                    for k in pending[0]
-                }
+                yield self._stack(pending)
                 pending = []
         if pending and not self.drop_last:
-            yield {
-                k: np.stack([it[k] for it in pending], axis=0)
-                for k in pending[0]
-            }
+            yield self._stack(pending)
 
 
 class ShuffleLoader:
@@ -730,11 +732,16 @@ class ShuffleLoader:
     and batch draws all come from seeded generators, and images are
     admitted to the window in submission order (never completion
     order), so thread scheduling cannot change what is served.
+
+    ``shard=(index, count)`` cuts and yields only shard ``index`` of each
+    batch (``parallel.mesh.shard_slice``): every data-parallel rank draws
+    the global batch's patches from the same generators, so the ranks
+    stay in step, and cuts its own.
     """
 
     def __init__(self, dataset, batch_size: int, window_images: int = 4,
                  workers: int = 2, seed: int = 0, drop_last: bool = True,
-                 max_buffer_patches: int = 256):
+                 max_buffer_patches: int = 256, shard: tuple = (0, 1)):
         # image "units": MSDenoiseDataset contributes one unit per
         # (sub-dataset, image) so shuffling spans spp variants too —
         # like the reference's DataLoader over its ConcatDataset
@@ -760,6 +767,7 @@ class ShuffleLoader:
         # bound host memory: llpm patches are ~19 MB each, so the
         # shuffle buffer must cap in PATCHES, not images
         self.max_buffer_patches = max_buffer_patches
+        self.shard = shard
         self._epoch = 0
 
     def __len__(self):
@@ -841,14 +849,19 @@ class ShuffleLoader:
                     picks.append((e, x, y))
                 for e in [e for e in best if not e.coords]:
                     window.remove(e)
+                mine = shard_slice(take, *self.shard)
                 if any(p[0].ds.augment for p in picks):
-                    # augment mutates per-entry rngs — keep it serial
+                    # augment mutates per-entry rngs — keep it serial,
+                    # and cut every pick so that each rank's rngs advance
+                    # alike
                     items = [e.ds.cut_patch(e.sample, x, y, e.rng)
-                             for e, x, y in picks]
+                             for e, x, y in picks][mine]
                     return {
                         k: np.stack([it[k] for it in items], axis=0)
                         for k in items[0]
                     }
+                picks = picks[mine]
+                take = len(picks)
                 # preallocate the batch and cut straight into it: one
                 # strided copy per patch, no intermediate + stack pass
                 # (the first patch discovers the model-layout shapes)

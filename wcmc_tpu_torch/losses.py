@@ -19,6 +19,16 @@ radiance.
 Layouts: embedded paths ``p_buffer`` are ``(B, S, H, W, C)``, or
 ``(B, S, C, H, W)`` with ``cmajor``; reference radiance is
 ``(B, H, W, 3)``.
+
+Data parallel (``group``, the data group of a data-parallel step): each
+rank holds its shard of the batch.  The intra-patch term stays local (its
+mean over equal shards, averaged over the ranks, is the global mean);
+the intra-batch pairs are drawn over the global batch (the draw is for
+the global shape), so the flattened embeddings and radiance are gathered
+over the group in batch order (``parallel.collectives.gather_cat``)
+before the pairing, as the reference's sharded step sees them.  GRS's
+log-sum-exp spans both terms, so its intra-patch displacements are
+gathered too.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import math
 import torch
 
 from wcmc_tpu_torch.ops.colors import hls_cartesian, rgb_to_hls
+from wcmc_tpu_torch.parallel.collectives import gather_cat, group_size
 from wcmc_tpu_torch.utils.utils import tonemap_gamma
 
 PAIRINGS = ("roll", "permutation")
@@ -129,18 +140,19 @@ def _patch_displacement(p_buffer, ref, draw, pairing, cmajor=False):
     return _paired_displacement(p_flat, r_flat, draw, pairing)
 
 
-def _batch_displacement(p_buffer, ref, draw, pairing, cmajor=False):
-    """Pairs drawn across the whole batch."""
+def _batch_displacement(p_buffer, ref, draw, pairing, cmajor=False, group=None):
+    """Pairs drawn across the whole batch (gathered over ``group``)."""
     if cmajor:  # (B, S, C, H, W) -> (C, B*S*H*W)
         c = p_buffer.shape[2]
         p_flat = p_buffer.permute(2, 0, 1, 3, 4).reshape(c, -1)
         r_flat = ref.permute(2, 0, 1, 3, 4).reshape(ref.shape[2], -1)
-        return _paired_displacement(p_flat, r_flat, draw, pairing,
-                                    pos_axis=-1, channel_axis=-2)
+        return _paired_displacement(gather_cat(p_flat, group, -1), gather_cat(r_flat, group, -1),
+                                    draw, pairing, pos_axis=-1, channel_axis=-2)
     c = p_buffer.shape[-1]
     p_flat = p_buffer.reshape(-1, c)
     r_flat = ref.reshape(-1, ref.shape[-1])
-    return _paired_displacement(p_flat, r_flat, draw, pairing)
+    return _paired_displacement(gather_cat(p_flat, group), gather_cat(r_flat, group), draw,
+                                pairing)
 
 
 def _prep_pair(p_buffer, ref, color, cmajor=False):
@@ -171,7 +183,7 @@ def positions(p_shape, cmajor: bool = False):
 
 def feature_mse(p_buffer, ref, draws, color: str = "rgb",
                 non_local: bool = True, pairing: str = "roll",
-                cmajor: bool = False):
+                cmajor: bool = False, group=None):
     """FeatureMSE: penalizes (d_embed - d_radiance)^2 over the drawn
     (sample, pixel) pairs, intra-patch plus (with ``non_local``)
     intra-batch."""
@@ -179,7 +191,7 @@ def feature_mse(p_buffer, ref, draws, color: str = "rgb",
     disp_p = _patch_displacement(p_buffer, ref, draws["patch"], pairing, cmajor)
     loss_p = 0.5 * torch.mean(disp_p**2)
     if non_local:
-        disp_b = _batch_displacement(p_buffer, ref, draws["batch"], pairing, cmajor)
+        disp_b = _batch_displacement(p_buffer, ref, draws["batch"], pairing, cmajor, group)
         loss_b = 0.5 * torch.mean(disp_b**2)
     else:
         loss_b = loss_p
@@ -187,14 +199,14 @@ def feature_mse(p_buffer, ref, draws, color: str = "rgb",
 
 
 def global_relative_similarity(p_buffer, ref, draws, alpha: float = 2.0,
-                               pairing: str = "roll", cmajor: bool = False):
+                               pairing: str = "roll", cmajor: bool = False, group=None):
     """GRS: logsumexp(alpha*[+-disp_p, +-disp_b, 0]) - log(1 + 4N),
     scaled by 1/sqrt(alpha)."""
     p_buffer, ref = _prep_pair(p_buffer, ref, "rgb", cmajor)
-    n = p_buffer.numel() // p_buffer.shape[2 if cmajor else -1]
-    disp_p = _patch_displacement(p_buffer, ref, draws["patch"], pairing,
-                                 cmajor).reshape(-1)
-    disp_b = _batch_displacement(p_buffer, ref, draws["batch"], pairing, cmajor)
+    n = p_buffer.numel() // p_buffer.shape[2 if cmajor else -1] * group_size(group)
+    disp_p = gather_cat(_patch_displacement(p_buffer, ref, draws["patch"], pairing,
+                                            cmajor).reshape(-1), group)
+    disp_b = _batch_displacement(p_buffer, ref, draws["batch"], pairing, cmajor, group)
     exponents = alpha * torch.cat(
         [disp_p, disp_b, -disp_p, -disp_b, disp_p.new_zeros(1)])
     out = torch.logsumexp(exponents, dim=0) - math.log(1 + 4 * n)
@@ -203,8 +215,9 @@ def global_relative_similarity(p_buffer, ref, draws, alpha: float = 2.0,
 
 class ManifoldLoss:
     """A manifold loss with its pairing fixed: ``loss(p_buffer, ref,
-    draws, cmajor=...)``, and ``loss.draw(generator, p_shape, cmajor)``
-    for the draws that one call needs."""
+    draws, cmajor=..., group=...)``, and ``loss.draw(generator, p_shape,
+    cmajor)`` for the draws that one call needs (for the global batch's
+    shape under a data group)."""
 
     def __init__(self, fn, pairing: str, **kw):
         if pairing not in PAIRINGS:
@@ -216,9 +229,9 @@ class ManifoldLoss:
         return {"patch": draw_pairings(generator, n_patch, self.pairing),
                 "batch": draw_pairings(generator, n_batch, self.pairing)}
 
-    def __call__(self, p_buffer, ref, draws, cmajor: bool = False):
+    def __call__(self, p_buffer, ref, draws, cmajor: bool = False, group=None):
         return self.fn(p_buffer, ref, draws, pairing=self.pairing,
-                       cmajor=cmajor, **self.kw)
+                       cmajor=cmajor, group=group, **self.kw)
 
 
 def make_manifold_loss(name: str, non_local: bool = True,

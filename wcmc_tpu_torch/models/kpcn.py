@@ -41,6 +41,11 @@ class KPCN(nn.Module):
                 generator=generator,
             ))
 
+    @property
+    def shrink(self) -> int:
+        """Total spatial shrink: the conv chain and the valid kernel window."""
+        return self.depth * 4 + (self.ksize - 1)
+
     def _branch(self, chain, x, buf):
         if self.fused:
             logits = chain(x, fused=True)   # NHWC in and out, taps innermost

@@ -16,7 +16,10 @@ reference's LBMC training interface):
 * the composite: each filtered layer weighted by its occupancy.
 
 Input ``{'radiance' (B, S, H, W, 3), 'features' (B, S, H, W, n_in)}``,
-output ``(B, H, W, 3)`` float32.  The kernel logits stay in the compute
+output ``(B, H, W, 3)`` float32.  With ``sample_group`` set (a copy made
+by ``parallel/sample.py``; forward only) the sample axis is sharded over
+that group's ranks: every sum over samples becomes a sum over the ranks
+and the occupancy divides by the global sample count.  The kernel logits stay in the compute
 dtype: the reference casts them to f32 before its gather, and a bf16
 value converts to f32 exactly, so the gather (f32 softmax) and its
 logits gradient (rounded once to bf16) are the same without the f32
@@ -32,6 +35,7 @@ from torch import nn
 
 from wcmc_tpu_torch.models.blocks import PixelMLP, UNet, conv_apply, make_conv
 from wcmc_tpu_torch.ops.kernel_apply import kernel_apply
+from wcmc_tpu_torch.parallel.collectives import all_sum, group_size
 
 
 def _default_tonemap(x):
@@ -57,6 +61,7 @@ class LayerNet(nn.Module):
         del splat   # kept for constructor parity with the reference
         self.n_in, self.tonemap, self.num_layers, self.ksize = n_in, tonemap, num_layers, ksize
         self.width, self.embed_width, self.dtype = width, embed_width, dtype
+        self.sample_group = None
         self.embedding = PixelMLP(n_in + 3, (embed_width,) * 3, ("leaky_relu",) * 3,
                                   compute_dx=True, dtype=dtype, generator=generator)
         self.layer_head = make_conv(embed_width, num_layers, 1, generator)
@@ -79,15 +84,19 @@ class LayerNet(nn.Module):
         lw = torch.softmax(logits.permute(0, 2, 3, 1).float().reshape(b, s, h, w, -1), dim=-1)
         emb = emb.float()
 
+        def sample_sum(x):
+            return all_sum(x.sum(dim=1), self.sample_group)
+
+        s_all = s * group_size(self.sample_group)
         wsums, rads, feats, occupancy = [], [], [], []
         for l in range(self.num_layers):
             wl = lw[..., l:l + 1]                     # (B, S, H, W, 1)
-            wsum = wl.sum(dim=1)                      # (B, H, W, 1)
+            wsum = sample_sum(wl)                     # (B, H, W, 1)
             inv = 1.0 / (wsum + 1e-6)
             wsums.append(wsum)
-            rads.append((wl * tm_rad).sum(dim=1) * inv)
-            feats.append((wl * emb).sum(dim=1) * inv)
-            occupancy.append(wsum / s)
+            rads.append(sample_sum(wl * tm_rad) * inv)
+            feats.append(sample_sum(wl * emb) * inv)
+            occupancy.append(wsum / s_all)
         ctx = torch.cat(rads + feats + occupancy, dim=-1)
         head = self.context(ctx.permute(0, 3, 1, 2))
         # channels-last memory: each pixel's taps are contiguous, so every
@@ -100,10 +109,10 @@ class LayerNet(nn.Module):
         # filter *linear* per-layer radiance so the composite stays linear
         for l in range(self.num_layers):
             wl, wsum = lw[..., l:l + 1], wsums[l]
-            lin_rad = (wl * radiance).sum(dim=1) / (wsum + 1e-6)
+            lin_rad = sample_sum(wl * radiance) / (wsum + 1e-6)
             filtered = kernel_apply(_edge_pad(lin_rad, r), kernels[..., l * k2:(l + 1) * k2],
                                     self.ksize, softmax=True)
-            out = out + filtered * (wsum / s)
+            out = out + filtered * (wsum / s_all)
         return out
 
     def __str__(self):

@@ -5,6 +5,12 @@ with its sample mean (kernel K4), U-Net context propagation on the mean,
 and the per-sample head over [embedding | broadcast context] (kernel
 K5).  Input ``batch['paths']`` is ``(B, S, H, W, 36)``; output
 ``(B, S, H, W, outc)`` float32.
+
+``sample_group`` (``None`` unless ``parallel/sample.py`` sets it on a
+copy) is the process group over which the sample axis is sharded: the
+context mean becomes the mean over its ranks of each rank's own sample
+mean (the reference's ``pmean`` over ``sample_axis_name``), exact for
+equal shards.  Forward only.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from wcmc_tpu_torch.models.blocks import UNet, dual_unet_apply, lecun_normal_
 from wcmc_tpu_torch.ops.pathnet_fused import (
     EMBED_ACTS, HEAD_ACTS, pathnet_embed, pathnet_head,
 )
+from wcmc_tpu_torch.parallel.collectives import all_mean
 
 
 class PathNet(nn.Module):
@@ -23,6 +30,7 @@ class PathNet(nn.Module):
                  dtype=None, generator=None):
         super().__init__()
         self.ic, self.intermc, self.outc, self.dtype = ic, intermc, outc, dtype
+        self.sample_group = None
         self._chain("embedding", (ic, intermc, intermc, intermc), generator)
         self._chain("final", (2 * intermc, 2 * intermc, outc), generator)
         self.propagation = UNet(intermc, intermc, width=intermc, num_convs=3,
@@ -49,7 +57,7 @@ class PathNet(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         e, reduced = pathnet_embed(x, *self.params("embedding", 3), EMBED_ACTS)
-        reduced = reduced.reshape(b, h, w, ic)
+        reduced = all_mean(reduced.reshape(b, h, w, ic), self.sample_group)
         if self.dtype is not None:
             reduced = reduced.to(self.dtype)
         ctx = self.propagation(reduced.permute(0, 3, 1, 2))
@@ -74,10 +82,12 @@ def dual_pathnet_apply(model_d: PathNet, model_s: PathNet, batch,
     Returns (p_diffuse, p_specular), each (B, S, H, W, outc) f32 — or
     (B, S, outc, H, W) with ``cmajor`` — plus, with ``with_moments``,
     ``(sum_S, sum_S of squares)`` of both branches, each
-    (B, H, W, 2 * outc) f32.
+    (B, H, W, 2 * outc) f32 (over this rank's samples when the branches
+    carry a ``sample_group``).
     """
     ic, outc = model_d.intermc, model_d.outc
-    if (model_s.intermc, model_s.outc, model_s.ic) != (ic, outc, model_d.ic):
+    if ((model_s.intermc, model_s.outc, model_s.ic, model_s.sample_group)
+            != (ic, outc, model_d.ic, model_d.sample_group)):
         raise ValueError("dual_pathnet_apply requires identically-configured branches")
 
     paths = batch["paths"]
@@ -93,7 +103,7 @@ def dual_pathnet_apply(model_d: PathNet, model_s: PathNet, batch,
         x = x.to(model_d.dtype)
     e, mean = pathnet_embed(x, ws_e, bs_e, EMBED_ACTS)
 
-    mean = mean.reshape(b, h, w, 2 * ic)
+    mean = all_mean(mean.reshape(b, h, w, 2 * ic), model_d.sample_group)
     if model_d.dtype is not None:
         mean = mean.to(model_d.dtype)
     mean = mean.permute(0, 3, 1, 2)

@@ -18,9 +18,13 @@ under the reference's SBMC training interface):
 Input ``{'radiance' (B, S, H, W, 3), 'features' (B, S, H, W, n_in)}``,
 output ``(B, H, W, 3)`` float32.  Parameters are named like the flax
 tree (``embedding_w0``, ``propagation_0``, ``update_0_w0``,
-``kernel_head``, ...) so ``convert.py`` maps checkpoints by path.  The
-sample-parallel mode (``sample_axis_name``) comes with the multi-device
-slice.
+``kernel_head``, ...) so ``convert.py`` maps checkpoints by path.  With
+``sample_group`` set (a copy made by ``parallel/sample.py``; forward
+only), the reference's ``sample_axis_name`` mode: the sample axis is
+sharded over that group's ranks, and the RMS normalization's mean
+square, the step context, the logits' centre and variance become means
+over the ranks of each rank's own, and the splat's sums and window max
+collectives (``ops/splat.py``); exact for equal shards.
 """
 
 from __future__ import annotations
@@ -31,18 +35,21 @@ from torch import nn
 from wcmc_tpu_torch.models.blocks import UNet, conv_apply, lecun_normal_, make_conv
 from wcmc_tpu_torch.ops.pathnet_fused import pathnet_embed, pathnet_head
 from wcmc_tpu_torch.ops.splat import splat_normalized, splat_normalized_logits
+from wcmc_tpu_torch.parallel.collectives import all_mean
 
 LEAKY = ("leaky_relu",) * 3
 # the splat logits' standardization gain: l -> 10 (l - mean) / sqrt(var + 1)
 SPLAT_LOGIT_GAIN = 10.0
 
 
-def _stage_rms(v, ref=None):
+def _stage_rms(v, ref=None, group=None):
     """Per-image RMS normalization at a stage boundary: the mean of
-    squares in f32, ``r = rsqrt(ms + 1e-8)``; ``v`` is scaled by ``r``
-    rounded to its dtype, in its dtype, and ``ref`` (the sample mean that
-    travels with ``v``) by the same ``r`` in ``ref``'s dtype."""
+    squares in f32 (over ``group``'s ranks too: ``v``'s sample axis is
+    sharded over them), ``r = rsqrt(ms + 1e-8)``; ``v`` is scaled by
+    ``r`` rounded to its dtype, in its dtype, and ``ref`` (the sample
+    mean that travels with ``v``) by the same ``r`` in ``ref``'s dtype."""
     ms = v.float().square().mean(dim=tuple(range(1, v.dim())), keepdim=True)
+    ms = all_mean(ms, group)
     r = torch.rsqrt(ms + 1e-8)
     out = v * r.to(v.dtype)
     if ref is None:
@@ -59,6 +66,7 @@ class Multisteps(nn.Module):
             raise ValueError(f"unknown splat weighting {splat_weighting!r}")
         self.n_in, self.ksize, self.n_steps, self.width = n_in, ksize, n_steps, width
         self.dtype, self.splat_weighting = dtype, splat_weighting
+        self.sample_group = None
         self._chain("embedding", (n_in, width, width, width), generator)
         for step in range(n_steps):
             self.add_module(f"propagation_{step}",
@@ -90,10 +98,11 @@ class Multisteps(nn.Module):
         # p-buffer, so d(features) flows back to the PathNet
         x, mean = pathnet_embed(features.reshape(b, s, h * w, f).to(cdtype),
                                 *self._params("embedding", 3), LEAKY, compute_dx=True)
-        x, mean = _stage_rms(x, mean)
+        group = self.sample_group
+        x, mean = _stage_rms(x, mean, group)
         for step in range(self.n_steps):
             # channels-last: the U-Net runs on a permuted view of (B, H, W, C)
-            ctx = mean.reshape(b, h, w, wd).to(cdtype).permute(0, 3, 1, 2)
+            ctx = all_mean(mean.reshape(b, h, w, wd), group).to(cdtype).permute(0, 3, 1, 2)
             ctx = getattr(self, f"propagation_{step}")(ctx).permute(0, 2, 3, 1)
             ctx = _stage_rms(ctx).reshape(b, h * w, wd)
             ws, bs = self._params(f"update_{step}", 2)
@@ -102,7 +111,7 @@ class Multisteps(nn.Module):
             else:
                 x, ssum, _ = pathnet_head(x, ctx, ws, bs, LEAKY[:2], moments=True,
                                           out_dtype=cdtype)
-                x, mean = _stage_rms(x, ssum / s)
+                x, mean = _stage_rms(x, ssum / s, group)
 
         # channels-last kernel head: each sample's K*K taps are contiguous
         x = x.reshape(b * s, h, w, wd).permute(0, 3, 1, 2)
@@ -110,13 +119,13 @@ class Multisteps(nn.Module):
         logits = logits.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         logits = logits.reshape(b, s, h, w, k * k)
         if self.splat_weighting == "softmax":
-            return splat_normalized(radiance, torch.softmax(logits, dim=-1), k)
+            return splat_normalized(radiance, torch.softmax(logits, dim=-1), k, group=group)
         # standardize per image, then soft-cap at +-25
-        center = logits.mean(dim=(1, 2, 3, 4), keepdim=True)
-        var = (logits - center).square().mean(dim=(1, 2, 3, 4), keepdim=True)
+        center = all_mean(logits.mean(dim=(1, 2, 3, 4), keepdim=True), group)
+        var = all_mean((logits - center).square().mean(dim=(1, 2, 3, 4), keepdim=True), group)
         logits = SPLAT_LOGIT_GAIN * (logits - center) * torch.rsqrt(var + 1.0)
         logits = 25.0 * torch.tanh(logits / 25.0)
-        return splat_normalized_logits(radiance, logits, k, eps=1e-12)
+        return splat_normalized_logits(radiance, logits, k, eps=1e-12, group=group)
 
     def __str__(self):
         return f"Multisteps i{self.n_in} k{self.ksize} s{self.n_steps} w{self.width}"

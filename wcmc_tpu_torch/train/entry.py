@@ -4,6 +4,14 @@ from disk, the interfaces with their resume, and the run.
 ``train_kpcn``, ``train_lbmc`` and ``train_sbmc`` (the port's
 counterparts of the repository's root scripts) each add their flags, their
 ``TrainConfig`` and their epoch schedulers, and call these.
+
+``--n_devices N`` above 1 trains data parallel over N ranks that
+``run`` spawns itself (``parallel/launch.py``): rank r on ``cuda:r``
+over NCCL, or, with ``--device cpu``, N gloo ranks on the CPU.  Every
+rank draws the same global batches and cuts and moves to its device only
+its own shard of each (the loaders' ``shard``), restores the same
+checkpoint and steps on its shard; rank 0 alone writes checkpoints, logs
+and step times.
 """
 
 from __future__ import annotations
@@ -11,6 +19,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from wcmc_tpu_torch.data.dataset import BatchLoader, MSDenoiseDataset, ShuffleLoader
 from wcmc_tpu_torch.data.prefetch import DevicePrefetcher
@@ -26,7 +36,11 @@ def init_data(args, base_model: str, device, use_g_buf: bool = True,
               use_sbmc_buf: bool = False, pnet_out_size: int = 3):
     """The train (random patches, cross-image shuffled) and val (grid
     patches) multi-spp datasets of ``args.data_dir``, each behind a
-    ``DevicePrefetcher`` to ``device``; returns (datasets, loaders)."""
+    ``DevicePrefetcher`` to ``device``; returns (datasets, loaders).  On
+    a rank of a data-parallel run the loaders serve this rank's shard of
+    each global batch."""
+    # the training mesh is n_devices x 1, so the data rank is the rank
+    shard = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
     common = dict(use_g_buf=use_g_buf, use_sbmc_buf=use_sbmc_buf,
                   use_llpm_buf=args.use_llpm_buf, pnet_out_size=pnet_out_size, seed=args.seed)
     datasets = {
@@ -41,8 +55,10 @@ def init_data(args, base_model: str, device, use_g_buf: bool = True,
     }
     loaders = {
         "train": DevicePrefetcher(
-            ShuffleLoader(datasets["train"], args.batch_size, seed=args.seed), device=device),
-        "val": DevicePrefetcher(BatchLoader(datasets["val"], BS_VAL), device=device),
+            ShuffleLoader(datasets["train"], args.batch_size, seed=args.seed, shard=shard),
+            device=device),
+        "val": DevicePrefetcher(BatchLoader(datasets["val"], BS_VAL, shard=shard),
+                                device=device),
     }
     return datasets, loaders
 
@@ -69,8 +85,11 @@ def init_model(args, cfg, device, params=None):
         else:
             print("Train models from scratch.")
     if getattr(args, "n_devices", 0) and args.n_devices > 1:
+        from wcmc_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_data=args.n_devices)
         for iface in interfaces:
-            iface.to_mesh(None)
+            iface.to_mesh(mesh)
     os.makedirs(args.save, exist_ok=True)
     return interfaces, {"plots": {}, "data_device": 0, **(params or {})}
 
@@ -78,10 +97,45 @@ def init_model(args, cfg, device, params=None):
 def run(args, init_data, init_model):
     """An entry module's ``main``: its ``init_data(args, device)`` and
     ``init_model(dataset, args, device)``, then ``train``; returns
-    (interfaces, params)."""
+    (interfaces, params).  With ``--n_devices`` above 1 it spawns the
+    ranks and returns (None, rank 0's ``{"epoch_stats", "best_err"}``)."""
+    n = getattr(args, "n_devices", 0) or 0
+    if n > 1 and not dist.is_initialized():
+        return None, _spawn_ranks(args, init_data, init_model, n)
     device = resolve_device(args.device)
+    if dist.is_initialized() and device.type == "cuda":
+        device = torch.device("cuda", dist.get_rank())
     np.random.seed(args.seed)
     datasets, loaders = init_data(args, device)
     interfaces, params = init_model(datasets, args, device)
     train(interfaces, loaders, params, args)
     return interfaces, params
+
+
+def _rank_run(args, init_data, init_model):
+    interfaces, params = run(args, init_data, init_model)
+    return {"epoch_stats": params.get("epoch_stats", []),
+            "best_err": [iface.best_err for iface in interfaces]}
+
+
+def _spawn_ranks(args, init_data, init_model, n):
+    """``run`` on ``n`` spawned ranks: NCCL over ``cuda:0..n-1`` (the
+    kernels built once here first), or gloo on the CPU."""
+    from wcmc_tpu_torch.parallel.launch import RankPool
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        if n > count:
+            raise ValueError(f"--n_devices {n} needs {n} cards; {count} are visible")
+        from wcmc_tpu_torch.ops import _build
+
+        _build.build()
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(n)]
+    elif device.type == "cpu":
+        backend, devices = "gloo", None
+    else:
+        raise ValueError(f"--n_devices runs on CUDA cards or the CPU, not {device}")
+    print(f"Data parallel over {n} ranks ({backend})")
+    with RankPool(n, backend, devices) as pool:
+        return pool.run(_rank_run, args, init_data, init_model)[0]

@@ -133,16 +133,15 @@ def _manif_loss_fn(cfg):
 
 
 def _build_kpcn(cfg, lr_pnet, pnet_out, w_manif, seed, args, device):
-    if cfg.kpcn_ref or cfg.kpcn_pre:
-        raise NotImplementedError("the KPCN ref/pre variants are not ported yet")
     channels = schema.ChannelConfig(
         "kpcn", use_llpm_buf=cfg.use_llpm_buf, pnet_out_size=pnet_out,
         disentangle=cfg.disentangle,
     )
+    # the ref variant's inputs carry the 3 target channels too
+    n_in = channels.dncnn_in_size + (3 if cfg.kpcn_ref else 0)
     gen = torch.Generator().manual_seed(seed)
     dt = cfg.model_dtype
-    models = {"dncnn": KPCN(n_in=channels.dncnn_in_size, ksize=cfg.kpcn_ksize,
-                            dtype=dt, generator=gen)}
+    models = {"dncnn": KPCN(n_in=n_in, ksize=cfg.kpcn_ksize, dtype=dt, generator=gen)}
     if cfg.use_llpm_buf:
         for name in ("backbone_diffuse", "backbone_specular"):
             models[name] = PathNet(ic=channels.pnet_in_size, outc=pnet_out,
@@ -161,6 +160,16 @@ def _build_kpcn(cfg, lr_pnet, pnet_out, w_manif, seed, args, device):
     }
     if cfg.manif_learn:
         loss_funcs["l_manif"] = _manif_loss_fn(cfg)
+    kw = dict(seed=cfg.seed, finite_check_every=cfg.finite_check_every)
+    if cfg.kpcn_ref:
+        return itf.KPCNRefInterface(
+            models, loss_funcs, device, args=args, optims=optims,
+            use_llpm_buf=cfg.use_llpm_buf, manif_learn=cfg.manif_learn,
+            train_branches=cfg.train_branches, **kw)
+    if cfg.kpcn_pre:
+        return itf.KPCNPreInterface(
+            models, loss_funcs, device, args=args, optims=optims, manif_learn=cfg.manif_learn,
+            w_manif=w_manif, train_branches=cfg.train_branches, **kw)
     return itf.KPCNInterface(
         models, loss_funcs, device, args=args, optims=optims,
         use_llpm_buf=cfg.use_llpm_buf, manif_learn=cfg.manif_learn, w_manif=w_manif,

@@ -15,8 +15,18 @@ checkpoints into them); each model has its own optimizer
 The reference draws the manifold losses' pairings from a ``jax.random``
 key per step; here they come from a ``torch.Generator`` seeded with the
 config's seed, or are passed to ``train_batch`` (``draws``), so a test
-can replay the reference's.  The ``KPCNRefInterface`` and
-``KPCNPreInterface`` variants are not ported yet.
+can replay the reference's.  ``KPCNRefInterface`` (the oracle ablation:
+the targets as extra inputs) and ``KPCNPreInterface`` (the two-phase
+schedule: PathNet alone, then KPCN under the frozen PathNet) are the
+reference's KPCN variants.
+
+``to_mesh`` makes an interface data parallel over a
+``parallel.mesh.Mesh``: each rank's ``train_batch`` and
+``validate_batch`` take its shard of the global batch (cut on the host:
+``parallel.mesh.shard_batch``, or the loaders' ``shard``), the gradients and losses are averaged over the data group, the manifold
+losses' draws are for the global batch's shape and their cross-batch
+term sees the gathered global batch; validation returns the global
+radiance in batch order.
 
 Layouts are channels-last: pixel ``(B,H,W,C)``, sample ``(B,S,H,W,C)``;
 KPCN's manifold buffers of the train step are channel-major
@@ -112,6 +122,7 @@ class BaseInterface:
         self.pbuf_dump_dir: Optional[str] = None
         self.pbuf_dump_every: int = 1000
         self.generator = torch.Generator().manual_seed(seed)
+        self.mesh = None
 
     def preprocess(self, batch: Batch = None):
         """Check the batch's keys and count the step."""
@@ -134,24 +145,47 @@ class BaseInterface:
             m.train()
 
     def train_batch(self, batch, grad_hook_mode: bool = False, draws=None):
-        """One train step: forward, losses, backward and each model's
-        optimizer step.  Returns the loss dict (0-dim tensors on the
-        device).  ``grad_hook_mode`` runs forward and backward and leaves
-        the gradients in ``.grad`` without updating.  ``draws`` replaces
-        the step's manifold-loss draws (see ``draw_pairings``)."""
-        batch = self.to_device(batch)
+        """One train step: forward, losses, backward and the optimizer
+        step of each model the step trains.  Returns the loss dict (0-dim
+        tensors on the device).  ``grad_hook_mode`` runs forward and
+        backward and leaves the gradients in ``.grad`` without updating.
+        ``draws`` replaces the step's manifold-loss draws (see
+        ``draw_pairings``)."""
         if not grad_hook_mode:
             self._maybe_dump_pbuffer(batch)
+        loss_dict = self._grad_step(batch, draws)
+        if grad_hook_mode:
+            return loss_dict
+        for name in self._trained_models():
+            self.optims["optim_" + name].step()
+        self._logging(loss_dict)
+        return loss_dict
+
+    def _grad_step(self, batch, draws=None):
+        """Forward and backward: the gradients in ``.grad``; returns the
+        loss dict.  ``to_mesh`` wraps it (``parallel.mesh``)."""
+        batch = self.to_device(batch)
         for opt in self.optims.values():
             opt.zero_grad()
         loss, loss_dict = self._train_loss(batch, draws)
         loss.backward()
-        if grad_hook_mode:
-            return loss_dict
-        for name in self.models:
-            self.optims["optim_" + name].step()
-        self._logging(loss_dict)
         return loss_dict
+
+    def _trained_models(self):
+        """The models whose optimizers a step runs."""
+        return list(self.models)
+
+    def _global_shape(self, shape):
+        """A per-rank shape with the global batch's leading size (the
+        manifold draws are for the global batch)."""
+        if self.mesh is None:
+            return tuple(shape)
+        return (shape[0] * self.mesh.n_data,) + tuple(shape[1:])
+
+    def _data_group(self):
+        """The data group the manifold loss gathers its cross-batch pairs
+        over (None off a mesh)."""
+        return None if self.mesh is None else self.mesh.data_group
 
     def _maybe_dump_pbuffer(self, batch):
         """With ``pbuf_dump_dir`` set and the path buffer on, write the
@@ -165,7 +199,7 @@ class BaseInterface:
         from wcmc_tpu_torch.utils.img_utils import write_img
 
         os.makedirs(self.pbuf_dump_dir, exist_ok=True)
-        _, p_buffers, _ = self._val_step(batch)
+        _, p_buffers, _ = self._val_step(self.to_device(batch))
         if p_buffers is None:
             return
         if not isinstance(p_buffers, dict):
@@ -205,7 +239,30 @@ class BaseInterface:
         return {name: (m, self.optims.get("optim_" + name)) for name, m in self.models.items()}
 
     def to_mesh(self, mesh):
-        raise NotImplementedError("multi-device training is not ported yet")
+        """Data-parallel training and validation over ``mesh`` (a
+        ``parallel.mesh.Mesh``; every rank calls this): rank 0's
+        parameters and optimizer state broadcast to every rank, then each
+        step on this rank's shard of the global batch (the caller's to
+        cut) with the gradients and losses averaged over the data group,
+        and validation gathering the global radiance.  Returns the
+        interface."""
+        from wcmc_tpu_torch.parallel.mesh import (
+            Mesh, data_parallel_step, data_parallel_val, replicate,
+        )
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"to_mesh takes a parallel.mesh.Mesh, not {type(mesh).__name__}")
+        if self.mesh is not None:
+            raise RuntimeError("the interface is on a mesh already")
+        for m in self.models.values():
+            if next(m.parameters()).device != mesh.device:
+                raise ValueError(f"the models are on {next(m.parameters()).device}, the mesh's "
+                                 f"rank on {mesh.device}")
+        self.mesh = mesh
+        replicate(self.models, self.optims, mesh)
+        self._grad_step = data_parallel_step(self._grad_step, self.models, mesh)
+        self._val_call = data_parallel_val(self._val_call, mesh)
+        return self
 
     def to_device(self, batch) -> Batch:
         """Numpy arrays (bfloat16 ones too) or tensors -> tensors on this
@@ -234,10 +291,15 @@ class BaseInterface:
     def validate_batch(self, batch):
         """(radiance, p-buffers or None) of ``_val_step``; accumulates
         ``l_test`` into ``m_losses['m_val']`` on the device."""
-        radiance, p_buffers, l_test = self._val_step(self.to_device(batch))
+        radiance, p_buffers, l_test = self._val_call(batch)
         acc = self.m_losses.get("m_val", torch.zeros((), device=self.device))
         self.m_losses["m_val"] = acc + l_test
         return radiance, p_buffers
+
+    def _val_call(self, batch):
+        """``_val_step`` of a batch on this interface's device;
+        ``to_mesh`` wraps it."""
+        return self._val_step(self.to_device(batch))
 
 
 class KPCNInterface(BaseInterface):
@@ -349,9 +411,11 @@ class KPCNInterface(BaseInterface):
                 p_d = crop_hw(out_manif["diffuse"], h_t, w_t)
                 p_s = crop_hw(out_manif["specular"], h_t, w_t)
                 if draws is None:
-                    draws = self.draw_pairings(tuple(p_d.shape))
-                l_md = lf["l_manif"](p_d, tgt_diffuse, draws["diffuse"], cmajor=True)
-                l_ms = lf["l_manif"](p_s, tgt_specular, draws["specular"], cmajor=True)
+                    draws = self.draw_pairings(self._global_shape(p_d.shape))
+                group = self._data_group()
+                l_md = lf["l_manif"](p_d, tgt_diffuse, draws["diffuse"], cmajor=True, group=group)
+                l_ms = lf["l_manif"](p_s, tgt_specular, draws["specular"], cmajor=True,
+                                     group=group)
                 loss = loss + self.w_manif * (l_md + l_ms)
                 loss_dict["l_manif_diffuse"] = l_md.detach()
                 loss_dict["l_manif_specular"] = l_ms.detach()
@@ -375,6 +439,93 @@ class KPCNInterface(BaseInterface):
         out = self._val_model("dncnn")(net_batch)
         tgt_total = crop_like(batch["target_total"], out["radiance"])
         return out["radiance"], p_buffers, self.loss_funcs["l_test"](out["radiance"], tgt_total)
+
+
+class KPCNRefInterface(KPCNInterface):
+    """The oracle ablation: the target diffuse and specular radiance
+    concatenated onto KPCN's inputs (3 channels each, so the dncnn's
+    ``n_in`` is 3 wider), in training and validation alike.  Neither the
+    path buffer nor the manifold loss."""
+
+    def __init__(self, models, loss_funcs, device, args=None, optims=None,
+                 use_llpm_buf: bool = False, manif_learn: bool = False, w_manif: float = 0.1,
+                 train_branches: bool = True, seed: int = 0, finite_check_every: int = 100):
+        if use_llpm_buf or manif_learn:
+            raise ValueError("KPCNRefInterface takes neither the path buffer nor the "
+                             "manifold loss")
+        super().__init__(models, loss_funcs, device, args, optims, False, False, w_manif,
+                         train_branches, "m11r11", seed, finite_check_every)
+
+    @staticmethod
+    def _augment(batch):
+        new_batch = dict(batch)
+        for name in ("diffuse", "specular"):
+            new_batch[f"kpcn_{name}_in"] = torch.cat(
+                [batch[f"kpcn_{name}_in"], batch[f"target_{name}"]], dim=-1)
+        return new_batch
+
+    def _train_loss(self, batch, draws=None):
+        return super()._train_loss(self._augment(batch), draws)
+
+    @torch.inference_mode()
+    def _val_step(self, batch):
+        return super()._val_step(self._augment(batch))
+
+
+class KPCNPreInterface(KPCNInterface):
+    """The two-phase schedule, with the path buffer always on; the phase
+    is ``manif_learn``'s:
+
+    (a) ``manif_learn``: the dual PathNet alone (channel-major, as the
+        KPCN step runs it), loss ``w_manif * (l_manif(p_d, target_diffuse)
+        + l_manif(p_s, target_specular))``; only the two backbones update
+        and the dncnn never runs;
+    (b) otherwise: KPCN under the frozen PathNet, whose forward runs
+        without autograd (so neither backward kernel of the PathNet runs),
+        the branch losses (``l_recon`` without ``train_branches``); only
+        the dncnn updates."""
+
+    def __init__(self, models, loss_funcs, device, args=None, optims=None,
+                 manif_learn: bool = False, w_manif: float = 0.1, train_branches: bool = True,
+                 seed: int = 0, finite_check_every: int = 100):
+        super().__init__(models, loss_funcs, device, args, optims, True, manif_learn, w_manif,
+                         train_branches, "m11r11", seed, finite_check_every)
+
+    def __str__(self):
+        return "KPCNPreInterface"
+
+    def _trained_models(self):
+        if self.manif_learn:
+            return ["backbone_diffuse", "backbone_specular"]
+        return ["dncnn"]
+
+    def _train_loss(self, batch, draws=None):
+        lf = self.loss_funcs
+        if self.manif_learn:
+            p_d, p_s = self._dual_pathnet_with_moments(batch, cmajor=True)[:2]
+            if draws is None:
+                draws = self.draw_pairings(self._global_shape(p_d.shape))
+            group = self._data_group()
+            l_md = lf["l_manif"](p_d, batch["target_diffuse"], draws["diffuse"], cmajor=True,
+                                 group=group)
+            l_ms = lf["l_manif"](p_s, batch["target_specular"], draws["specular"], cmajor=True,
+                                 group=group)
+            loss = self.w_manif * (l_md + l_ms)
+            return loss, {"l_manif_diffuse": l_md.detach(), "l_manif_specular": l_ms.detach()}
+        with torch.no_grad():   # the frozen PathNet
+            net_batch, _ = self._forward_with_paths(batch)
+        out = self.models["dncnn"](net_batch)
+        total, diffuse, specular = out["radiance"], out["diffuse"], out["specular"]
+        tgt_total = crop_like(batch["target_total"], total)
+        if not self.train_branches:
+            loss = lf["l_recon"](total, tgt_total)
+            return loss, {"l_total": loss.detach()}
+        l_diffuse = lf["l_diffuse"](diffuse, crop_like(batch["target_diffuse"], diffuse))
+        l_specular = lf["l_specular"](specular, crop_like(batch["target_specular"], specular))
+        with torch.no_grad():
+            l_total = lf["l_recon"](total, tgt_total)
+        return l_diffuse + l_specular, {"l_diffuse": l_diffuse.detach(),
+                                        "l_specular": l_specular.detach(), "l_total": l_total}
 
 
 # ===========================================================================
@@ -444,8 +595,8 @@ class SBMCInterface(BaseInterface):
         if self.manif_learn:
             p_buffer = crop_like(out_manif, out)
             if draws is None:
-                draws = self.draw_pairings(tuple(p_buffer.shape))
-            l_manif = lf["l_manif"](p_buffer, tgt_total, draws)
+                draws = self.draw_pairings(self._global_shape(p_buffer.shape))
+            l_manif = lf["l_manif"](p_buffer, tgt_total, draws, group=self._data_group())
             loss_dict["l_manif"] = l_manif.detach()
             loss_dict["l_recon"] = l_total.detach()
             l_total = l_total + l_manif * self.w_manif

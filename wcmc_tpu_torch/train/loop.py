@@ -127,14 +127,18 @@ def validate(epoch, interfaces, dataloaders, params, args, verbose=True):
 
 def train(interfaces, dataloaders, params, args, verbose=True):
     """The full training run: epochs, latest/best checkpoints, periodic
-    validation, epoch-end schedulers."""
+    validation, epoch-end schedulers.  Data parallel (interfaces on a
+    mesh), rank 0 alone prints and writes checkpoints, logs and traces."""
     save_dir = getattr(args, "save", "./weights")
     os.makedirs(save_dir, exist_ok=True)
     model_name = getattr(args, "model_name", "model")
     num_epoch = getattr(args, "num_epoch", 1)
     start_epoch = getattr(args, "start_epoch", 0)
     val_epoch = getattr(args, "val_epoch", 1)
-    not_save = getattr(args, "not_save", False)
+    mesh = getattr(interfaces[0], "mesh", None) if interfaces else None
+    writes = mesh is None or mesh.rank == 0
+    verbose = verbose and writes
+    not_save = getattr(args, "not_save", False) or not writes
     desc = getattr(args, "desc", "")
 
     from wcmc_tpu_torch.train.factory import sweep_checkpoint_name
@@ -142,7 +146,7 @@ def train(interfaces, dataloaders, params, args, verbose=True):
     save_fns = [os.path.basename(sweep_checkpoint_name("", model_name, interfaces, i))
                 for i in range(len(interfaces))]
 
-    if getattr(args, "visual", False):
+    if getattr(args, "visual", False) and writes:
         if "metrics_writer" not in params:
             from wcmc_tpu_torch.utils.observability import MetricsWriter
 
@@ -154,7 +158,8 @@ def train(interfaces, dataloaders, params, args, verbose=True):
 
     for epoch in range(start_epoch, num_epoch):
         start_time = time.time()
-        profile_dir = getattr(args, "profile_dir", None) if epoch == start_epoch else None
+        profile_dir = (getattr(args, "profile_dir", None)
+                       if epoch == start_epoch and writes else None)
         with maybe_profile(profile_dir):
             train_epoch(epoch, interfaces, dataloaders, params, args, verbose)
         if verbose:
