@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """What bounds the new bodies of K1 (the softmax gather), K2 and K3 (its
-backward) and K10-fwd (the fused per-pixel MLP) on one NVIDIA card: each is
-built again from a copy of ``wcmc_tpu_torch/ops/csrc`` with one part of its
-work dropped, and every variant is timed at the path shapes beside the whole
-body.
+backward), K9 (the weighted gather) and K10-fwd (the fused per-pixel MLP) on
+one NVIDIA card: each is built again from a copy of
+``wcmc_tpu_torch/ops/csrc`` with one part of its work dropped, and every
+variant is timed at the path shapes beside the whole body.
 
-    python3 chip_parts.py [k1 k2 k3 k10]
+    python3 chip_parts.py [k1 k2 k3 k9 k10]
 
-(the kernels named, all four without arguments).  K1
+(the kernels named, all five without arguments).  K9 (``gather_tiled_kernel``)
+at the splat's d(values) shape ((64, 148, 148, 4) f32 canvas cotangent,
+(64, 128, 128, 441) contiguous f32 weights, K 21): ``whole``; ``no_weights``
+(no weight lands: no bulk copy and no per-pixel copies); ``no_window`` (no
+buffer row lands); ``no_compute`` (no pixel's sums: the landing, the
+barriers and the stores).  K1
 (``gather_softmax_tiled_kernel``) at LBMC's and KPCN's shapes as K2's below:
 ``whole``; ``no_compute`` (no pixel's softmax or sums: the landing, the
 barriers and the stores); ``no_logits`` (no logit lands); ``no_window`` (no
@@ -26,7 +31,7 @@ memory); ``no_store`` (the gradients never leave shared memory).  K3
 ``whole``; ``no_convert`` (no probability is computed); ``no_taps`` (no tap
 loop); ``no_logits``.  A dropped part leaves wrong outputs; only ``whole`` is
 checked (K1, K2 and K10-fwd bit for bit against their first bodies, K3 within
-1e-5 of its gather body).  Each line: the variant, the path, the CUDA-event ms and the
+1e-5 of its gather body; K9 bit for bit against its first body).  Each line: the variant, the path, the CUDA-event ms and the
 profiler's device ms (``chip_smoke.py``'s ``time_ms`` and ``device_ms``).
 The card's ``nvidia-smi`` name and power limit come first.  Exits non-zero
 without CUDA or if a variant does not build.
@@ -44,8 +49,9 @@ import tempfile
 
 # (source, [(text, replacement), ...]) by variant; every text must occur in
 # the sources, so a variant that no longer drops its part fails loudly
-K1_SRC, K2_SRC, K3_SRC, K10_SRC = ("gather_softmax.cu", "outer_softmax.cu", "scatter_softmax.cu",
-                                  "mlp_fused.cu")
+K1_SRC, K2_SRC, K3_SRC, K9_SRC, K10_SRC = ("gather_softmax.cu", "outer_softmax.cu",
+                                           "scatter_softmax.cu", "gather.cu", "mlp_fused.cu")
+KERNELS = ("k1", "k2", "k3", "k9", "k10")
 NO_LOGITS = ("for (int ch = lane; 16 * ch <", "for (int ch = 32; 16 * ch <")
 NO_PIXELS = ("      for (int p = warp; p < n; p += kWarps) {\n        // the first body's softmax",
              "      for (int p = warp; p < 0; p += kWarps) {\n        // the first body's softmax")
@@ -55,6 +61,16 @@ VARIANTS = {
     "k1_no_logits": (K1_SRC, [NO_LOGITS]),
     "k1_no_window": (K1_SRC, [("      land_span(slot, rs, len);\n"
                                "      land_span(slot + (size_t)slots * pitch, rs, len);\n", "")]),
+    "k9_whole": (K9_SRC, []),
+    "k9_no_weights": (K9_SRC, [(
+        "    const bool bulk = dense(first, n);\n"
+        "    if (!bulk) land_logit_run(dst, first, a.ws_x, n, K2, lpitch, a.w_end);\n",
+        "    const bool bulk = false;\n")]),
+    "k9_no_window": (K9_SRC, [("      land_span(slot, rs, len);\n"
+                               "      land_span(slot + (size_t)slots * pitch, rs, len);\n", "")]),
+    "k9_no_compute": (K9_SRC, [(
+        "      for (int p = warp; p < n; p += kWarps) {\n        const TL* lp",
+        "      for (int p = warp; p < 0; p += kWarps) {\n        const TL* lp")]),
     "k10_whole": (K10_SRC, []),
     "k10_no_products": (K10_SRC, [(
         "      tb_layer<kA0>(xa, wf[0], bias[0], a.act[0], h1);\n"
@@ -113,9 +129,10 @@ def build(nvcc, flags, csrc, work, kernels):
 def main() -> int:
     import torch
 
-    kernels = sys.argv[1:] or ["k1", "k2", "k3", "k10"]
-    if set(kernels) - {"k1", "k2", "k3", "k10"}:
-        print(f"chip_parts: no kernel among {kernels}; name k1, k2, k3 or k10", file=sys.stderr)
+    kernels = sys.argv[1:] or list(KERNELS)
+    if set(kernels) - set(KERNELS):
+        print(f"chip_parts: no kernel among {kernels}; name {', '.join(KERNELS)}",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_parts: no CUDA device; nothing was run", file=sys.stderr)
@@ -169,6 +186,17 @@ def main() -> int:
                             plan.cols, 0, stream), "scatter_softmax")
             return out
 
+        def k9(lib, gc, wt, k):
+            b, H, W, c = gc.shape
+            plan = ka.gather_plan(b, H - k + 1, W - k + 1, c, k, 4, sms)
+            out = torch.empty((b, H - k + 1, W - k + 1, c), dtype=torch.float32, device=dev)
+            fn = lib.wcmc_gather_tiled
+            fn.argtypes, fn.restype = [P, P, I, P] + [I] * 5 + [L] * 4 + [I] * 4 + [P], I
+            _build.check(fn(gc.data_ptr(), wt.data_ptr(), 0, out.data_ptr(), b, H, W, c, k,
+                            *wt.stride()[:3], ka._logit_span(wt), plan.run, plan.rows,
+                            plan.blocks, 0, stream), "gather")
+            return out
+
         def k10(lib, x, ws, bs, acts):
             n, c0 = x.shape
             out = torch.empty((n, 32), dtype=torch.bfloat16, device=dev)
@@ -196,6 +224,11 @@ def main() -> int:
         dims, acts = (32, 32, 32, 32), ("leaky_relu",) * 3
         x = torch.randn((8 * 8 * 128 * 128, 32), device=dev, generator=g).to(torch.bfloat16)
         ws, bs = cs.rand_mlp(torch, dev, g, dims)
+        # SBMC's K9: the splat's d(values), (64, 148, 148, 4) canvas cotangent and
+        # (64, 128, 128, 441) f32 weights in (0, 1]
+        if "k9" in kernels:
+            k9_args = (torch.randn((64, 148, 148, 4), device=dev, generator=g),
+                       torch.rand((64, 128, 128, 441), device=dev, generator=g), 21)
         runs = {"k1": (k1, "gather_softmax", 1), "k2": (k2, "outer_softmax", 1),
                 "k3": (k3, "scatter_softmax", 2)}
         for name, lib in libs.items():
@@ -204,6 +237,8 @@ def main() -> int:
                 def call(lib=lib):
                     return k10(lib, x, ws, bs, acts)
                 todo = [("lbmc", call, "mlp_fused", 1)]
+            elif kernel == "k9":
+                todo = [("sbmc", lambda lib=lib: k9(lib, *k9_args), "gather", 1)]
             else:
                 fn, counter, per_call = runs[kernel]
                 # KPCN's K = 21 runs K3's gather body
@@ -213,17 +248,20 @@ def main() -> int:
                 rec = {"variant": name, "path": path, "ms": cs.time_ms(torch, call, 20, flush),
                        "device_ms": cs.device_ms(torch, call, counter, flush, per_call=per_call)}
                 if name.endswith("_whole"):
-                    check_whole(torch, cs, ka, mf, kernel, path, call(), shapes.get(path),
+                    check_whole(torch, cs, ka, mf, kernel, path, call(),
+                                k9_args if kernel == "k9" else shapes.get(path),
                                 (x, ws, bs, acts))
                 print(json.dumps(rec), flush=True)
     return 0
 
 
 def check_whole(torch, cs, ka, mf, kernel, path, got, tensors, mlp):
-    """A whole body's output against its first body's (K1, K2 and K10-fwd
-    bit for bit, K3 within K1_TOL of its gather body)."""
+    """A whole body's output against its first body's (K1, K2, K9 and
+    K10-fwd bit for bit, K3 within K1_TOL of its gather body)."""
     if kernel == "k10":
         ref = mf._mlp_fwd_kernel(*mlp, body="wmma")
+    elif kernel == "k9":
+        ref = ka.gather(*tensors, body="warp")
     else:
         cot, buf, lg, k = tensors
         if kernel == "k3":

@@ -50,13 +50,17 @@ Phases (one JSON line each):
    with and without moments); and at the SBMC training shapes K8 (the
    splat's weight gradient, (64, 128, 128, 441) f32; its tiled body also
    against the first port's body and itself, bit for bit), K9 (the weighted
-   gather, the splat's d(values)), K4-bwd in Multisteps' form (leaky relu,
+   gather, the splat's d(values); its tiled body also against its first
+   body and itself, bit for bit, there and on bf16 weights as KPCN's
+   strided (8, 72, 72, 441) crop of a convolution output, with the first
+   body's times), K4-bwd in Multisteps' form (leaky relu,
    with d(x); also at 97 input channels, in slabs of 96) and K5-bwd in its
    update form (Cout 128, a bf16
    channels-last cotangent, with the ``gsum`` cotangent and without
    moments); K9, which the SBMC step does not run (its radiance is data),
    is driven through ``torch.autograd.grad`` of ``kernel_gather`` and of
-   ``kernel_scatter`` with values that require grad.  The fused KPCN
+   ``kernel_scatter`` with values that require grad, under the profiler:
+   K9's, K8's and K7's entries must be their new bodies'.  The fused KPCN
    inference: K6 (the fused 5x5 convolution) at layers 1, 5 and 9 of the
    chain with paths (8 tiles of 128 px, n_in 39) and layer 1 without paths
    (8 tiles of 256 px, n_in 34), each with cuDNN's channels-last bf16
@@ -121,7 +125,13 @@ Phases (one JSON line each):
    run: every kernel of the family's step launched at least once a step,
    no plain version, finite losses, the checkpoint files; the record holds
    each epoch's steps, seconds, loader wait share and median step ms, and
-   peak memory.
+   peak memory.  Between cli_corpus and the train_cli phases,
+   device_corpus: the corpus's two train scenes as full 512x512 KPCN frames
+   with the paths (bf16 on the host), staged in a ``DeviceCorpus`` on the
+   card with their importance maps; 3 importance-sampled batches of 8 x
+   128 px cropped on the card, each bit for bit the CPU corpus's crop of
+   the same coordinates; a crop timed; a flagship KPCN + FMSE step on each
+   batch (exactly the train step's launches, no plain call, finite losses).
 
 7. train_kpcn_ref, train_kpcn_pre_a, train_kpcn_pre_b: the KPCN variants
    of ``train_kpcn.py`` (``--kpcn_ref``; ``--kpcn_pre`` with
@@ -678,6 +688,55 @@ def gather_softmax_bodies(torch, ka, flush, buf, lg, k):
             "first_body_device_ms": device_ms(torch, first, "gather_softmax", flush, per_call=1)}
 
 
+def gather_bodies(torch, ka, flush, buf, wt, k):
+    """K9's tiled body against its first body, bit for bit (each pixel's
+    sums in the same order, the same fused multiply-adds), and against itself
+    over two launches; with how its runs land (``gather_route``) and the
+    first body's times on the same inputs."""
+    got = ka.gather(buf, wt, k)
+    ref = ka.gather(buf, wt, k, body="warp")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K9's tiled body is not the first body's bits: max |diff| "
+                             f"{(got - ref).abs().max().item()}")
+    if not torch.equal(ka.gather(buf, wt, k), got):
+        raise AssertionError("K9: a second launch gave other bits")
+    del got, ref
+
+    def first():
+        return ka.gather(buf, wt, k, body="warp")
+
+    return {"body": "tiled", "landing": ka.gather_route(buf, wt, k).landing,
+            "bit_for_bit": True, "first_body_bit_for_bit": True,
+            "first_body_ms": time_ms(torch, first, 10, flush),
+            "first_body_device_ms": device_ms(torch, first, "gather", flush, per_call=1)}
+
+
+def gather_kpcn_leg(torch, ka, dev, g, flush):
+    """K9 on bf16 weights as KPCN hands a kernel over (the centre crop of a
+    channels-last (8, 441, 92, 92) convolution output, a (8, 72, 72, 441)
+    view whose pixels start 882 bytes apart), ``kernel_apply(...,
+    softmax=False)``'s legal form at K = 21 and 3 channels: within K1_TOL of
+    the plain version, and the tiled body bit for bit its first body."""
+    b, p, k = 8, 72, 21
+    r = k // 2
+    conv = torch.rand((b, k * k, p + 2 * r, p + 2 * r), device=dev, generator=g)
+    wt = conv.to(torch.bfloat16).contiguous(memory_format=torch.channels_last).permute(
+        0, 2, 3, 1)[:, r:r + p, r:r + p]
+    del conv
+    buf = torch.rand((b, p + 2 * r, p + 2 * r, 3), device=dev, generator=g)
+    out = ka.gather(buf, wt, k)
+    err = max_err(torch, [out], [ka.gather_plain(buf, wt, k)], K1_TOL)
+    view_bytes = b * p * p * k * k * wt.element_size()   # the taps read, once each
+    bound = bound_ms(view_bytes + nbytes(buf, out), [(2 * b * p * p * k * k * 3, F32_FLOPS)])
+    return {"max_abs_err": err, "ms": time_ms(torch, lambda: ka.gather(buf, wt, k), 20, flush),
+            "device_ms": device_ms(torch, lambda: ka.gather(buf, wt, k), "gather", flush,
+                                   per_call=1),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            **gather_bodies(torch, ka, flush, buf, wt, k),
+            "shape": {"buf": list(buf.shape), "w": list(wt.shape), "w_stride": list(wt.stride()),
+                      "w_dtype": "bfloat16"}}
+
+
 def mlp_fused_bodies(torch, mf, flush, x, ws, bs, acts):
     """K10-fwd's tiled body against its wmma body, bit for bit (the same k16
     steps and rounding points), and against itself over two launches; with
@@ -1114,30 +1173,40 @@ def sbmc_train_kernel_phase(torch, ka, pf, dev):
         time_ms(torch, lambda: ka.gather_plain(gc, wt, k), 3, flush),
         bound_ms(nbytes(gc, wt, dx), flops), dict(shape, out=list(dx.shape)),
         library_note="no single PyTorch call computes the per-pixel-kernel weighted gather",
-        device_ms=device_ms(torch, lambda: ka.gather(gc, wt, k), "gather", flush),
+        device_ms=device_ms(torch, lambda: ka.gather(gc, wt, k), "gather", flush, per_call=1),
         launches_from="torch.autograd.grad of kernel_gather and of kernel_scatter with "
                       "values that require grad (this phase); the SBMC step's radiance is "
-                      "data"))
+                      "data",
+        **gather_bodies(torch, ka, flush, gc, wt, k)))
     del dx
+    rows[-1]["kpcn_bf16_leg"] = gather_kpcn_leg(torch, ka, dev, g, flush)
 
     # K9 through autograd: kernel_gather (K9 forward; K8 and K7 backward)
-    # and the splat with values that require grad (K7; K9 and K8)
+    # and the splat with values that require grad (K7; K9 and K8), profiled:
+    # every entry of the three kernels their new bodies'
+    from torch.profiler import ProfilerActivity, profile
+
     _build.reset_counts()
     buf = gc.clone().requires_grad_()
     wg = wt.clone().requires_grad_()
-    out = ka.kernel_gather(buf, wg, k)
-    dbuf, dwg = torch.autograd.grad(out, [buf, wg], torch.ones_like(out))
-    del out, dbuf, dwg
-    xg = x.clone().requires_grad_()
-    full = ka.kernel_scatter(xg, wg, k)
-    dxg, dwg = torch.autograd.grad(full, [xg, wg], gc)
-    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = ka.kernel_gather(buf, wg, k)
+        dbuf, dwg = torch.autograd.grad(out, [buf, wg], torch.ones_like(out))
+        del out, dbuf, dwg
+        xg = x.clone().requires_grad_()
+        full = ka.kernel_scatter(xg, wg, k)
+        dxg, dwg = torch.autograd.grad(full, [xg, wg], gc)
+        torch.cuda.synchronize()
     autograd_launches, autograd_plain = dict(_build.launches), dict(_build.plain_calls)
     if autograd_launches != {"gather": 2, "outer": 2, "scatter": 2} or autograd_plain:
         raise AssertionError(f"autograd of kernel_gather and kernel_scatter launched "
                              f"{autograd_launches}, plain {autograd_plain}")
+    kinds = device_ms_by_kind(prof)
+    check_redesigned_body(kinds, "K9's autograd drive", ["gather", "outer", "scatter"])
     max_err(torch, [dxg], [ka.gather_plain(gc, wt, k)], K1_TOL)
     rows[-1]["autograd_launches"] = autograd_launches["gather"]
+    rows[-1]["autograd_device_ms_by_kind"] = {kind: ms for kind, ms in kinds.items()
+                                              if kind.startswith(("gather", "outer", "scatter"))}
     del x, wt, gc, buf, wg, xg, full, dxg, dwg
 
     leaky = ("leaky_relu",) * 3
@@ -1324,6 +1393,18 @@ def profile_frame(torch, evaluate, iface, ds):
     }
 
 
+def device_ms_by_kind(prof):
+    """The device ms of a profiled window by ``device_kind``."""
+    from torch.autograd import DeviceType
+
+    kinds = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            kind = device_kind(e.key)
+            kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return kinds
+
+
 def check_head_body(kinds, where):
     """Every K5-fwd form a path runs is a tiled form: the profile's device
     entries of K5-fwd must be the tiled body's (``pathnet_head_tiled``),
@@ -1346,18 +1427,18 @@ def check_embed_body(kinds, where):
 
 # the body each redesigned kernel must run on every path, by launch counter
 # (K7 and K8 on the SBMC paths, K10-bwd and K3 on LBMC's step, K2 on KPCN's
-# and LBMC's, K1 on every KPCN and LBMC path, K10-fwd on LBMC's), where the
-# first body files under the counter's own name
+# and LBMC's, K1 on every KPCN and LBMC path, K10-fwd on LBMC's, K9 on its
+# autograd drive), where the first body files under the counter's own name
 REDESIGNED_BODIES = {"scatter": "scatter_banded", "outer": "outer_tiled",
                      "mlp_fused_bwd": "mlp_fused_bwd_tiled",
                      "outer_softmax": "outer_softmax_tiled",
                      "scatter_softmax": "scatter_softmax_banded",
                      "gather_softmax": "gather_softmax_tiled",
-                     "mlp_fused": "mlp_fused_tiled"}
+                     "mlp_fused": "mlp_fused_tiled", "gather": "gather_tiled"}
 
 
 def check_redesigned_body(kinds, where, counters):
-    """K7, K8, K10-bwd, K2, K3, K1 and K10-fwd run their redesigned bodies on the paths:
+    """K7, K8, K10-bwd, K2, K3, K1, K10-fwd and K9 run their redesigned bodies on the paths:
     for each launch counter of ``counters`` the profile's device entries
     must be its new body's (``REDESIGNED_BODIES``), none its first body's."""
     for counter in counters:
@@ -1384,7 +1465,8 @@ def device_kind(name):
     its first one ``outer_softmax``, K3's banded body and its band sums,
     ``scatter_softmax_banded``, apart from its gather body and statistics
     ``scatter_softmax``, K1's tiled body, ``gather_softmax_tiled``, apart
-    from its first one ``gather_softmax``, and K10-fwd's tiled body,
+    from its first one ``gather_softmax``, K9's tiled body,
+    ``gather_tiled``, apart from its first one ``gather``, and K10-fwd's tiled body,
     ``mlp_fused_tiled``, apart from its wmma body ``mlp_fused``), the
     library convolutions and products, copies, or the rest (PyTorch's
     elementwise, reduction and copy kernels)."""
@@ -1930,6 +2012,88 @@ def cli_corpus(torch, dev, work, size=512):
     return root, {"phase": "cli_corpus", "frame": [size, size], "spp": spp,
                   "scenes": {"train": 2, "val": 1, "test": 1}, "data_s": t_data,
                   "preprocess_s": time.perf_counter() - t0}
+
+
+# device_corpus: importance-sampled crops of the CLI corpus's train scenes
+# staged on the card, and the flagship KPCN steps on them
+DC_BATCH, DC_PATCH, DC_STEPS, DC_CROP_REPEATS = 8, 128, 3, 20
+
+
+def device_corpus_phase(torch, dev, root):
+    """``data/device_corpus.py`` on the card: the CLI corpus's two train
+    scenes as full 512^2 KPCN frames with the paths (``use_llpm_buf``, read
+    from the corpus's caches as the loaders read them), the per-sample
+    tensors cast to bf16 on the host (``scripts/manifold_experiment.py``'s
+    ``bf16_cast``), staged in a ``DeviceCorpus`` with the scenes' importance
+    maps.  ``DC_STEPS`` importance-sampled batches of ``DC_BATCH`` x
+    ``DC_PATCH`` px are cropped on the card, each bit for bit the same
+    coordinates cropped from a CPU ``DeviceCorpus`` of the same frames; one
+    crop is timed (median of ``DC_CROP_REPEATS``, CUDA events); the flagship
+    KPCN + FMSE step trains on each batch, launching ``TRAIN_LAUNCHES``'s
+    counts with no plain call, every loss finite."""
+    import numpy as np
+
+    from wcmc_tpu_torch.data.dataset import DenoiseDataset, _cache_name
+    from wcmc_tpu_torch.data.device_corpus import DeviceCorpus
+    from wcmc_tpu_torch.ops import _build
+    from wcmc_tpu_torch.train.factory import init_interfaces
+
+    def bf16_cast(key, v):
+        return v.to(torch.bfloat16) if key in ("paths", "radiance", "features") else v
+
+    t0 = time.perf_counter()
+    ds = DenoiseDataset(root, CLI_SPP, base_model="kpcn", mode="train", use_llpm_buf=True)
+    frames, maps = [], []
+    for i in range(len(ds.gt_files)):
+        sample, in_fn = ds._load_image(i)
+        frames.append({k: v[None] for k, v in ds._to_model_layout(sample).items()})
+        maps.append(np.load(_cache_name(in_fn, "prob_imp")))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    corpus = DeviceCorpus(frames, DC_PATCH, importance=maps, cast=bf16_cast, device=dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    host = DeviceCorpus(frames, DC_PATCH, importance=maps, cast=bf16_cast, device="cpu")
+    del frames
+    rng = np.random.default_rng(SEED)
+    coords = [corpus.sample_coords(rng, DC_BATCH) for _ in range(DC_STEPS)]
+    batches = []
+    for c in coords:
+        batch, want = corpus.crop(*c), host.crop(*c)
+        for k, v in want.items():
+            if batch[k].device != dev or not torch.equal(batch[k].cpu(), v):
+                raise AssertionError(f"device_corpus: the card's crop of {k} at {c.tolist()} is "
+                                     "not the CPU corpus's")
+        batches.append(batch)
+    del host
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    crop_ms = time_ms(torch, lambda: corpus.crop(*coords[0]), DC_CROP_REPEATS, flush)
+    del flush
+
+    iface = init_interfaces(train_config("kpcn"), device=dev)[0]
+    iface.to_train_mode()
+    step_ms, losses = [], []
+    for batch in batches:
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        iface.preprocess(batch)
+        ld = iface.train_batch(batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches, plain = dict(_build.launches), dict(_build.plain_calls)
+        if launches != TRAIN_LAUNCHES["kpcn"] or plain:
+            raise AssertionError(f"device_corpus: a KPCN step on the crops launched {launches}, "
+                                 f"plain {plain}")
+        losses.append({k: float(v) for k, v in ld.items()})
+    if any(v != v or abs(v) == float("inf") for ld in losses for v in ld.values()):
+        raise AssertionError(f"device_corpus: non-finite losses {losses}")
+    return {"phase": "device_corpus", "scenes": corpus.n, "frame": [corpus.h, corpus.w],
+            "patch": DC_PATCH, "batch": DC_BATCH,
+            "keys": {k: [list(v.shape), str(v.dtype)] for k, v in corpus.frames.items()},
+            "nbytes": corpus.nbytes(), "load_s": load_s, "stage_s": stage_s,
+            "coords": [c.tolist() for c in coords], "crops_bit_for_bit": True,
+            "crop_ms": crop_ms, "step_ms": step_ms, "launches_per_step": TRAIN_LAUNCHES["kpcn"],
+            "losses": losses}
 
 
 def optimizer_state(torch, iface):
@@ -2568,6 +2732,10 @@ def main() -> int:
     emit(record)
     with tempfile.TemporaryDirectory() as work:
         root, record = cli_corpus(torch, dev, work)
+        emit(record)
+        t0 = time.perf_counter()
+        record = device_corpus_phase(torch, dev, root)
+        record["phase_s"] = time.perf_counter() - t0
         emit(record)
         for family in ("kpcn", "lbmc", "sbmc"):
             t0 = time.perf_counter()

@@ -29,9 +29,9 @@ tiled body equals its first body bit for bit (the same sums in the same
 order); K3's banded body is held within 1e-5 of max of its gather body
 (the same f32 probabilities, d buf summed in another order).  K1's tiled
 body equals its first body bit for bit (each pixel's sums in the same
-order, the same fused multiply-adds), and K10-fwd's tiled body its wmma
-body (the same k16 steps and rounding points).  TF32 is off for every f32
-product compared here."""
+order, the same fused multiply-adds), K9's tiled body its first body (the
+same), and K10-fwd's tiled body its wmma body (the same k16 steps and
+rounding points).  TF32 is off for every f32 product compared here."""
 
 import pytest
 import torch
@@ -1930,3 +1930,114 @@ def test_mlp_fwd_plan_is_the_kernels_shared_memory(cuda, c0, widths):
     plan = mf.mlp_fwd_plan(c0, widths, ("linear",) * len(widths))
     padded = list(widths) + [0] * (4 - len(widths))
     assert fn(c0, len(widths), *padded, int(plan.body == "tiled")) == plan.total
+
+
+# ---------------------------------------------------------------------------
+# K9's tiled body against its first body
+# ---------------------------------------------------------------------------
+
+def _check_gather_tiled(buf, wt, ksize):
+    """K9's tiled body: bit for bit the first body and itself over two
+    launches, within K1_TOL of the plain version."""
+    _build.reset_counts()
+    got = ka.gather(buf, wt, ksize)
+    assert dict(_build.launches) == {"gather": 1} and not _build.plain_calls
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    ref = ka.gather(buf, wt, ksize, body="warp")
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+    del ref
+    assert torch.equal(ka.gather(buf, wt, ksize), got)
+    _close(got, ka.gather_plain(buf, wt, ksize), K1_TOL)
+
+
+# K9's tiled body: K 5, 13 and 21, 1 to 8 channels, widths 128, 72, 45, 40
+# and 17, ragged h, contiguous weights (one bulk copy a run where a run's span
+# starts and ends on 16 bytes), LBMC's layer views, KPCN's crop, and the
+# SBMC, KPCN and LBMC shapes
+GATHER_CASES = [(2, 11, 128, 4, 5, "contiguous"), (2, 37, 72, 3, 13, "crop"),
+                (1, 20, 45, 3, 21, "contiguous"), (3, 9, 17, 8, 13, "layer0"),
+                (2, 19, 40, 1, 21, "contiguous"), (2, 13, 45, 2, 5, "layer1"),
+                (1, 33, 17, 4, 21, "crop"), (2, 21, 72, 6, 21, "layer0"),
+                (64, 128, 128, 4, 21, "contiguous"), (8, 72, 72, 3, 21, "crop"),
+                (8, 128, 128, 3, 13, "layer1")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,ksize,view", GATHER_CASES)
+def test_gather_tiled(cuda, b, h, w, c, ksize, view, dtype):
+    g = _gen(47)
+    wt = _softmax_logits(cuda, g, b, h, w, ksize, dtype, view)
+    buf = torch.randn((b, h + ksize - 1, w + ksize - 1, c), device=cuda, generator=g)
+    route = ka.gather_route(buf, wt, ksize, _build.sm_count(0))
+    assert route.body == "tiled"
+    if view == "contiguous" and (b, h, w) == (64, 128, 128):
+        assert route.landing == "bulk"
+    _check_gather_tiled(buf, wt, ksize)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_tiled_unaligned_inputs(cuda, dtype):
+    """Weights 2 (bf16) or 4 (f32) bytes off 16 and a buffer 4 bytes off 16:
+    every run lands pixel by pixel and every window row by 4-byte copies,
+    with the bits of the first body."""
+    g = _gen(48)
+    b, h, w, k = 2, 21, 40, 13
+    wt = _softmax_logits(cuda, g, b, h, w, k, dtype, "offset")
+    flat = torch.randn(b * (h + k - 1) * (w + k - 1) * 4 + 1, device=cuda, generator=g)
+    buf = flat[1:].view(b, h + k - 1, w + k - 1, 4)
+    assert wt.data_ptr() % 16 and buf.data_ptr() % 16
+    assert ka.gather_route(buf, wt, k).landing == "16-byte"
+    _check_gather_tiled(buf, wt, k)
+
+
+def test_gather_above_k21_runs_the_first_body(cuda):
+    """K above 21 goes to the first body by the route, not by a failure; the
+    tiled body, asked for, refuses it."""
+    g = _gen(49)
+    b, h, w, k = 1, 6, 9, 23
+    wt = torch.rand((b, h, w, k * k), device=cuda, generator=g)
+    buf = torch.randn((b, h + k - 1, w + k - 1, 3), device=cuda, generator=g)
+    assert ka.gather_route(buf, wt, k) == ka.GatherRoute("warp", "", "")
+    got = ka.gather(buf, wt, k)
+    assert torch.equal(got, ka.gather(buf, wt, k, body="warp"))
+    _close(got, ka.gather_plain(buf, wt, k), K1_TOL)
+    with pytest.raises(ValueError):
+        ka.gather(buf, wt, k, body="tiled")
+
+
+@pytest.mark.parametrize("es", [2, 4])
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+@pytest.mark.parametrize("ksize", [5, 13, 21])
+def test_gather_plan_is_the_kernels_shared_memory(cuda, ksize, c, es):
+    """``gather_plan``'s total is the dynamic shared memory K9's tiled body
+    gives a block (the kernel also checks its own carve against it at every
+    launch)."""
+    import ctypes
+
+    fn = _build.library().wcmc_gather_tiled_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    for w in (17, 72, 128, 256):
+        plan = ka.gather_plan(2, 16, w, c, ksize, es)
+        assert fn(plan.run, c, ksize, es) == plan.total
+
+
+def test_gather_runs_its_new_body(cuda):
+    """The splat's d(values) through autograd runs K9's tiled body: its
+    profiled device entries are ``gather_tiled``, none the first body's
+    (``gather``) or K1's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = _chip_smoke()
+    g = _gen(50)
+    n, p, k = 4, 64, 21
+    x = torch.rand((n, p, p, 4), device=cuda, generator=g).requires_grad_()
+    wt = torch.rand((n, p, p, k * k), device=cuda, generator=g)
+    gc = torch.randn((n, p + k - 1, p + k - 1, 4), device=cuda, generator=g)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            torch.autograd.grad(ka.kernel_scatter(x, wt, k), [x], gc)
+        torch.cuda.synchronize()
+    kinds = [cs.device_kind(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert kinds.count("gather_tiled") == 2
+    assert not set(kinds) & {"gather", "gather_softmax", "gather_softmax_tiled"}

@@ -16,6 +16,7 @@ from wcmc_tpu.data import preprocess as jpp
 from wcmc_tpu.data.synthetic import synthetic_raw_sample
 from wcmc_tpu_torch.data import dataset as tds
 from wcmc_tpu_torch.data import preprocess as tpp
+from wcmc_tpu_torch.data import schema
 from wcmc_tpu_torch.data.synthetic import build_synthetic_dataset
 
 LLPM_RTOL = 1e-5
@@ -102,6 +103,33 @@ def test_kpcn_net_inputs_and_targets(raw):
     assert set(got_t) == set(want_t)
     for k in want_t:
         _rel_close(got_t[k].numpy(), np.asarray(want_t[k]), LLPM_RTOL)
+
+
+def test_kpcn_recombine(raw):
+    """Diffuse times albedo plus expm1 of the log specular, from the GT's
+    targets and albedo, f32, 1e-6 relative."""
+    gt = raw[1]
+    t = jpp.kpcn_targets(jnp.asarray(gt))
+    albedo = gt[..., 6:9] + schema.ALBEDO_EPS
+    want = jpp.kpcn_recombine(t["target_diffuse"], t["target_specular"], jnp.asarray(albedo))
+    got = tpp.kpcn_recombine(torch.from_numpy(np.array(t["target_diffuse"])),
+                             torch.from_numpy(np.array(t["target_specular"])),
+                             torch.from_numpy(albedo))
+    assert got.dtype == torch.float32
+    _rel_close(got.numpy(), np.asarray(want), 1e-6)
+
+
+@pytest.mark.parametrize("spp", [2, 4])
+def test_llpm_from_raw(raw, spp):
+    """The pixel path-weight feature (H, W, 1) and the 36-channel paths
+    (H, W, spp, 36) of the first spp samples, f32, 1e-6 relative."""
+    x = np.array(jpp.sanitize(jnp.asarray(raw[0])))
+    want_pw, want_paths = jpp.llpm_from_raw(jnp.asarray(x), spp)
+    got_pw, got_paths = tpp.llpm_from_raw(torch.from_numpy(x), spp)
+    assert tuple(got_pw.shape) == x.shape[:2] + (1,)
+    assert tuple(got_paths.shape) == x.shape[:2] + (spp, 36)
+    _rel_close(got_pw.numpy(), np.asarray(want_pw), 1e-6)
+    _rel_close(got_paths.numpy(), np.asarray(want_paths), 1e-6)
 
 
 @pytest.fixture(scope="module")

@@ -1,2 +1,2 @@
 """Data pipeline: OptaGen channel maps, synthetic dumps, preprocessing,
-the on-disk cache and the full-frame tiler."""
+the on-disk cache, the full-frame tiler and the corpus staged on the card."""

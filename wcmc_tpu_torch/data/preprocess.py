@@ -175,3 +175,18 @@ def sbmc_features(s_buffer, p_buffer=None, use_g_buf: bool = True,
             raise ValueError("use_sbmc_buf needs the path buffer")
         feats = torch.cat([feats, p_buffer], dim=-1)
     return {"radiance": radiance, "features": feats}
+
+
+def kpcn_recombine(diffuse: torch.Tensor, specular: torch.Tensor,
+                   albedo: torch.Tensor) -> torch.Tensor:
+    """Invert the KPCN factorization: ``diffuse * albedo + exp(specular) -
+    1``."""
+    return diffuse * albedo + torch.expm1(specular)
+
+
+def llpm_from_raw(sample: torch.Tensor, spp: int):
+    """Raw ``(H, W, S, 104)`` dump -> (the pixel path-weight feature ``(H,
+    W, 1)``, the 36-channel paths ``(H, W, spp, 36)``) of its first ``spp``
+    samples."""
+    buf = preprocess_llpm(sample[:, :, :spp, :])
+    return buf[..., :1].mean(dim=2), buf[..., 1:]

@@ -1,5 +1,5 @@
-// The per-pixel gather, shared by K1 (the softmax gather, gather_softmax.cu)
-// and K9 (the plain weighted gather, gather.cu):
+// The first port's per-pixel gather, the first body of K1 (the softmax
+// gather, gather_softmax.cu) and of K9 (the plain weighted gather, gather.cu):
 //
 //   out[b, y, x, c] = sum_{d < K*K} p(b, y, x, d) * buf[b, y + d / K, x + d % K, c]
 //

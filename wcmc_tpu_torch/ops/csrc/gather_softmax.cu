@@ -48,15 +48,6 @@
 
 namespace wcmc {
 
-// The tiled body's dynamic shared memory, in the order the kernel carves it:
-// the window ring (K + 1 row slots, each twice), two landed logit runs, two
-// staging tiles of a run's outputs, the mbarriers.
-inline size_t gather_softmax_tiled_smem(int T, int C, int K, int es) {
-  return smem_bytes((size_t)2 * (K + 1) * softmax_win_pitch(T, C, K), 4) +
-         smem_bytes((size_t)2 * T * softmax_lpitch(K * K, es), 1) +
-         smem_bytes((size_t)2 * T * C, 4) + smem_bytes(2, 8);
-}
-
 template <typename TL>
 struct GatherSoftmaxArgs {
   const float* buf;  // (B, h + K - 1, w + K - 1, C)
@@ -84,7 +75,7 @@ __global__ void __launch_bounds__(kThreads, kJ <= 6 ? 3 : 2)
   unsigned char* s_lg = carve.take<unsigned char>((size_t)2 * T * lpitch);
   float* s_out = carve.take<float>(2 * T * kC);
   unsigned long long* s_bars = carve.take<unsigned long long>(2);
-  // the carve is what gather_softmax_tiled_smem sums
+  // the carve is what gather_tiled_smem sums
   if (carve.offset != dynamic_smem_size()) __trap();
 
   // the warp index through a shuffle, which the compiler knows to be the same
@@ -224,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, kJ <= 6 ? 3 : 2)
 template <typename TL, int kC, int kJ, int kK>
 inline cudaError_t launch_gather_softmax_tiled_k(const GatherSoftmaxArgs<TL>& a, int blocks,
                                                  int device, cudaStream_t stream) {
-  const size_t smem = gather_softmax_tiled_smem(a.T, kC, a.K, sizeof(TL));
+  const size_t smem = gather_tiled_smem(a.T, kC, a.K, sizeof(TL));
   cudaError_t err = set_smem(gather_softmax_tiled_kernel<TL, kC, kJ, kK>, smem, device);
   if (err != cudaSuccess) return err;
   gather_softmax_tiled_kernel<TL, kC, kJ, kK><<<blocks, kThreads, smem, stream>>>(a);
@@ -277,7 +268,7 @@ extern "C" int wcmc_gather_softmax(const void* buf, const void* logits, int logi
 // The tiled body's dynamic shared memory for runs of T pixels and logits of
 // es bytes (what ops/kernel_apply.py's gather_softmax_plan sums as its total).
 extern "C" long long wcmc_gather_softmax_tiled_smem(int T, int C, int K, int es) {
-  return (long long)gather_softmax_tiled_smem(T, C, K, es);
+  return (long long)gather_tiled_smem(T, C, K, es);
 }
 
 // The tiled body, with the first port's contract and K*K <= 448; l_span: the

@@ -33,6 +33,16 @@ __host__ __device__ inline int softmax_lpitch(int K2, int es) {
   return round_up(K2 * es + 16 - es, 16);
 }
 
+// The dynamic shared memory of K1's and K9's tiled bodies, in the order they
+// carve it: the window ring (K + 1 row slots, each twice), two landed runs of
+// K*K taps of es bytes a pixel, two staging tiles of a run's outputs, the
+// mbarriers.
+inline size_t gather_tiled_smem(int T, int C, int K, int es) {
+  return smem_bytes((size_t)2 * (K + 1) * softmax_win_pitch(T, C, K), 4) +
+         smem_bytes((size_t)2 * T * softmax_lpitch(K * K, es), 1) +
+         smem_bytes((size_t)2 * T * C, 4) + smem_bytes(2, 8);
+}
+
 // warp_max and warp_sum (common.cuh) of kP values at once, their shuffles
 // interleaved: each value gets the same xor butterfly, so the same bits, as
 // it would alone

@@ -27,7 +27,8 @@ Counterpart of ``wcmc_tpu/ops/kernel_apply.py``:
   Backward, as the reference's ``_scatter_bwd`` composes it:
   ``dw = outer(x, g)`` with K8 (``outer``, ``csrc/outer.cu``: the tiled
   body of ``outer_plan``) and, only when ``x`` requires grad,
-  ``dx = gather(g, w)`` with K9 (``gather``, ``csrc/gather.cu``);
+  ``dx = gather(g, w)`` with K9 (``gather``, ``csrc/gather.cu``: the
+  tiled body of ``gather_plan`` up to K = 21, the first body above);
 * ``kernel_gather(buf, w, K)``: the plain weighted gather
   ``out[p, c] = sum_d w[p, d] * buf[p + d, c]``, an autograd Function.
   Forward: K9.  Backward, as the reference's ``_gather_bwd`` composes it:
@@ -364,14 +365,15 @@ class OuterSoftmaxPlan(NamedTuple):
     total: int
 
 
-class GatherSoftmaxPlan(NamedTuple):
-    """K1's tiled body, laid out as K2's (``OuterSoftmaxPlan``): runs of
-    ``run`` pixels, units of ``rows`` runs down a column, window rows of
-    ``pitch`` f32, ``per_sm`` blocks resident an SM, ``blocks`` persistent
+class GatherPlan(NamedTuple):
+    """K1's and K9's tiled bodies, laid out as K2's (``OuterSoftmaxPlan``):
+    runs of ``run`` pixels, units of ``rows`` runs down a column, window rows
+    of ``pitch`` f32, ``per_sm`` blocks resident an SM, ``blocks`` persistent
     blocks; ``smem`` the window ring (K + 1 row slots each kept twice), two
-    landed logit runs, two staging tiles of a run's outputs and the
-    mbarriers, ``total`` their sum (what ``wcmc_gather_softmax_tiled_smem``
-    returns)."""
+    landed runs of logits (K1) or weights (K9), two staging tiles of a run's
+    outputs and the mbarriers, ``total`` their sum (what
+    ``wcmc_gather_softmax_tiled_smem`` and ``wcmc_gather_tiled_smem``
+    return)."""
     run: int
     rows: int
     pitch: int
@@ -383,14 +385,14 @@ class GatherSoftmaxPlan(NamedTuple):
 
 
 def _softmax_runs(name, b, h, w, c, k, es, sms, carve, most_rows=SOFTMAX_MAX_ROWS):
-    """The layout K1's and K2's tiled bodies share: of the runs whose carve
+    """The layout K1's, K2's and K9's tiled bodies share: of the runs whose carve
     (``carve(run, pitch)``, (buffer, bytes) pairs) fits, the one that tiles
     a row with the fewest idle pixels (the longest of those); three blocks
     an SM at K <= 13 and two above (the kernels' launch bounds) where the
     carve allows; the unit height, up to ``most_rows``, of least ``_fill`` at
     ``sms`` SMs.  ValueError for what the kernels do not take (C above 8, K above 21,
-    logits neither f32 nor bf16), which their first bodies do not take
-    either (K2) or take only on their own (K1)."""
+    logits or weights neither f32 nor bf16), which their first bodies do not take
+    either (K2) or take only on their own (K1, K9)."""
     if not 1 <= c <= 8:
         raise ValueError(f"{name} kernel takes 1 to 8 channels, got {c}")
     if k < 1 or k > SOFTMAX_MAX_K or min(b, h, w) < 1 or es not in (2, 4):
@@ -424,20 +426,37 @@ def outer_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> OuterSoftmaxPlan:
     return OuterSoftmaxPlan(*_softmax_runs("outer_softmax", b, h, w, c, k, es, sms, carve))
 
 
-@functools.lru_cache(maxsize=None)
-def gather_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> GatherSoftmaxPlan:
-    """K1's plan (``_softmax_runs``), with units of up to
-    ``GATHER_SOFTMAX_MAX_ROWS`` runs, so that KPCN's 256-pixel tiles without
-    paths fill the card in one wave too; ValueError for what the tiled body
-    does not take (C above 8, K above 21, logits neither f32 nor bf16): K
-    above 21 runs the first body (``gather_softmax_route``)."""
+def _gather_plan(name, taps, b, h, w, c, k, es, sms):
+    """K1's or K9's plan (``_softmax_runs`` with units of up to
+    ``GATHER_SOFTMAX_MAX_ROWS`` runs); ``taps`` names the landed runs in the
+    carve."""
     def carve(t, pitch):
         return (("window", _r128(4 * 2 * (k + 1) * pitch)),
-                ("logits", _r128(2 * t * _lpitch(k * k, es))), ("tiles", _r128(4 * 2 * t * c)),
+                (taps, _r128(2 * t * _lpitch(k * k, es))), ("tiles", _r128(4 * 2 * t * c)),
                 ("bars", _r128(8 * 2)))
 
-    return GatherSoftmaxPlan(*_softmax_runs("gather_softmax", b, h, w, c, k, es, sms, carve,
-                                            GATHER_SOFTMAX_MAX_ROWS))
+    return GatherPlan(*_softmax_runs(name, b, h, w, c, k, es, sms, carve,
+                                     GATHER_SOFTMAX_MAX_ROWS))
+
+
+@functools.lru_cache(maxsize=None)
+def gather_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> GatherPlan:
+    """K1's plan, with units of up to ``GATHER_SOFTMAX_MAX_ROWS`` runs, so
+    that KPCN's 256-pixel tiles without paths fill the card in one wave too;
+    ValueError for what the tiled body does not take (C above 8, K above 21,
+    logits neither f32 nor bf16): K above 21 runs the first body
+    (``gather_softmax_route``)."""
+    return _gather_plan("gather_softmax", "logits", b, h, w, c, k, es, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def gather_plan(b, h, w, c, k, es, sms=H100_SMS) -> GatherPlan:
+    """K9's plan, K1's with a landed pixel holding ``es``-byte weights: at
+    the splat's f32 K = 21 a run of 32 pixels lands 56 KB, so one block an
+    SM.  ValueError for what the tiled body does not take (C above 8, K
+    above 21, weights neither f32 nor bf16): K above 21 runs the first body
+    (``gather_route``)."""
+    return _gather_plan("gather", "weights", b, h, w, c, k, es, sms)
 
 
 class SoftmaxSplatPlan(NamedTuple):
@@ -569,6 +588,41 @@ def gather_softmax_route(buf, logits, ksize, sms=H100_SMS):
                         _span_kinds((first * 4 * c % 16 == 0) & (n * 4 * c % 16 == 0)))
 
 
+class GatherRoute(NamedTuple):
+    """How a K9 launch on these tensors runs: ``body`` ("tiled" or "warp");
+    on the tiled body ``landing``, how the runs' weights land: "bulk" where
+    every run's weights are one span that starts and ends on 16 bytes (one
+    bulk copy a run), "16-byte" where none is (each pixel's taps as their
+    16-byte-aligned superset by 16-byte cp.asyncs), "mixed" otherwise; and
+    ``spans``, how the output runs are stored: "16-byte" where every one
+    starts and ends on 16 bytes, "4-byte" where none does, "mixed"
+    otherwise.  The kernel makes the same choices from the same facts."""
+    body: str
+    landing: str
+    spans: str
+
+
+def gather_route(buf, w, ksize, sms=H100_SMS):
+    """K9's route on these tensors (``GatherRoute``): the tiled body up to
+    K = 21, the first body ("warp") above, by ``gather``'s explicit choice;
+    the outputs go to a fresh tensor, which starts on 16 bytes."""
+    b, H, W, c = buf.shape
+    if ksize > SOFTMAX_MAX_K:
+        return GatherRoute("warp", "", "")
+    h, w_ = H - ksize + 1, W - ksize + 1
+    k2, es = ksize * ksize, w.element_size()
+    plan = gather_plan(b, h, w_, c, ksize, es, sms)
+    firsts = list(range(0, w_, plan.run))
+    first, n = _run_starts(b, h, w_, firsts, [min(x + plan.run, w_) for x in firsts])
+    sb, sy, sx, _ = w.stride()
+    at = (w.data_ptr() + es * (first // (h * w_) * sb + first // w_ % h * sy
+                               + first % w_ * sx))
+    bulk = (at % 16 == 0) & (n * k2 * es % 16 == 0) & (sx == k2)
+    landing = "bulk" if bool(bulk.all()) else "mixed" if bool(bulk.any()) else "16-byte"
+    return GatherRoute("tiled", landing,
+                       _span_kinds((first * 4 * c % 16 == 0) & (n * 4 * c % 16 == 0)))
+
+
 def scatter_softmax_route(g, logits, ksize, sms=H100_SMS):
     """K3's route on these tensors (``SoftmaxRoute``); an f32 contiguous
     cotangent is read where it lies, any other from a fresh copy."""
@@ -634,23 +688,43 @@ def _outer_softmax_tiled_walk(g, buf, logits, ksize, sms=H100_SMS):
     return out
 
 
-def _gather_softmax_tiled_walk(buf, logits, ksize, sms=H100_SMS):
-    """A plain walk of K1's tiled order on the CPU, in f32: ``_window_runs``
-    over ``gather_softmax_plan``'s runs and units, each pixel's
-    probabilities in the lanes' order (``_softmax_lanes``), each channel's
-    sum of P times the window's values as the lanes' partial sums in j order
-    summed by ``_warp_sum``.  Returns what ``gather_softmax_plain`` returns
-    (the kernel fuses each multiply-add, this walk rounds twice)."""
+def _gather_walk(buf, taps, ksize, plan):
+    """The order of K1's and K9's tiled bodies on the CPU, in f32:
+    ``_window_runs`` over ``plan``'s runs and units, each channel's sum of a
+    pixel's tap weights (``taps(y, x0, n)``: the run's (B, n, K*K) f32
+    weights) times the window's values as the lanes' partial sums in j order
+    (taps d = lane + 32 j) summed by ``_warp_sum``.  Returns f32."""
     b, H, W, c = buf.shape
     h, w = H - ksize + 1, W - ksize + 1
-    plan = gather_softmax_plan(b, h, w, c, ksize, logits.element_size(), sms)
     out = torch.empty((b, h, w, c))
     for y, x0, n, window in _window_runs(buf.float(), ksize, h, w, plan.run, plan.rows):
         q = torch.stack([window[dy][:, dx:dx + n] for dy in range(ksize) for dx in range(ksize)],
                         dim=2)                                  # (B, n, K*K, C)
-        p = _softmax_lanes(logits[:, y, x0:x0 + n])[..., None]  # (B, n, K*K, 1)
+        p = taps(y, x0, n)[..., None]                           # (B, n, K*K, 1)
         out[:, y, x0:x0 + n] = _warp_sum(_lane_partials((p * q).transpose(-1, -2)))
-    return out.to(buf.dtype)
+    return out
+
+
+def _gather_softmax_tiled_walk(buf, logits, ksize, sms=H100_SMS):
+    """A plain walk of K1's tiled order (``_gather_walk`` over
+    ``gather_softmax_plan``), each pixel's probabilities in the lanes' order
+    (``_softmax_lanes``).  Returns what ``gather_softmax_plain`` returns (the
+    kernel fuses each multiply-add, this walk rounds twice)."""
+    b, H, W, c = buf.shape
+    plan = gather_softmax_plan(b, H - ksize + 1, W - ksize + 1, c, ksize,
+                               logits.element_size(), sms)
+    return _gather_walk(buf, lambda y, x0, n: _softmax_lanes(logits[:, y, x0:x0 + n]), ksize,
+                        plan).to(buf.dtype)
+
+
+def _gather_tiled_walk(buf, w, ksize, sms=H100_SMS):
+    """A plain walk of K9's tiled order (``_gather_walk`` over
+    ``gather_plan``), the weights read as f32.  Returns what ``gather_plain``
+    returns (the kernel fuses each multiply-add, this walk rounds twice)."""
+    b, H, W, c = buf.shape
+    plan = gather_plan(b, H - ksize + 1, W - ksize + 1, c, ksize, w.element_size(), sms)
+    return _gather_walk(buf, lambda y, x0, n: w[:, y, x0:x0 + n].float(), ksize, plan).to(
+        torch.promote_types(buf.dtype, w.dtype))
 
 
 def _scatter_softmax_banded_walk(g, logits, ksize, sms=H100_SMS):
@@ -911,27 +985,48 @@ def scatter(x, w, ksize: int, body=None):
     return out
 
 
-def gather(buf, w, ksize: int):
+def gather(buf, w, ksize: int, body=None):
     """The weighted gather of ``buf`` (B, H, W, C) with f32 or bf16
     weights ``w`` (B, h, w, K*K), in ``promote_types(buf.dtype,
     w.dtype)``: kernel K9 for CUDA tensors (f32 math), ``gather_plain``
-    for CPU tensors."""
+    for CPU tensors.  On the card the body is the tiled one
+    (``gather_plan``) up to K = 21 and the first port's
+    one-warp-per-pixel body above; ``body`` "warp" forces the first body
+    (the card tests' reference), with the same bits, and "tiled" the tiled
+    one, which raises above K = 21."""
     _check_geometry(buf, w, ksize)
     if buf.device.type == "cpu" and w.device.type == "cpu":
         return gather_plain(buf, w, ksize)
     _check_card("gather", w, buf)
+    body = body or ("tiled" if ksize <= SOFTMAX_MAX_K else "warp")
+    if body not in ("tiled", "warp"):
+        raise ValueError(f"gather: no {body} body")
     b, H, W, c = buf.shape
+    dev = w.device.index or 0
     src = buf.float().contiguous()
     out = torch.empty((b, H - ksize + 1, W - ksize + 1, c), dtype=torch.float32,
                       device=buf.device)
-    fn = _build.kernel(
-        "wcmc_gather", _build.PTR, _build.PTR, _build.INT, _build.PTR,
-        _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
-        _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.PTR)
     sb, sy, sx, _ = w.stride()
-    _build.check(fn(src.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16),
-                    out.data_ptr(), b, H, W, c, ksize, sb, sy, sx, buf.device.index or 0,
-                    _build.stream_of(buf.device)), "gather")
+    bf16 = int(w.dtype == torch.bfloat16)
+    if body == "warp":
+        fn = _build.kernel(
+            "wcmc_gather", _build.PTR, _build.PTR, _build.INT, _build.PTR,
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+            _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.PTR)
+        err = fn(src.data_ptr(), w.data_ptr(), bf16, out.data_ptr(), b, H, W, c, ksize,
+                 sb, sy, sx, dev, _build.stream_of(buf.device))
+    else:
+        plan = gather_plan(b, H - ksize + 1, W - ksize + 1, c, ksize, w.element_size(),
+                           _build.sm_count(dev))
+        fn = _build.kernel(
+            "wcmc_gather_tiled", _build.PTR, _build.PTR, _build.INT, _build.PTR,
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.INT, _build.LONG,
+            _build.LONG, _build.LONG, _build.LONG, _build.INT, _build.INT, _build.INT,
+            _build.INT, _build.PTR)
+        err = fn(src.data_ptr(), w.data_ptr(), bf16, out.data_ptr(), b, H, W, c, ksize,
+                 sb, sy, sx, _logit_span(w), plan.run, plan.rows, plan.blocks, dev,
+                 _build.stream_of(buf.device))
+    _build.check(err, "gather")
     _build.launches["gather"] += 1
     return out.to(torch.promote_types(buf.dtype, w.dtype))
 

@@ -1,5 +1,8 @@
 """Small shared helpers: channels-last crops, device selection, the
-FeatureMSE tonemap and the display transforms the importance map uses."""
+FeatureMSE tonemap and the display transforms (the importance map's among
+them).  Counterpart of ``wcmc_tpu/utils/utils.py``, with its
+reference-style aliases ``ToneMap``, ``LinearToSrgb`` and
+``ToneMapBatch``."""
 
 from __future__ import annotations
 
@@ -22,6 +25,13 @@ def crop_like(src, tgt):
                          f"tgt {tuple(tgt.shape)}")
     top, left = dh // 2, dw // 2
     return src[..., top:sh - (dh - top), left:sw - (dw - left), :]
+
+
+def crop_margin(x, margin: int):
+    """Crop a fixed margin from both spatial dims of ``(..., H, W, C)``."""
+    if margin == 0:
+        return x
+    return x[..., margin:-margin, margin:-margin, :]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,6 +61,12 @@ def _luminance(c):
     return 0.2126 * c[..., 0:1] + 0.7152 * c[..., 1:2] + 0.0722 * c[..., 2:3]
 
 
+def tonemap_reinhard(c):
+    """Plain Reinhard ``x / (1 + x)`` with negative clamp."""
+    c = torch.clamp(c, min=0.0)
+    return c / (1.0 + c)
+
+
 def tonemap_reinhard_lum(c, limit: float = 1.5):
     """Luminance-normalized Reinhard: ``c / (1 + lum(c) / limit)``."""
     return c / (1.0 + _luminance(c) / limit)
@@ -59,3 +75,14 @@ def tonemap_reinhard_lum(c, limit: float = 1.5):
 def linear_to_srgb(c, gamma: float = 2.2):
     """``max(c, 0) ** (1 / gamma)`` clipped to [0, 1]."""
     return torch.clamp(torch.clamp(c, min=0.0) ** (1.0 / gamma), 0.0, 1.0)
+
+
+def tonemap_batch(c):
+    """Display transform: luminance Reinhard + gamma 2.2, clipped to [0, 1]."""
+    return linear_to_srgb(torch.clamp(tonemap_reinhard_lum(c, 1.5), min=0.0))
+
+
+# reference-style aliases
+ToneMap = tonemap_reinhard_lum
+LinearToSrgb = linear_to_srgb
+ToneMapBatch = tonemap_batch
