@@ -66,6 +66,15 @@ Phases (one JSON line each):
    (8 tiles of 256 px, n_in 34), each with cuDNN's channels-last bf16
    ``F.conv2d`` + activation as ``library_ms`` and two launches compared
    bit for bit, and one branch's whole 9-layer chain, K6 against cuDNN.
+   K above 21: K2 at K = 23 on a KPCN branch ((8, 70, 70, 529) bf16
+   logits) and K8 at K = 23 on the SBMC splat ((64, 128, 128, 529) f32),
+   each on its first body by the route, against its plain version and
+   itself over two launches.  The f32 bodies of K4 and K5
+   (``csrc/pathnet_f32.cu``) forward and backward in each f32 path's forms
+   (KPCN's dual PathNet, its head channel-major and channels-last; the
+   64-wide PathNet; Multisteps with d(x), its update chain with and
+   without moments), each against its plain f32 version (``F32_FWD_TOL``,
+   ``F32_GRAD_TOL``, ``F32_ROW_L2_TOL``) and itself over two launches.
 4. serve, serve_lbmc, serve_sbmc: a synthetic 512x512, 8-spp scene is
    written, preprocessed on the card and denoised through
    ``wcmc_tpu_torch.test_models.main`` — the full-width KPCN (K 21,
@@ -84,8 +93,11 @@ Phases (one JSON line each):
    KPCN flagship with ``WCMC_FUSED_INFERENCE=1``: K6 18 times per batch),
    serve_kpcn_nopath and serve_kpcn_nopath_fused (KPCN without paths at
    its default 256-px tiles, 9 tiles in 2 batches, unfused and fused), the
-   same way, the fused legs' CPU references fused too; and
-   fused_vs_default, each fused frame beside its default one of this run.
+   same way, the fused legs' CPU references fused too; serve_kpcn_f32 and
+   serve_sbmc_f32 (``--compute_dtype float32``: K4 and K5 on their f32
+   bodies, held by profile; the tile against the port's f32 CPU path within
+   ``F32_SERVE_TOLS``); and fused_vs_default, each fused frame beside its
+   default one of this run.
 5. train, train_lbmc, train_sbmc: the flagship training step of each
    (FMSE with roll pairing, bf16 compute, f32 parameters; Adam with value
    clip 1.0 for KPCN, with global-norm clip 250 for LBMC and 1000 for
@@ -107,6 +119,13 @@ Phases (one JSON line each):
    scales with the CPU bf16 step's own distance from f32 at that state
    (``XCHECK``, ``xcheck_decision``).  The steps repeat bit for bit, and
    each record carries a digest of the weights its check starts from.
+   Then train_kpcn_k23 and train_sbmc_k23 (the same steps at
+   ``kpcn_ksize`` / ``sbmc_ksize`` 23: K1, K2 and K8 on their first
+   bodies) and train_kpcn_f32 and train_sbmc_f32 (at ``compute_dtype``
+   float32: K4 and K5 on their f32 bodies; the step after the timed ones
+   against the CPU's f32 step on the first patch, ``F32_XCHECK``): 3
+   warm-up and 5 timed steps, exact launches, no plain call, finite losses,
+   every model changed, two profiled steps on the expected bodies.
 
 6. cli_corpus, train_cli_kpcn, train_cli_lbmc, train_cli_sbmc: the training
    entry points from disk, ``python -m wcmc_tpu_torch.train_kpcn`` (then
@@ -153,11 +172,15 @@ Phases (one JSON line each):
    forward's interior; (iii) the dual PathNet, LBMC and SBMC serving
    forwards at 8 spp split 4 + 4 against the unsharded ones (``MD_TOLS``);
    (iv) two data-parallel steps at world 1 over NCCL, bit for bit two 1-rank
-   steps.  NCCL across cards is not covered (one card).
+   steps; (v) the LBMC and SBMC data-parallel steps as (i); (vi) the
+   PathNet of an LBMC interface built with ``--manif_loss GRS`` through
+   ``make_sample_parallel`` at 8 spp split 4 + 4 against its unsharded
+   forward.  NCCL across cards is not covered (one card).
 
 Then the kernel table (a row per kernel and path, its ``launches`` from
 that path's run: per served frame for a forward kernel, per 10 train
-steps for a backward one and for K8; K3 on the KPCN path and K9 from
+steps for a backward one and for K8 (per 5 steps of the short train
+phases for the K = 23 and f32 rows); K3 on the KPCN path and K9 from
 their autograd drives), the card's ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
 script exits non-zero without that line; so does a run without CUDA, or
@@ -244,6 +267,20 @@ SERVE_L2_TOLS = {"kpcn": {"bfloat16": 4e-3, "float32": 2.2e-2},
 # of |L_f|.  Every reading is at most 1 / 2.56 of its limit.  Cosine and
 # norm ratio stay in the record, for reading.
 XCHECK = {"alpha": 3.5, "alpha_f32": 4.0, "beta": 0.015, "beta_loss": 1.5e-3}
+# The f32 paths on the card against the port's f32 CPU path, which differs
+# from them only in the order of its f32 sums and in which relu a
+# pre-activation within rounding of zero takes.  Served tile: (max error of
+# max |ref|, relative L2), per family.  Measured on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W): KPCN at most 7.1e-7 of max |ref| and 3.1e-7 relative L2
+# (radiance and both p-buffers), SBMC 8.3e-6 and 3.5e-6; held to about 10x,
+# 1000x under the bf16 tile's limits.  Train step (f32, TF32 off, the first
+# patch after the timed steps): each model's |g_card - g_cpu| / |g_cpu| and
+# each loss's relative error.  Measured on the same H100 in two calls (cuDNN's
+# f32 algorithms need not repeat the state bit for bit): gradients at most
+# 4.0e-4 (KPCN's diffuse PathNet) and 4.7e-4 (SBMC's PathNet), losses at most
+# 1.1e-6; held to about 4x and 9x, under the bf16 check's floor of 1.5e-2.
+F32_SERVE_TOLS = {"kpcn": (1e-5, 3e-6), "sbmc": (1e-4, 4e-5)}
+F32_XCHECK = {"grad": 2e-3, "loss": 1e-5}
 SEED = 0
 
 
@@ -316,7 +353,7 @@ def median_device_ms(events, kinds, calls, per_call=None):
 def device_ms(torch, fn, counter, flush, calls=5, per_call=None):
     """The median device time of one call of ``fn`` in the entries of the
     kernel whose launch counter is ``counter`` (any of its bodies:
-    ``counter``, ``counter``_tiled and ``counter``_banded), from one torch.profiler pass over
+    ``counter``, ``counter``_tiled, ``counter``_banded and ``counter``_f32), from one torch.profiler pass over
     ``calls`` calls after a warm-up call, the L2 flushed before each and a
     synchronize after each (``per_call``: the entries a call must have,
     see ``median_device_ms``).  ``time_ms``'s CUDA events also count any
@@ -333,8 +370,8 @@ def device_ms(torch, fn, counter, flush, calls=5, per_call=None):
             torch.cuda.synchronize()
     events = [(e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    return median_device_ms(events, (counter, counter + "_tiled", counter + "_banded"), calls,
-                            per_call)
+    return median_device_ms(events, tuple(counter + k for k in ("", "_tiled", "_banded", "_f32")),
+                            calls, per_call)
 
 
 def max_err(torch, got, want, tol, pairs=None):
@@ -1231,6 +1268,258 @@ def sbmc_train_kernel_phase(torch, ka, pf, dev):
     return rows
 
 
+LARGE_K = 23   # the --kpcn_ksize / --sbmc_ksize of the K = 23 train phases
+
+
+def large_k_kernel_phase(torch, ka, dev, k=LARGE_K, kpcn=(8, 70), sbmc=(64, 128)):
+    """K2 and K8 at K = 23, on their first bodies (the route above K = 21),
+    at the shapes of the K = 23 train steps: K2 on one KPCN branch (bf16
+    logits (8, 70, 70, 529) cropped from a channels-last convolution
+    output, buffer (8, 92, 92, 3)), K8 on the SBMC splat ((64, 128, 128,
+    529) f32 weights' gradient, values of 4 channels); each against its
+    plain version, the route's body checked, two launches bit for bit.
+    ``kpcn`` (batch, h) and ``sbmc`` (images, px) give the shapes."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = []
+
+    b, h = kpcn
+    buf = torch.rand((b, h + k - 1, h + k - 1, 3), device=dev, generator=g)
+    conv_out = 2 * torch.randn((b, k * k, h + k - 1, h + k - 1), device=dev, generator=g)
+    conv_out = conv_out.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    lg = conv_out.permute(0, 2, 3, 1)[:, 11:11 + h, 11:11 + h]
+    cot = torch.randn((b, h, h, 3), device=dev, generator=g)
+    route = ka.outer_softmax_route(cot, buf, lg, k)
+    if route.body != "warp":
+        raise AssertionError(f"K2 at K = {k} routes to {route}, not the first body")
+    got = ka.outer_softmax(cot, buf, lg, k)
+    err = max_err(torch, [got], [ka.outer_softmax_plain(cot, buf, lg, k)], K2_BF16_TOL)
+    if not torch.equal(ka.outer_softmax(cot, buf, lg, k), got):
+        raise AssertionError(f"K2 at K = {k}: a second launch gave other bits")
+    taps = b * h * h * k * k
+    # as the K = 21 row: 2 flops per channel for dp, ~8 for the softmax and its VJP
+    rows.append(kernel_row(
+        "outer_softmax", "outer_softmax", "wcmc_tpu/ops/pallas_kernels.py:410", err,
+        time_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k), 20, flush),
+        time_ms(torch, lambda: ka.outer_softmax_plain(cot, buf, lg, k), 3, flush),
+        bound_ms(2 * 2 * taps + nbytes(cot, buf), [(taps * (2 * 3 + 8), F32_FLOPS)]),
+        {"g": list(cot.shape), "buf": list(buf.shape), "logits": [b, h, h, k * k],
+         "logits_dtype": "bfloat16", "ksize": k},
+        library_note="no single PyTorch call computes the softmax-gather VJP",
+        device_ms=device_ms(torch, lambda: ka.outer_softmax(cot, buf, lg, k), "outer_softmax",
+                            flush, per_call=1),
+        body="warp", bit_for_bit=True))
+    del buf, conv_out, lg, cot, got
+
+    n, p = sbmc
+    x = torch.cat([2 * torch.rand((n, p, p, 3), device=dev, generator=g),
+                   torch.ones((n, p, p, 1), device=dev)], dim=-1)
+    gc = torch.randn((n, p + k - 1, p + k - 1, 4), device=dev, generator=g)
+    if ka.outer_plan(4, k).body != "warp":
+        raise AssertionError(f"K8 at K = {k} does not route to the first body")
+    dw = ka.outer(x, gc, k)
+    err = max_err(torch, [dw], [ka.outer_plain(x, gc, k)], K1_TOL)
+    if not torch.equal(ka.outer(x, gc, k), dw):
+        raise AssertionError(f"K8 at K = {k}: a second launch gave other bits")
+    bound = bound_ms(nbytes(x, gc, dw), [(2 * dw.numel() * 4, F32_FLOPS)])
+    del dw
+    rows.append(kernel_row(
+        "outer", "outer", "wcmc_tpu/ops/pallas_kernels.py:379", err,
+        time_ms(torch, lambda: ka.outer(x, gc, k), 10, flush),
+        time_ms(torch, lambda: ka.outer_plain(x, gc, k), 3, flush), bound,
+        {"x": list(x.shape), "canvas_g": list(gc.shape), "w": [n, p, p, k * k], "ksize": k},
+        library_note="no single PyTorch call computes the per-pixel-kernel outer product",
+        device_ms=device_ms(torch, lambda: ka.outer(x, gc, k), "outer", flush, per_call=1),
+        body="warp", bit_for_bit=True))
+    torch.cuda.synchronize()
+    return rows
+
+
+# The f32 bodies of K4 and K5 (csrc/pathnet_f32.cu) against the plain f32
+# versions, of max |plain|: forward outputs 1e-4 (f32 products summed in
+# another order; a pre-activation within rounding of zero moves its relu's
+# output by at most that rounding), weight and bias gradients 5e-3 (there a
+# recomputed pre-activation within f32 rounding of zero can take the other
+# side of its relu and move one row's term of a sum over 10^6 rows by its
+# full size), per-row outputs (d x, d e, d ctx) 1e-3 in relative L2 (such an
+# element's gradient moves by its full size).  The same as the card tests'.
+F32_FWD_TOL, F32_GRAD_TOL, F32_ROW_L2_TOL = 1e-4, 5e-3, 1e-3
+F32_SOURCE = "wcmc_tpu_torch/ops/csrc/pathnet_f32.cu"
+
+
+def f32_weight_bytes(ws):
+    return sum(4 * w.numel() + 4 * w.shape[1] for w in ws)
+
+
+def f32_embed_rows(torch, pf, dev, g, flush, form, b, s, hw, dims, acts, compute_dx):
+    """K4-fwd and K4-bwd on their f32 bodies in one form, each against its
+    plain f32 version and itself over two launches."""
+    x = torch.randn((b, s, hw, dims[0]), device=dev, generator=g)
+    ws, bs = rand_mlp(torch, dev, g, dims)
+    shape = {"x": list(x.shape), "dims": list(dims), "acts": list(acts), "form": form}
+
+    def fwd():
+        return pf.pathnet_embed(x, ws, bs, acts)
+
+    e, mean = fwd()
+    err = max_err(torch, [e, mean], list(pf._embed_plain(x, ws, bs, acts)), F32_FWD_TOL)
+    again = fwd()
+    if not (torch.equal(again[0], e) and torch.equal(again[1], mean)):
+        raise AssertionError(f"K4-fwd f32 ({form}): a second launch gave other bits")
+    del again
+    macs = b * s * hw * sum(ci * co for ci, co in zip(dims[:-1], dims[1:]))
+    rows = [kernel_row(
+        "pathnet_embed_f32", "pathnet_embed", "wcmc_tpu/ops/pathnet_fused.py:155", err,
+        time_ms(torch, fwd, 10, flush),
+        time_ms(torch, lambda: pf._embed_plain(x, ws, bs, acts), 3, flush),
+        bound_ms(nbytes(x, e, mean) + f32_weight_bytes(ws), [(2 * macs, F32_FLOPS)]), shape,
+        source=F32_SOURCE, device_ms=device_ms(torch, fwd, "pathnet_embed", flush),
+        bit_for_bit=True)]
+    ge = torch.randn(e.shape, device=dev, generator=g)
+    gmean = torch.randn(mean.shape, device=dev, generator=g)
+    del e, mean
+
+    def bwd():
+        return pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, acts, compute_dx)
+
+    dx, dws, dbs = bwd()
+    pdx, pws, pbs = pf._embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx)
+    err = max_err(torch, dws + dbs, pws + pbs, F32_GRAD_TOL)
+    extra = {}
+    if compute_dx:
+        extra["row_rel_l2"] = {"dx": rel_l2(torch, dx, pdx)}
+        if extra["row_rel_l2"]["dx"] > F32_ROW_L2_TOL:
+            raise AssertionError(f"K4-bwd f32 ({form}) d(x) off by {extra['row_rel_l2']}")
+    again = bwd()
+    if not all(torch.equal(a, w) for a, w in zip(
+            [*again[1], *again[2]] + ([again[0]] if compute_dx else []),
+            [*dws, *dbs] + ([dx] if compute_dx else []))):
+        raise AssertionError(f"K4-bwd f32 ({form}): a second launch gave other bits")
+    del again, pdx
+    c0, c1, c2, c3 = dims
+    fwd_macs = c0 * c1 + c1 * c2 + (c2 * c3 if acts[-1] != "linear" else 0)
+    macs = b * s * hw * (fwd_macs + 2 * c2 * c3 + 2 * c1 * c2 + (2 if compute_dx else 1) * c0 * c1)
+    rows.append(kernel_row(
+        "pathnet_embed_bwd_f32", "pathnet_embed_bwd", "wcmc_tpu/ops/pathnet_fused.py:188", err,
+        time_ms(torch, bwd, 5, flush),
+        time_ms(torch, lambda: pf._embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx), 3,
+                flush),
+        bound_ms(nbytes(x, ge, gmean, dx, *dws, *dbs) + f32_weight_bytes(ws),
+                 [(2 * macs, F32_FLOPS)]), dict(shape, compute_dx=compute_dx),
+        source=F32_SOURCE, device_ms=device_ms(torch, bwd, "pathnet_embed_bwd", flush),
+        library_note="no single PyTorch call computes a fused MLP's backward", bit_for_bit=True,
+        **extra))
+    torch.cuda.synchronize()
+    return rows
+
+
+def f32_head_rows(torch, pf, dev, g, flush, form, b, s, hw, ce, c1, cout, acts, moments,
+                  cmajor, served_leg=False, bare_leg=False):
+    """K5-fwd and K5-bwd on their f32 bodies in one form (channel-major with
+    ``cmajor``), each against its plain f32 version and itself over two
+    launches; with ``served_leg`` the forward also channels-last, with
+    ``bare_leg`` also without moments (the output bit for bit the one with
+    them)."""
+    e = torch.randn((b, s, hw, ce), device=dev, generator=g)
+    ctx = torch.randn((b, hw, ce), device=dev, generator=g)
+    ws, bs = rand_mlp(torch, dev, g, (2 * ce, c1, cout))
+    shape = {"e": list(e.shape), "ctx": list(ctx.shape), "w1": [2 * ce, c1], "w2": [c1, cout],
+             "acts": list(acts), "moments": moments, "cmajor": cmajor, "form": form}
+    macs = b * s * hw * (ce * c1 + c1 * cout) + b * hw * ce * c1
+
+    def leg(mom, cm):
+        def fwd():
+            return pf.pathnet_head(e, ctx, ws, bs, acts, mom, cm)
+
+        got = fwd()
+        got = list(got) if mom else [got]
+        want = pf._head_plain(e, ctx, ws, bs, acts, mom, cm)
+        err = max_err(torch, got, list(want) if mom else [want], F32_FWD_TOL)
+        again = fwd()
+        if not all(torch.equal(a, w) for a, w in zip(list(again) if mom else [again], got)):
+            raise AssertionError(f"K5-fwd f32 ({form}): a second launch gave other bits")
+        bms, by = bound_ms(nbytes(e, ctx, *got) + f32_weight_bytes(ws), [(2 * macs, F32_FLOPS)])
+        return {"max_abs_err": err, "ms": time_ms(torch, fwd, 10, flush),
+                "device_ms": device_ms(torch, fwd, "pathnet_head", flush),
+                "plain_ms": time_ms(torch, lambda: pf._head_plain(e, ctx, ws, bs, acts, mom, cm),
+                                    3, flush),
+                "bound_ms": bms, "bound_by": by, "bit_for_bit": True}, got[0]
+
+    main, out = leg(moments, cmajor)
+    extra = {}
+    if served_leg:
+        extra["channels_last"], _ = leg(moments, False)
+    if bare_leg:
+        extra["without_moments"], bare = leg(False, cmajor)
+        if not torch.equal(bare, out):
+            raise AssertionError(f"K5-fwd f32 ({form}): the output without moments is not "
+                                 "the one with them")
+    # a channel-major head is the train step's form: its launches are the step's
+    rows = [kernel_row("pathnet_head_f32", "pathnet_head", "wcmc_tpu/ops/pathnet_fused.py:457",
+                       main["max_abs_err"], main["ms"], main["plain_ms"],
+                       (main["bound_ms"], main["bound_by"]), shape, source=F32_SOURCE,
+                       device_ms=main["device_ms"], bit_for_bit=True, train_launches=cmajor,
+                       **extra)]
+    gout = torch.randn(out.shape, device=dev, generator=g)
+    gsum = torch.randn((b, hw, cout), device=dev, generator=g) if moments else None
+    gsq = 0.1 * torch.randn((b, hw, cout), device=dev, generator=g) if moments else None
+    del out
+
+    def bwd():
+        return pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq, ws, bs, acts, cmajor)
+
+    de, dctx, dws, dbs = bwd()
+    pde, pdctx, pws, pbs = pf._head_bwd_plain(e, ctx, gout, gsum, gsq, ws, bs, acts, cmajor)
+    err = max_err(torch, dws + dbs, pws + pbs, F32_GRAD_TOL)
+    row_l2 = {"de": rel_l2(torch, de, pde), "dctx": rel_l2(torch, dctx, pdctx)}
+    if max(row_l2.values()) > F32_ROW_L2_TOL:
+        raise AssertionError(f"K5-bwd f32 ({form}) per-row outputs off by {row_l2}")
+    again = bwd()
+    if not all(torch.equal(a, w) for a, w in zip(
+            [again[0], again[1], *again[2], *again[3]], [de, dctx, *dws, *dbs])):
+        raise AssertionError(f"K5-bwd f32 ({form}): a second launch gave other bits")
+    del again, pde, pdctx
+    macs = b * s * hw * (3 * ce * c1 + 3 * c1 * cout) + b * hw * 3 * ce * c1
+    rows.append(kernel_row(
+        "pathnet_head_bwd_f32", "pathnet_head_bwd", "wcmc_tpu/ops/pathnet_fused.py:511", err,
+        time_ms(torch, bwd, 5, flush),
+        time_ms(torch, lambda: pf._head_bwd_plain(e, ctx, gout, gsum, gsq, ws, bs, acts, cmajor),
+                3, flush),
+        bound_ms(nbytes(e, ctx, gout, gsum, gsq, de, dctx, *dws, *dbs) + f32_weight_bytes(ws),
+                 [(2 * macs, F32_FLOPS)]), dict(shape, g=list(gout.shape)),
+        source=F32_SOURCE, device_ms=device_ms(torch, bwd, "pathnet_head_bwd", flush),
+        library_note="no single PyTorch call computes a fused MLP's backward", bit_for_bit=True,
+        row_rel_l2=row_l2))
+    torch.cuda.synchronize()
+    return rows
+
+
+def f32_kernel_phase(torch, pf, dev, b=8, s=8, hw=128 * 128):
+    """The f32 bodies of K4 and K5 at the f32 paths' shapes (8 images of
+    128^2 px at 8 spp), forward and backward: KPCN's dual PathNet (36 ->
+    128^3; [128 | 128] -> 256 -> 6 with moments, channel-major as the step
+    runs it, channels-last as served), the 64-wide PathNet of LBMC and SBMC
+    (36 -> 64^3; [64 | 64] -> 128 -> 3 with moments) and Multisteps (95 ->
+    128^3 leaky with d(x); [128 | 128] -> 128 -> 128 leaky with moments,
+    and without).  Returns {path: rows}."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    leaky = ("leaky_relu",) * 3
+    kpcn = f32_embed_rows(torch, pf, dev, g, flush, "kpcn", b, s, hw, (36, 128, 128, 128),
+                          pf.EMBED_ACTS, False)
+    kpcn += f32_head_rows(torch, pf, dev, g, flush, "kpcn", b, s, hw, 128, 256, 6,
+                          pf.HEAD_ACTS, True, True, served_leg=True)
+    sbmc = f32_embed_rows(torch, pf, dev, g, flush, "pathnet64", b, s, hw, (36, 64, 64, 64),
+                          pf.EMBED_ACTS, False)
+    sbmc += f32_head_rows(torch, pf, dev, g, flush, "pathnet64", b, s, hw, 64, 128, 3,
+                          pf.HEAD_ACTS, True, False)
+    sbmc += f32_embed_rows(torch, pf, dev, g, flush, "multisteps", b, s, hw,
+                           (95, 128, 128, 128), leaky, True)
+    sbmc += f32_head_rows(torch, pf, dev, g, flush, "multisteps", b, s, hw, 128, 128, 128,
+                          leaky[:2], True, False, bare_leg=True)
+    return {"kpcn": kpcn, "sbmc": sbmc}
+
+
 # the shapes of K6 per branch and batch of 8 tiles on the fused KPCN
 # serving paths: 9 layers of 5x5, n_in -> 100 -> ... -> 100 -> 441, relu
 # between them; with paths (n_in 39) on 128-px tiles, without (n_in 34)
@@ -1425,6 +1714,29 @@ def check_embed_body(kinds, where):
                              "not the tiled body alone")
 
 
+def check_f32_bodies(kinds, where, counters):
+    """An f32 path runs K4 and K5 on their f32 bodies alone: for each launch
+    counter of ``counters`` the profile's device entries must be its f32
+    body's (``counter``_f32), none its bf16 bodies'."""
+    for counter in counters:
+        bf16 = {k: v for k, v in kinds.items() if k in (counter, counter + "_tiled") and v > 0}
+        if kinds.get(counter + "_f32", 0.0) <= 0 or bf16:
+            raise AssertionError(f"{where}: {counter}'s device ms {kinds.get(counter + '_f32')} "
+                                 f"on its f32 body, {bf16} on its bf16 bodies")
+
+
+def check_first_bodies(kinds, where, counters):
+    """Above K = 21 K1, K2 and K8 run their first bodies: for each launch
+    counter of ``counters`` the profile's device entries must be the first
+    body's (the counter's own name), none the tiled body's."""
+    for counter in counters:
+        new = REDESIGNED_BODIES[counter]
+        if kinds.get(counter, 0.0) <= 0 or kinds.get(new, 0.0) > 0:
+            raise AssertionError(f"{where}: {counter}'s device ms by body "
+                                 f"{ {k: kinds.get(k, 0.0) for k in (counter, new)} }, "
+                                 "not the first body alone")
+
+
 # the body each redesigned kernel must run on every path, by launch counter
 # (K7 and K8 on the SBMC paths, K10-bwd and K3 on LBMC's step, K2 on KPCN's
 # and LBMC's, K1 on every KPCN and LBMC path, K10-fwd on LBMC's, K9 on its
@@ -1467,12 +1779,17 @@ def device_kind(name):
     ``scatter_softmax``, K1's tiled body, ``gather_softmax_tiled``, apart
     from its first one ``gather_softmax``, K9's tiled body,
     ``gather_tiled``, apart from its first one ``gather``, and K10-fwd's tiled body,
-    ``mlp_fused_tiled``, apart from its wmma body ``mlp_fused``), the
-    library convolutions and products, copies, or the rest (PyTorch's
-    elementwise, reduction and copy kernels)."""
+    ``mlp_fused_tiled``, apart from its wmma body ``mlp_fused``; the f32
+    bodies of K4 and K5 by their own names, ``pathnet_embed_f32``,
+    ``pathnet_embed_bwd_f32``, ``pathnet_head_f32`` and
+    ``pathnet_head_bwd_f32``), the library convolutions and products,
+    copies, or the rest (PyTorch's elementwise, reduction and copy
+    kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
     if m:
         kind = m.group(1).removesuffix("_kernel")
+        if kind.endswith("_f32"):
+            return kind
         if kind == "softmax_stats":
             return "scatter_softmax"
         if kind in ("splat_banded", "splat_band_sum"):
@@ -1543,6 +1860,18 @@ SERVE["kpcn_fused"] = dict(SERVE["kpcn"], family="kpcn", env=FUSED,
 SERVE["kpcn_nopath"] = NOPATH
 SERVE["kpcn_nopath_fused"] = dict(NOPATH, env=FUSED,
                                   launches=dict(NOPATH["launches"], conv5=18))
+# The f32 serving paths (--compute_dtype float32: K4 and K5 on their f32
+# bodies, K1 on f32 logits), each tile held against the port's f32 CPU path
+# only: the two differ in the order of f32 sums alone (TF32 off), so the
+# limits sit well under the bf16 ones (F32_SERVE_TOLS).
+SERVE["kpcn_f32"] = dict(SERVE["kpcn"], family="kpcn", f32=True,
+                         args=["--compute_dtype", "float32"],
+                         tols={"float32": F32_SERVE_TOLS["kpcn"][0]},
+                         l2_tols={"float32": F32_SERVE_TOLS["kpcn"][1]})
+SERVE["sbmc_f32"] = dict(SERVE["sbmc"], family="sbmc", f32=True,
+                         args=["--use_sbmc_buf", "--compute_dtype", "float32"],
+                         tols={"float32": F32_SERVE_TOLS["sbmc"][0]},
+                         l2_tols={"float32": F32_SERVE_TOLS["sbmc"][1]})
 
 
 @contextlib.contextmanager
@@ -1639,10 +1968,13 @@ def serve_phase(torch, dev, work, name, size=512):
                 raise AssertionError(f"bad p-buffer {v.shape}")
 
         profiled = profile_frame(torch, evaluate, iface, ds)
-        if "pathnet_head" in spec["launches"]:
-            check_head_body(profiled["device_ms_by_kind"], name)
-        if "pathnet_embed" in spec["launches"]:
-            check_embed_body(profiled["device_ms_by_kind"], name)
+        if spec.get("f32"):
+            check_f32_bodies(profiled["device_ms_by_kind"], name, ("pathnet_embed", "pathnet_head"))
+        else:
+            if "pathnet_head" in spec["launches"]:
+                check_head_body(profiled["device_ms_by_kind"], name)
+            if "pathnet_embed" in spec["launches"]:
+                check_embed_body(profiled["device_ms_by_kind"], name)
         check_redesigned_body(profiled["device_ms_by_kind"], name,
                               [k for k in REDESIGNED_BODIES if k in spec["launches"]])
 
@@ -1968,6 +2300,139 @@ def train_phase(torch, dev, family, b=8, patch=128, spp=8, check=cross_check):
         "loss_trajectory": trajectory, "profile": profiled, "cross_check_init": xcheck_init,
         "cross_check": xcheck, "cross_check_s": xcheck_s,
     }
+    return record, launches
+
+
+def f32_cross_check(torch, card_if, cfg, batch, family):
+    """One f32 step of ``card_if``'s weights on the card against the same
+    step (weights, batch, draws) on the CPU in f32: each model's gradient
+    and each loss within ``F32_XCHECK`` of the CPU's, relatively.  Returns
+    the terms; raises AssertionError with them on a failure."""
+    from wcmc_tpu_torch import convert
+    from wcmc_tpu_torch.train.factory import init_interfaces
+
+    draws = step_draws(card_if, batch, family)
+    card_if.preprocess(batch)
+    card_loss = {k: float(v) for k, v in
+                 card_if.train_batch(batch, grad_hook_mode=True, draws=draws).items()}
+    card = {n: torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
+            for n, m in card_if.models.items()}
+    host = {k: v.cpu() for k, v in batch.items()}
+    ref = init_interfaces(cfg, device="cpu")[0]
+    for name, m in card_if.models.items():
+        convert.load_flax_params(ref.models[name], convert.to_flax(m))
+    ref.to_train_mode()
+    ref.preprocess(host)
+    t0 = time.perf_counter()
+    ref_loss = {k: float(v) for k, v in
+                ref.train_batch(host, grad_hook_mode=True, draws=draws).items()}
+    terms = {"cpu_s": time.perf_counter() - t0, "limits": F32_XCHECK, "grads": {}, "losses": {}}
+    bad = []
+    for name, m in ref.models.items():
+        r = torch.cat([p.grad.flatten().double() for p in m.parameters()])
+        rel = float((card[name] - r).norm() / r.norm())
+        terms["grads"][name] = rel
+        bad += [name] if not rel <= F32_XCHECK["grad"] else []
+    for name, v in ref_loss.items():
+        rel = abs(card_loss[name] - v) / abs(v)
+        terms["losses"][name] = rel
+        bad += [name] if not rel <= F32_XCHECK["loss"] else []
+    if bad:
+        raise AssertionError(f"{family} f32 card step off the CPU f32 step in {bad}: {terms}")
+    return terms
+
+
+# The short train phases: (variant -> (config fields, families)).  "k23": the
+# flagship bf16 steps at K = 23 (K1, K2 and K8 on their first bodies, K7 on
+# its banded body up to K = 33); "f32": the flagship steps at
+# compute_dtype float32 (K4 and K5 on their f32 bodies), each held against
+# the CPU's f32 step at the seeded weights and after the timed steps.
+SHORT_TRAIN = {"k23": {"kpcn": {"kpcn_ksize": LARGE_K}, "sbmc": {"sbmc_ksize": LARGE_K}},
+               "f32": {"kpcn": {"compute_dtype": "float32"},
+                       "sbmc": {"compute_dtype": "float32"}}}
+
+
+def short_train_phase(torch, dev, family, variant, smi, b=8, patch=128, spp=8):
+    """``train_config(family)`` with ``SHORT_TRAIN[variant]``'s fields
+    through ``init_interfaces`` -> ``train_batch``: 3 warm-up and 5 timed
+    steps, each launching exactly its family's counts with no plain call,
+    finite losses, every model's parameters changed; one more step profiled,
+    its entries on the bodies the variant runs (k23: K1's, K2's and K8's
+    first bodies; f32: K4's and K5's f32 bodies); with f32 the step after the
+    timed steps held against the CPU's f32 step on the batch's first patch.
+    Returns the phase record and the timed steps' launches."""
+    import numpy as np
+
+    from wcmc_tpu_torch.data.batches import synthetic_batch
+    from wcmc_tpu_torch.ops import _build
+    from wcmc_tpu_torch.train.factory import init_interfaces
+
+    n_warm, n_timed = 3, 5
+    t_phase = time.perf_counter()
+    batch = synthetic_batch(np.random.default_rng(SEED), family, b, patch, spp, True)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    cfg = train_config(family, **SHORT_TRAIN[variant][family])
+    iface = init_interfaces(cfg, device=dev)[0]
+    before = {n: [p.detach().clone() for p in m.parameters()] for n, m in iface.models.items()}
+    iface.to_train_mode()
+    record = {"phase": f"train_{family}_{variant}", "nvidia_smi": smi}
+    losses = []
+
+    def step():
+        iface.preprocess(batch)
+        losses.append(iface.train_batch(batch))
+
+    for _ in range(n_warm):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    step_ms = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches, plain = dict(_build.launches), dict(_build.plain_calls)
+    want = {k: n_timed * v for k, v in TRAIN_LAUNCHES[family].items()}
+    if launches != want or plain:
+        raise AssertionError(f"the {family} {variant} step launched {launches} in {n_timed} "
+                             f"steps, not {want}; plain {plain}")
+    trajectory = [{k: float(v) for k, v in ld.items()} for ld in losses]
+    if any(v != v or abs(v) == float("inf") for ld in trajectory for v in ld.values()):
+        raise AssertionError(f"non-finite {family} {variant} losses: {trajectory}")
+    unchanged = [n for n, m in iface.models.items()
+                 if all(torch.equal(p, q) for p, q in zip(m.parameters(), before[n]))]
+    if unchanged:
+        raise AssertionError(f"the {family} {variant} steps left {unchanged} unchanged")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # two steps: a profile can lose its first entries
+    profiled = profile_steps(torch, iface, batch, 2)
+    kinds = profiled["device_ms_per_step_by_kind"]
+    where = f"the {family} {variant} step"
+    if variant == "k23":
+        check_first_bodies(kinds, where, ["gather_softmax", "outer_softmax"] if family == "kpcn"
+                           else ["outer"])
+        check_head_body(kinds, where)
+        check_embed_body(kinds, where)
+        if family == "sbmc":
+            check_redesigned_body(kinds, where, ["scatter"])
+    else:
+        check_f32_bodies(kinds, where, ("pathnet_embed", "pathnet_head", "pathnet_embed_bwd",
+                                        "pathnet_head_bwd"))
+        record["cpu_f32_check"] = f32_cross_check(
+            torch, iface, cfg, {k: v[:1] for k, v in batch.items()}, family)
+    med = statistics.median(step_ms)
+    record.update({
+        "config": {"model": str(iface.models["dncnn"]), "batch": b, "patch": patch, "spp": spp,
+                   "manif_loss": cfg.manif_loss, "compute_dtype": cfg.compute_dtype,
+                   "kpcn_ksize" if family == "kpcn" else "sbmc_ksize":
+                       cfg.kpcn_ksize if family == "kpcn" else cfg.sbmc_ksize},
+        "step_ms": med, "step_ms_runs": step_ms,
+        "mp_per_s": b * patch * patch / 1e6 / (med / 1e3),
+        "launches_per_step": {k: v / n_timed for k, v in launches.items()},
+        "plain_calls": plain, "peak_mem_gb": peak_gb, "loss_trajectory": trajectory,
+        "profile": profiled, "phase_s": time.perf_counter() - t_phase})
     return record, launches
 
 
@@ -2490,18 +2955,133 @@ def held(torch, got, want, tols, what):
     return {"err_over_max_ref": err, "rel_l2": l2, "tols": list(tols)}
 
 
-def multi_device_phase(torch, dev, smi, kpcn_record):
+def rank_sample_parallel(cfg, params, recipe, model, devices):
+    """On every rank of a 1 x n mesh: ``make_sample_parallel`` of the
+    interface's ``model`` (``cfg`` with ``params``) on the paths of the batch
+    of ``recipe``, after a warm-up call.  Returns (this rank's samples of
+    the output as numpy, its launches and plain calls)."""
+    import torch
+
+    from wcmc_tpu_torch.ops import _build
+    from wcmc_tpu_torch.parallel.dryrun import _interface, _sync, resolve_batch
+    from wcmc_tpu_torch.parallel.mesh import make_mesh
+    from wcmc_tpu_torch.parallel.sample import make_sample_parallel
+
+    mesh = make_mesh(n_data=1, n_spatial=torch.distributed.get_world_size(), devices=devices)
+    run = make_sample_parallel(_interface(cfg, params, mesh.device).models[model], mesh)
+    paths = {"paths": resolve_batch(recipe)["paths"]}
+    run(paths)
+    _sync(mesh.device)
+    _build.reset_counts()
+    out = run(paths)
+    _sync(mesh.device)
+    return out.float().cpu().numpy(), dict(_build.launches), dict(_build.plain_calls)
+
+
+def data_parallel_check(torch, pool, dev, family, noise):
+    """The flagship ``family`` + FMSE data-parallel step over the pool's
+    ranks (global batch 8, 4 a rank) against the 1-rank step on the card from
+    the same weights, batch and draws: each model's gradient and each loss
+    within ``XCHECK``'s limits scaled by the bf16 noise n of ``noise`` (the
+    train phase's CPU bf16 against f32 at the same seeded weights), the
+    replicas' checksums equal, every rank's launches exactly the step's
+    (twice: the gradients, then the step), no plain call.  Returns (the
+    record, the 1-rank interface, its config fields, the batch recipe, the
+    parameters, the batch and the draws)."""
+    from wcmc_tpu_torch import convert
+    from wcmc_tpu_torch.parallel import dryrun
+    from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
+
+    t0 = time.perf_counter()
+    cfg = md_config(family)
+    recipe = ("synthetic", family, SEED, *MD_BATCH, True)
+    single = init_interfaces(TrainConfig(**cfg), device=dev)[0]
+    params = {n: convert.to_flax(m) for n, m in single.models.items()}
+    batch = {k: v.to(dev) for k, v in dryrun.resolve_batch(recipe).items()}
+    single.to_train_mode()
+    draws = step_draws(single, batch, family)
+    single.preprocess(batch)
+    loss1 = {k: float(v) for k, v in single.train_batch(batch, grad_hook_mode=True,
+                                                        draws=draws).items()}
+    g1 = {n: torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
+          for n, m in single.models.items()}
+    ranks = pool.run(dryrun.dp_step, cfg, recipe, params, draws, 1, MD_DEVICES, False, True)
+    terms, bad = {}, []
+    for name, g in g1.items():
+        d = float((torch.from_numpy(ranks[0]["grads"][name]) - g).norm())
+        limit = XCHECK["alpha"] * noise[name]["n"] + XCHECK["beta"] * float(g.norm())
+        terms[name] = {"dp-single": d, "n": noise[name]["n"], "limit": limit}
+        bad += [name] if d > limit else []
+    for name, v in loss1.items():
+        d = abs(ranks[0]["losses"][0][name] - v)
+        limit = XCHECK["alpha"] * noise[name]["n"] + XCHECK["beta_loss"] * abs(v)
+        terms[name] = {"dp-single": d, "n": noise[name]["n"], "limit": limit}
+        bad += [name] if d > limit else []
+    want = {k: 2 * v for k, v in TRAIN_LAUNCHES[family].items()}   # grads, then the step
+    sums = {r["checksum"] for r in ranks}
+    if bad or len(sums) != 1 or any(r["launches"] != want or r["plain_calls"] for r in ranks):
+        raise AssertionError(f"the {family} data-parallel step: off the 1-rank step in {bad} "
+                             f"({terms}); checksums {sums}; launches "
+                             f"{[r['launches'] for r in ranks]}, plain "
+                             f"{[r['plain_calls'] for r in ranks]}")
+    record = {
+        "config": {"global_batch": MD_BATCH[0], "per_rank": MD_BATCH[0] // MD_WORLD,
+                   "patch": MD_BATCH[1], "spp": MD_BATCH[2]},
+        "decision": terms, "checksum": sums.pop(), "launches_per_rank": ranks[0]["launches"],
+        "rank_step_ms": [r["step_ms"][0] for r in ranks], "losses": ranks[0]["losses"][0],
+        "s": time.perf_counter() - t0}
+    return record, single, cfg, recipe, params, batch, draws
+
+
+def grs_sample_parallel_check(torch, pool, dev):
+    """``make_sample_parallel`` of the PathNet (``backbone``) of an LBMC
+    interface built with ``--manif_loss GRS``, over the pool's ranks at 8
+    spp split evenly, against the unsharded forward on the card: the ranks'
+    samples joined within ``MD_TOLS["dual_pathnet"]``, each rank launching
+    K4-fwd and K5-fwd once, no plain call."""
+    import dataclasses
+
+    import numpy as np
+
+    from wcmc_tpu_torch import convert
+    from wcmc_tpu_torch.parallel import dryrun
+    from wcmc_tpu_torch.train.factory import TrainConfig, init_interfaces
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.asdict(dataclasses.replace(train_config("lbmc"), manif_loss="GRS"))
+    recipe = ("synthetic", "lbmc", SEED, *MD_BATCH, True)
+    iface = init_interfaces(TrainConfig(**cfg), device=dev)[0]
+    params = {n: convert.to_flax(m) for n, m in iface.models.items()}
+    with torch.no_grad():
+        paths = dryrun.resolve_batch(recipe)["paths"].to(dev)
+        want = iface.models["backbone"]({"paths": paths}).float().cpu().numpy()
+    ranks = pool.run(rank_sample_parallel, cfg, params, recipe, "backbone", MD_DEVICES)
+    launches = {"pathnet_embed": 1, "pathnet_head": 1}
+    if any(x[1] != launches or x[2] for x in ranks):
+        raise AssertionError(f"the GRS sample-parallel ranks launched {[x[1] for x in ranks]}, "
+                             f"plain {[x[2] for x in ranks]}")
+    return {"config": {"base_model": "lbmc", "manif_loss": cfg["manif_loss"],
+                       "model": "backbone (PathNet)", "spp": MD_BATCH[2], "split": MD_WORLD},
+            "launches_per_rank": launches,
+            **held(torch, np.concatenate([x[0] for x in ranks], axis=1), want,
+                   MD_TOLS["dual_pathnet"], "the GRS sample-parallel PathNet"),
+            "s": time.perf_counter() - t0}
+
+
+def multi_device_phase(torch, dev, smi, train_records):
     """(i) the flagship KPCN + FMSE data-parallel step over 2 gloo ranks
     (global batch 8, 4 a rank) against the 1-rank step on the card from the
-    same weights, batch and draws, each model's gradient and each loss
-    within ``XCHECK``'s limits scaled by the bf16 noise n that the train
-    phase read at the same seeded weights (CPU bf16 against f32, batch
-    [:2]); the replicas' checksums equal; (ii) the flagship KPCN on one 512^2
+    same weights, batch and draws (``data_parallel_check``, its limits from
+    ``train_records[family]``'s cross-check at the same seeded weights); the
+    replicas' checksums equal; (ii) the flagship KPCN on one 512^2
     8-spp frame in 2 bands with halo 32 against the unsharded forward's
     interior; (iii) the dual PathNet, LBMC and SBMC serving forwards at 8 spp
     split 4 + 4 against the unsharded ones; (iv) two data-parallel steps at
-    world 1 over NCCL, bit for bit two 1-rank steps.  Every rank's launches
-    exactly its counts, no plain call."""
+    world 1 over NCCL, bit for bit two 1-rank steps; (v) the LBMC and SBMC
+    data-parallel steps as (i); (vi) ``make_sample_parallel`` of the PathNet
+    of an LBMC interface built with ``--manif_loss GRS``, split 4 + 4,
+    against its unsharded forward.  Every rank's launches exactly its
+    counts, no plain call."""
     import numpy as np
     import torch.distributed as dist
 
@@ -2514,51 +3094,14 @@ def multi_device_phase(torch, dev, smi, kpcn_record):
     record = {"phase": "multi_device", "nvidia_smi": smi, "world": MD_WORLD,
               "backend": "gloo", "devices": MD_DEVICES}
     t_phase = time.perf_counter()
-    cfg = md_config("kpcn")
-    recipe = ("synthetic", "kpcn", SEED, *MD_BATCH, True)
-    single = init_interfaces(TrainConfig(**cfg), device=dev)[0]
-    params = {n: convert.to_flax(m) for n, m in single.models.items()}
-    batch = {k: v.to(dev) for k, v in dryrun.resolve_batch(recipe).items()}
-    single.to_train_mode()
-    draws = step_draws(single, batch, "kpcn")
-    single.preprocess(batch)
-    loss1 = {k: float(v) for k, v in single.train_batch(batch, grad_hook_mode=True,
-                                                        draws=draws).items()}
-    g1 = {n: torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
-          for n, m in single.models.items()}
+    noise = {f: r["cross_check_init"]["decision"] for f, r in train_records.items()}
     t0 = time.perf_counter()
     with RankPool(MD_WORLD, "gloo", devices=MD_DEVICES) as pool:
         record["pool_start_s"] = time.perf_counter() - t0
         pool.run(rank_cuda_flags)
         # (i) the data-parallel step
-        t0 = time.perf_counter()
-        ranks = pool.run(dryrun.dp_step, cfg, recipe, params, draws, 1, MD_DEVICES, False, True)
-        noise = kpcn_record["cross_check_init"]["decision"]
-        terms, bad = {}, []
-        for name, g in g1.items():
-            d = float((torch.from_numpy(ranks[0]["grads"][name]) - g).norm())
-            limit = XCHECK["alpha"] * noise[name]["n"] + XCHECK["beta"] * float(g.norm())
-            terms[name] = {"dp-single": d, "n": noise[name]["n"], "limit": limit}
-            bad += [name] if d > limit else []
-        for name, v in loss1.items():
-            d = abs(ranks[0]["losses"][0][name] - v)
-            limit = XCHECK["alpha"] * noise[name]["n"] + XCHECK["beta_loss"] * abs(v)
-            terms[name] = {"dp-single": d, "n": noise[name]["n"], "limit": limit}
-            bad += [name] if d > limit else []
-        want = {k: 2 * v for k, v in TRAIN_LAUNCHES["kpcn"].items()}   # grads, then the step
-        sums = {r["checksum"] for r in ranks}
-        if bad or len(sums) != 1 or any(r["launches"] != want or r["plain_calls"]
-                                        for r in ranks):
-            raise AssertionError(f"the data-parallel step: off the 1-rank step in {bad} "
-                                 f"({terms}); checksums {sums}; launches "
-                                 f"{[r['launches'] for r in ranks]}, plain "
-                                 f"{[r['plain_calls'] for r in ranks]}")
-        record["data_parallel"] = {
-            "config": {"global_batch": MD_BATCH[0], "per_rank": MD_BATCH[0] // MD_WORLD,
-                       "patch": MD_BATCH[1], "spp": MD_BATCH[2]},
-            "decision": terms, "checksum": sums.pop(), "launches_per_rank": ranks[0]["launches"],
-            "rank_step_ms": [r["step_ms"][0] for r in ranks], "losses": ranks[0]["losses"][0],
-            "s": time.perf_counter() - t0}
+        record["data_parallel"], single, cfg, recipe, params, batch, draws = \
+            data_parallel_check(torch, pool, dev, "kpcn", noise["kpcn"])
 
         # (ii) row-sharded KPCN inference with the halo exchange
         t0 = time.perf_counter()
@@ -2615,6 +3158,14 @@ def multi_device_phase(torch, dev, smi, kpcn_record):
             if iface is not single:
                 del iface
 
+        # (v) the LBMC and SBMC data-parallel steps, held as (i)
+        for family in ("lbmc", "sbmc"):
+            record[f"data_parallel_{family}"] = data_parallel_check(
+                torch, pool, dev, family, noise[family])[0]
+
+        # (vi) the sample-parallel PathNet forward of an interface built for GRS
+        record["sample_parallel_grs"] = grs_sample_parallel_check(torch, pool, dev)
+
     # (iv) two data-parallel steps at world 1 over NCCL: the 1-rank steps bit for bit
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as rdv:
@@ -2659,11 +3210,12 @@ FORWARD_KERNELS = ("gather_softmax", "pathnet_embed", "pathnet_head", "mlp_fused
                    "conv5")
 
 
-def attach_launches(rows, path, serve, train, autograd=None):
+def attach_launches(rows, path, serve, train, autograd=None, train_steps=10):
     """Each row's ``launches``: the count from its path's run, per served
-    frame for a forward kernel and per 10 train steps for a backward one
-    or a forward kernel's training form (KPCN's channel-major K5-fwd);
-    KPCN's K3, which its step does not run, from its autograd drive."""
+    frame for a forward kernel and per ``train_steps`` timed train steps (10,
+    or 5 for the short train phases) for a backward one or a forward
+    kernel's training form (KPCN's channel-major K5-fwd); KPCN's K3, which
+    its step does not run, from its autograd drive."""
     for row in rows:
         name = row.pop("counter")
         row["path"] = path
@@ -2674,7 +3226,7 @@ def attach_launches(rows, path, serve, train, autograd=None):
         else:
             row["launches"] = (serve if name in FORWARD_KERNELS else train)[name]
         row["launches_by_path"] = {"serve_frame": serve.get(name, 0),
-                                   "train_10_steps": train.get(name, 0)}
+                                   f"train_{train_steps}_steps": train.get(name, 0)}
     return rows
 
 
@@ -2714,22 +3266,32 @@ def main() -> int:
     sbmc_rows = sbmc_kernel_phase(torch, ka, pf, dev)
     sbmc_rows += sbmc_train_kernel_phase(torch, ka, pf, dev)
     conv_rows = conv_kernel_phase(torch, dev)
-    emit({"phase": "kernels", "rows": kpcn_rows + bwd_rows + lbmc_rows + sbmc_rows + conv_rows})
+    large_k_rows = large_k_kernel_phase(torch, ka, dev)
+    f32_rows = f32_kernel_phase(torch, pf, dev)
+    emit({"phase": "kernels", "rows": kpcn_rows + bwd_rows + lbmc_rows + sbmc_rows + conv_rows
+          + large_k_rows + f32_rows["kpcn"] + f32_rows["sbmc"]})
 
     records, served = {}, {}
     with tempfile.TemporaryDirectory() as work:
         for name in ("kpcn", "lbmc", "sbmc", "kpcn_fused", "kpcn_nopath",
-                     "kpcn_nopath_fused"):
+                     "kpcn_nopath_fused", "kpcn_f32", "sbmc_f32"):
+            t0 = time.perf_counter()
             records[name], served[name] = serve_phase(torch, dev, work, name)
+            records[name]["phase_s"] = time.perf_counter() - t0
             emit(records[name])
     emit({"phase": "fused_vs_default", **fused_vs_default(records)})
     kpcn_serve, lbmc_serve, sbmc_serve = served["kpcn"], served["lbmc"], served["sbmc"]
     kpcn_record, kpcn_train = train_phase(torch, dev, "kpcn")
     emit(kpcn_record)
-    record, lbmc_train = train_phase(torch, dev, "lbmc")
-    emit(record)
-    record, sbmc_train = train_phase(torch, dev, "sbmc")
-    emit(record)
+    lbmc_record, lbmc_train = train_phase(torch, dev, "lbmc")
+    emit(lbmc_record)
+    sbmc_record, sbmc_train = train_phase(torch, dev, "sbmc")
+    emit(sbmc_record)
+    short = {}
+    for variant in ("k23", "f32"):
+        for family in ("kpcn", "sbmc"):
+            record, short[family, variant] = short_train_phase(torch, dev, family, variant, smi)
+            emit(record)
     with tempfile.TemporaryDirectory() as work:
         root, record = cli_corpus(torch, dev, work)
         emit(record)
@@ -2747,7 +3309,8 @@ def main() -> int:
         record, _ = variant_phase(torch, dev, variant, smi)
         record["phase_s"] = time.perf_counter() - t0
         emit(record)
-    emit(multi_device_phase(torch, dev, smi, kpcn_record))
+    emit(multi_device_phase(torch, dev, smi, {"kpcn": kpcn_record, "lbmc": lbmc_record,
+                                              "sbmc": sbmc_record}))
 
     autograd = {"scatter_softmax": next(r.pop("autograd_launches") for r in bwd_rows
                                         if r["name"] == "scatter_softmax")}
@@ -2758,6 +3321,13 @@ def main() -> int:
     rows += attach_launches(sbmc_rows, "sbmc", sbmc_serve, sbmc_train, autograd)
     rows += attach_launches(conv_rows[:3], "kpcn_fused", served["kpcn_fused"], {})
     rows += attach_launches(conv_rows[3:], "kpcn_nopath_fused", served["kpcn_nopath_fused"], {})
+    rows += attach_launches(large_k_rows[:1], "train_kpcn_k23", {}, short["kpcn", "k23"],
+                            train_steps=5)
+    rows += attach_launches(large_k_rows[1:], "train_sbmc_k23", {}, short["sbmc", "k23"],
+                            train_steps=5)
+    for family in ("kpcn", "sbmc"):
+        rows += attach_launches(f32_rows[family], f"{family}_f32", served[f"{family}_f32"],
+                                short[family, "f32"], train_steps=5)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}))
     print(smi)

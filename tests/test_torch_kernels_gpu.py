@@ -31,7 +31,17 @@ order); K3's banded body is held within 1e-5 of max of its gather body
 body equals its first body bit for bit (each pixel's sums in the same
 order, the same fused multiply-adds), K9's tiled body its first body (the
 same), and K10-fwd's tiled body its wmma body (the same k16 steps and
-rounding points).  TF32 is off for every f32 product compared here."""
+rounding points).  K2 and K8 above K = 21 run their first bodies (the taps
+streamed through a warp's lanes), held like their tiled bodies: K8 and K2
+with f32 logits 1e-5, K2 with bf16 logits 1e-2.  The f32 bodies of K4 and
+K5 (``csrc/pathnet_f32.cu``): forward outputs 1e-4 of max (f32 products
+summed in another order; a pre-activation within rounding of zero moves
+its relu's output by at most that rounding), weight and bias gradients
+5e-3 of max and per-row outputs (d x, d e, d ctx) 1e-3 in relative L2 (a
+recomputed pre-activation within f32 rounding of zero can take the other
+side of its relu, which moves one row's term of a weight gradient, or
+that element's per-row gradient, by its full size).  TF32 is off for every
+f32 product compared here."""
 
 import pytest
 import torch
@@ -44,6 +54,7 @@ from wcmc_tpu_torch.ops import pathnet_fused as pf
 pytestmark = pytest.mark.gpu
 
 K1_TOL, K2_BF16_TOL, BF16_TOL = 1e-5, 1e-2, 2e-2
+F32_FWD_TOL, F32_GRAD_TOL, F32_ROW_L2_TOL = 1e-4, 5e-3, 1e-3
 
 
 @pytest.fixture
@@ -127,7 +138,7 @@ def test_pathnet_head(cuda, b, s, hw, cmajor):
 
 
 def test_kernels_refuse_what_they_do_not_compute(cuda):
-    x = torch.zeros((1, 1, 16, 36), device=cuda)          # f32: not computed
+    x = torch.zeros((1, 1, 16, 36), device=cuda, dtype=torch.float16)   # f16: not computed
     ws = [torch.zeros((36, 16), device=cuda), torch.zeros((16, 16), device=cuda),
           torch.zeros((16, 16), device=cuda)]
     bs = [torch.zeros(16, device=cuda)] * 3
@@ -135,8 +146,8 @@ def test_kernels_refuse_what_they_do_not_compute(cuda):
         pf.pathnet_embed(x, ws, bs)
     with pytest.raises(ValueError):
         pf.pathnet_embed(x.to(torch.bfloat16), ws, bs, ("relu", "gelu", "relu"))
-    # K5-fwd: f32 e, an unknown activation, Cout 17, an f16 output
-    e = torch.zeros((1, 1, 16, 64), device=cuda)
+    # K5-fwd: f16 e, an unknown activation, Cout 17, an f16 output
+    e = torch.zeros((1, 1, 16, 64), device=cuda, dtype=torch.float16)
     ctx = torch.zeros((1, 16, 64), device=cuda)
     hws = [torch.zeros((128, 128), device=cuda), torch.zeros((128, 3), device=cuda)]
     hbs = [torch.zeros(128, device=cuda), torch.zeros(3, device=cuda)]
@@ -2041,3 +2052,241 @@ def test_gather_runs_its_new_body(cuda):
     kinds = [cs.device_kind(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert kinds.count("gather_tiled") == 2
     assert not set(kinds) & {"gather", "gather_softmax", "gather_softmax_tiled"}
+
+
+# ---------------------------------------------------------------------------
+# K2 and K8 above K = 21: the first bodies, up to the reference's K = 129
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,ksize", [(2, 9, 13, 23), (1, 7, 10, 25), (2, 6, 11, 31),
+                                         (1, 3, 5, 129)])
+def test_outer_softmax_above_k21(cuda, b, h, w, ksize, dtype):
+    """K2 above K = 21 runs its first body by the route, within K1_TOL (f32
+    logits) or K2_BF16_TOL (bf16) of the plain version, two launches bit for
+    bit, from a strided view of the logits; the tiled body, asked for,
+    refuses."""
+    g = _gen(60)
+    lg = _softmax_logits(cuda, g, b, h, w, ksize, dtype, "crop")
+    buf = torch.rand((b, h + ksize - 1, w + ksize - 1, 3), device=cuda, generator=g)
+    cot = torch.randn((b, h, w, 3), device=cuda, generator=g)
+    assert ka.outer_softmax_route(cot, buf, lg, ksize) == ka.SoftmaxRoute("warp", (), "")
+    _build.reset_counts()
+    got = ka.outer_softmax(cot, buf, lg, ksize)
+    assert dict(_build.launches) == {"outer_softmax": 1} and not _build.plain_calls
+    assert got.dtype == lg.dtype and got.is_contiguous()
+    assert torch.equal(ka.outer_softmax(cot, buf, lg, ksize), got)
+    _close(got, ka.outer_softmax_plain(cot, buf, lg, ksize),
+           K1_TOL if dtype == torch.float32 else K2_BF16_TOL)
+    with pytest.raises(ValueError):
+        ka.outer_softmax(cot, buf, lg, ksize, body="tiled")
+
+
+@pytest.mark.parametrize("b,h,w,c,ksize", [(2, 9, 13, 4, 23), (1, 7, 10, 3, 25),
+                                           (2, 6, 11, 8, 31), (1, 3, 5, 4, 129)])
+def test_outer_above_k21(cuda, b, h, w, c, ksize):
+    """K8 above K = 21 runs its first body, within K1_TOL of the plain
+    version and two launches bit for bit, also through the splat's
+    autograd; the tiled body, asked for, refuses."""
+    g = _gen(61)
+    x = torch.randn((b, h, w, c), device=cuda, generator=g)
+    canvas = torch.randn((b, h + ksize - 1, w + ksize - 1, c), device=cuda, generator=g)
+    assert ka.outer_plan(c, ksize).body == "warp"
+    _build.reset_counts()
+    got = ka.outer(x, canvas, ksize)
+    assert dict(_build.launches) == {"outer": 1} and not _build.plain_calls
+    assert torch.equal(ka.outer(x, canvas, ksize), got)
+    _close(got, ka.outer_plain(x, canvas, ksize), K1_TOL)
+    with pytest.raises(ValueError):
+        ka.outer(x, canvas, ksize, body="tiled")
+    wt = torch.rand((b, h, w, ksize * ksize), device=cuda, generator=g).requires_grad_()
+    dw, = torch.autograd.grad(ka.kernel_scatter(x, wt, ksize), [wt], canvas)
+    assert torch.equal(dw, got)
+
+
+def test_outer_bodies_at_k21_stream_as_the_tiled_ones(cuda):
+    """At K = 21 the streamed first bodies are the tiled bodies' bits (the
+    same per-lane sums in tap order, then the butterfly)."""
+    g = _gen(62)
+    b, h, w, k = 2, 20, 37, 21
+    x = torch.randn((b, h, w, 4), device=cuda, generator=g)
+    canvas = torch.randn((b, h + k - 1, w + k - 1, 4), device=cuda, generator=g)
+    assert torch.equal(ka.outer(x, canvas, k, body="warp"), ka.outer(x, canvas, k))
+    for dtype in (torch.float32, torch.bfloat16):
+        lg = _softmax_logits(cuda, g, b, h, w, k, dtype, "offset")
+        buf = torch.rand((b, h + k - 1, w + k - 1, 3), device=cuda, generator=g)
+        cot = torch.randn((b, h, w, 3), device=cuda, generator=g)
+        assert torch.equal(ka.outer_softmax(cot, buf, lg, k, body="warp"),
+                           ka.outer_softmax(cot, buf, lg, k))
+
+
+def test_outer_bodies_refuse_above_k129(cuda):
+    """K = 131: neither body of K2 or K8 computes it; nothing runs."""
+    k, b, h, w = 131, 1, 2, 2
+    x = torch.zeros((b, h, w, 3), device=cuda)
+    buf = torch.zeros((b, h + k - 1, w + k - 1, 3), device=cuda)
+    lg = torch.zeros((b, h, w, k * k), device=cuda)
+    _build.reset_counts()
+    with pytest.raises(ValueError):
+        ka.outer_softmax(x, buf, lg, k)
+    with pytest.raises(ValueError):
+        ka.outer(x, buf, k)
+    assert not _build.launches and not _build.plain_calls
+
+
+# ---------------------------------------------------------------------------
+# the f32 bodies of K4 and K5
+# ---------------------------------------------------------------------------
+
+F32_EMBED_FORMS = {"kpcn": ((36, 128, 128, 128), pf.EMBED_ACTS, False),
+                   "pathnet64": ((36, 64, 64, 64), pf.EMBED_ACTS, False),
+                   "multisteps": ((95, 128, 128, 128), pf.LEAKY, True)}
+# (ce, c1, cout, acts, moments, cmajor, out_dtype)
+F32_HEAD_FORMS = {
+    "kpcn": (128, 256, 6, pf.HEAD_ACTS, True, False, torch.float32),
+    "kpcn_cmajor": (128, 256, 6, pf.HEAD_ACTS, True, True, torch.float32),
+    "pathnet64": (64, 128, 3, pf.HEAD_ACTS, True, False, torch.float32),
+    "multisteps": (128, 128, 128, pf.LEAKY[:2], True, False, torch.float32),
+    "multisteps_bare": (128, 128, 128, pf.LEAKY[:2], False, False, torch.float32),
+    "multisteps_bf16_out": (128, 128, 128, pf.LEAKY[:2], False, False, torch.bfloat16),
+}
+
+
+def _rand_mlp(cuda, g, dims):
+    ws = [torch.randn((ci, co), device=cuda, generator=g) / ci**0.5
+          for ci, co in zip(dims[:-1], dims[1:])]
+    return ws, [0.1 * torch.randn(co, device=cuda, generator=g) for co in dims[1:]]
+
+
+@pytest.mark.parametrize("form", list(F32_EMBED_FORMS))
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 2, 31)])
+def test_pathnet_embed_f32(cuda, form, b, s, hw):
+    """K4-fwd and K4-bwd on f32 rows run the f32 body: within their
+    tolerances of the plain f32 versions, two launches bit for bit."""
+    dims, acts, compute_dx = F32_EMBED_FORMS[form]
+    g = _gen(63)
+    x = torch.randn((b, s, hw, dims[0]), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, dims)
+    _build.reset_counts()
+    e, mean = pf.pathnet_embed(x, ws, bs, acts)
+    assert dict(_build.launches) == {"pathnet_embed": 1} and not _build.plain_calls
+    assert e.dtype == mean.dtype == torch.float32
+    pe, pmean = pf._embed_plain(x, ws, bs, acts)
+    _close(e, pe, F32_FWD_TOL)
+    _close(mean, pmean, F32_FWD_TOL)
+    again = pf.pathnet_embed(x, ws, bs, acts)
+    assert torch.equal(again[0], e) and torch.equal(again[1], mean)
+    ge = torch.randn(e.shape, device=cuda, generator=g)
+    gmean = torch.randn(mean.shape, device=cuda, generator=g)
+    dx, dws, dbs = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, acts, compute_dx)
+    pdx, pws, pbs = pf._embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx)
+    for got, want in zip(dws + dbs, pws + pbs):
+        _close(got, want, F32_GRAD_TOL)
+    if compute_dx:
+        _close_l2(dx, pdx, F32_ROW_L2_TOL)
+    else:
+        assert dx is None
+    again = pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, acts, compute_dx)
+    assert all(torch.equal(a, w) for a, w in zip(again[1] + again[2], dws + dbs))
+    assert not compute_dx or torch.equal(again[0], dx)
+    # either cotangent absent
+    for ge_, gm_ in ((ge, None), (None, gmean)):
+        got = pf.pathnet_embed_bwd(x, ge_, gm_, ws, bs, acts, compute_dx)
+        want = pf._embed_bwd_plain(x, ge_, gm_, ws, bs, acts, compute_dx)
+        for a, w in zip(got[1] + got[2], want[1] + want[2]):
+            _close(a, w, F32_GRAD_TOL)
+
+
+@pytest.mark.parametrize("form", list(F32_HEAD_FORMS))
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 2, 31)])
+def test_pathnet_head_f32(cuda, form, b, s, hw):
+    """K5-fwd and K5-bwd on f32 e run the f32 body in every form the paths
+    reach at f32: within their tolerances of the plain f32 versions, two
+    launches bit for bit; the backward with and without the moments'
+    cotangents."""
+    ce, c1, cout, acts, moments, cmajor, out_dtype = F32_HEAD_FORMS[form]
+    g = _gen(64)
+    e = torch.randn((b, s, hw, ce), device=cuda, generator=g)
+    ctx = torch.randn((b, hw, ce), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (2 * ce, c1, cout))
+    _build.reset_counts()
+    got = pf.pathnet_head(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
+    assert dict(_build.launches) == {"pathnet_head": 1} and not _build.plain_calls
+    want = pf._head_plain(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
+    got, want = (list(got), list(want)) if moments else ([got], [want])
+    assert got[0].dtype == out_dtype
+    for a, w in zip(got, want):
+        _close(a, w, F32_FWD_TOL if out_dtype == torch.float32 else K2_BF16_TOL)
+    again = pf.pathnet_head(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
+    again = list(again) if moments else [again]
+    assert all(torch.equal(a, w) for a, w in zip(again, got))
+    gout = torch.randn(got[0].shape, device=cuda, generator=g)
+    gsum = torch.randn((b, hw, cout), device=cuda, generator=g) if moments else None
+    gsq = 0.1 * torch.randn((b, hw, cout), device=cuda, generator=g) if moments else None
+    sets = [(gout, gsum, gsq)] + ([(gout, None, None), (None, gsum, gsq)] if moments else [])
+    for gs in sets:
+        de, dctx, dws, dbs = pf.pathnet_head_bwd(e, ctx, *gs, ws, bs, acts, cmajor)
+        pde, pdctx, pws, pbs = pf._head_bwd_plain(e, ctx, *gs, ws, bs, acts, cmajor)
+        for a, w in zip(dws + dbs, pws + pbs):
+            _close(a, w, F32_GRAD_TOL)
+        _close_l2(de, pde, F32_ROW_L2_TOL)
+        _close_l2(dctx, pdctx, F32_ROW_L2_TOL)
+        again = pf.pathnet_head_bwd(e, ctx, *gs, ws, bs, acts, cmajor)
+        assert all(torch.equal(a, w) for a, w in zip(
+            [again[0], again[1], *again[2], *again[3]], [de, dctx, *dws, *dbs]))
+
+
+def test_pathnet_f32_autograd(cuda):
+    """The PathNet's embedding and head through autograd on f32 tensors:
+    K4 and K5 forward and backward once each, no plain call, gradients
+    within their tolerances of the plain versions'."""
+    g = _gen(65)
+    b, s, hw = 2, 2, 40
+    x = torch.randn((b, s, hw, 36), device=cuda, generator=g)
+    ews, ebs = _rand_mlp(cuda, g, (36, 64, 64, 64))
+    hws, hbs = _rand_mlp(cuda, g, (128, 128, 3))
+    params = [t.requires_grad_() for t in ews + ebs + hws + hbs]
+    ctx = torch.randn((b, hw, 64), device=cuda, generator=g).requires_grad_()
+
+    def loss(embed, head):
+        e, mean = embed(x, ews, ebs)
+        out, ssum, ssq = head(e, ctx + mean, hws, hbs)
+        return (out ** 2).sum() + ssum.sum() + 0.1 * ssq.sum()
+
+    _build.reset_counts()
+    got = torch.autograd.grad(loss(
+        lambda *a: pf.pathnet_embed(*a),
+        lambda *a: pf.pathnet_head(*a, moments=True)), params + [ctx])
+    assert dict(_build.launches) == {"pathnet_embed": 1, "pathnet_head": 1,
+                                     "pathnet_embed_bwd": 1, "pathnet_head_bwd": 1}
+    assert not _build.plain_calls
+    cpu = [t.detach().cpu().requires_grad_() for t in params + [ctx]]
+    xc = x.cpu()
+    ce, cb, ch, chb, cctx = cpu[:3], cpu[3:6], cpu[6:8], cpu[8:10], cpu[10]
+    e, mean = pf.pathnet_embed(xc, ce, cb)
+    out, ssum, ssq = pf.pathnet_head(e, cctx + mean, ch, chb, moments=True)
+    want = torch.autograd.grad((out ** 2).sum() + ssum.sum() + 0.1 * ssq.sum(), cpu)
+    for a, w in zip(got, want):
+        _close(a.cpu(), w, F32_GRAD_TOL)
+
+
+@pytest.mark.parametrize("dims", [(36, 128, 128, 128), (36, 64, 64, 64), (95, 128, 128, 128),
+                                  (1, 16, 256, 3)])
+def test_embed_f32_plan_is_the_kernels_shared_memory(cuda, dims):
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_embed_f32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    assert fn(*dims) == pf.embed_f32_plan(8, 16384, *dims).total
+
+
+@pytest.mark.parametrize("ce,cc,c1,cout", [(128, 128, 256, 6), (64, 64, 128, 3),
+                                           (128, 128, 128, 128), (16, 48, 32, 1)])
+def test_head_f32_plan_is_the_kernels_shared_memory(cuda, ce, cc, c1, cout):
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_head_f32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+    for moments, bwd in ((False, False), (True, False), (False, True)):
+        plan = pf.head_f32_plan(8, 16384, ce, cc, c1, cout, moments, bwd)
+        assert fn(ce, cc, c1, cout, int(moments), int(bwd)) == plan.total

@@ -193,8 +193,10 @@ def test_outer_plan_fits(c, k):
     assert plan.total == sum(m for _, m in plan.smem) <= SMEM_LIMIT
 
 
-@pytest.mark.parametrize("c,k", [(0, 5), (9, 5), (4, 23), (1, 25)])
+@pytest.mark.parametrize("c,k", [(0, 5), (9, 5), (4, 131), (1, 131)])
 def test_outer_plan_refusals(c, k):
+    """C outside 1-8, K above 129 (the first body takes any K up to the
+    reference's bound)."""
     with pytest.raises(ValueError):
         ka.outer_plan(c, k)
 

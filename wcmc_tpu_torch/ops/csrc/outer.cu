@@ -16,8 +16,8 @@
 // rate: a pure write stream.
 //
 // Two bodies; the wrapper (ops/kernel_apply.py::outer_plan) runs the tiled
-// one, and the first port's one only when asked (the card tests'
-// reference):
+// one up to K = 21 and the first port's one above (up to the reference's K =
+// 129), or at any K when asked (the card tests' reference):
 //
 // * the tiled body (outer_tiled_kernel).  Its run is 32 source pixels of one
 //   row, so a run's dw is one contiguous span of 32 x K*K f32.  Persistent
@@ -36,8 +36,8 @@
 //   stores 4 bytes at a time).  Every dw element is the first port's sum
 //   exactly -- the f32 chain over c = 0 .. C - 1 from zero, each step one
 //   fused multiply-add -- so the two bodies agree bit for bit.
-// * the tap loop of outer.cuh, shared with K2 (one warp per pixel, lanes on
-//   consecutive taps).
+// * the tap loop of outer.cuh, shared with K2 (one warp per pixel, the taps
+//   streamed through the lanes 32 at a time, any K up to 129).
 #include "hopper.cuh"
 #include "outer.cuh"
 
@@ -208,7 +208,7 @@ inline cudaError_t launch_outer_tiled(const float* g, const float* buf, float* d
 using namespace wcmc;
 
 // g (B, h, w, C) f32 contiguous; buf (B, H, W, C) f32 contiguous; dw
-// (B, h, w, K*K) f32 contiguous; h = H - K + 1, w = W - K + 1; K*K <= 448.
+// (B, h, w, K*K) f32 contiguous; h = H - K + 1, w = W - K + 1; K <= 129.
 // The first port's body: one warp per pixel.
 extern "C" int wcmc_outer(const void* g, const void* buf, void* dw, int B, int H, int W, int C,
                           int K, int device, void* stream) {
@@ -225,8 +225,8 @@ extern "C" long long wcmc_outer_tiled_smem(int C, int K) {
   return (long long)outer_tiled_smem(C, K);
 }
 
-// The tiled body, with the first port's contract; n_blocks: the most
-// persistent blocks to launch (the SM count).
+// The tiled body, with the first port's contract but K*K <= 448 (14 taps a
+// lane); n_blocks: the most persistent blocks to launch (the SM count).
 extern "C" int wcmc_outer_tiled(const void* g, const void* buf, void* dw, int B, int H, int W,
                                 int C, int K, int n_blocks, int device, void* stream) {
   const int h = H - K + 1, w = W - K + 1;

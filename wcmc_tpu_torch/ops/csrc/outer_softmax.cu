@@ -14,8 +14,8 @@
 // cotangent (3 channels) are under 2 MB and are read from L2.
 //
 // Two bodies; the wrapper (ops/kernel_apply.py::outer_softmax_plan) runs the
-// tiled one, and the first port's one only when asked (the card tests'
-// reference):
+// tiled one up to K = 21 and the first port's one above (up to the
+// reference's K = 129), or at any K when asked (the card tests' reference):
 //
 // * the tiled body (outer_softmax_tiled_kernel), K8's tiled body
 //   (outer.cu) with the logits in and the softmax step.  A run is T = 8 to
@@ -40,8 +40,11 @@
 //   computes (where the span starts and ends on 16 bytes: w a multiple of 8
 //   in bf16; otherwise every thread stores).
 // * the first port's body, the tap loop of outer.cuh shared with K8: one
-//   warp per pixel, its logits read through the strided view and each tap's
-//   C buffer values through L1 (about 5 scattered loads a tap).
+//   warp per pixel, the taps streamed through the lanes in four passes
+//   (max, sum of exp, the dot, the writes), its logits read through the
+//   strided view and each tap's C buffer values through L1 (about 5
+//   scattered loads a tap, dp recomputed in the last two passes).  Its
+//   registers do not grow with K: it takes K up to 129.
 #include "hopper.cuh"
 #include "outer.cuh"
 #include "softmax_runs.cuh"
@@ -279,8 +282,8 @@ using namespace wcmc;
 // g (B, h, w, C) f32 contiguous; buf (B, H, W, C) f32 contiguous; logits
 // (B, h, w, K*K) with element strides ls_b, ls_y, ls_x and unit tap
 // stride, f32 or bf16 (logits_bf16 != 0); dlogits (B, h, w, K*K)
-// contiguous, in the logits' dtype; h = H - K + 1, w = W - K + 1; K*K <=
-// 448.  The first port's body: one warp per pixel.
+// contiguous, in the logits' dtype; h = H - K + 1, w = W - K + 1; K <=
+// 129.  The first port's body: one warp per pixel.
 extern "C" int wcmc_outer_softmax(const void* g, const void* buf, const void* logits,
                                   int logits_bf16, void* dlogits, int B, int H, int W, int C,
                                   int K, long long ls_b, long long ls_y, long long ls_x,
@@ -306,7 +309,8 @@ extern "C" long long wcmc_outer_softmax_tiled_smem(int T, int C, int K, int es) 
   return (long long)outer_softmax_tiled_smem(T, C, K, es);
 }
 
-// The tiled body, with the first port's contract; l_span: the elements from
+// The tiled body, with the first port's contract but K*K <= 448 (14 taps a
+// lane); l_span: the elements from
 // the logits' first to one past their last (sum over dims of (size - 1) x
 // stride, plus one), the strides non-negative; T: pixels a run (a multiple
 // of 8, at most 32); R: runs a unit; n_blocks: the persistent blocks to

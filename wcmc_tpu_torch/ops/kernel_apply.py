@@ -10,7 +10,8 @@ Counterpart of ``wcmc_tpu/ops/kernel_apply.py``:
   ``csrc/gather_softmax.cu``: the tiled body of ``gather_softmax_plan`` up
   to K = 21, the first body above) for CUDA tensors,
   ``gather_softmax_plain`` for CPU tensors.  Backward: d(logits) with K2 (``outer_softmax``,
-  ``csrc/outer_softmax.cu``: the tiled body of ``outer_softmax_plan``)
+  ``csrc/outer_softmax.cu``: the tiled body of ``outer_softmax_plan`` up
+  to K = 21, the first body above)
   and, only when the buffer requires grad, d(buf) with K3
   (``scatter_softmax``, ``csrc/scatter_softmax.cu``: the banded body that
   ``scatter_softmax_plan`` lays out where it fits, else the gather body);
@@ -26,7 +27,7 @@ Counterpart of ``wcmc_tpu/ops/kernel_apply.py``:
   that ``splat_plan`` lays out, or the gather body for strided weights).
   Backward, as the reference's ``_scatter_bwd`` composes it:
   ``dw = outer(x, g)`` with K8 (``outer``, ``csrc/outer.cu``: the tiled
-  body of ``outer_plan``) and, only when ``x`` requires grad,
+  body of ``outer_plan`` up to K = 21, the first body above) and, only when ``x`` requires grad,
   ``dx = gather(g, w)`` with K9 (``gather``, ``csrc/gather.cu``: the
   tiled body of ``gather_plan`` up to K = 21, the first body above);
 * ``kernel_gather(buf, w, K)``: the plain weighted gather
@@ -62,6 +63,7 @@ from wcmc_tpu_torch.ops.mlp_fused import _r128
 SPLAT_RUN = 32      # source pixels a run of K7's banded body and of K8's tiled body
 SPLAT_STAGES = 3    # runs in K7's landing ring: the two a step reads, one landing
 SPLAT_ROWS = 32     # source rows a band of K7's banded body
+OUTER_MAX_K = 129   # K2's and K8's first bodies: the reference's forward gather's bound
 
 
 def _gather_plain(buf, w, ksize):
@@ -244,13 +246,15 @@ def _scatter_banded_walk(x, w, ksize, plan=None):
 
 
 class OuterPlan(NamedTuple):
-    """K8's tiled body for C channels and K x K taps: runs of ``run``
+    """K8's body for C channels and K x K taps, ``body`` "tiled" (K <= 21)
+    or "warp" (the first body, above; the rest 0).  The tiled body: runs of ``run``
     pixels of one row, units of ``rows`` runs down a column, canvas-
     cotangent window rows of ``pitch`` f32, and the block's shared memory
     ``smem`` as (buffer, bytes) pairs in the order the kernel carves them
     (the window ring of K + 1 row slots each kept twice, two value runs,
     two staging tiles of a run's dw span, the mbarriers), ``total`` their
     sum (what ``wcmc_outer_tiled_smem`` returns)."""
+    body: str
     run: int
     rows: int
     pitch: int
@@ -260,12 +264,16 @@ class OuterPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def outer_plan(c, k) -> OuterPlan:
-    """K8's plan; ValueError for what the kernel does not take (C above 8,
-    K*K above 448)."""
+    """K8's plan: the tiled body up to K = 21 (14 taps a lane), the first
+    body (``body`` "warp", O(1) registers a lane) above, up to
+    ``OUTER_MAX_K``; ValueError for what neither body takes (C outside 1-8,
+    K above 129)."""
     if not 1 <= c <= 8:
         raise ValueError(f"outer kernel takes 1 to 8 channels, got {c}")
-    if k < 1 or k * k > 448:
-        raise ValueError(f"outer kernel takes K*K <= 448, got K={k}")
+    if k < 1 or k > OUTER_MAX_K:
+        raise ValueError(f"outer kernel takes K <= {OUTER_MAX_K}, got K={k}")
+    if k > SOFTMAX_MAX_K:
+        return OuterPlan("warp", 0, 0, 0, (), 0)
     t = SPLAT_RUN
     pitch = -(-(t + k - 1) * c // 4) * 4
     smem = (("window", _r128(4 * 2 * (k + 1) * pitch)), ("values", _r128(4 * 2 * t * c)),
@@ -273,7 +281,7 @@ def outer_plan(c, k) -> OuterPlan:
     total = sum(m for _, m in smem)
     if total > SMEM_LIMIT:
         raise ValueError(f"outer kernel needs {total} bytes of shared memory at C={c}, K={k}")
-    return OuterPlan(t, SPLAT_RUN, pitch, smem, total)
+    return OuterPlan("tiled", t, SPLAT_RUN, pitch, smem, total)
 
 
 def _window_runs(buf, ksize, h, w, run, rows):
@@ -346,8 +354,9 @@ def _pick_rows(h, cost, most=SOFTMAX_MAX_ROWS):
 
 
 class OuterSoftmaxPlan(NamedTuple):
-    """K2's tiled body for (B, h, w) pixels of C channels, K x K taps and
-    logits of ``es`` bytes: runs of ``run`` pixels of one row, units of
+    """K2's body for (B, h, w) pixels of C channels, K x K taps and logits of
+    ``es`` bytes, ``body`` "tiled" (K <= 21) or "warp" (the first body,
+    above; the rest 0).  The tiled body: runs of ``run`` pixels of one row, units of
     ``rows`` runs down a column (``units`` in all), buffer-window rows of
     ``pitch`` f32, ``per_sm`` blocks resident an SM, ``blocks`` persistent
     blocks; ``smem`` the block's shared memory as (buffer, bytes) pairs in
@@ -355,6 +364,7 @@ class OuterSoftmaxPlan(NamedTuple):
     each kept twice, two value runs, two landed logit runs, two staging
     tiles of a run's gradients, the mbarriers), ``total`` their sum (what
     ``wcmc_outer_softmax_tiled_smem`` returns)."""
+    body: str
     run: int
     rows: int
     pitch: int
@@ -390,9 +400,9 @@ def _softmax_runs(name, b, h, w, c, k, es, sms, carve, most_rows=SOFTMAX_MAX_ROW
     a row with the fewest idle pixels (the longest of those); three blocks
     an SM at K <= 13 and two above (the kernels' launch bounds) where the
     carve allows; the unit height, up to ``most_rows``, of least ``_fill`` at
-    ``sms`` SMs.  ValueError for what the kernels do not take (C above 8, K above 21,
-    logits or weights neither f32 nor bf16), which their first bodies do not take
-    either (K2) or take only on their own (K1, K9)."""
+    ``sms`` SMs.  ValueError for what the tiled bodies do not take (C above 8, K above
+    21, logits or weights neither f32 nor bf16); K1, K2 and K9 run their first bodies
+    at K above 21."""
     if not 1 <= c <= 8:
         raise ValueError(f"{name} kernel takes 1 to 8 channels, got {c}")
     if k < 1 or k > SOFTMAX_MAX_K or min(b, h, w) < 1 or es not in (2, 4):
@@ -415,15 +425,25 @@ def _softmax_runs(name, b, h, w, c, k, es, sms, carve, most_rows=SOFTMAX_MAX_ROW
 
 @functools.lru_cache(maxsize=None)
 def outer_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> OuterSoftmaxPlan:
-    """K2's plan (``_softmax_runs``); ValueError for what the kernel does not
-    take (C above 8, K above 21, logits neither f32 nor bf16), which the
-    first body does not take either."""
+    """K2's plan: the tiled body's layout (``_softmax_runs``) up to K = 21,
+    the first body (``body`` "warp") above, up to ``OUTER_MAX_K``;
+    ValueError for what neither body takes (C outside 1-8, K above 129,
+    logits neither f32 nor bf16, an empty batch or image)."""
+    if not 1 <= c <= 8:
+        raise ValueError(f"outer_softmax kernel takes 1 to 8 channels, got {c}")
+    if k < 1 or k > OUTER_MAX_K or min(b, h, w) < 1 or es not in (2, 4):
+        raise ValueError(f"outer_softmax kernel takes K <= {OUTER_MAX_K} and f32 or bf16 "
+                         f"logits, got K={k}, {b}x{h}x{w}, {es}-byte logits")
+    if k > SOFTMAX_MAX_K:
+        return OuterSoftmaxPlan("warp", 0, 0, 0, 0, 0, 0, (), 0)
+
     def carve(t, pitch):
         return (("window", _r128(4 * 2 * (k + 1) * pitch)), ("values", _r128(4 * 2 * t * c)),
                 ("logits", _r128(2 * t * _lpitch(k * k, es))),
                 ("tiles", _r128(es * 2 * t * k * k)), ("bars", _r128(8 * 2)))
 
-    return OuterSoftmaxPlan(*_softmax_runs("outer_softmax", b, h, w, c, k, es, sms, carve))
+    return OuterSoftmaxPlan("tiled", *_softmax_runs("outer_softmax", b, h, w, c, k, es, sms,
+                                                    carve))
 
 
 def _gather_plan(name, taps, b, h, w, c, k, es, sms):
@@ -523,8 +543,8 @@ def scatter_softmax_plan(b, h, w, c, k, es, sms=H100_SMS) -> SoftmaxSplatPlan:
 
 
 class SoftmaxRoute(NamedTuple):
-    """How a K1, K2 or K3 launch on these tensors runs: ``body`` (K1 "tiled"
-    or "warp"; K2 "tiled"; K3 "banded" or "gather"); on the new bodies
+    """How a K1, K2 or K3 launch on these tensors runs: ``body`` (K1 and K2
+    "tiled" or "warp"; K3 "banded" or "gather"); on the new bodies
     ``leads``, each byte offset at which some pixel's taps start within their
     16-byte-aligned superset (the bytes a landed pixel's reader skips), and
     ``spans``, how the runs' contiguous spans move: "16-byte" where every one
@@ -559,11 +579,14 @@ def _run_starts(b, h, w, firsts, ends):
 
 
 def outer_softmax_route(g, buf, logits, ksize, sms=H100_SMS):
-    """K2's route on these tensors (``SoftmaxRoute``); the gradients go to a
-    fresh tensor, which starts on 16 bytes."""
+    """K2's route on these tensors (``SoftmaxRoute``): the tiled body up to
+    K = 21, the first body ("warp") above, as ``outer_softmax_plan`` says;
+    the gradients go to a fresh tensor, which starts on 16 bytes."""
     b, h, w, c = g.shape
     es = logits.element_size()
     plan = outer_softmax_plan(b, h, w, c, ksize, es, sms)
+    if plan.body == "warp":
+        return SoftmaxRoute("warp", (), "")
     firsts = list(range(0, w, plan.run))
     first, n = _run_starts(b, h, w, firsts, [min(x + plan.run, w) for x in firsts])
     span = ksize * ksize * es
@@ -849,9 +872,10 @@ def outer_softmax(g, buf, logits, ksize: int, body=None):
     """d(logits) of the softmax gather for the output cotangent ``g``
     (B, h, w, C): kernel K2 for CUDA tensors, ``outer_softmax_plain``
     for CPU tensors.  Returned contiguous in the logits' dtype.  On the card
-    the body is the tiled one (``outer_softmax_plan``); ``body`` "warp"
-    runs the first port's one-warp-per-pixel body (the card tests'
-    reference), with the same bits."""
+    the body is ``outer_softmax_plan``'s: the tiled one up to K = 21, the
+    first port's one-warp-per-pixel body above (up to K = 129); ``body``
+    "warp" forces the first body (the card tests' reference), with the same
+    bits, and "tiled" the tiled one, which raises above K = 21."""
     _check_geometry(buf, logits, ksize)
     if tuple(g.shape) != tuple(logits.shape[:3]) + (buf.shape[-1],):
         raise ValueError(f"outer_softmax: cotangent shape {tuple(g.shape)} does not match "
@@ -859,12 +883,13 @@ def outer_softmax(g, buf, logits, ksize: int, body=None):
     if g.device.type == "cpu" and logits.device.type == "cpu":
         return outer_softmax_plain(g, buf, logits, ksize)
     _check_card("outer_softmax", logits, g, buf)
-    if body not in (None, "tiled", "warp"):
-        raise ValueError(f"outer_softmax: no {body} body")
     b, H, W, c = buf.shape
     dev = logits.device.index or 0
     plan = outer_softmax_plan(b, H - ksize + 1, W - ksize + 1, c, ksize,
                               logits.element_size(), _build.sm_count(dev))
+    body = body or plan.body
+    if body not in ("tiled", "warp") or (body == "tiled" and plan.body != "tiled"):
+        raise ValueError(f"outer_softmax: no {body} body at K={ksize}")
     gf = g.float().contiguous()
     src = buf.float().contiguous()
     out = torch.empty(tuple(logits.shape), dtype=logits.dtype, device=logits.device)
@@ -1034,9 +1059,11 @@ def gather(buf, w, ksize: int, body=None):
 def outer(g, buf, ksize: int, body=None):
     """``dw[p, d] = sum_c g[p, c] * buf[p + d, c]`` for ``g`` (B, h, w, C)
     and ``buf`` (B, h + K - 1, w + K - 1, C), as f32 (B, h, w, K*K):
-    kernel K8 for CUDA tensors (its tiled body; ``body`` "warp" runs the
-    first port's one-warp-per-pixel body, the card tests' reference, with
-    the same bits), ``outer_plain`` for CPU tensors."""
+    kernel K8 for CUDA tensors (``outer_plan``'s body: the tiled one up to
+    K = 21, the first port's one-warp-per-pixel body above, up to K = 129;
+    ``body`` "warp" forces the first body, the card tests' reference, with
+    the same bits, and "tiled" the tiled one, which raises above K = 21),
+    ``outer_plain`` for CPU tensors."""
     b, h, w, c = g.shape
     if buf.dim() != 4 or tuple(buf.shape) != (b, h + ksize - 1, w + ksize - 1, c):
         raise ValueError(f"outer: buffer shape {tuple(buf.shape)} does not match "
@@ -1044,9 +1071,10 @@ def outer(g, buf, ksize: int, body=None):
     if g.device.type == "cpu" and buf.device.type == "cpu":
         return outer_plain(g.float(), buf.float(), ksize)
     _check_card("outer", g, buf)
-    outer_plan(c, ksize)
-    if body not in (None, "tiled", "warp"):
-        raise ValueError(f"outer: no {body} body")
+    plan = outer_plan(c, ksize)
+    body = body or plan.body
+    if body not in ("tiled", "warp") or (body == "tiled" and plan.body != "tiled"):
+        raise ValueError(f"outer: no {body} body at K={ksize}")
     gf = g.float().contiguous()
     src = buf.float().contiguous()
     out = torch.empty((b, h, w, ksize * ksize), dtype=torch.float32, device=g.device)

@@ -37,8 +37,12 @@ output cotangent, leaky-leaky with Cout <= 128 and a bf16 one) and raise
 ``ValueError`` for any other chain.
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels,
-which compute in bfloat16 with f32 accumulation and raise for other
-dtypes.  The plain versions round where the reference's Pallas kernels
+which compute in bfloat16 with f32 accumulation (the bodies above) or in
+float32 (``csrc/pathnet_f32.cu``: one SIMT body for each of the four, the
+layer widths, activations and layouts as arguments, every product a full
+f32 fused multiply-add chain; ``embed_f32_plan`` and ``head_f32_plan``
+give its tiles, grid and shared memory) and raise ``TypeError`` for any
+other dtype.  The plain versions round where the reference's Pallas kernels
 round: forward, after every embedding layer, after every hidden head
 layer, and the last head layer only to the output dtype: its unrounded
 f32 value feeds the moments (the reference's XLA head path rounds the
@@ -59,6 +63,7 @@ import torch
 from wcmc_tpu_torch.ops import _build
 from wcmc_tpu_torch.ops._pack import PackCache
 from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT
+from wcmc_tpu_torch.ops.kernel_apply import H100_SMS, SM_SMEM
 from wcmc_tpu_torch.ops.mlp_fused import (
     ACTS, _act, _act_grad, _into, _mlp_bwd_rows, _mlp_plain, _prod, _r128, matmul_f32,
 )
@@ -116,12 +121,19 @@ def _act_codes(name, acts, n):
     return [ACTS.index(a) for a in acts]
 
 
+def _card_dtype(name, t):
+    """The compute dtype of a K4 or K5 launch on ``t``: bfloat16 (the bf16
+    bodies) or float32 (the f32 bodies); TypeError for any other."""
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel computes in bfloat16 or float32, got {t.dtype}")
+    return t.dtype
+
+
 def _check_embed_card(x, ws, acts):
-    """What K4-fwd and K4-bwd compute: bf16 rows through three layers,
+    """What K4-fwd and K4-bwd compute in bf16: rows through three layers,
     widths multiples of 16; returns the layer widths and activation codes."""
     codes = _act_codes("pathnet_embed", acts, 3)
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"pathnet_embed kernel computes in bfloat16, got {x.dtype}")
+    _card_dtype("pathnet_embed", x)
     dims = [x.shape[-1]] + [w.shape[1] for w in ws]
     for w, ci, co in zip(ws, dims[:-1], dims[1:]):
         if tuple(w.shape) != (ci, co) or co % 16:
@@ -132,8 +144,7 @@ def _check_embed_card(x, ws, acts):
 
 def _check_head_card(e, acts):
     codes = _act_codes("pathnet_head", acts, 2)
-    if e.dtype != torch.bfloat16:
-        raise TypeError(f"pathnet_head kernel computes in bfloat16, got {e.dtype}")
+    _card_dtype("pathnet_head", e)
     return codes
 
 
@@ -147,6 +158,8 @@ def _embed_fwd_kernel(x, ws, bs, acts, rows=False):
     """K4-fwd on the body ``embed_fwd_plan`` picks, or with ``rows`` on
     the row-chunk body whatever the form (the card tests compare the two)."""
     dev = _require_cuda("pathnet_embed", x, *ws, *bs)
+    if _card_dtype("pathnet_embed", x) == torch.float32:
+        return _embed_f32_kernel(x, ws, bs, acts, dev)
     dims, codes = _check_embed_card(x, ws, acts)
     b, s, hw, _ = x.shape
     plan = embed_fwd_plan(tuple(acts), *dims)
@@ -193,6 +206,8 @@ def _head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype, wmma=Fals
     if (tuple(ctx.shape) != (b, hw, cc) or tuple(ws[0].shape) != (ce + cc, c1)
             or tuple(ws[1].shape) != (c1, cout)):
         raise ValueError("pathnet_head: shapes of e, ctx and the weights disagree")
+    if e.dtype == torch.float32:
+        return _head_f32_kernel(e, ctx, ws, bs, codes, moments, cmajor, out_dtype, dev)
     plan = head_fwd_plan(tuple(acts), ce, cc, c1, cout, out_dtype, cmajor)
     ctx = ctx.to(torch.bfloat16).contiguous()
     shape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
@@ -975,6 +990,8 @@ def _embed_bwd_walk(x, ge, gmean, ws, bs, acts, compute_dx=False, n_blocks=3):
 
 def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx):
     dev = _require_cuda("pathnet_embed_bwd", x, *ws, *bs)
+    if _card_dtype("pathnet_embed_bwd", x) == torch.float32:
+        return _embed_bwd_f32_kernel(x, ge, gmean, ws, bs, acts, compute_dx, dev)
     b, s, hw, c0 = x.shape
     codes, with_dx = _embed_bwd_form(acts, compute_dx)
     c1, c2, c3 = _check_embed_card(x, ws, acts)[0][1:]
@@ -1060,6 +1077,8 @@ def _aligned(t):
 def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor):
     dev = _require_cuda("pathnet_head_bwd", e, ctx, *ws, *bs)
     codes = _check_head_card(e, acts)
+    if e.dtype == torch.float32:
+        return _head_bwd_f32_kernel(e, ctx, g, gsum, gsq, ws, bs, codes, cmajor, dev)
     b, s, hw, ce = e.shape
     cc = ctx.shape[-1]
     c1, cout = ws[0].shape[1], ws[1].shape[1]
@@ -1124,13 +1143,212 @@ def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor):
     return de, dctx, dws, [db1[:c1], db2[:cout]]
 
 
+# ---------------------------------------------------------------------------
+# the f32 bodies (csrc/pathnet_f32.cu): plans and wrappers
+# ---------------------------------------------------------------------------
+
+F32_ROWS = 32          # pixels of one image a tile of the f32 bodies: a product's rows
+F32_MAX_WIDTH = 256    # the widest layer they take
+
+
+class F32Plan(NamedTuple):
+    """How an f32 body of K4 or K5 runs: tiles of ``rows`` pixels of one
+    image walked by ``blocks`` persistent blocks (``per_sm`` resident an
+    SM), each tile its samples in order; ``smem`` the block's shared
+    memory as (buffer, bytes) pairs in the order the kernel carves them,
+    each a multiple of 128 bytes, ``total`` their sum (what
+    ``wcmc_pathnet_embed_f32_smem`` / ``wcmc_pathnet_head_f32_smem``
+    return).  The backward bodies keep one f32 partial of the weight and
+    bias gradients a block, ``parts`` floats each."""
+    rows: int
+    per_sm: int
+    blocks: int
+    smem: tuple
+    total: int
+    parts: int
+
+
+def _f32_plan(name, b, hw, smem, parts, sms):
+    smem = tuple((n, _r128(4 * F32_ROWS * c)) for n, c in smem)
+    total = sum(m for _, m in smem)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"{name} f32 body needs {total} bytes of shared memory, over the "
+                         f"{SMEM_LIMIT} a block may use")
+    per_sm = min(2, SM_SMEM // (total + 1024))
+    tiles = b * -(-hw // F32_ROWS)
+    return F32Plan(F32_ROWS, per_sm, max(1, min(tiles, per_sm * sms)), smem, total, parts)
+
+
+def _f32_widths(name, widths):
+    if any(not 1 <= c <= F32_MAX_WIDTH for c in widths):
+        raise ValueError(f"{name} f32 body takes widths 1 to {F32_MAX_WIDTH}, got {widths}")
+
+
+@functools.lru_cache(maxsize=None)
+def embed_f32_plan(b, hw, c0, c1, c2, c3, sms=H100_SMS) -> F32Plan:
+    """The f32 body of K4-fwd and K4-bwd for (b, ., hw) rows of an
+    embedding C0 -> C1 -> C2 -> C3: the x, h1 and h2 tiles and the fourth
+    (the running sum forward, the cotangent backward), 32 rows each; two
+    blocks an SM where two fit.  ValueError for widths outside 1-256."""
+    _f32_widths("pathnet_embed", (c0, c1, c2, c3))
+    return _f32_plan("pathnet_embed", b, hw, (("x", c0), ("h1", c1), ("h2", c2), ("out", c3)),
+                     c0 * c1 + c1 * c2 + c2 * c3 + c1 + c2 + c3, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def head_f32_plan(b, hw, ce, cc, c1, cout, moments=False, bwd=False, sms=H100_SMS) -> F32Plan:
+    """The f32 body of K5-fwd (``bwd`` False) or K5-bwd for a head [Ce | Cc]
+    -> C1 -> Cout over (b, ., hw) rows: the context tile, ctx . W1c, the e
+    and h1 tiles, and forward the running sum and sum of squares (with
+    ``moments``), backward G = sum_s g1 and the cotangent, gsum and gsq
+    tiles; 32 rows each.  ValueError for widths outside 1-256 or a carve
+    over a block's shared memory."""
+    _f32_widths("pathnet_head", (ce, cc, c1, cout))
+    smem = (("ctx", cc), ("zc", c1), ("e", ce), ("h", c1))
+    if bwd:
+        smem += (("G", c1), ("g", cout), ("gsum", cout), ("gsq", cout))
+    elif moments:
+        smem += (("sum", cout), ("sq", cout))
+    return _f32_plan("pathnet_head", b, hw, smem, (ce + cc) * c1 + c1 * cout + c1 + cout, sms)
+
+
+def _f32_dims(name, c0, ws):
+    dims = [c0] + [w.shape[1] for w in ws]
+    for w, ci, co in zip(ws, dims[:-1], dims[1:]):
+        if tuple(w.shape) != (ci, co):
+            raise ValueError(f"{name}: weight {tuple(w.shape)} is not ({ci}, {co})")
+    return dims
+
+
+def _f32(ts):
+    return [t.float().contiguous() for t in ts]
+
+
+def _embed_f32_kernel(x, ws, bs, acts, dev):
+    """K4-fwd's f32 body (``embed_f32_plan``)."""
+    codes = _act_codes("pathnet_embed", acts, 3)
+    b, s, hw, c0 = x.shape
+    dims = _f32_dims("pathnet_embed", c0, ws)
+    idx = dev.index or 0
+    plan = embed_f32_plan(b, hw, *dims, sms=_build.sm_count(idx))
+    x = x.contiguous()
+    wf, bf = _f32(ws), _f32(bs)
+    e = torch.empty((b, s, hw, dims[-1]), dtype=torch.float32, device=dev)
+    mean = torch.empty((b, hw, dims[-1]), dtype=torch.float32, device=dev)
+    P, INT = _build.PTR, _build.INT
+    fn = _build.kernel("wcmc_pathnet_embed_f32", *([P] * 9), *([INT] * 12), P)
+    _build.check(fn(x.data_ptr(), wf[0].data_ptr(), bf[0].data_ptr(), wf[1].data_ptr(),
+                    bf[1].data_ptr(), wf[2].data_ptr(), bf[2].data_ptr(), e.data_ptr(),
+                    mean.data_ptr(), b, s, hw, *dims, *codes, plan.blocks, idx,
+                    _build.stream_of(dev)), "pathnet_embed")
+    _build.launches["pathnet_embed"] += 1
+    return e, mean
+
+
+def _embed_bwd_f32_kernel(x, ge, gmean, ws, bs, acts, compute_dx, dev):
+    """K4-bwd's f32 body: any chain, d(x) where asked; the cotangents read
+    as f32, None as zero; the weights' transposes made here."""
+    codes = _act_codes("pathnet_embed_bwd", acts, 3)
+    b, s, hw, c0 = x.shape
+    dims = _f32_dims("pathnet_embed_bwd", c0, ws)
+    c3 = dims[-1]
+    if ((ge is not None and tuple(ge.shape) != (b, s, hw, c3))
+            or (gmean is not None and tuple(gmean.shape) != (b, hw, c3))):
+        raise ValueError("pathnet_embed_bwd: cotangent shapes do not match the embedding")
+    idx = dev.index or 0
+    plan = embed_f32_plan(b, hw, *dims, sms=_build.sm_count(idx))
+    x = x.contiguous()
+    wf, bf = _f32(ws), _f32(bs)
+    wt = [w.t().contiguous() for w in wf]
+    ge, gmean = (None if t is None else t.float().contiguous() for t in (ge, gmean))
+    dx = torch.empty_like(x) if compute_dx else None
+    parts = torch.empty(plan.blocks * plan.parts, dtype=torch.float32, device=dev)
+    out = torch.empty(plan.parts, dtype=torch.float32, device=dev)
+    P, INT = _build.PTR, _build.INT
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    fn = _build.kernel("wcmc_pathnet_embed_bwd_f32", *([P] * 15), *([INT] * 12), P)
+    _build.check(fn(x.data_ptr(), ptr(ge), ptr(gmean), wf[0].data_ptr(), bf[0].data_ptr(),
+                    wf[1].data_ptr(), bf[1].data_ptr(), wf[2].data_ptr(), bf[2].data_ptr(),
+                    wt[0].data_ptr(), wt[1].data_ptr(), wt[2].data_ptr(), ptr(dx),
+                    parts.data_ptr(), out.data_ptr(), b, s, hw, *dims, *codes, plan.blocks,
+                    idx, _build.stream_of(dev)), "pathnet_embed_bwd")
+    _build.launches["pathnet_embed_bwd"] += 1
+    c0, c1, c2, c3 = dims
+    dw0, dw1, dw2, db0, db1, db2 = torch.split(out, [c0 * c1, c1 * c2, c2 * c3, c1, c2, c3])
+    return dx, [dw0.view(c0, c1), dw1.view(c1, c2), dw2.view(c2, c3)], [db0, db1, db2]
+
+
+def _head_f32_kernel(e, ctx, ws, bs, codes, moments, cmajor, out_dtype, dev):
+    """K5-fwd's f32 body (``head_f32_plan``): the context read as f32, the
+    output written as ``out_dtype`` (f32 or bf16), the moments of the
+    unrounded f32 output."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"pathnet_head kernel writes float32 or bfloat16, got {out_dtype}")
+    b, s, hw, ce = e.shape
+    cc, (c1, cout) = ctx.shape[-1], ws[1].shape
+    idx = dev.index or 0
+    plan = head_f32_plan(b, hw, ce, cc, c1, cout, moments, sms=_build.sm_count(idx))
+    e, ctx = e.contiguous(), ctx.float().contiguous()
+    (w1, w2), (b1, b2) = _f32(ws), _f32(bs)
+    shape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
+    out = torch.empty(shape, dtype=out_dtype, device=dev)
+    ssum = ssq = None
+    if moments:
+        ssum = torch.empty((b, hw, cout), dtype=torch.float32, device=dev)
+        ssq = torch.empty_like(ssum)
+    P, INT = _build.PTR, _build.INT
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    fn = _build.kernel("wcmc_pathnet_head_f32", *([P] * 9), *([INT] * 13), P)
+    _build.check(fn(e.data_ptr(), ctx.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                    b2.data_ptr(), out.data_ptr(), ptr(ssum), ptr(ssq), b, s, hw, ce, cc, c1,
+                    cout, *codes, int(out_dtype == torch.bfloat16), int(cmajor), plan.blocks,
+                    idx, _build.stream_of(dev)), "pathnet_head")
+    _build.launches["pathnet_head"] += 1
+    return (out, ssum, ssq) if moments else out
+
+
+def _head_bwd_f32_kernel(e, ctx, g, gsum, gsq, ws, bs, codes, cmajor, dev):
+    """K5-bwd's f32 body: any head; the cotangents read as f32 (the
+    output's in its layout), None as zero; the weights' transposes made
+    here."""
+    b, s, hw, ce = e.shape
+    cc, (c1, cout) = ctx.shape[-1], ws[1].shape
+    g_shape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
+    if (tuple(ctx.shape) != (b, hw, cc) or tuple(ws[0].shape) != (ce + cc, c1)
+            or (g is not None and tuple(g.shape) != g_shape)
+            or any(m is not None and tuple(m.shape) != (b, hw, cout) for m in (gsum, gsq))):
+        raise ValueError("pathnet_head_bwd: shapes of e, ctx, the weights and the "
+                         "cotangents disagree")
+    idx = dev.index or 0
+    plan = head_f32_plan(b, hw, ce, cc, c1, cout, bwd=True, sms=_build.sm_count(idx))
+    e, ctx = e.contiguous(), ctx.float().contiguous()
+    (w1, w2), (b1, b2) = _f32(ws), _f32(bs)
+    w1et, w1ct, w2t = w1[:ce].t().contiguous(), w1[ce:].t().contiguous(), w2.t().contiguous()
+    g, gsum, gsq = (None if t is None else t.float().contiguous() for t in (g, gsum, gsq))
+    de = torch.empty_like(e)
+    dctx = torch.empty((b, hw, cc), dtype=torch.float32, device=dev)
+    parts = torch.empty(plan.blocks * plan.parts, dtype=torch.float32, device=dev)
+    out = torch.empty(plan.parts, dtype=torch.float32, device=dev)
+    P, INT = _build.PTR, _build.INT
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    fn = _build.kernel("wcmc_pathnet_head_bwd_f32", *([P] * 16), *([INT] * 12), P)
+    _build.check(fn(e.data_ptr(), ctx.data_ptr(), ptr(g), ptr(gsum), ptr(gsq), w1.data_ptr(),
+                    b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), w1et.data_ptr(),
+                    w1ct.data_ptr(), w2t.data_ptr(), de.data_ptr(), dctx.data_ptr(),
+                    parts.data_ptr(), out.data_ptr(), b, s, hw, ce, cc, c1, cout, *codes,
+                    int(cmajor), plan.blocks, idx, _build.stream_of(dev)), "pathnet_head_bwd")
+    _build.launches["pathnet_head_bwd"] += 1
+    dw1, dw2, db1, db2 = torch.split(out, [(ce + cc) * c1, c1 * cout, c1, cout])
+    return de, dctx, [dw1.view(ce + cc, c1), dw2.view(c1, cout)], [db1, db2]
+
+
 def pathnet_embed_bwd(x, ge, gmean, ws, bs, acts=EMBED_ACTS, compute_dx=False):
     """Gradients of :func:`pathnet_embed` for the cotangents ``ge`` of
     the embedding and ``gmean`` of its sample mean (either may be
     None): ``(dx or None, dWs, dbs)``, dx in x.dtype, dW and db in f32.
-    K4-bwd for CUDA tensors (bf16; PathNet's relu-relu-linear chain
-    without d(x) or Multisteps' leaky x 3), the plain version for CPU
-    tensors."""
+    K4-bwd for CUDA tensors (bf16: PathNet's relu-relu-linear chain
+    without d(x) or Multisteps' leaky x 3; f32: any chain, d(x) or not),
+    the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return _embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx)
     return _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx)
@@ -1140,9 +1358,10 @@ def pathnet_head_bwd(e, ctx, g, gsum, gsq, ws, bs, acts=HEAD_ACTS, cmajor=False)
     """Gradients of :func:`pathnet_head` for the cotangents of its output
     ``g`` (channel-major with ``cmajor``) and of its moments ``gsum`` and
     ``gsq`` (any may be None): ``(de in e.dtype, dctx f32, dWs, dbs)``.
-    K5-bwd for CUDA tensors (bf16; PathNet's relu-relu head with Cout <=
+    K5-bwd for CUDA tensors (bf16: PathNet's relu-relu head with Cout <=
     16 and an f32 ``g``, or Multisteps' leaky-leaky update chain with
-    Cout <= 128 and a bf16 ``g``), the plain version for CPU tensors."""
+    Cout <= 128 and a bf16 ``g``; f32 ``e``: any head, the cotangents read
+    as f32), the plain version for CPU tensors."""
     if e.device.type == "cpu":
         return _head_bwd_plain(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor)
     return _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor)
