@@ -74,7 +74,16 @@ Phases (one JSON line each):
    (KPCN's dual PathNet, its head channel-major and channels-last; the
    64-wide PathNet; Multisteps with d(x), its update chain with and
    without moments), each against its plain f32 version (``F32_FWD_TOL``,
-   ``F32_GRAD_TOL``, ``F32_ROW_L2_TOL``) and itself over two launches.
+   ``F32_GRAD_TOL``, ``F32_ROW_L2_TOL``) and itself over two launches.  The
+   f32 body of K10 (``csrc/mlp_f32.cu``) forward and backward at LayerNet's
+   32 -> 32^3 leaky chain over 1,048,576 rows (d(x) on) and at 64 -> 64^4
+   beside it, and K1, K2 and K3 on f32 logits at K = 13 (``K1_TOL``); the
+   f32 body of K6 (``csrc/conv5_f32.cu``) at the four K6 shapes above
+   (``F32_FWD_TOL``), each with cuDNN's f32 ``F.conv2d`` (TF32 off) +
+   activation as ``library_ms``, and one branch's f32 chain.  Every f32 row
+   also two launches bit for bit, with a digest of its outputs
+   (``out_sha1``; ``python3 chip_smoke.py f32-digests`` prints K4's and
+   K5's alone, to hold two trees' f32 bodies to the same bits).
 4. serve, serve_lbmc, serve_sbmc: a synthetic 512x512, 8-spp scene is
    written, preprocessed on the card and denoised through
    ``wcmc_tpu_torch.test_models.main`` — the full-width KPCN (K 21,
@@ -96,8 +105,10 @@ Phases (one JSON line each):
    same way, the fused legs' CPU references fused too; serve_kpcn_f32 and
    serve_sbmc_f32 (``--compute_dtype float32``: K4 and K5 on their f32
    bodies, held by profile; the tile against the port's f32 CPU path within
-   ``F32_SERVE_TOLS``); and fused_vs_default, each fused frame beside its
-   default one of this run.
+   ``F32_SERVE_TOLS``); serve_lbmc_f32 (K10-fwd on its f32 body too),
+   serve_kpcn_fused_f32 and serve_kpcn_nopath_fused_f32 (K6 on its f32
+   body, 18 launches a batch; the tile against the fused f32 CPU path); and
+   fused_vs_default, each fused frame beside its default one of this run.
 5. train, train_lbmc, train_sbmc: the flagship training step of each
    (FMSE with roll pairing, bf16 compute, f32 parameters; Adam with value
    clip 1.0 for KPCN, with global-norm clip 250 for LBMC and 1000 for
@@ -123,9 +134,11 @@ Phases (one JSON line each):
    ``kpcn_ksize`` / ``sbmc_ksize`` 23: K1, K2 and K8 on their first
    bodies) and train_kpcn_f32 and train_sbmc_f32 (at ``compute_dtype``
    float32: K4 and K5 on their f32 bodies; the step after the timed ones
-   against the CPU's f32 step on the first patch, ``F32_XCHECK``): 3
-   warm-up and 5 timed steps, exact launches, no plain call, finite losses,
-   every model changed, two profiled steps on the expected bodies.
+   against the CPU's f32 step on the first patch, ``F32_XCHECK``), and
+   train_lbmc_f32 (K10 forward and backward on their f32 body too, K1, K2
+   and K3 on their redesigned bodies): 3 warm-up and 5 timed steps, exact
+   launches, no plain call, finite losses, every model changed, two
+   profiled steps on the expected bodies.
 
 6. cli_corpus, train_cli_kpcn, train_cli_lbmc, train_cli_sbmc: the training
    entry points from disk, ``python -m wcmc_tpu_torch.train_kpcn`` (then
@@ -151,6 +164,10 @@ Phases (one JSON line each):
    128 px cropped on the card, each bit for bit the CPU corpus's crop of
    the same coordinates; a crop timed; a flagship KPCN + FMSE step on each
    batch (exactly the train step's launches, no plain call, finite losses).
+   Then train_cli_kpcn_pre: ``--kpcn_pre`` phase (a) for one epoch with
+   validation, then phase (b) resumed from its best checkpoint
+   (``--start_epoch 1``) for one epoch: the frozen PathNet bit for bit phase
+   (a)'s, phase (b)'s launches exactly its steps times ``VARIANTS["pre_b"]``.
 
 7. train_kpcn_ref, train_kpcn_pre_a, train_kpcn_pre_b: the KPCN variants
    of ``train_kpcn.py`` (``--kpcn_ref``; ``--kpcn_pre`` with
@@ -279,7 +296,12 @@ XCHECK = {"alpha": 3.5, "alpha_f32": 4.0, "beta": 0.015, "beta_loss": 1.5e-3}
 # f32 algorithms need not repeat the state bit for bit): gradients at most
 # 4.0e-4 (KPCN's diffuse PathNet) and 4.7e-4 (SBMC's PathNet), losses at most
 # 1.1e-6; held to about 4x and 9x, under the bf16 check's floor of 1.5e-2.
-F32_SERVE_TOLS = {"kpcn": (1e-5, 3e-6), "sbmc": (1e-4, 4e-5)}
+# LBMC (K10 on its f32 body) and the fused KPCN at f32 (K6 on its f32 body),
+# measured on the same H100: LBMC 5.0e-7 of max |ref| and 1.6e-7 relative L2,
+# the fused KPCN with paths 7.1e-7 and 3.1e-7, without paths 1.3e-6 and
+# 3.0e-7; held to about 10x.
+F32_SERVE_TOLS = {"kpcn": (1e-5, 3e-6), "sbmc": (1e-4, 4e-5), "lbmc": (5e-6, 2e-6),
+                  "kpcn_fused": (1e-5, 3e-6), "kpcn_nopath_fused": (1.5e-5, 3e-6)}
 F32_XCHECK = {"grad": 2e-3, "loss": 1e-5}
 SEED = 0
 
@@ -403,6 +425,19 @@ def bound_ms(n_bytes, ops_by_rate):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def digest(*tensors):
+    """The sha1 of the tensors' bytes in order (None skipped): two runs of a
+    kernel on the same seeded inputs give the same digest only if they give
+    the same bits."""
+    import torch
+
+    h = hashlib.sha1()
+    for t in tensors:
+        if t is not None:
+            h.update(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
 
 
 def kernel_row(name, counter, replaces, err, ms, plain_ms, bound, shape, **extra):
@@ -1374,7 +1409,7 @@ def f32_embed_rows(torch, pf, dev, g, flush, form, b, s, hw, dims, acts, compute
         time_ms(torch, lambda: pf._embed_plain(x, ws, bs, acts), 3, flush),
         bound_ms(nbytes(x, e, mean) + f32_weight_bytes(ws), [(2 * macs, F32_FLOPS)]), shape,
         source=F32_SOURCE, device_ms=device_ms(torch, fwd, "pathnet_embed", flush),
-        bit_for_bit=True)]
+        bit_for_bit=True, out_sha1=digest(e, mean))]
     ge = torch.randn(e.shape, device=dev, generator=g)
     gmean = torch.randn(mean.shape, device=dev, generator=g)
     del e, mean
@@ -1408,7 +1443,7 @@ def f32_embed_rows(torch, pf, dev, g, flush, form, b, s, hw, dims, acts, compute
                  [(2 * macs, F32_FLOPS)]), dict(shape, compute_dx=compute_dx),
         source=F32_SOURCE, device_ms=device_ms(torch, bwd, "pathnet_embed_bwd", flush),
         library_note="no single PyTorch call computes a fused MLP's backward", bit_for_bit=True,
-        **extra))
+        out_sha1=digest(dx, *dws, *dbs), **extra))
     torch.cuda.synchronize()
     return rows
 
@@ -1439,7 +1474,7 @@ def f32_head_rows(torch, pf, dev, g, flush, form, b, s, hw, ce, c1, cout, acts, 
         if not all(torch.equal(a, w) for a, w in zip(list(again) if mom else [again], got)):
             raise AssertionError(f"K5-fwd f32 ({form}): a second launch gave other bits")
         bms, by = bound_ms(nbytes(e, ctx, *got) + f32_weight_bytes(ws), [(2 * macs, F32_FLOPS)])
-        return {"max_abs_err": err, "ms": time_ms(torch, fwd, 10, flush),
+        return {"max_abs_err": err, "out_sha1": digest(*got), "ms": time_ms(torch, fwd, 10, flush),
                 "device_ms": device_ms(torch, fwd, "pathnet_head", flush),
                 "plain_ms": time_ms(torch, lambda: pf._head_plain(e, ctx, ws, bs, acts, mom, cm),
                                     3, flush),
@@ -1459,7 +1494,7 @@ def f32_head_rows(torch, pf, dev, g, flush, form, b, s, hw, ce, c1, cout, acts, 
                        main["max_abs_err"], main["ms"], main["plain_ms"],
                        (main["bound_ms"], main["bound_by"]), shape, source=F32_SOURCE,
                        device_ms=main["device_ms"], bit_for_bit=True, train_launches=cmajor,
-                       **extra)]
+                       out_sha1=main["out_sha1"], **extra)]
     gout = torch.randn(out.shape, device=dev, generator=g)
     gsum = torch.randn((b, hw, cout), device=dev, generator=g) if moments else None
     gsq = 0.1 * torch.randn((b, hw, cout), device=dev, generator=g) if moments else None
@@ -1489,7 +1524,7 @@ def f32_head_rows(torch, pf, dev, g, flush, form, b, s, hw, ce, c1, cout, acts, 
                  [(2 * macs, F32_FLOPS)]), dict(shape, g=list(gout.shape)),
         source=F32_SOURCE, device_ms=device_ms(torch, bwd, "pathnet_head_bwd", flush),
         library_note="no single PyTorch call computes a fused MLP's backward", bit_for_bit=True,
-        row_rel_l2=row_l2))
+        row_rel_l2=row_l2, out_sha1=digest(de, dctx, *dws, *dbs)))
     torch.cuda.synchronize()
     return rows
 
@@ -1520,6 +1555,138 @@ def f32_kernel_phase(torch, pf, dev, b=8, s=8, hw=128 * 128):
     return {"kpcn": kpcn, "sbmc": sbmc}
 
 
+MLP_F32_SOURCE = "wcmc_tpu_torch/ops/csrc/mlp_f32.cu"
+
+
+def mlp_f32_macs(n, dims, acts, compute_dx):
+    """K10-bwd's multiply-adds over ``n`` rows: the hidden layers recomputed
+    (the last one too where its activation is not linear), each dW, each
+    layer's cotangent but the first's, and d(x)."""
+    layers = [ci * co for ci, co in zip(dims[:-1], dims[1:])]
+    recompute = sum(layers[:-1]) + (layers[-1] if acts[-1] != "linear" else 0)
+    return n * (recompute + sum(layers) + sum(layers[1:]) + (layers[0] if compute_dx else 0))
+
+
+def f32_mlp_legs(torch, mf, dev, g, flush, n, dims, acts):
+    """K10-fwd and K10-bwd (d(x) on) on their f32 body for one form, each
+    against its plain f32 version (``F32_FWD_TOL``; ``F32_GRAD_TOL`` for dW
+    and db, ``F32_ROW_L2_TOL`` for d(x)) and itself over two launches.
+    Returns the forward's and the backward's measurements."""
+    x = torch.randn((n, dims[0]), device=dev, generator=g)
+    ws, bs = rand_mlp(torch, dev, g, dims)
+
+    def fwd():
+        return mf.fused_mlp(x, ws, bs, acts)
+
+    y = fwd()
+    err = max_err(torch, [y], [mf._mlp_fwd_plain(x, ws, bs, acts)], F32_FWD_TOL)
+    if not torch.equal(fwd(), y):
+        raise AssertionError(f"K10-fwd f32 {dims}: a second launch gave other bits")
+    macs = n * sum(ci * co for ci, co in zip(dims[:-1], dims[1:]))
+    bms, by = bound_ms(nbytes(x, y) + f32_weight_bytes(ws), [(2 * macs, F32_FLOPS)])
+    forward = {"max_abs_err": err, "ms": time_ms(torch, fwd, 20, flush),
+               "device_ms": device_ms(torch, fwd, "mlp_fused", flush, per_call=1),
+               "plain_ms": time_ms(torch, lambda: mf._mlp_fwd_plain(x, ws, bs, acts), 3, flush),
+               "bound_ms": bms, "bound_by": by, "bit_for_bit": True, "out_sha1": digest(y)}
+    cot = torch.randn(y.shape, device=dev, generator=g)
+    del y
+
+    def bwd():
+        return mf.mlp_fused_bwd(x, cot, ws, bs, acts, True)
+
+    dx, dws, dbs = bwd()
+    pdx, pdws, pdbs = mf._mlp_bwd_plain(x, cot, ws, bs, acts, True)
+    err = max_err(torch, dws + dbs, pdws + pdbs, F32_GRAD_TOL)
+    row_l2 = {"dx": rel_l2(torch, dx, pdx)}
+    if row_l2["dx"] > F32_ROW_L2_TOL:
+        raise AssertionError(f"K10-bwd f32 {dims} d(x) off by {row_l2} (relative L2)")
+    again = bwd()
+    if not all(torch.equal(a, w) for a, w in zip([again[0], *again[1], *again[2]],
+                                                 [dx, *dws, *dbs])):
+        raise AssertionError(f"K10-bwd f32 {dims}: a second launch gave other bits")
+    del again, pdx
+    bms, by = bound_ms(nbytes(x, cot, dx, *dws, *dbs) + f32_weight_bytes(ws),
+                       [(2 * mlp_f32_macs(n, dims, acts, True), F32_FLOPS)])
+    backward = {"max_abs_err": err, "row_rel_l2": row_l2, "ms": time_ms(torch, bwd, 10, flush),
+                "device_ms": device_ms(torch, bwd, "mlp_fused_bwd", flush, per_call=1),
+                "plain_ms": time_ms(torch, lambda: mf._mlp_bwd_plain(x, cot, ws, bs, acts, True),
+                                    3, flush),
+                "bound_ms": bms, "bound_by": by, "bit_for_bit": True,
+                "out_sha1": digest(dx, *dws, *dbs)}
+    torch.cuda.synchronize()
+    return forward, backward
+
+
+def lbmc_f32_kernel_phase(torch, ka, mf, dev, b=8, s=8, p=128):
+    """The kernels LBMC runs at f32 that no earlier phase holds at f32, at
+    its shapes (8 tiles or patches of 128 px at 8 spp): K10-fwd and K10-bwd
+    on their f32 body (``csrc/mlp_f32.cu``) at LayerNet's 32 -> 32^3 leaky
+    chain over 1,048,576 rows, d(x) on, and at the widest form K10 admits
+    (64 -> 64^4) beside it; K1, K2 and K3 at K = 13 on f32 logits, the
+    second layer's slice of a channels-last f32 kernel head (``K1_TOL`` each,
+    the same f32 math summed in another order), each also two launches bit
+    for bit.  Returns the kernel table's rows (without launches)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    n, dims, acts = b * s * p * p, (32, 32, 32, 32), ("leaky_relu",) * 3
+    wide = (64, 64, 64, 64, 64), ("relu", "leaky_relu", "relu", "linear")
+    fwd, bwd = f32_mlp_legs(torch, mf, dev, g, flush, n, dims, acts)
+    wfwd, wbwd = f32_mlp_legs(torch, mf, dev, g, flush, n, *wide)
+    shape = {"x": [n, dims[0]], "dims": list(dims), "acts": list(acts)}
+    other = {"dims": list(wide[0]), "acts": list(wide[1])}
+    rows = []
+    for name, counter, replaces, leg, wleg, extra in (
+            ("mlp_fused_f32", "mlp_fused", "wcmc_tpu/ops/mlp_fused.py:165", fwd, wfwd, {}),
+            ("mlp_fused_bwd_f32", "mlp_fused_bwd", "wcmc_tpu/ops/mlp_fused.py:191", bwd, wbwd,
+             {"g": [n, dims[-1]], "compute_dx": True})):
+        rows.append(kernel_row(
+            name, counter, replaces, leg["max_abs_err"], leg["ms"], leg["plain_ms"],
+            (leg["bound_ms"], leg["bound_by"]), dict(shape, **extra), source=MLP_F32_SOURCE,
+            device_ms=leg["device_ms"], bit_for_bit=True, out_sha1=leg["out_sha1"],
+            library_note="no single PyTorch call computes a fused MLP or its backward",
+            **({"row_rel_l2": leg["row_rel_l2"]} if "row_rel_l2" in leg else {}),
+            other_form=dict(other, **wleg)))
+
+    # K1, K2, K3 at K = 13 on f32 logits, the layer's slice of the kernel head
+    k = 13
+    k2 = k * k
+    buf = torch.rand((b, p + k - 1, p + k - 1, 3), device=dev, generator=g)
+    head = 2 * torch.randn((b, 2 * k2, p, p), device=dev, generator=g)
+    lg = head.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)[..., k2:]
+    cot = torch.randn((b, p, p, 3), device=dev, generator=g)
+    taps = b * p * p * k2
+    shape = {"buf": list(buf.shape), "logits": [b, p, p, k2], "logits_dtype": "float32",
+             "logits_view": f"layer 1 of a channels-last ({b}, {2 * k2}, {p}, {p}) kernel head"}
+    legs = (
+        ("gather_softmax", "wcmc_tpu/ops/pallas_kernels.py:185",
+         lambda: ka.kernel_gather_softmax(buf, lg, k),
+         lambda: ka.gather_softmax_plain(buf, lg, k),
+         lambda out: 4 * taps + nbytes(buf, out), 5 + 2 * 3, 1, {}),
+        ("outer_softmax", "wcmc_tpu/ops/pallas_kernels.py:410",
+         lambda: ka.outer_softmax(cot, buf, lg, k),
+         lambda: ka.outer_softmax_plain(cot, buf, lg, k),
+         lambda out: 2 * 4 * taps + nbytes(cot, buf), 2 * 3 + 8, 1,
+         {"g": [b, p, p, 3]}),
+        ("scatter_softmax", "wcmc_tpu/ops/pallas_kernels.py:297",
+         lambda: ka.scatter_softmax(cot, lg, k),
+         lambda: ka.scatter_softmax_plain(cot, lg, k),
+         lambda out: 4 * taps + nbytes(cot, out), 3 + 2 * 3, 2, {"g": [b, p, p, 3]}))
+    for name, replaces, run, plain, n_bytes, ops_per_tap, per_call, extra in legs:
+        out = run()
+        err = max_err(torch, [out], [plain()], K1_TOL)
+        if not torch.equal(run(), out):
+            raise AssertionError(f"{name} on f32 logits: a second launch gave other bits")
+        rows.append(kernel_row(
+            name, name, replaces, err, time_ms(torch, run, 20, flush),
+            time_ms(torch, plain, 3, flush),
+            bound_ms(n_bytes(out), [(taps * ops_per_tap, F32_FLOPS)]), dict(shape, **extra),
+            device_ms=device_ms(torch, run, name, flush, per_call=per_call),
+            bit_for_bit=True, out_sha1=digest(out)))
+        del out
+    torch.cuda.synchronize()
+    return rows
+
+
 # the shapes of K6 per branch and batch of 8 tiles on the fused KPCN
 # serving paths: 9 layers of 5x5, n_in -> 100 -> ... -> 100 -> 441, relu
 # between them; with paths (n_in 39) on 128-px tiles, without (n_in 34)
@@ -1534,45 +1701,52 @@ def conv_chain(n_in, tile, depth=9, width=100, logits=441, k=5):
     return layers
 
 
-def conv_flops_bytes(xshape, cout, k=5):
+def conv_flops_bytes(xshape, cout, k=5, es=2):
     """K6's operations (2 per multiply-add of the VALID convolution) and
-    bytes (bf16 x and y once, the weights in bf16 and the f32 bias once)
-    for an input of ``xshape`` (B, H, W, Cin)."""
+    bytes (x and y once, the weights once, in ``es``-byte elements: 2 for
+    bf16, 4 for f32; the f32 bias once) for an input of ``xshape`` (B, H, W,
+    Cin)."""
     b, h, w, cin = xshape
     ho, wo = h - k + 1, w - k + 1
     return (2 * b * ho * wo * k * k * cin * cout,
-            2 * (b * h * w * cin + b * ho * wo * cout + k * k * cin * cout) + 4 * cout)
+            es * (b * h * w * cin + b * ho * wo * cout + k * k * cin * cout) + 4 * cout)
 
 
-def conv_kernel_phase(torch, dev):
+def conv_kernel_phase(torch, dev, dtype=None):
     """K6 (the fused convolution) at the fused KPCN serving shapes against
     its plain version: layer 1, a middle layer and layer 9 of the chain
     with paths (128-px tiles), and layer 1 without paths (256-px tiles),
     each in the layouts of the fused chain (a hidden layer written at the
-    padded pixel pitch of ``conv5.conv2d_padded`` and read so by the
-    next; layer 1's input padded to 40 channels inside the timed call);
-    each row with cuDNN's channels-last bf16 ``F.conv2d`` + the in-place
-    activation (``library_ms``), two launches compared bit for bit, and
+    padded pitch of ``conv5.conv2d_padded`` and read so by the next; layer
+    1's input padded to 40 channels inside the timed call); each row with
+    cuDNN's channels-last ``F.conv2d`` + the in-place activation in the same
+    dtype (``library_ms``; TF32 off), two launches compared bit for bit, and
     on the first row the whole 9-layer chain of one branch (K6 against
-    cuDNN).  Returns the kernel table's rows (without launches)."""
+    cuDNN).  bf16 (the default) runs the ``wgmma`` body, within
+    ``CONV_TOL``; float32 the f32 body (``csrc/conv5_f32.cu``), within
+    ``F32_FWD_TOL``.  Returns the kernel table's rows (without launches)."""
     import torch.nn.functional as F
 
     from wcmc_tpu_torch.ops import conv5
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    tol, rate, repeats = (F32_FWD_TOL, F32_FLOPS, 10) if f32 else (CONV_TOL, BF16_FLOPS, 20)
+    es = 4 if f32 else 2
+    g = torch.Generator(device=dev).manual_seed(SEED + (9 if f32 else 5))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     in_place = {"relu": torch.relu_, None: lambda y: y}
 
     def case(xshape, cout):
-        x = torch.randn(xshape, device=dev, generator=g).to(torch.bfloat16)
+        x = torch.randn(xshape, device=dev, generator=g).to(dtype)
         w = torch.randn((5, 5, xshape[-1], cout), device=dev, generator=g)
         w = w / (25 * xshape[-1]) ** 0.5
         bias = 0.1 * torch.randn(cout, device=dev, generator=g)
-        # cuDNN's operands: a channels-last NCHW view of x, OIHW bf16
-        # weights in channels-last memory, the bias in bf16
+        # cuDNN's operands: a channels-last NCHW view of x, OIHW weights in
+        # channels-last memory, the bias, all in x's dtype
         lib = (x.permute(0, 3, 1, 2),
-               w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
-                   memory_format=torch.channels_last), bias.to(torch.bfloat16))
+               w.permute(3, 2, 0, 1).to(dtype).contiguous(memory_format=torch.channels_last),
+               bias.to(dtype))
         return x, w, bias, lib
 
     def library(lib, act):
@@ -1593,25 +1767,26 @@ def conv_kernel_phase(torch, dev):
             x = conv5._pitched(x, conv5.padded_pitch(xshape[-1]), fill=0)
         conv = layer(act)
         y = conv(x, w, bias, 5, act)
-        err = max_err(torch, [y], [conv5.conv2d_plain(x, w, bias, 5, act)], CONV_TOL)
+        err = max_err(torch, [y], [conv5.conv2d_plain(x, w, bias, 5, act)], tol)
         if not torch.equal(conv(x, w, bias, 5, act), y):
-            raise AssertionError(f"K6 {name}: two launches gave different bits")
+            raise AssertionError(f"K6 {name} ({dtype}): two launches gave different bits")
         lib_y = library(lib, act).permute(0, 2, 3, 1)
-        flops, n_bytes = conv_flops_bytes(xshape, cout)
+        flops, n_bytes = conv_flops_bytes(xshape, cout, es=es)
         rows.append(kernel_row(
-            "conv5", "conv5", "wcmc_tpu/ops/conv5.py:137", err,
-            time_ms(torch, lambda: conv(x, w, bias, 5, act), 20, flush),
+            "conv5_f32" if f32 else "conv5", "conv5", "wcmc_tpu/ops/conv5.py:137", err,
+            time_ms(torch, lambda: conv(x, w, bias, 5, act), repeats, flush),
             time_ms(torch, lambda: conv5.conv2d_plain(x, w, bias, 5, act), 3, flush),
-            bound_ms(n_bytes, [(flops, BF16_FLOPS)]),
+            bound_ms(n_bytes, [(flops, rate)]),
             {"layer": name, "x": list(x.shape), "x_stride": list(x.stride()),
              "w": list(w.shape), "act": act, "out": list(y.shape),
-             "out_stride": list(y.stride())},
-            library_ms=time_ms(torch, lambda: library(lib, act), 20, flush),
-            library_call="F.conv2d(x, w, b) in bf16, channels-last, then the in-place "
-                         "activation (cuDNN)",
+             "out_stride": list(y.stride()), "dtype": str(dtype).removeprefix("torch.")},
+            library_ms=time_ms(torch, lambda: library(lib, act), repeats, flush),
+            library_call=f"F.conv2d(x, w, b) in {'f32 (TF32 off)' if f32 else 'bf16'}, "
+                         "channels-last, then the in-place activation (cuDNN)",
             library_max_abs_err=(lib_y.double() - y.double()).abs().max().item(),
-            bitwise_repeat=True,
-            device_ms=device_ms(torch, lambda: conv(x, w, bias, 5, act), "conv5", flush)))
+            bitwise_repeat=True, out_sha1=digest(y),
+            device_ms=device_ms(torch, lambda: conv(x, w, bias, 5, act), "conv5", flush),
+            **({"source": "wcmc_tpu_torch/ops/csrc/conv5_f32.cu"} if f32 else {})))
         del x, w, bias, lib, y, lib_y
 
     # one branch's whole chain per batch of 8 tiles (with paths): K6
@@ -1632,18 +1807,17 @@ def conv_kernel_phase(torch, dev):
         return h
 
     out = chain_k6()
-    flops, n_bytes = (sum(v) for v in zip(*(conv_flops_bytes(xs, co)
+    flops, n_bytes = (sum(v) for v in zip(*(conv_flops_bytes(xs, co, es=es)
                                             for xs, co, _ in with_paths)))
-    bms, by = bound_ms(n_bytes, [(flops, BF16_FLOPS)])
+    bms, by = bound_ms(n_bytes, [(flops, rate)])
     rows[0]["branch_chain"] = {
         "layers": len(cases), "out": list(out.shape), "flops": flops, "bytes": n_bytes,
-        "ms": time_ms(torch, chain_k6, 10, flush),
+        "ms": time_ms(torch, chain_k6, repeats // 2, flush),
         "device_ms": device_ms(torch, chain_k6, "conv5", flush),
-        "library_ms": time_ms(torch, chain_library, 10, flush),
+        "library_ms": time_ms(torch, chain_library, repeats // 2, flush),
         "bound_ms": bms, "bound_by": by}
     torch.cuda.synchronize()
     return rows
-
 
 def profile_frame(torch, evaluate, iface, ds):
     """One more steady-state frame under torch.profiler: device busy
@@ -1864,14 +2038,23 @@ SERVE["kpcn_nopath_fused"] = dict(NOPATH, env=FUSED,
 # bodies, K1 on f32 logits), each tile held against the port's f32 CPU path
 # only: the two differ in the order of f32 sums alone (TF32 off), so the
 # limits sit well under the bf16 ones (F32_SERVE_TOLS).
-SERVE["kpcn_f32"] = dict(SERVE["kpcn"], family="kpcn", f32=True,
-                         args=["--compute_dtype", "float32"],
-                         tols={"float32": F32_SERVE_TOLS["kpcn"][0]},
-                         l2_tols={"float32": F32_SERVE_TOLS["kpcn"][1]})
-SERVE["sbmc_f32"] = dict(SERVE["sbmc"], family="sbmc", f32=True,
-                         args=["--use_sbmc_buf", "--compute_dtype", "float32"],
-                         tols={"float32": F32_SERVE_TOLS["sbmc"][0]},
-                         l2_tols={"float32": F32_SERVE_TOLS["sbmc"][1]})
+# ``f32``: the launch counters whose profiled entries must be their f32
+# bodies' alone.  LBMC at f32 runs K10-fwd on its f32 body too, the fused
+# KPCN at f32 K6 on its f32 body (18 launches a batch, with paths and
+# without), each tile against the port's f32 CPU path, fused the same way.
+def f32_serve(base, name, f32, args=()):
+    return dict(SERVE[base], family=SERVE[base].get("family", base), f32=f32,
+                args=[*SERVE[base].get("args", ()), *args, "--compute_dtype", "float32"],
+                tols={"float32": F32_SERVE_TOLS[name][0]},
+                l2_tols={"float32": F32_SERVE_TOLS[name][1]})
+
+
+PATHNET_F32 = ("pathnet_embed", "pathnet_head")
+SERVE["kpcn_f32"] = f32_serve("kpcn", "kpcn", PATHNET_F32)
+SERVE["sbmc_f32"] = f32_serve("sbmc", "sbmc", PATHNET_F32)
+SERVE["lbmc_f32"] = f32_serve("lbmc", "lbmc", ("mlp_fused", *PATHNET_F32))
+SERVE["kpcn_fused_f32"] = f32_serve("kpcn_fused", "kpcn_fused", (*PATHNET_F32, "conv5"))
+SERVE["kpcn_nopath_fused_f32"] = f32_serve("kpcn_nopath_fused", "kpcn_nopath_fused", ("conv5",))
 
 
 @contextlib.contextmanager
@@ -1968,15 +2151,17 @@ def serve_phase(torch, dev, work, name, size=512):
                 raise AssertionError(f"bad p-buffer {v.shape}")
 
         profiled = profile_frame(torch, evaluate, iface, ds)
-        if spec.get("f32"):
-            check_f32_bodies(profiled["device_ms_by_kind"], name, ("pathnet_embed", "pathnet_head"))
+        f32 = spec.get("f32", ())
+        if f32:
+            check_f32_bodies(profiled["device_ms_by_kind"], name, f32)
         else:
             if "pathnet_head" in spec["launches"]:
                 check_head_body(profiled["device_ms_by_kind"], name)
             if "pathnet_embed" in spec["launches"]:
                 check_embed_body(profiled["device_ms_by_kind"], name)
         check_redesigned_body(profiled["device_ms_by_kind"], name,
-                              [k for k in REDESIGNED_BODIES if k in spec["launches"]])
+                              [k for k in REDESIGNED_BODIES if k in spec["launches"]
+                               and k not in f32])
 
         # one tile against the same weights on the CPU (plain versions), in
         # bf16 and in f32; errors and max |ref| of the radiance and p-buffers
@@ -2349,7 +2534,15 @@ def f32_cross_check(torch, card_if, cfg, batch, family):
 # the CPU's f32 step at the seeded weights and after the timed steps.
 SHORT_TRAIN = {"k23": {"kpcn": {"kpcn_ksize": LARGE_K}, "sbmc": {"sbmc_ksize": LARGE_K}},
                "f32": {"kpcn": {"compute_dtype": "float32"},
-                       "sbmc": {"compute_dtype": "float32"}}}
+                       "sbmc": {"compute_dtype": "float32"},
+                       "lbmc": {"compute_dtype": "float32"}}}
+# The launch counters whose profiled entries an f32 step must show on their
+# f32 bodies alone (K4 and K5 forward and backward; LBMC's K10 too); LBMC's
+# K1, K2 and K3 must show their redesigned bodies, as at bf16.
+F32_TRAIN_BODIES = ("pathnet_embed", "pathnet_head", "pathnet_embed_bwd", "pathnet_head_bwd")
+F32_TRAIN = {"kpcn": (F32_TRAIN_BODIES, ()), "sbmc": (F32_TRAIN_BODIES, ()),
+             "lbmc": (("mlp_fused", "mlp_fused_bwd", *F32_TRAIN_BODIES),
+                      ("gather_softmax", "outer_softmax", "scatter_softmax"))}
 
 
 def short_train_phase(torch, dev, family, variant, smi, b=8, patch=128, spp=8):
@@ -2418,16 +2611,18 @@ def short_train_phase(torch, dev, family, variant, smi, b=8, patch=128, spp=8):
         if family == "sbmc":
             check_redesigned_body(kinds, where, ["scatter"])
     else:
-        check_f32_bodies(kinds, where, ("pathnet_embed", "pathnet_head", "pathnet_embed_bwd",
-                                        "pathnet_head_bwd"))
+        f32_bodies, redesigned = F32_TRAIN[family]
+        check_f32_bodies(kinds, where, f32_bodies)
+        check_redesigned_body(kinds, where, redesigned)
         record["cpu_f32_check"] = f32_cross_check(
             torch, iface, cfg, {k: v[:1] for k, v in batch.items()}, family)
     med = statistics.median(step_ms)
+    ksize = {"kpcn": ("kpcn_ksize", cfg.kpcn_ksize), "sbmc": ("sbmc_ksize", cfg.sbmc_ksize),
+             "lbmc": ("layernet_ksize", iface.models["dncnn"].ksize)}[family]
     record.update({
         "config": {"model": str(iface.models["dncnn"]), "batch": b, "patch": patch, "spp": spp,
                    "manif_loss": cfg.manif_loss, "compute_dtype": cfg.compute_dtype,
-                   "kpcn_ksize" if family == "kpcn" else "sbmc_ksize":
-                       cfg.kpcn_ksize if family == "kpcn" else cfg.sbmc_ksize},
+                   ksize[0]: ksize[1]},
         "step_ms": med, "step_ms_runs": step_ms,
         "mp_per_s": b * patch * patch / 1e6 / (med / 1e3),
         "launches_per_step": {k: v / n_timed for k, v in launches.items()},
@@ -2694,6 +2889,60 @@ def train_cli_phase(torch, dev, root, family):
                             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     return record
 
+
+def train_cli_kpcn_pre_phase(torch, dev, root):
+    """``--kpcn_pre`` through ``python -m wcmc_tpu_torch.train_kpcn``'s
+    ``main`` on the CLI corpus at the flagship widths: phase (a)
+    (``--manif_learn --manif_loss FMSE``, the dual PathNet alone) for one
+    epoch with validation, which writes the best checkpoint; then phase (b)
+    resumed from it (``--start_epoch 1``, KPCN under the frozen PathNet) for
+    one epoch without validation.  Phase (b)'s PathNet must be phase (a)'s
+    bit for bit (restored, then frozen), its KPCN trained, its launches
+    exactly its steps times ``VARIANTS["pre_b"]``'s, no plain call, its
+    losses finite.  Returns the phase record."""
+    import importlib
+
+    from wcmc_tpu_torch.ops import _build
+
+    entry = importlib.import_module("wcmc_tpu_torch.train_kpcn")
+    name = "KPCN_pre_cli"
+    save = os.path.join(os.path.dirname(root), "weights_kpcn_pre")
+    argv = ["--single_gpu", "--batch_size", "8", "--data_dir", root, "--model_name", name,
+            "--desc", "chip_smoke kpcn_pre", "--save", save, "--use_llpm_buf", "--kpcn_pre",
+            "--patches_per_image", "4", "--seed", str(SEED), "--device", str(dev)]
+    phases = {"a": argv + ["--manif_learn", "--manif_loss", "FMSE", "--num_epoch", "1",
+                           "--val_epoch", "1"],
+              "b": argv + ["--start_epoch", "1", "--num_epoch", "2", "--val_epoch", "3"]}
+    record, ifaces = {"phase": "train_cli_kpcn_pre", "argv": phases}, {}
+    for phase, args in phases.items():
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        got, params = entry.main(entry.parse_args(args))
+        torch.cuda.synchronize()
+        ifaces[phase] = got[0]
+        steps = sum(e["steps"] for e in params["epoch_stats"])
+        launches, plain = dict(_build.launches), dict(_build.plain_calls)
+        bad = {k: float(v) for k, v in got[0].m_losses.items() if not bool(torch.isfinite(v).all())}
+        if not steps or plain or bad:
+            raise AssertionError(f"kpcn_pre phase ({phase}) from the CLI: {steps} steps, plain "
+                                 f"{plain}, non-finite losses {bad}")
+        record[phase] = {"seconds": time.perf_counter() - t0, "steps": steps,
+                         "launches": launches, "epochs": params["epoch_stats"]}
+        if phase == "a":
+            best = os.path.join(save, f"{name}.ckpt")
+            if not os.path.isfile(best):
+                raise AssertionError("kpcn_pre phase (a) wrote no best checkpoint")
+    want = {k: record["b"]["steps"] * v for k, v in VARIANTS["pre_b"]["launches"].items()}
+    if record["b"]["launches"] != want:
+        raise AssertionError(f"kpcn_pre phase (b) launched {record['b']['launches']}, not {want}")
+    a, b = ifaces["a"].models, ifaces["b"].models
+    same = {n: all(torch.equal(p, q) for p, q in zip(a[n].parameters(), b[n].parameters()))
+            for n in a}
+    if same != {n: n != "dncnn" for n in a}:
+        raise AssertionError(f"kpcn_pre phase (b) against phase (a), bit for bit by model: {same}")
+    record["frozen_bit_for_bit"] = sorted(n for n, v in same.items() if v)
+    return record
 
 # The KPCN variants of train_kpcn.py at the README flagship widths (K 21,
 # depth 9, width 100; the dual PathNet 36 -> 64^3 where used), batch 8, 128
@@ -3246,6 +3495,7 @@ def main() -> int:
               "from the root of a checkout of the repository", file=sys.stderr)
         return 3
 
+    digests_only = sys.argv[1:] == ["f32-digests"]
     t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3259,6 +3509,15 @@ def main() -> int:
     _build.library()
     emit({"phase": "build", "seconds": info["seconds"], "library": info["path"],
           "ptxas": parse_ptxas(info["ptxas"])})
+    if digests_only:
+        # the f32 bodies of K4 and K5 on this run's seeded inputs, by row and leg
+        rows = f32_kernel_phase(torch, pf, dev)
+        print(json.dumps({"f32_digests": {
+            f"{r['name']} {r['shape']['form']}{'' if leg is r else ' ' + key}": leg["out_sha1"]
+            for family in rows.values() for r in family
+            for key, leg in [("", r), *((k, v) for k, v in r.items() if isinstance(v, dict))]
+            if "out_sha1" in leg}}))
+        return 0
 
     kpcn_rows = kernel_phase(torch, ka, pf, dev)
     bwd_rows = backward_kernel_phase(torch, ka, pf, dev)
@@ -3268,13 +3527,16 @@ def main() -> int:
     conv_rows = conv_kernel_phase(torch, dev)
     large_k_rows = large_k_kernel_phase(torch, ka, dev)
     f32_rows = f32_kernel_phase(torch, pf, dev)
+    f32_rows["lbmc"] = lbmc_f32_kernel_phase(torch, ka, mf, dev)
+    f32_rows["conv"] = conv_kernel_phase(torch, dev, torch.float32)
     emit({"phase": "kernels", "rows": kpcn_rows + bwd_rows + lbmc_rows + sbmc_rows + conv_rows
-          + large_k_rows + f32_rows["kpcn"] + f32_rows["sbmc"]})
+          + large_k_rows + [r for rows in f32_rows.values() for r in rows]})
 
     records, served = {}, {}
     with tempfile.TemporaryDirectory() as work:
         for name in ("kpcn", "lbmc", "sbmc", "kpcn_fused", "kpcn_nopath",
-                     "kpcn_nopath_fused", "kpcn_f32", "sbmc_f32"):
+                     "kpcn_nopath_fused", "kpcn_f32", "sbmc_f32", "lbmc_f32", "kpcn_fused_f32",
+                     "kpcn_nopath_fused_f32"):
             t0 = time.perf_counter()
             records[name], served[name] = serve_phase(torch, dev, work, name)
             records[name]["phase_s"] = time.perf_counter() - t0
@@ -3288,8 +3550,8 @@ def main() -> int:
     sbmc_record, sbmc_train = train_phase(torch, dev, "sbmc")
     emit(sbmc_record)
     short = {}
-    for variant in ("k23", "f32"):
-        for family in ("kpcn", "sbmc"):
+    for variant, families in SHORT_TRAIN.items():
+        for family in families:
             record, short[family, variant] = short_train_phase(torch, dev, family, variant, smi)
             emit(record)
     with tempfile.TemporaryDirectory() as work:
@@ -3304,6 +3566,10 @@ def main() -> int:
             record = train_cli_phase(torch, dev, root, family)
             record["phase_s"] = time.perf_counter() - t0
             emit(record)
+        t0 = time.perf_counter()
+        record = train_cli_kpcn_pre_phase(torch, dev, root)
+        record["phase_s"] = time.perf_counter() - t0
+        emit(record)
     for variant in VARIANTS:
         t0 = time.perf_counter()
         record, _ = variant_phase(torch, dev, variant, smi)
@@ -3325,9 +3591,12 @@ def main() -> int:
                             train_steps=5)
     rows += attach_launches(large_k_rows[1:], "train_sbmc_k23", {}, short["sbmc", "k23"],
                             train_steps=5)
-    for family in ("kpcn", "sbmc"):
+    for family in ("kpcn", "sbmc", "lbmc"):
         rows += attach_launches(f32_rows[family], f"{family}_f32", served[f"{family}_f32"],
                                 short[family, "f32"], train_steps=5)
+    rows += attach_launches(f32_rows["conv"][:3], "kpcn_fused_f32", served["kpcn_fused_f32"], {})
+    rows += attach_launches(f32_rows["conv"][3:], "kpcn_nopath_fused_f32",
+                            served["kpcn_nopath_fused_f32"], {})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -40,8 +40,11 @@ its relu's output by at most that rounding), weight and bias gradients
 5e-3 of max and per-row outputs (d x, d e, d ctx) 1e-3 in relative L2 (a
 recomputed pre-activation within f32 rounding of zero can take the other
 side of its relu, which moves one row's term of a weight gradient, or
-that element's per-row gradient, by its full size).  TF32 is off for every
-f32 product compared here."""
+that element's per-row gradient, by its full size).  The f32 bodies of K10
+(``csrc/mlp_f32.cu``) and K6 (``csrc/conv5_f32.cu``) are held the same way:
+outputs 1e-4 of max, K10's weight and bias gradients 5e-3 of max and its
+d(x) 1e-3 in relative L2.  TF32 is off for every f32 product compared
+here."""
 
 import pytest
 import torch
@@ -417,7 +420,7 @@ def test_mlp_fused_backward(cuda, n, c0, compute_dx):
 def test_mlp_fused_refuses_what_it_does_not_compute(cuda):
     x, ws, bs, _ = _mlp_case(cuda, 64, 32, 12)
     with pytest.raises(TypeError):
-        mf.fused_mlp(x.float(), ws, bs, LEAKY3)
+        mf.fused_mlp(x.half(), ws, bs, LEAKY3)
     with pytest.raises(ValueError):
         mf.fused_mlp(x, ws, bs, ("relu", "gelu", "relu"))
     wide = [torch.zeros((32, 80), device=cuda), torch.zeros((80, 32), device=cuda)]
@@ -1698,8 +1701,8 @@ def test_conv5_refuses_what_it_does_not_compute(cuda):
     from wcmc_tpu_torch.ops import conv5
 
     x, wgt, bias = _conv_case(cuda, 1, 12, 12, 8, 16, 5, 8)
-    with pytest.raises(ValueError, match="bfloat16"):
-        conv5.conv2d(x.float(), wgt, bias, 5, "relu")
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        conv5.conv2d(x.half(), wgt, bias, 5, "relu")
     with pytest.raises(ValueError, match="activations"):
         conv5.conv2d(x, wgt, bias, 5, "elu")
     with pytest.raises(ValueError, match="weight"):
@@ -2290,3 +2293,152 @@ def test_head_f32_plan_is_the_kernels_shared_memory(cuda, ce, cc, c1, cout):
     for moments, bwd in ((False, False), (True, False), (False, True)):
         plan = pf.head_f32_plan(8, 16384, ce, cc, c1, cout, moments, bwd)
         assert fn(ce, cc, c1, cout, int(moments), int(bwd)) == plan.total
+
+
+# ---------------------------------------------------------------------------
+# the f32 bodies of K10 and K6
+# ---------------------------------------------------------------------------
+
+# (c0, widths, acts): LayerNet's embedding, and the other corners of what
+# _check_form admits (1 to 4 layers, C0 1 to 64, widths 16 to 64)
+F32_MLP_FORMS = {
+    "layernet": (32, (32, 32, 32), LEAKY3),
+    "mixed": (27, (16, 48, 32), ("relu", "leaky_relu", "linear")),
+    "wide4": (64, (64, 64, 64, 64), ("relu", "leaky_relu", "relu", "linear")),
+    "one": (5, (16,), ("leaky_relu",)),
+}
+
+
+def _mlp_f32_case(cuda, n, form, seed):
+    c0, widths, acts = F32_MLP_FORMS[form]
+    g = _gen(seed)
+    x = torch.randn((n, c0), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (c0, *widths))
+    cot = torch.randn((n, widths[-1]), device=cuda, generator=g)
+    return x, ws, bs, acts, cot
+
+
+@pytest.mark.parametrize("form", list(F32_MLP_FORMS))
+@pytest.mark.parametrize("n", [1000, 77, 8 * 8 * 128 * 128])
+def test_mlp_fused_f32(cuda, form, n):
+    """K10-fwd and K10-bwd on f32 rows run the f32 body in every form:
+    within their tolerances of the plain f32 versions, two launches bit for
+    bit, d(x) on and off."""
+    x, ws, bs, acts, cot = _mlp_f32_case(cuda, n, form, 70)
+    _build.reset_counts()
+    y = mf.fused_mlp(x, ws, bs, acts)
+    assert dict(_build.launches) == {"mlp_fused": 1} and not _build.plain_calls
+    assert y.dtype == torch.float32
+    _close(y, mf._mlp_fwd_plain(x, ws, bs, acts), F32_FWD_TOL)
+    assert torch.equal(mf.fused_mlp(x, ws, bs, acts), y)
+    for compute_dx in (True, False):
+        _build.reset_counts()
+        dx, dws, dbs = mf.mlp_fused_bwd(x, cot, ws, bs, acts, compute_dx)
+        assert dict(_build.launches) == {"mlp_fused_bwd": 1}
+        pdx, pdws, pdbs = mf._mlp_bwd_plain(x, cot, ws, bs, acts, compute_dx)
+        for got, want in zip(dws + dbs, pdws + pdbs):
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            _close(got, want, F32_GRAD_TOL)
+        if compute_dx:
+            assert dx.dtype == torch.float32
+            _close_l2(dx, pdx, F32_ROW_L2_TOL)
+        else:
+            assert dx is None
+        again = mf.mlp_fused_bwd(x, cot, ws, bs, acts, compute_dx)
+        assert all(torch.equal(a, w) for a, w in zip(_bwd_outputs(again),
+                                                     _bwd_outputs((dx, dws, dbs))))
+
+
+def test_mlp_fused_f32_autograd(cuda):
+    """``PixelMLP``'s route on f32 rows: K10-fwd and K10-bwd once each, no
+    plain call, gradients within their tolerances of the CPU's."""
+    x, ws, bs, acts, cot = _mlp_f32_case(cuda, 3000, "layernet", 71)
+    params = [t.clone().requires_grad_() for t in ws + bs]
+    xg = x.clone().requires_grad_()
+    _build.reset_counts()
+    out = mf.fused_mlp(xg, params[:3], params[3:], acts)
+    got = torch.autograd.grad(out, [xg] + params, cot)
+    assert dict(_build.launches) == {"mlp_fused": 1, "mlp_fused_bwd": 1}
+    assert not _build.plain_calls
+    cpu = [t.detach().cpu().requires_grad_() for t in [xg] + params]
+    want = torch.autograd.grad(mf.fused_mlp(cpu[0], cpu[1:4], cpu[4:], acts), cpu, cot.cpu())
+    _close_l2(got[0].cpu(), want[0], F32_ROW_L2_TOL)
+    for a, w in zip(got[1:], want[1:]):
+        _close(a.cpu(), w, F32_GRAD_TOL)
+
+
+@pytest.mark.parametrize("form", list(F32_MLP_FORMS))
+def test_mlp_f32_plan_is_the_kernels_shared_memory(cuda, form):
+    import ctypes
+
+    c0, widths, acts = F32_MLP_FORMS[form]
+    fn = _build.library().wcmc_mlp_f32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    padded = list(widths) + [0] * (4 - len(widths))
+    for bwd in (False, True):
+        assert fn(c0, *padded, len(widths), int(bwd)) == mf.mlp_f32_plan(c0, widths, acts,
+                                                                         bwd).total
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,act", [
+    (8, 128, 128, 39, 100, 5, "relu"),      # KPCN layer 1 with paths (n_in 39)
+    (8, 96, 96, 100, 441, 5, None),         # KPCN layer 9: the 441 kernel logits
+    (2, 260, 300, 34, 100, 5, "relu"),      # layer 1 without paths, a wide frame
+    (3, 21, 37, 100, 100, 5, "leaky_relu"), # partial tiles in rows and columns
+    (2, 19, 23, 7, 9, 3, "linear"),         # 3x3, narrow odd channel counts
+    (1, 30, 34, 151, 60, 5, "relu"),        # Cin past whole chunks of 8
+    (1, 21, 18, 40, 129, 3, "relu"),        # three channel chunks, the last of one
+])
+def test_conv5_f32(cuda, b, h, w, cin, cout, k, act):
+    """K6 on f32 input runs the f32 body: within 1e-4 of max of the plain
+    f32 version, a second launch bit for bit, as ``conv2d`` and as
+    ``conv2d_padded`` (pad channels zero)."""
+    from wcmc_tpu_torch.ops import conv5
+
+    x, wgt, bias = _conv_case(cuda, b, h, w, cin, cout, k, 72)
+    x = x.float()
+    want = conv5.conv2d_plain(x, wgt, bias, k, act)
+    for conv in (conv5.conv2d, conv5.conv2d_padded):
+        _build.reset_counts()
+        got = conv(x, wgt, bias, k, act)
+        assert dict(_build.launches) == {"conv5": 1} and not _build.plain_calls
+        assert got.dtype == torch.float32 and tuple(got.shape) == (b, h - k + 1, w - k + 1, cout)
+        if conv is conv5.conv2d_padded:
+            assert got.stride()[2:] == (conv5.padded_pitch(cout), 1)
+            assert not got._base[..., cout:].any()
+        else:
+            assert got.is_contiguous()
+        _close(got, want, F32_FWD_TOL)
+        assert torch.equal(conv(x, wgt, bias, k, act), got)
+
+
+def test_conv5_f32_padded_chain(cuda):
+    """The fused chain's layouts at f32: layer 1's 39 channels copied once to
+    a pitch of 40, hidden layers at a pitch of 104 read as that strided
+    view, the logits contiguous; each launch against the plain f32 version
+    on its own input."""
+    from wcmc_tpu_torch.ops import conv5
+
+    x, _, _ = _conv_case(cuda, 2, 44, 41, 39, 1, 5, 73)
+    h = x.float()
+    for i, (cin, cout, act) in enumerate([(39, 100, "relu"), (100, 100, "relu"),
+                                          (100, 441, None)]):
+        _, wgt, bias = _conv_case(cuda, 1, 5, 5, cin, cout, 5, 74 + i)
+        conv = conv5.conv2d_padded if act else conv5.conv2d
+        _build.reset_counts()
+        got = conv(h, wgt, bias, 5, act)
+        assert dict(_build.launches) == {"conv5": 1} and not _build.plain_calls
+        _close(got, conv5.conv2d_plain(h, wgt, bias, 5, act), F32_FWD_TOL)
+        h = got
+    assert h.is_contiguous() and h.dtype == torch.float32
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_conv_f32_plan_is_the_kernels_shared_memory(cuda, k):
+    import ctypes
+
+    from wcmc_tpu_torch.ops import conv5
+
+    fn = _build.library().wcmc_conv5_f32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    assert fn(k) == conv5.conv_f32_plan(100, 100, k).total

@@ -26,8 +26,12 @@ convolution before its bias; this does not, as the reference's
   input as it is where each pixel starts on 16 bytes, else one copy at a
   pitch of Cin rounded up to 8.
 
-The kernel computes bfloat16 only and raises ``ValueError`` for another
-dtype, as for a shape it does not take.
+The kernel computes bfloat16 (``csrc/conv5.cu``, on ``wgmma``) or float32
+(``csrc/conv5_f32.cu``: a direct SIMT convolution, full f32 fused
+multiply-adds; ``conv_f32_plan`` its tiling, ``pack_weights_f32`` its
+weight order, ``_conv_f32_walk`` its order on the CPU), raises
+``TypeError`` for another dtype and ``ValueError`` for a shape it does not
+take.
 """
 
 from __future__ import annotations
@@ -184,38 +188,161 @@ def _copyable(x):
     return sc == 1 and not (sb % 8 or sh % 8 or sw % 8) and x.data_ptr() % 16 == 0
 
 
-def _conv_kernel(x, w, bias, ksize, act, padded=False):
-    _check_args(x, w, bias, ksize, act)
+def _require_cuda(x, w, bias):
+    """The one CUDA device of the inputs; ValueError otherwise."""
     dev = x.device
     if dev.type != "cuda" or w.device != dev or bias.device != dev:
         raise ValueError("conv5: inputs must all be on one CUDA device, got "
                          f"{x.device}, {w.device}, {bias.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"conv5 kernel computes in bfloat16, got {x.dtype}")
+    return dev
+
+
+def _conv_kernel(x, w, bias, ksize, act, padded=False):
+    _check_args(x, w, bias, ksize, act)
+    dev = _require_cuda(x, w, bias)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"conv5 kernel computes in bfloat16 or float32, got {x.dtype}")
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
     if b > MAX_BATCH:
         raise ValueError(f"conv5 kernel takes at most {MAX_BATCH} images, got {b}")
     pitch = padded_pitch(cout) if padded else cout
-    y = torch.empty((b, h - ksize + 1, wd - ksize + 1, pitch), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((b, h - ksize + 1, wd - ksize + 1, pitch), dtype=x.dtype, device=dev)
     if pitch != cout:
         y = y[..., :cout]
     if b == 0:
         return y
-    plan = kernel_plan(cin, cout, ksize)
-    wp = _packed_weights(w, plan.n, plan.cin_pad)
+    if x.dtype == torch.float32:
+        plan = conv_f32_plan(cin, cout, ksize)
+        wp = _packed.get((w,), ("f32", plan.cin_pad),
+                         lambda t: pack_weights_f32(t, plan.cin_pad))
+        fn = _build.kernel("wcmc_conv5_f32", *_F32_ARGTYPES)
+        tiling = (plan.cin_pad,)
+    else:
+        plan = kernel_plan(cin, cout, ksize)
+        wp = _packed_weights(w, plan.n, plan.cin_pad)
+        fn = _build.kernel("wcmc_conv5", *_ARGTYPES)
+        tiling = (plan.n, plan.cin_pad, plan.chunk)
     bf = bias if bias.dtype == torch.float32 and bias.is_contiguous() else \
         bias.float().contiguous()
-    fn = _build.kernel("wcmc_conv5", *_ARGTYPES)
     stream = _build.stream_of(dev)
     if not _copyable(x):
         # one copy (Cin 39, 34 -> a pitch of 40), launched last before K6
         x = _pitched(x, padded_pitch(cin))
     sb, sh, sw, _ = x.stride()
     _build.check(fn(x.data_ptr(), wp.data_ptr(), bf.data_ptr(), y.data_ptr(), b, h, wd, cin,
-                    sb, sh, sw, cout, pitch, ksize, plan.n, plan.cin_pad, plan.chunk,
-                    ACT_CODES[act], dev.index or 0, stream), "conv5")
+                    sb, sh, sw, cout, pitch, ksize, *tiling, ACT_CODES[act], dev.index or 0,
+                    stream), "conv5")
     _build.launches["conv5"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K6's f32 body (csrc/conv5_f32.cu): plan, weight order, walk and wrapper
+# ---------------------------------------------------------------------------
+
+F32_ROWS, F32_COLS = 8, 16   # output rows and columns of a block
+F32_CHUNK = 8                # input channels staged at once
+F32_OUT = 64                 # output channels of a block
+F32_BLOCKS = 3               # blocks an SM the f32 body is compiled for
+# wcmc_conv5_f32's C arguments: x, packed weights, bias, y; b, h, w, cin;
+# x's strides; cout, ypitch, k, cin_pad, act, device; the stream
+_F32_ARGTYPES = ((_build.PTR,) * 4 + (_build.INT,) * 4 + (_build.LONG,) * 3 + (_build.INT,) * 6
+                 + (_build.PTR,))
+
+
+class ConvF32Plan(NamedTuple):
+    """How K6's f32 body runs a layer: blocks of ``rows`` x ``cols`` output
+    pixels x ``nc`` output channels, ``n_out`` such channel chunks; Cin in
+    chunks of ``chunk`` (``cin_pad`` = whole chunks); ``smem`` the block's
+    shared memory as (buffer, bytes) pairs in the order the kernel carves
+    them (the input tile with its halo at a pitch of ``chunk`` + 1 floats,
+    then every tap's weights of one chunk), each a multiple of 128 bytes,
+    ``total`` their sum (what ``wcmc_conv5_f32_smem`` returns);
+    ``per_sm`` blocks resident an SM."""
+    rows: int
+    cols: int
+    chunk: int
+    nc: int
+    cin_pad: int
+    n_out: int
+    smem: tuple
+    total: int
+    per_sm: int
+
+    def grid(self, b, ho, wo):
+        """The launch's grid: (row and column tiles, channel chunks, images)."""
+        return (-(-ho // self.rows) * -(-wo // self.cols), self.n_out, b)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_f32_plan(cin: int, cout: int, ksize: int) -> ConvF32Plan:
+    """K6's f32 body for a layer: 8 x 16 output pixels x 64 output channels
+    a block, Cin in chunks of 8.  ValueError where the block's shared
+    memory would pass what a block may use (K above 10)."""
+    from wcmc_tpu_torch.ops.kernel_apply import SM_SMEM   # kernel_apply imports this module
+
+    if cin < 1 or cout < 1 or ksize < 1:
+        raise ValueError(f"conv5 f32 body: no layer {cin} -> {cout} at {ksize}x{ksize}")
+    tile = (F32_ROWS + ksize - 1) * (F32_COLS + ksize - 1)
+    smem = (("x", _round_up(4 * tile * (F32_CHUNK + 1), 128)),
+            ("w", _round_up(4 * ksize * ksize * F32_CHUNK * F32_OUT, 128)))
+    total = sum(m for _, m in smem)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"conv5 f32 body needs {total} bytes of shared memory for a "
+                         f"{ksize}x{ksize} window, over the {SMEM_LIMIT} a block may use")
+    return ConvF32Plan(F32_ROWS, F32_COLS, F32_CHUNK, F32_OUT, _round_up(cin, F32_CHUNK),
+                       -(-cout // F32_OUT), smem, total,
+                       min(F32_BLOCKS, SM_SMEM // (total + 1024)))
+
+
+def pack_weights_f32(w, cin_pad: int):
+    """``w (K, K, Cin, Cout)`` in the order K6's f32 body stages it:
+    ``(n_out, cin_pad / 8, K * K, 8, 64)`` = [channel chunk of 64][input
+    chunk of 8][tap][input channel][output channel], f32, zero past Cin and
+    Cout: one (channel chunk, input chunk) is one contiguous run."""
+    k, _, cin, cout = w.shape
+    n_out = -(-cout // F32_OUT)
+    wp = torch.zeros((k, k, cin_pad, n_out * F32_OUT), dtype=torch.float32, device=w.device)
+    wp[:, :, :cin, :cout] = w
+    wp = wp.view(k * k, cin_pad // F32_CHUNK, F32_CHUNK, n_out, F32_OUT)
+    return wp.permute(3, 1, 0, 2, 4).contiguous()
+
+
+def _conv_f32_walk(x, w, bias, ksize, act=None):
+    """A plain walk of K6's f32 body on the CPU: ``conv_f32_plan``'s grid,
+    each block's output pixels and channels one fused multiply-add chain
+    from zero in (input chunk, tap, channel) order over the packed weights,
+    then the bias and the activation.  Returns what ``conv2d_plain``
+    returns for f32 input."""
+    from wcmc_tpu_torch.ops.mlp_fused import _fma
+
+    _check_args(x, w, bias, ksize, act)
+    b, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    ho, wo = h - ksize + 1, wd - ksize + 1
+    plan = conv_f32_plan(cin, cout, ksize)
+    wp = pack_weights_f32(w.float(), plan.cin_pad)
+    xf = torch.zeros((b, h, wd, plan.cin_pad))
+    xf[..., :cin] = x.float()
+    y = torch.empty((b, ho, wo, cout))
+    n_tiles, n_out, _ = plan.grid(b, ho, wo)
+    tiles_w = -(-wo // plan.cols)
+    for img in range(b):
+        for j in range(n_out):
+            n0, n1 = j * plan.nc, min((j + 1) * plan.nc, cout)
+            for t in range(n_tiles):
+                y0, x0 = t // tiles_w * plan.rows, t % tiles_w * plan.cols
+                y1, x1 = min(y0 + plan.rows, ho), min(x0 + plan.cols, wo)
+                acc = torch.zeros((y1 - y0, x1 - x0, plan.nc))
+                for ch in range(plan.cin_pad // plan.chunk):
+                    for tap in range(ksize * ksize):
+                        dy, dx = divmod(tap, ksize)
+                        for c in range(plan.chunk):
+                            xv = xf[img, y0 + dy:y1 + dy, x0 + dx:x1 + dx, ch * plan.chunk + c]
+                            acc = _fma(xv[..., None], wp[j, ch, tap, c], acc)
+                y[img, y0:y1, x0:x1, n0:n1] = _act(act or "linear",
+                                                   acc[..., :n1 - n0] + bias.float()[n0:n1])
     return y
 
 

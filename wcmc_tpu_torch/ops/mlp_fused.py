@@ -17,13 +17,18 @@ an autograd Function:
   for every other form) and states its shared memory and grid, and
   ``_mlp_bwd_walk`` is the tiled body's order on the CPU.
 
-The kernels compute in bfloat16 with f32 accumulation and raise for
-other dtypes, for more than ``MLP_MAX_LAYERS`` layers and for widths over
-``MLP_MAX_WIDTH``.  The plain versions round where the reference's
-Pallas kernels round: forward, after every layer; backward, the hiddens
-are recomputed in the compute dtype, the output cotangent is rounded to
-it, each layer's cotangent is rounded to it before its products, dW and
-db (from the unrounded cotangent) stay f32, and d(x) is rounded once.
+The kernels compute in bfloat16 with f32 accumulation (the bodies above)
+or in float32 (``csrc/mlp_f32.cu``: one SIMT body each way, every form the
+bf16 bodies take, full f32 fused multiply-adds with nothing rounded
+between layers; :func:`mlp_f32_plan` states its shared memory and grid,
+``_mlp_f32_walk`` and ``_mlp_bwd_f32_walk`` are its order on the CPU), and
+raise TypeError for other dtypes and ValueError for more than
+``MLP_MAX_LAYERS`` layers or widths over ``MLP_MAX_WIDTH``.  The plain
+versions round where the reference's Pallas kernels round: forward, after
+every layer; backward, the hiddens are recomputed in the compute dtype,
+the output cotangent is rounded to it, each layer's cotangent is rounded
+to it before its products, dW and db (from the unrounded cotangent) stay
+f32, and d(x) is rounded once (at f32 nothing rounds).
 """
 
 from __future__ import annotations
@@ -144,15 +149,21 @@ def _check_form(name, c0, widths, acts):
     return [ACTS.index(a) for a in acts]
 
 
-def _check_card(name, x, ws, bs, acts):
-    """What K10 computes (:func:`_check_form`), as bf16 rows on one CUDA
-    device.  Returns the widths and the activation codes."""
-    dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in (*ws, *bs)):
+def _require_cuda(name, *tensors):
+    """The one CUDA device of ``tensors``; ValueError otherwise."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: inputs must all be on one CUDA device, got "
-                         + ", ".join(str(t.device) for t in (x, *ws, *bs)))
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel computes in bfloat16, got {x.dtype}")
+                         + ", ".join(str(t.device) for t in tensors))
+    return dev
+
+
+def _check_card(name, x, ws, bs, acts):
+    """What K10 computes (:func:`_check_form`), as bf16 or f32 rows on one
+    CUDA device.  Returns the widths and the activation codes."""
+    _require_cuda(name, x, *ws, *bs)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} kernel computes in bfloat16 or float32, got {x.dtype}")
     dims = [x.shape[-1]] + [w.shape[1] for w in ws]
     codes = _check_form(name, dims[0], dims[1:], acts)
     for w, b, ci, co in zip(ws, bs, dims[:-1], dims[1:]):
@@ -383,6 +394,210 @@ def _mlp_bwd_walk(x, g, ws, bs, acts, compute_dx=True, n_blocks=3):
     return dx, total[:len(ws)], total[len(ws):]
 
 
+# ---------------------------------------------------------------------------
+# K10's f32 bodies (csrc/mlp_f32.cu): plan, walks and wrappers
+# ---------------------------------------------------------------------------
+
+MLP_F32_ROWS = 32      # rows of a tile of the f32 bodies: a product's rows
+MLP_F32_BLOCKS = 4     # blocks an SM the f32 bodies are compiled for
+
+
+class MlpF32Plan(NamedTuple):
+    """How K10's f32 body runs a form: tiles of ``rows`` rows walked by
+    persistent blocks, at most ``per_sm`` resident an SM; ``smem`` the
+    block's shared memory as (buffer, bytes) pairs in the order the kernel
+    carves them, each a multiple of 128 bytes, ``total`` their sum (what
+    ``wcmc_mlp_f32_smem`` returns).  The backward keeps one f32 partial of
+    dW_0 | ... | dW_{L-1} | db_0 | ... | db_{L-1} a block, ``parts`` floats."""
+    rows: int
+    per_sm: int
+    smem: tuple
+    total: int
+    parts: int
+
+    def grid(self, n, sms):
+        """The blocks of a launch over ``n`` rows on a card of ``sms`` SMs:
+        ``per_sm`` a SM, no more than the tiles, at least one."""
+        return max(1, min(self.per_sm * sms, -(-n // self.rows)))
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_f32_plan(c0, widths, acts, bwd=False) -> MlpF32Plan:
+    """K10's f32 body (forward, or with ``bwd`` the backward) for the chain
+    C0 -> ``widths`` with activations ``acts``, every form
+    :func:`_check_form` admits.  Forward: the weights and biases (staged
+    once a launch), the x tile and two hidden tiles (one for two layers,
+    none for one), each as wide as the widest hidden layer; backward: the
+    weights, the biases, their transposes, the x tile, a tile for each
+    hidden layer and the cotangent's; 32 f32 rows a tile.  ValueError for
+    what K10 does not compute."""
+    from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT   # conv5 imports this module
+    from wcmc_tpu_torch.ops.kernel_apply import SM_SMEM
+
+    widths, acts = tuple(widths), tuple(acts)
+    _check_form("mlp_fused_bwd" if bwd else "mlp_fused", c0, widths, acts)
+    dims, rows = (c0, *widths), MLP_F32_ROWS
+    weights = sum(ci * co for ci, co in zip(dims[:-1], dims[1:]))
+    smem = [("weights", 4 * weights), ("bias", 4 * sum(widths))]
+    if bwd:
+        smem += [("transposes", 4 * weights), ("x", 4 * rows * c0)]
+        smem += [(f"h{i}", 4 * rows * dims[i]) for i in range(1, len(widths))]
+        smem += [("g", 4 * rows * dims[-1])]
+    else:
+        hidden = max(dims[1:-1], default=0)
+        smem += [("x", 4 * rows * c0)]
+        smem += [(f"h{i}", 4 * rows * hidden) for i in range(min(len(widths) - 1, 2))]
+    smem = tuple((name, _r128(m)) for name, m in smem)
+    total = sum(m for _, m in smem)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"mlp_fused f32 body needs {total} bytes of shared memory for "
+                         f"{c0} -> {widths}, over the {SMEM_LIMIT} a block may use")
+    return MlpF32Plan(rows, min(MLP_F32_BLOCKS, SM_SMEM // (total + 1024)), smem, total,
+                      weights + sum(widths))
+
+
+def _fma(a, b, c):
+    """``a * b + c`` rounded once to f32, as a fused multiply-add rounds it
+    (the product is exact in f64; the sum rounds to f64, then to f32, which
+    a rare halfway case can round apart from the fused one)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _chain(a, w):
+    """``a @ w`` as the f32 bodies' products sum it: per output one fused
+    multiply-add chain over k in order, from zero."""
+    acc = torch.zeros((a.shape[0], w.shape[1]))
+    for k in range(w.shape[0]):
+        acc = _fma(a[:, k:k + 1], w[k], acc)
+    return acc
+
+
+def _f32_tiles(n, grid, rows):
+    """Each block's tiles in its walk, block by block, as row ranges."""
+    tiles = -(-n // rows)
+    return [[(t * rows, min((t + 1) * rows, n)) for t in range(blk, tiles, grid)]
+            for blk in range(grid)]
+
+
+def _mlp_f32_walk(x, ws, bs, acts, n_blocks=3):
+    """A plain walk of K10-fwd's f32 body on the CPU, for a card of
+    ``n_blocks`` SMs: ``mlp_f32_plan``'s grid, each block's 32-row tiles in
+    turn, each layer a fused multiply-add chain over k from zero, then its
+    bias and activation, nothing rounded.  Returns what ``_mlp_fwd_plain``
+    returns for f32 rows."""
+    n, c0 = x.shape
+    plan = mlp_f32_plan(c0, tuple(w.shape[1] for w in ws), tuple(acts))
+    out = torch.empty((n, ws[-1].shape[1]))
+    for tiles in _f32_tiles(n, plan.grid(n, n_blocks), plan.rows):
+        for r0, r1 in tiles:
+            h = x[r0:r1].float()
+            for w, b, a in zip(ws, bs, acts):
+                h = _act(a, _chain(h, w.float()) + b.float())
+            out[r0:r1] = h
+    return out
+
+
+def _mlp_bwd_f32_walk(x, g, ws, bs, acts, compute_dx=True, n_blocks=3):
+    """A plain walk of K10-bwd's f32 body on the CPU, for a card of
+    ``n_blocks`` SMs: each block's tiles in turn, the hiddens recomputed as
+    the forward walk computes them, gz through each post-activation value;
+    db_i += the tile's column sums (rows added in order from zero) and each
+    dW_i element a fused multiply-add chain over the tile's rows from the
+    block's partial; d(x) a chain over k from zero; then the blocks'
+    partials summed in block order.  Returns what ``_mlp_bwd_plain``
+    returns for f32 rows."""
+    n, c0 = x.shape
+    plan = mlp_f32_plan(c0, tuple(w.shape[1] for w in ws), tuple(acts), bwd=True)
+    wf, bf = [w.float() for w in ws], [b.float() for b in bs]
+    dx = torch.empty((n, c0)) if compute_dx else None
+    total = None
+    for tiles in _f32_tiles(n, plan.grid(n, n_blocks), plan.rows):
+        part = [torch.zeros(w.shape) for w in ws] + [torch.zeros(w.shape[1]) for w in ws]
+        for r0, r1 in tiles:
+            hs = [x[r0:r1].float()]
+            for w, b, a in zip(wf[:-1], bf[:-1], acts[:-1]):
+                hs.append(_act(a, _chain(hs[-1], w) + b))
+            cur = g[r0:r1].float()
+            if acts[-1] != "linear":
+                cur = _act_grad(acts[-1], _act(acts[-1], _chain(hs[-1], wf[-1]) + bf[-1]), cur)
+            for i in reversed(range(len(ws))):
+                s = torch.zeros(cur.shape[1])
+                for row in cur:
+                    s = s + row
+                part[len(ws) + i] = part[len(ws) + i] + s
+                for r in range(cur.shape[0]):
+                    part[i] = _fma(hs[i][r][:, None], cur[r][None, :], part[i])
+                if i > 0:
+                    cur = _act_grad(acts[i - 1], hs[i], _chain(cur, wf[i].t()))
+                elif compute_dx:
+                    dx[r0:r1] = _chain(cur, wf[0].t())
+        total = part if total is None else [t + p for t, p in zip(total, part)]
+    return dx, total[:len(ws)], total[len(ws):]
+
+
+def _f32_layer_args(ws, bs, dims, codes):
+    """f32 weights and biases, and the f32 kernels' layer arguments: the 4
+    weight and 4 bias pointers (null beyond the last layer), the widths and
+    the codes."""
+    wf = [w.float().contiguous() for w in ws]
+    bf = [b.float().contiguous() for b in bs]
+    pad = MLP_MAX_LAYERS - len(ws)
+    ptrs = [w.data_ptr() for w in wf] + [None] * pad + [b.data_ptr() for b in bf] + [None] * pad
+    return wf, bf, ptrs, list(dims[1:]) + [0] * pad, list(codes) + [0] * pad
+
+
+def _mlp_fwd_f32_kernel(x, ws, bs, acts, dims, codes):
+    """K10-fwd's f32 body (``mlp_f32_plan``) on f32 rows."""
+    plan = mlp_f32_plan(dims[0], tuple(dims[1:]), tuple(acts))
+    dev = x.device
+    x = x.contiguous()
+    n = x.shape[0]
+    out = torch.empty((n, dims[-1]), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    wf, bf, ptrs, widths, codes = _f32_layer_args(ws, bs, dims, codes)
+    P, INT, L = _build.PTR, _build.INT, MLP_MAX_LAYERS
+    idx = dev.index or 0
+    fn = _build.kernel("wcmc_mlp_fused_f32", P, *([P] * (2 * L)), P, _build.LONG, INT, INT,
+                       *([INT] * (2 * L)), INT, INT, P)
+    _build.check(fn(x.data_ptr(), *ptrs, out.data_ptr(), n, dims[0], len(wf), *widths, *codes,
+                    plan.grid(n, _build.sm_count(idx)), idx, _build.stream_of(dev)),
+                 "mlp_fused")
+    _build.launches["mlp_fused"] += 1
+    return out
+
+
+def _mlp_bwd_f32_kernel(x, g, ws, bs, acts, dims, codes, compute_dx):
+    """K10-bwd's f32 body (``mlp_f32_plan(..., bwd=True)``) on f32 rows, the
+    cotangent read as f32: ``(dx f32 or None, dWs, dbs)``."""
+    plan = mlp_f32_plan(dims[0], tuple(dims[1:]), tuple(acts), bwd=True)
+    dev = x.device
+    x, g = x.contiguous(), g.float().contiguous()
+    n = x.shape[0]
+    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=dev) if compute_dx else None
+    sizes = [ci * co for ci, co in zip(dims[:-1], dims[1:])] + list(dims[1:])
+    if n == 0:
+        out = torch.zeros(plan.parts, dtype=torch.float32, device=dev)
+    else:
+        wf, bf, ptrs, widths, codes = _f32_layer_args(ws, bs, dims, codes)
+        idx = dev.index or 0
+        n_blocks = plan.grid(n, _build.sm_count(idx))
+        parts = torch.empty(n_blocks * plan.parts, dtype=torch.float32, device=dev)
+        out = torch.empty(plan.parts, dtype=torch.float32, device=dev)
+        P, INT, L = _build.PTR, _build.INT, MLP_MAX_LAYERS
+        fn = _build.kernel("wcmc_mlp_fused_bwd_f32", P, P, *([P] * (2 * L)), P, P, P,
+                           _build.LONG, INT, INT, *([INT] * (2 * L)), INT, INT, P)
+        _build.check(fn(x.data_ptr(), g.data_ptr(), *ptrs,
+                        dx.data_ptr() if compute_dx else None, parts.data_ptr(),
+                        out.data_ptr(), n, dims[0], len(wf), *widths, *codes, n_blocks, idx,
+                        _build.stream_of(dev)), "mlp_fused_bwd")
+        _build.launches["mlp_fused_bwd"] += 1
+    chunks = torch.split(out, sizes)
+    nl = len(ws)
+    dws = [c.view(ci, co) for c, ci, co in zip(chunks[:nl], dims[:-1], dims[1:])]
+    return dx, dws, list(chunks[nl:])
+
+
 def _padded_params(x, ws, bs, codes):
     """bf16 weights with W0's rows zero-padded to a multiple of 16, f32
     biases, and the kernels' layer arguments: the 4 weight and 4 bias
@@ -403,8 +618,13 @@ def _padded_params(x, ws, bs, codes):
 
 def _mlp_fwd_kernel(x, ws, bs, acts, body=None):
     """K10-fwd on the body :func:`mlp_fwd_plan` names (``body="wmma"`` forces
-    the wmma body, the card tests' and ``chip_smoke.py``'s reference)."""
+    the wmma body, the card tests' and ``chip_smoke.py``'s reference); f32
+    rows on the f32 body."""
     dims, codes = _check_card("mlp_fused", x, ws, bs, acts)
+    if x.dtype == torch.float32:
+        if body is not None:
+            raise ValueError(f"mlp_fused: f32 rows have one body, not {body!r}")
+        return _mlp_fwd_f32_kernel(x, ws, bs, acts, dims, codes)
     plan = mlp_fwd_plan(dims[0], tuple(dims[1:]), tuple(acts))
     body = body or plan.body
     if body not in ("tiled", "wmma") or (body == "tiled" and plan.body != "tiled"):
@@ -441,6 +661,10 @@ def _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx, body=None):
     if tuple(g.shape) != (n, dims[-1]) or g.device != dev:
         raise ValueError(f"mlp_fused_bwd: cotangent {tuple(g.shape)} on {g.device} does "
                          f"not match the output ({n}, {dims[-1]}) on {dev}")
+    if x.dtype == torch.float32:
+        if body is not None:
+            raise ValueError(f"mlp_fused_bwd: f32 rows have one body, not {body!r}")
+        return _mlp_bwd_f32_kernel(x, g, ws, bs, acts, dims, codes, compute_dx)
     plan = mlp_bwd_plan(dims[0], tuple(dims[1:]), tuple(acts))
     body = body or plan.body
     if body not in ("tiled", "wmma") or (body == "tiled" and plan.body != "tiled"):
@@ -486,7 +710,8 @@ def mlp_fused_bwd(x, g, ws, bs, acts, compute_dx=True, body=None):
     ``(dx in x.dtype or None, dWs, dbs)``, dW and db f32.  K10-bwd for
     CUDA tensors, on the body :func:`mlp_bwd_plan` names (``body="wmma"``
     forces the wmma body, the card tests' and ``chip_smoke.py``'s
-    reference), the plain version for CPU tensors."""
+    reference; f32 rows run the f32 body), the plain version for CPU
+    tensors."""
     if x.device.type == "cpu":
         return _mlp_bwd_plain(x, g, ws, bs, acts, compute_dx)
     return _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx, body)
