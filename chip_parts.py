@@ -1,13 +1,32 @@
 #!/usr/bin/env python3
 """What bounds the new bodies of K1 (the softmax gather), K2 and K3 (its
 backward), K9 (the weighted gather) and K10-fwd (the fused per-pixel MLP) on
-one NVIDIA card: each is built again from a copy of
+one NVIDIA card, and of K5-bwd's tensor-core f32 body: each is built again
+from a copy of
 ``wcmc_tpu_torch/ops/csrc`` with one part of its work dropped, and every
 variant is timed at the path shapes beside the whole body.
 
-    python3 chip_parts.py [k1 k2 k3 k9 k10]
+    python3 chip_parts.py [k1 k2 k3 k9 k10 k5b]
 
-(the kernels named, all five without arguments).  K9 (``gather_tiled_kernel``)
+(the kernels named, all six without arguments).  K5-bwd's f32 body
+(``pathnet_head_bwd_tf32_kernel``) at KPCN's training form (8 x 8 spp x
+128^2 rows, [128 | 128] -> 256 -> 6, channel-major cotangent with moments):
+``whole``; ``no_z`` (e . W1e's products skipped); ``no_dw1e`` (dW1e's
+products skipped); ``no_de`` (d(e)'s products and stores skipped);
+``no_tile`` (the per-tile ctx . W1c, d(ctx) and dW1c products skipped);
+``no_split`` (the activations' split into tf32 hi and lo replaced by a
+copy); ``l1_weights`` (every weight fragment read from one small block that
+stays in L1, not from L2); ``no_step`` (every product straight into its
+running sum, not a partial a k8 step).  Each K5-bwd line also gives d(e)'s
+and d(ctx)'s relative L2 distance from an f64 computation and dW1's and
+dW2's max error of max (``chip_smoke.py``'s ``head_bwd_f64``); ``whole``
+gives them for the SIMT body and the plain version too, and again with
+linear activations (no relu to flip: the arithmetic alone).  K6's tensor-core f32 body
+(``conv5_tf32_kernel``) at the fused KPCN's layer 5 ((8, 112, 112, 100) at a
+pitch of 104 -> 100, relu): ``whole``; ``one_sum`` (each step's products
+straight into the running sums, not a partial a step); each with its
+relative L2 distance from the f64 convolution, ``whole`` also the SIMT
+body's and cuDNN's.  K9 (``gather_tiled_kernel``)
 at the splat's d(values) shape ((64, 148, 148, 4) f32 canvas cotangent,
 (64, 128, 128, 441) contiguous f32 weights, K 21): ``whole``; ``no_weights``
 (no weight lands: no bulk copy and no per-pixel copies); ``no_window`` (no
@@ -51,7 +70,8 @@ import tempfile
 # the sources, so a variant that no longer drops its part fails loudly
 K1_SRC, K2_SRC, K3_SRC, K9_SRC, K10_SRC = ("gather_softmax.cu", "outer_softmax.cu",
                                            "scatter_softmax.cu", "gather.cu", "mlp_fused.cu")
-KERNELS = ("k1", "k2", "k3", "k9", "k10")
+K5B_SRC, K6_SRC = "pathnet_head_bwd_tf32.cu", "conv5_tf32.cu"
+KERNELS = ("k1", "k2", "k3", "k9", "k10", "k5b", "k6")
 NO_LOGITS = ("for (int ch = lane; 16 * ch <", "for (int ch = 32; 16 * ch <")
 NO_PIXELS = ("      for (int p = warp; p < n; p += kWarps) {\n        // the first body's softmax",
              "      for (int p = warp; p < 0; p += kWarps) {\n        // the first body's softmax")
@@ -92,6 +112,40 @@ VARIANTS = {
     "k3_no_taps": (K3_SRC, [("      splat_step<kC, kK, S>(s_p, s_x, s_ring, K, Wc, cols, wcj, yl, "
                              "r, g, ndy);", "")]),
     "k3_no_logits": (K3_SRC, [NO_LOGITS]),
+    "k5b_whole": (K5B_SRC, []),
+    "k5b_no_z": (K5B_SRC, [("mm_rows_w<kRing>(acc, Ec + m0 * pe, pe, kCe / 8, W, kCe / 8, jn0, "
+                            "ring);", "")]),
+    "k5b_no_dw1e": (K5B_SRC, [("mm_rows_t(dw1e, Ec, pe, m5, H, ph, n5, kHtRows / 8);", "")]),
+    "k5b_no_de": (K5B_SRC, [("for (int tt = warp; tt < 2 * kCe / 32; tt += 8) {",
+                             "for (int tt = warp; tt < 0; tt += 8) {")]),
+    "k5b_no_tile": (K5B_SRC, [
+        ("mm_rows_w<kRing>(acc, CX, pe, kCe / 8, W + oW1c, kCe / 8, warp * NT0, ring);", ""),
+        ("mm_rows_w<kRing>(acc, G, ph, kC1 / 8, W + oW1ct, kC1 / 8, warp * NT7, ring);", ""),
+        ("mm_rows_t(acc, CX, pe, m0, G, ph, n0, kHtPix / 8);", "")]),
+    "k5b_no_split": (K5B_SRC, [("  hi = tf32_rna(a);\n  lo = tf32_rna(a - __uint_as_float(hi));",
+                                "  hi = __float_as_uint(a);\n  lo = hi;")]),
+    "k5b_l1_weights": (K5B_SRC, [("W + ((size_t)(jn0 + nt) * wk8 + ks) * 128 + lane * 4, 16);",
+                                  "W + (size_t)nt * 128 + lane * 4, 16);")]),
+    "k5b_no_step": (K5B_SRC, [(
+        "  float t[4];\n"
+        "  mma_tf32_zero(t, a.lo, b.v[0], b.v[1]);\n"
+        "  mma_tf32(t, a.hi, b.v[2], b.v[3]);\n"
+        "  mma_tf32(t, a.hi, b.v[0], b.v[1]);\n"
+        "#pragma unroll\n"
+        "  for (int i = 0; i < 4; ++i) d[i] += t[i];\n",
+        "  mma_tf32(d, a.lo, b.v[0], b.v[1]);\n"
+        "  mma_tf32(d, a.hi, b.v[2], b.v[3]);\n"
+        "  mma_tf32(d, a.hi, b.v[0], b.v[1]);\n")]),
+    "k6_whole": (K6_SRC, []),
+    "k6_one_sum": (K6_SRC, [
+        ("          wgmma_tf32<kN>(part, lo, b_hi, 0);   // the step's own partial, from zero\n"
+         "          wgmma_tf32<kN>(part, hi, b_lo, 1);\n"
+         "          wgmma_tf32<kN>(part, hi, b_hi, 1);\n",
+         "          wgmma_tf32<kN>(acc, lo, b_hi, 1);\n"
+         "          wgmma_tf32<kN>(acc, hi, b_lo, 1);\n"
+         "          wgmma_tf32<kN>(acc, hi, b_hi, 1);\n"),
+        ("            for (int i = 0; i < 4; ++i) acc[jn][i] += part[jn][i];",
+         "            for (int i = 0; i < 0; ++i) acc[jn][i] += part[jn][i];")]),
 }
 
 
@@ -139,6 +193,10 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from wcmc_tpu_torch.ops import _build
+
+    # the f32 references (cuBLAS, cuDNN) in full f32, as chip_smoke.py takes them
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     from wcmc_tpu_torch.ops import kernel_apply as ka
     from wcmc_tpu_torch.ops import mlp_fused as mf
 
@@ -231,12 +289,78 @@ def main() -> int:
                        torch.rand((64, 128, 128, 441), device=dev, generator=g), 21)
         runs = {"k1": (k1, "gather_softmax", 1), "k2": (k2, "outer_softmax", 1),
                 "k3": (k3, "scatter_softmax", 2)}
+        if "k5b" in kernels:
+            from wcmc_tpu_torch.ops import pathnet_fused as pf
+
+            # KPCN's training head: 8 x 8 spp x 128^2 rows, channel-major cotangent
+            b5, s5, hw5 = 8, 8, 128 * 128
+            e5 = torch.randn((b5, s5, hw5, 128), device=dev, generator=g)
+            ctx5 = torch.randn((b5, hw5, 128), device=dev, generator=g)
+            ws5, bs5 = cs.rand_mlp(torch, dev, g, (256, 256, 6))
+            cot5 = (torch.randn((b5, s5, 6, hw5), device=dev, generator=g),
+                    torch.randn((b5, hw5, 6), device=dev, generator=g),
+                    0.1 * torch.randn((b5, hw5, 6), device=dev, generator=g))
+            plan5 = pf.head_bwd_tc_plan(b5, hw5, 128, 128, 256, 6, sms=sms)
+            wp5, b15, b25 = pf._packed_head_tf32(ws5, bs5, 128, plan5.form)
+
+        def k5b(lib, acts=(1, 1)):
+            de = torch.empty_like(e5)
+            dctx = torch.empty_like(ctx5)
+            parts = torch.empty(plan5.blocks * plan5.parts, dtype=torch.float32, device=dev)
+            out = torch.empty(plan5.parts, dtype=torch.float32, device=dev)
+            fn = lib.wcmc_pathnet_head_bwd_tf32
+            fn.argtypes, fn.restype = [P] * 12 + [I] * 12 + [P], I
+            _build.check(fn(e5.data_ptr(), ctx5.data_ptr(), *(t.data_ptr() for t in cot5),
+                            wp5.data_ptr(), b15.data_ptr(), b25.data_ptr(), de.data_ptr(),
+                            dctx.data_ptr(), parts.data_ptr(), out.data_ptr(), b5, s5, hw5,
+                            *plan5.form, 6, *acts, 1, plan5.blocks, 0, stream),
+                         "pathnet_head_bwd")
+            kce, kc1, kout = plan5.form
+            dw1e, dw1c, dw2 = torch.split(out, [kce * kc1, kce * kc1, kc1 * kout, kc1 + kout])[:3]
+            return de, dctx, [torch.cat([dw1e.view(kce, kc1), dw1c.view(kce, kc1)]),
+                              dw2.view(kc1, kout)[:, :6]]
+
+        def k5b_f64(got, acts):
+            """d(e)'s and d(ctx)'s relative L2 distance from the f64 function,
+            dW1's and dW2's max error of max."""
+            ref = cs.head_bwd_f64(torch, e5, ctx5, *cot5, ws5, bs5, acts, True)
+            return {"de": cs.rel_l2(torch, got[0], ref[0]),
+                    "dctx": cs.rel_l2(torch, got[1], ref[1]),
+                    **{k: ((a.double() - w).abs().max() / w.abs().max()).item()
+                       for k, a, w in zip(("dw1", "dw2"), got[2], ref[2])}}
+
+        if "k6" in kernels:
+            from wcmc_tpu_torch.ops import conv5
+
+            # the fused KPCN's layer 5: (8, 112, 112, 100) at a pitch of 104 -> 100, relu
+            x6 = conv5._pitched(torch.randn((8, 112, 112, 100), device=dev, generator=g), 104,
+                                fill=0)
+            w6 = torch.randn((5, 5, 100, 100), device=dev, generator=g) / (25 * 100) ** 0.5
+            b6 = 0.1 * torch.randn(100, device=dev, generator=g)
+            plan6 = conv5.conv_tc_plan(100, 100, 5)
+            wp6 = conv5.pack_weights_tf32(w6, plan6.n, plan6.chunk, plan6.cin_pad)
+            ref6 = torch.relu(torch.nn.functional.conv2d(
+                x6.double().permute(0, 3, 1, 2), w6.double().permute(3, 2, 0, 1),
+                b6.double())).permute(0, 2, 3, 1)
+
+        def k6(lib):
+            y = torch.empty((8, 108, 108, 100), dtype=torch.float32, device=dev)
+            fn = lib.wcmc_conv5_tf32
+            fn.argtypes, fn.restype = [P] * 4 + [I] * 4 + [L] * 3 + [I] * 8 + [P], I
+            _build.check(fn(x6.data_ptr(), wp6.data_ptr(), b6.data_ptr(), y.data_ptr(), 8, 112,
+                            112, 100, *x6.stride()[:3], 100, 100, 5, plan6.n, plan6.cin_pad,
+                            plan6.chunk, 1, 0, stream), "conv5")
+            return y
         for name, lib in libs.items():
             kernel = name.split("_")[0]
             if kernel == "k10":
                 def call(lib=lib):
                     return k10(lib, x, ws, bs, acts)
                 todo = [("lbmc", call, "mlp_fused", 1)]
+            elif kernel == "k5b":
+                todo = [("kpcn", lambda lib=lib: k5b(lib), "pathnet_head_bwd", 1)]
+            elif kernel == "k6":
+                todo = [("kpcn_fused", lambda lib=lib: k6(lib), "conv5", 1)]
             elif kernel == "k9":
                 todo = [("sbmc", lambda lib=lib: k9(lib, *k9_args), "gather", 1)]
             else:
@@ -247,7 +371,37 @@ def main() -> int:
             for path, call, counter, per_call in todo:
                 rec = {"variant": name, "path": path, "ms": cs.time_ms(torch, call, 20, flush),
                        "device_ms": cs.device_ms(torch, call, counter, flush, per_call=per_call)}
-                if name.endswith("_whole"):
+                if kernel == "k5b":
+                    got = call()
+                    rec["from_f64"] = k5b_f64(got, pf.HEAD_ACTS)
+                if name == "k5b_whole":
+                    # the same source as the wrapper's library: the same bits
+                    want = pf._head_bwd_kernel(e5, ctx5, *cot5, ws5, bs5, pf.HEAD_ACTS, True)
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise AssertionError("k5b_whole is not the wrapper's bits")
+                    lin = ("linear", "linear")
+                    rec["from_f64_others"] = {
+                        "simt": k5b_f64(pf._head_bwd_kernel(e5, ctx5, *cot5, ws5, bs5,
+                                                            pf.HEAD_ACTS, True, body="simt"),
+                                        pf.HEAD_ACTS),
+                        "plain": k5b_f64(pf._head_bwd_plain(e5, ctx5, *cot5, ws5, bs5,
+                                                            pf.HEAD_ACTS, True), pf.HEAD_ACTS)}
+                    rec["from_f64_linear"] = {
+                        "tc": k5b_f64(k5b(lib, (0, 0)), lin),
+                        "simt": k5b_f64(pf._head_bwd_kernel(e5, ctx5, *cot5, ws5, bs5, lin,
+                                                            True, body="simt"), lin),
+                        "plain": k5b_f64(pf._head_bwd_plain(e5, ctx5, *cot5, ws5, bs5, lin,
+                                                            True), lin)}
+                elif kernel == "k6":
+                    rec["from_f64"] = cs.rel_l2(torch, call(), ref6)
+                    if name == "k6_whole":
+                        lib_y = torch.relu(torch.nn.functional.conv2d(
+                            x6.permute(0, 3, 1, 2), w6.permute(3, 2, 0, 1), b6))
+                        rec["from_f64_others"] = {
+                            "simt": cs.rel_l2(torch, conv5._conv_kernel(
+                                x6, w6, b6, 5, "relu", body="simt"), ref6),
+                            "cudnn": cs.rel_l2(torch, lib_y.permute(0, 2, 3, 1), ref6)}
+                elif name.endswith("_whole"):
                     check_whole(torch, cs, ka, mf, kernel, path, call(),
                                 k9_args if kernel == "k9" else shapes.get(path),
                                 (x, ws, bs, acts))

@@ -70,17 +70,26 @@ Phases (one JSON line each):
    logits) and K8 at K = 23 on the SBMC splat ((64, 128, 128, 529) f32),
    each on its first body by the route, against its plain version and
    itself over two launches.  The f32 bodies of K4 and K5
-   (``csrc/pathnet_f32.cu``) forward and backward in each f32 path's forms
-   (KPCN's dual PathNet, its head channel-major and channels-last; the
-   64-wide PathNet; Multisteps with d(x), its update chain with and
-   without moments), each against its plain f32 version (``F32_FWD_TOL``,
-   ``F32_GRAD_TOL``, ``F32_ROW_L2_TOL``) and itself over two launches.  The
+   (``csrc/pathnet_f32.cu``; K5-bwd's on the tensor cores in split TF32,
+   ``csrc/pathnet_head_bwd_tf32.cu``) forward and backward in each f32
+   path's forms (KPCN's dual PathNet, its head channel-major and
+   channels-last; the 64-wide PathNet; Multisteps with d(x), its update
+   chain with and without moments), each against its plain f32 version
+   (``F32_FWD_TOL``, ``F32_GRAD_TOL``, ``F32_ROW_L2_TOL``) and itself over
+   two launches; K5-bwd's row also times its first f32 body (SIMT) on the
+   same inputs, held the same way, with both bounds (the tensor cores' tf32
+   rate for three products an f32 one, ``bound_ms``; the CUDA cores' f32
+   rate, ``bound_f32_cuda_ms``), and with linear activations its distances
+   from f64 within ``TF32_F64_FACTOR`` of the plain version's.  The
    f32 body of K10 (``csrc/mlp_f32.cu``) forward and backward at LayerNet's
    32 -> 32^3 leaky chain over 1,048,576 rows (d(x) on) and at 64 -> 64^4
    beside it, and K1, K2 and K3 on f32 logits at K = 13 (``K1_TOL``); the
-   f32 body of K6 (``csrc/conv5_f32.cu``) at the four K6 shapes above
-   (``F32_FWD_TOL``), each with cuDNN's f32 ``F.conv2d`` (TF32 off) +
-   activation as ``library_ms``, and one branch's f32 chain.  Every f32 row
+   f32 body of K6 (``csrc/conv5_tf32.cu``, split TF32 on ``wgmma``) at the
+   four K6 shapes above (``F32_FWD_TOL``), each with cuDNN's f32
+   ``F.conv2d`` (TF32 off) + activation as ``library_ms``, its first f32
+   body (SIMT, ``csrc/conv5_f32.cu``) on the same inputs and both bounds as
+   K5-bwd's, its distance from f64 within ``TF32_F64_FACTOR`` of the plain
+   version's, and one branch's f32 chain on each body.  Every f32 row
    also two launches bit for bit, with a digest of its outputs
    (``out_sha1``; ``python3 chip_smoke.py f32-digests`` prints K4's and
    K5's alone, to hold two trees' f32 bodies to the same bits).
@@ -222,6 +231,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12    # the tensor cores' TF32 rate: split TF32 does 3 such products an f32 one
 
 K1_TOL = 1e-5          # of max |plain|: same logits, f32 softmax, other order
 # of max |plain|: K6's bf16 products summed in f32 in another order and
@@ -375,7 +385,7 @@ def median_device_ms(events, kinds, calls, per_call=None):
 def device_ms(torch, fn, counter, flush, calls=5, per_call=None):
     """The median device time of one call of ``fn`` in the entries of the
     kernel whose launch counter is ``counter`` (any of its bodies:
-    ``counter``, ``counter``_tiled, ``counter``_banded and ``counter``_f32), from one torch.profiler pass over
+    ``counter`` and ``counter`` with each suffix of ``DEVICE_BODIES``), from one torch.profiler pass over
     ``calls`` calls after a warm-up call, the L2 flushed before each and a
     synchronize after each (``per_call``: the entries a call must have,
     see ``median_device_ms``).  ``time_ms``'s CUDA events also count any
@@ -392,8 +402,11 @@ def device_ms(torch, fn, counter, flush, calls=5, per_call=None):
             torch.cuda.synchronize()
     events = [(e.name, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    return median_device_ms(events, tuple(counter + k for k in ("", "_tiled", "_banded", "_f32")),
-                            calls, per_call)
+    return median_device_ms(events, tuple(counter + k for k in DEVICE_BODIES), calls, per_call)
+
+
+# the suffixes of a kernel's bodies by device kind (``device_kind``)
+DEVICE_BODIES = ("", "_tiled", "_banded", "_f32", "_tf32")
 
 
 def max_err(torch, got, want, tol, pairs=None):
@@ -1370,7 +1383,8 @@ def large_k_kernel_phase(torch, ka, dev, k=LARGE_K, kpcn=(8, 70), sbmc=(64, 128)
     return rows
 
 
-# The f32 bodies of K4 and K5 (csrc/pathnet_f32.cu) against the plain f32
+# The f32 bodies of K4 and K5 (csrc/pathnet_f32.cu, K5-bwd's split TF32 body
+# csrc/pathnet_head_bwd_tf32.cu) and of K6 against the plain f32
 # versions, of max |plain|: forward outputs 1e-4 (f32 products summed in
 # another order; a pre-activation within rounding of zero moves its relu's
 # output by at most that rounding), weight and bias gradients 5e-3 (there a
@@ -1380,6 +1394,74 @@ def large_k_kernel_phase(torch, ka, dev, k=LARGE_K, kpcn=(8, 70), sbmc=(64, 128)
 # element's gradient moves by its full size).  The same as the card tests'.
 F32_FWD_TOL, F32_GRAD_TOL, F32_ROW_L2_TOL = 1e-4, 5e-3, 1e-3
 F32_SOURCE = "wcmc_tpu_torch/ops/csrc/pathnet_f32.cu"
+# The split-TF32 bodies (K6, K5-bwd) against the exact function: each of
+# their tensor-core outputs within TF32_F64_FACTOR times the plain f32
+# version's own distance from f64 (K6's output in relative L2; K5-bwd with
+# linear activations, no relu to flip: d(e) and d(ctx) in relative L2, dW1
+# and dW2 in max error of max).  A body that dropped a lo term (single
+# TF32, ~2^-11 a product) or summed a long K into the tensor cores'
+# truncating accumulator reads 6-300 times the plain version's distance.
+TF32_F64_FACTOR = 4.0
+
+
+def head_bwd_f64(torch, e, ctx, g, gsum, gsq, ws, bs, acts, cmajor):
+    """K5-bwd's function in f64 on the card (every product and sum; the
+    relu masks from the f64 pre-activations): the reference against which
+    the f32 bodies and the plain f32 version are each measured, so a
+    body's distance from the plain one can be read against the plain one's
+    own distance from the exact function."""
+    from wcmc_tpu_torch.ops.mlp_fused import _act
+
+    d = torch.float64
+    ce = e.shape[-1]
+    e, ctx = e.to(d), ctx.to(d)
+    (w1, w2), (b1, b2) = [w.to(d) for w in ws], [v.to(d) for v in bs]
+    h1 = _act(acts[0], e @ w1[:ce] + (ctx @ w1[ce:])[:, None] + b1)
+    h2 = _act(acts[1], h1 @ w2 + b2)
+    gg = torch.zeros_like(h2)
+    if g is not None:
+        gg = gg + (g.transpose(2, 3) if cmajor else g).to(d)
+    if gsum is not None:
+        gg = gg + gsum.to(d)[:, None]
+    if gsq is not None:
+        gg = gg + 2.0 * h2 * gsq.to(d)[:, None]
+    gz = torch.where(h2 > 0, gg, gg * (0.01 if acts[1] == "leaky_relu" else 0.0)) \
+        if acts[1] != "linear" else gg
+    g1 = gz @ w2.t()
+    g1 = torch.where(h1 > 0, g1, g1 * (0.01 if acts[0] == "leaky_relu" else 0.0)) \
+        if acts[0] != "linear" else g1
+    gsum_s = g1.sum(dim=1)
+    dw1 = torch.cat([e.reshape(-1, ce).t() @ g1.reshape(-1, g1.shape[-1]),
+                     ctx.reshape(-1, ctx.shape[-1]).t() @ gsum_s.reshape(-1, g1.shape[-1])])
+    dw2 = h1.reshape(-1, h1.shape[-1]).t() @ gz.reshape(-1, gz.shape[-1])
+    return (g1 @ w1[:ce].t(), gsum_s @ w1[ce:].t(), [dw1, dw2],
+            [g1.sum(dim=(0, 1, 2)), gz.sum(dim=(0, 1, 2))])
+
+
+def from_f64(torch, got, ref):
+    """The f32 outputs' distance from the f64 reference: relative L2 of d(e)
+    and d(ctx), max error of max |ref| of the weight and bias gradients."""
+    return {"de_rel_l2": rel_l2(torch, got[0], ref[0]), "dctx_rel_l2": rel_l2(torch, got[1], ref[1]),
+            "grads_err_over_ref": max(((a.double() - w).abs().max() / w.abs().max()).item()
+                                      for a, w in zip(got[2] + got[3], ref[2] + ref[3]))}
+
+
+def tc_from_f64(torch, got, plain, ref):
+    """The distances from f64 of a split-TF32 body's outputs ``got`` and of
+    the plain version's ``plain``, each (d(e), d(ctx), dWs, dbs) beside the
+    f64 function's ``ref``: relative L2 of d(e) and d(ctx), max error of
+    max |ref| of each weight and bias gradient; ``within_factor`` whether
+    each tensor-core output (d(e), d(ctx), dW1, dW2) is within
+    ``TF32_F64_FACTOR`` of the plain version's distance."""
+    def dist(out):
+        d = {"de": rel_l2(torch, out[0], ref[0]), "dctx": rel_l2(torch, out[1], ref[1])}
+        for name, a, w in zip(("dw1", "dw2", "db1", "db2"), out[2] + out[3], ref[2] + ref[3]):
+            d[name] = ((a.double() - w).abs().max() / w.abs().max()).item()
+        return d
+
+    tc, pl = dist(got), dist(plain)
+    ok = all(tc[k] <= TF32_F64_FACTOR * pl[k] for k in ("de", "dctx", "dw1", "dw2"))
+    return {"tc": tc, "plain": pl, "factor": TF32_F64_FACTOR, "within_factor": ok}
 
 
 def f32_weight_bytes(ws):
@@ -1503,6 +1585,9 @@ def f32_head_rows(torch, pf, dev, g, flush, form, b, s, hw, ce, c1, cout, acts, 
     def bwd():
         return pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq, ws, bs, acts, cmajor)
 
+    def simt():
+        return pf._head_bwd_kernel(e, ctx, gout, gsum, gsq, ws, bs, acts, cmajor, body="simt")
+
     de, dctx, dws, dbs = bwd()
     pde, pdctx, pws, pbs = pf._head_bwd_plain(e, ctx, gout, gsum, gsq, ws, bs, acts, cmajor)
     err = max_err(torch, dws + dbs, pws + pbs, F32_GRAD_TOL)
@@ -1513,16 +1598,46 @@ def f32_head_rows(torch, pf, dev, g, flush, form, b, s, hw, ce, c1, cout, acts, 
     if not all(torch.equal(a, w) for a, w in zip(
             [again[0], again[1], *again[2], *again[3]], [de, dctx, *dws, *dbs])):
         raise AssertionError(f"K5-bwd f32 ({form}): a second launch gave other bits")
-    del again, pde, pdctx
+    del again
+    # the SIMT body on the same inputs, held to the plain version the same way
+    sde, sdctx, sws, sbs = simt()
+    simt_row = {"source": F32_SOURCE, "max_abs_err": max_err(torch, sws + sbs, pws + pbs,
+                                                             F32_GRAD_TOL),
+                "row_rel_l2": {"de": rel_l2(torch, sde, pde), "dctx": rel_l2(torch, sdctx, pdctx)},
+                "max_abs_diff_tc": max((a.double() - w.double()).abs().max().item()
+                                       for a, w in zip(sws + sbs, dws + dbs)),
+                "ms": time_ms(torch, simt, 5, flush),
+                "device_ms": device_ms(torch, simt, "pathnet_head_bwd", flush)}
+    if max(simt_row["row_rel_l2"].values()) > F32_ROW_L2_TOL:
+        raise AssertionError(f"K5-bwd f32 SIMT ({form}) per-row outputs off by {simt_row}")
+    # each f32 version's distance from the f64 function (relu flips included)
+    ref = head_bwd_f64(torch, e, ctx, gout, gsum, gsq, ws, bs, acts, cmajor)
+    f64 = {"tc": from_f64(torch, (de, dctx, dws, dbs), ref),
+           "simt": from_f64(torch, (sde, sdctx, sws, sbs), ref),
+           "plain": from_f64(torch, (pde, pdctx, pws, pbs), ref)}
+    del pde, pdctx, sde, sdctx, sws, sbs, ref
+    # with linear activations the arithmetic alone, held to TF32_F64_FACTOR
+    lin = ("linear", "linear")
+    lin_f64 = tc_from_f64(
+        torch, pf.pathnet_head_bwd(e, ctx, gout, gsum, gsq, ws, bs, lin, cmajor),
+        pf._head_bwd_plain(e, ctx, gout, gsum, gsq, ws, bs, lin, cmajor),
+        head_bwd_f64(torch, e, ctx, gout, gsum, gsq, ws, bs, lin, cmajor))
+    if not lin_f64["within_factor"]:
+        raise AssertionError(f"K5-bwd f32 ({form}) with linear activations is further from "
+                             f"f64 than {TF32_F64_FACTOR} times the plain version: {lin_f64}")
     macs = b * s * hw * (3 * ce * c1 + 3 * c1 * cout) + b * hw * 3 * ce * c1
+    n_bytes = nbytes(e, ctx, gout, gsum, gsq, de, dctx, *dws, *dbs) + f32_weight_bytes(ws)
     rows.append(kernel_row(
         "pathnet_head_bwd_f32", "pathnet_head_bwd", "wcmc_tpu/ops/pathnet_fused.py:511", err,
         time_ms(torch, bwd, 5, flush),
         time_ms(torch, lambda: pf._head_bwd_plain(e, ctx, gout, gsum, gsq, ws, bs, acts, cmajor),
                 3, flush),
-        bound_ms(nbytes(e, ctx, gout, gsum, gsq, de, dctx, *dws, *dbs) + f32_weight_bytes(ws),
-                 [(2 * macs, F32_FLOPS)]), dict(shape, g=list(gout.shape)),
-        source=F32_SOURCE, device_ms=device_ms(torch, bwd, "pathnet_head_bwd", flush),
+        # split TF32: three tf32 products for each f32 one
+        bound_ms(n_bytes, [(3 * 2 * macs, TF32_FLOPS)]), dict(shape, g=list(gout.shape)),
+        source="wcmc_tpu_torch/ops/csrc/pathnet_head_bwd_tf32.cu", body="tc",
+        bound_f32_cuda_ms=bound_ms(n_bytes, [(2 * macs, F32_FLOPS)])[0], simt=simt_row,
+        from_f64=f64, from_f64_linear=lin_f64,
+        device_ms=device_ms(torch, bwd, "pathnet_head_bwd", flush),
         library_note="no single PyTorch call computes a fused MLP's backward", bit_for_bit=True,
         row_rel_l2=row_l2, out_sha1=digest(de, dctx, *dws, *dbs)))
     torch.cuda.synchronize()
@@ -1723,15 +1838,19 @@ def conv_kernel_phase(torch, dev, dtype=None):
     dtype (``library_ms``; TF32 off), two launches compared bit for bit, and
     on the first row the whole 9-layer chain of one branch (K6 against
     cuDNN).  bf16 (the default) runs the ``wgmma`` body, within
-    ``CONV_TOL``; float32 the f32 body (``csrc/conv5_f32.cu``), within
-    ``F32_FWD_TOL``.  Returns the kernel table's rows (without launches)."""
+    ``CONV_TOL``; float32 the tensor-core f32 body (``csrc/conv5_tf32.cu``)
+    and, on the same inputs, the SIMT one (``csrc/conv5_f32.cu``), each
+    within ``F32_FWD_TOL``, the bound at the tf32 rate for three products an
+    f32 one beside the CUDA cores' f32 bound.  Returns the kernel table's
+    rows (without launches)."""
     import torch.nn.functional as F
 
     from wcmc_tpu_torch.ops import conv5
 
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
-    tol, rate, repeats = (F32_FWD_TOL, F32_FLOPS, 10) if f32 else (CONV_TOL, BF16_FLOPS, 20)
+    # f32 runs three tf32 products for each of its own (split TF32)
+    tol, rate, repeats = (F32_FWD_TOL, TF32_FLOPS / 3, 10) if f32 else (CONV_TOL, BF16_FLOPS, 20)
     es = 4 if f32 else 2
     g = torch.Generator(device=dev).manual_seed(SEED + (9 if f32 else 5))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
@@ -1767,11 +1886,37 @@ def conv_kernel_phase(torch, dev, dtype=None):
             x = conv5._pitched(x, conv5.padded_pitch(xshape[-1]), fill=0)
         conv = layer(act)
         y = conv(x, w, bias, 5, act)
-        err = max_err(torch, [y], [conv5.conv2d_plain(x, w, bias, 5, act)], tol)
+        plain_y = conv5.conv2d_plain(x, w, bias, 5, act)
+        err = max_err(torch, [y], [plain_y], tol)
         if not torch.equal(conv(x, w, bias, 5, act), y):
             raise AssertionError(f"K6 {name} ({dtype}): two launches gave different bits")
         lib_y = library(lib, act).permute(0, 2, 3, 1)
         flops, n_bytes = conv_flops_bytes(xshape, cout, es=es)
+        extra = {}
+        if f32:
+            # the SIMT body on the same inputs, and the CUDA cores' bound beside the tf32 one
+            def simt():
+                return conv5._conv_kernel(x, w, bias, 5, act, act is not None, body="simt")
+
+            simt_y = simt()
+            ref = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+                           bias.double()).permute(0, 2, 3, 1)
+            ref = ref if act is None else torch.relu(ref)
+            extra = {"source": "wcmc_tpu_torch/ops/csrc/conv5_tf32.cu", "body": "tc",
+                     # each f32 version's distance from the f64 convolution
+                     "from_f64_rel_l2": {k: rel_l2(torch, v, ref) for k, v in
+                                         (("tc", y), ("simt", simt_y), ("plain", plain_y))},
+                     "bound_f32_cuda_ms": bound_ms(n_bytes, [(flops, F32_FLOPS)])[0],
+                     "simt": {"source": "wcmc_tpu_torch/ops/csrc/conv5_f32.cu",
+                              "max_abs_err": max_err(torch, [simt_y], [plain_y], tol),
+                              "max_abs_diff_tc": (simt_y.double() - y.double()).abs().max().item(),
+                              "ms": time_ms(torch, simt, repeats, flush),
+                              "device_ms": device_ms(torch, simt, "conv5", flush)}}
+            f64 = extra["from_f64_rel_l2"]
+            if not f64["tc"] <= TF32_F64_FACTOR * f64["plain"]:
+                raise AssertionError(f"K6 {name} (f32) is further from f64 than "
+                                     f"{TF32_F64_FACTOR} times the plain version: {f64}")
+            del simt_y, ref
         rows.append(kernel_row(
             "conv5_f32" if f32 else "conv5", "conv5", "wcmc_tpu/ops/conv5.py:137", err,
             time_ms(torch, lambda: conv(x, w, bias, 5, act), repeats, flush),
@@ -1786,8 +1931,8 @@ def conv_kernel_phase(torch, dev, dtype=None):
             library_max_abs_err=(lib_y.double() - y.double()).abs().max().item(),
             bitwise_repeat=True, out_sha1=digest(y),
             device_ms=device_ms(torch, lambda: conv(x, w, bias, 5, act), "conv5", flush),
-            **({"source": "wcmc_tpu_torch/ops/csrc/conv5_f32.cu"} if f32 else {})))
-        del x, w, bias, lib, y, lib_y
+            **extra))
+        del x, w, bias, lib, y, lib_y, plain_y
 
     # one branch's whole chain per batch of 8 tiles (with paths): K6
     # layer by layer against cuDNN layer by layer on the same weights
@@ -1806,6 +1951,12 @@ def conv_kernel_phase(torch, dev, dtype=None):
             h = in_place[act](F.conv2d(h, wl, bl))
         return h
 
+    def chain_simt():
+        h = x0
+        for _, w, bias, _, act in cases:
+            h = conv5._conv_kernel(h, w, bias, 5, act, act is not None, body="simt")
+        return h
+
     out = chain_k6()
     flops, n_bytes = (sum(v) for v in zip(*(conv_flops_bytes(xs, co, es=es)
                                             for xs, co, _ in with_paths)))
@@ -1816,6 +1967,11 @@ def conv_kernel_phase(torch, dev, dtype=None):
         "device_ms": device_ms(torch, chain_k6, "conv5", flush),
         "library_ms": time_ms(torch, chain_library, repeats // 2, flush),
         "bound_ms": bms, "bound_by": by}
+    if f32:
+        rows[0]["branch_chain"].update({
+            "simt_ms": time_ms(torch, chain_simt, repeats // 2, flush),
+            "simt_device_ms": device_ms(torch, chain_simt, "conv5", flush),
+            "bound_f32_cuda_ms": bound_ms(n_bytes, [(flops, F32_FLOPS)])[0]})
     torch.cuda.synchronize()
     return rows
 
@@ -1888,15 +2044,23 @@ def check_embed_body(kinds, where):
                              "not the tiled body alone")
 
 
+# the kernels whose f32 form runs on the tensor cores (split TF32), by launch
+# counter: their f32 body files under counter_tf32, the SIMT one under counter_f32
+TF32_BODIES = ("conv5", "pathnet_head_bwd")
+
+
 def check_f32_bodies(kinds, where, counters):
-    """An f32 path runs K4 and K5 on their f32 bodies alone: for each launch
-    counter of ``counters`` the profile's device entries must be its f32
-    body's (``counter``_f32), none its bf16 bodies'."""
+    """An f32 path runs its kernels on their f32 bodies alone: for each
+    launch counter of ``counters`` the profile's device entries must be its
+    f32 body's (``counter``_tf32 for ``TF32_BODIES``, else ``counter``_f32),
+    none its bf16 bodies' nor, for ``TF32_BODIES``, the SIMT body's."""
     for counter in counters:
-        bf16 = {k: v for k, v in kinds.items() if k in (counter, counter + "_tiled") and v > 0}
-        if kinds.get(counter + "_f32", 0.0) <= 0 or bf16:
-            raise AssertionError(f"{where}: {counter}'s device ms {kinds.get(counter + '_f32')} "
-                                 f"on its f32 body, {bf16} on its bf16 bodies")
+        body = counter + ("_tf32" if counter in TF32_BODIES else "_f32")
+        others = {k: v for k, v in kinds.items() if v > 0 and k != body
+                  and k in (counter + b for b in DEVICE_BODIES)}
+        if kinds.get(body, 0.0) <= 0 or others:
+            raise AssertionError(f"{where}: {counter}'s device ms {kinds.get(body)} on its f32 "
+                                 f"body {body}, {others} on its other bodies")
 
 
 def check_first_bodies(kinds, where, counters):
@@ -1956,13 +2120,15 @@ def device_kind(name):
     ``mlp_fused_tiled``, apart from its wmma body ``mlp_fused``; the f32
     bodies of K4 and K5 by their own names, ``pathnet_embed_f32``,
     ``pathnet_embed_bwd_f32``, ``pathnet_head_f32`` and
-    ``pathnet_head_bwd_f32``), the library convolutions and products,
+    ``pathnet_head_bwd_f32``, and the tensor-core f32 bodies of K6 and
+    K5-bwd, ``conv5_tf32`` and ``pathnet_head_bwd_tf32``), the library
+    convolutions and products,
     copies, or the rest (PyTorch's elementwise, reduction and copy
     kernels)."""
     m = re.search(r"wcmc::(\w+)", name)
     if m:
         kind = m.group(1).removesuffix("_kernel")
-        if kind.endswith("_f32"):
+        if kind.endswith("_f32") or kind.endswith("_tf32"):
             return kind
         if kind == "softmax_stats":
             return "scatter_softmax"

@@ -14,9 +14,9 @@ kernel runs only on the card: ``tests/test_torch_kernels_gpu.py``).
   kernel interpreted: within 1e-5 of max |ref| (the same f32 math summed
   in another order).
 * The routing of ``conv2d`` / ``conv2d_padded`` on card tensors by dtype:
-  f32 to the f32 entry point (the input as it is where ``_copyable``, else
-  one pitched copy), bf16 to the ``wgmma`` body, and a TypeError for any
-  other dtype.  The launch is intercepted at the kernel lookup
+  f32 to the tensor-core f32 entry point (the SIMT one with ``body="simt"``;
+  the input as it is where ``_copyable``, else one pitched copy), bf16 to
+  the ``wgmma`` body, and a TypeError for any other dtype.  The launch is intercepted at the kernel lookup
   (``_build.kernel``), which names the C entry point; nothing runs.
 """
 
@@ -135,27 +135,34 @@ def launches(monkeypatch):
     monkeypatch.setattr(_build, "stream_of", lambda dev: 0)
 
 
-def _launch(fn, *args):
+def _launch(fn, *args, **kw):
     with pytest.raises(_Launch) as info:
-        fn(*args)
+        fn(*args, **kw)
     return info.value.args
 
 
 @pytest.mark.parametrize("padded", [False, True])
 def test_conv_routes_by_dtype(launches, padded):
-    """f32 to ``wcmc_conv5_f32`` with the plan's padded Cin and the output's
-    pitch (104 for 100 channels where padded); Cin 39 copied once to a pitch
-    of 40, a hidden layer's 104-pitched view taken as it is; bf16 to
-    ``wcmc_conv5``; float16 and float64 a TypeError."""
+    """f32 to the tensor-core body's ``wcmc_conv5_tf32`` with the plan's
+    padded Cin and the output's pitch (104 for 100 channels where padded),
+    and to the SIMT body's ``wcmc_conv5_f32`` only with ``body="simt"``;
+    Cin 39 copied once to a pitch of 40, a hidden layer's 104-pitched view
+    taken as it is; bf16 to ``wcmc_conv5``; float16 and float64 a
+    TypeError."""
     x, wgt, bias = _case(1, 12, 20, 39, 100, 5)
     name, args = _launch(conv5._conv_kernel, x, wgt, bias, 5, "relu", padded)
+    assert name == "wcmc_conv5_tf32"
+    sb, sh, sw, cout, pitch, k, n, cin_pad, chunk, act = args[8:18]
+    assert (sw, cout, pitch, k, n, cin_pad, chunk, act) == (40, 100, 104 if padded else 100, 5,
+                                                            104, 40, 40, 1)
+    name, args = _launch(conv5._conv_kernel, x, wgt, bias, 5, "relu", padded, body="simt")
     assert name == "wcmc_conv5_f32"
     sb, sh, sw, cout, pitch, k, cin_pad, act = args[8:16]
     assert (sw, cout, pitch, k, cin_pad, act) == (40, 100, 104 if padded else 100, 5, 40, 1)
     hidden = conv5._pitched(torch.randn((1, 12, 20, 100)), 104, fill=0)
     _, args = _launch(conv5._conv_kernel, hidden, *_case(1, 12, 20, 100, 100, 5)[1:], 5,
                       "relu", padded)
-    assert args[0] == hidden.data_ptr() and args[10] == 104 and args[14] == 104
+    assert args[0] == hidden.data_ptr() and args[10] == 104 and args[15] == 104
     name, _ = _launch(conv5._conv_kernel, x.to(torch.bfloat16), wgt, bias, 5, "relu", padded)
     assert name == "wcmc_conv5"
     for dtype in (torch.float16, torch.float64):

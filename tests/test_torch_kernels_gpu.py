@@ -2442,3 +2442,234 @@ def test_conv_f32_plan_is_the_kernels_shared_memory(cuda, k):
     fn = _build.library().wcmc_conv5_f32_smem
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
     assert fn(k) == conv5.conv_f32_plan(100, 100, k).total
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core f32 bodies of K6 and K5-bwd (split TF32)
+# ---------------------------------------------------------------------------
+
+def _kernel_names(fn):
+    """The device kernels ``fn`` launches, by name, from one profiler pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,act", [
+    (8, 128, 128, 39, 100, 5, "relu"),      # KPCN layer 1 with paths (n_in 39)
+    (8, 112, 112, 100, 100, 5, "relu"),     # KPCN layer 5
+    (8, 96, 96, 100, 441, 5, None),         # KPCN layer 9: 441 logits in four passes
+    (3, 21, 37, 100, 100, 5, "leaky_relu"), # partial tiles in rows and columns
+    (2, 19, 23, 7, 9, 3, "linear"),         # 3x3, narrow odd channel counts
+    (1, 30, 34, 300, 60, 5, "relu"),        # Cin in two chunks
+    (1, 21, 18, 40, 229, 7, "relu"),        # 7x7, three passes, the last of 5
+])
+def test_conv5_tf32(cuda, b, h, w, cin, cout, k, act):
+    """K6's tensor-core body on f32 input: within F32_FWD_TOL of max of the
+    plain f32 version and of the SIMT body on the same inputs, a second
+    launch bit for bit, as ``conv2d`` and as ``conv2d_padded``."""
+    from wcmc_tpu_torch.ops import conv5
+
+    x, wgt, bias = _conv_case(cuda, b, h, w, cin, cout, k, 80)
+    x = x.float() + 0.01 * torch.randn(x.shape, device=cuda, generator=_gen(81))
+    if cin in (100, 300) and cin % 8:
+        x = conv5._pitched(x, conv5.padded_pitch(cin), fill=0)
+    want = conv5.conv2d_plain(x, wgt, bias, k, act)
+    simt = conv5._conv_kernel(x, wgt, bias, k, act, body="simt")
+    _close(simt, want, F32_FWD_TOL)
+    for padded in (False, True):
+        _build.reset_counts()
+        got = conv5._conv_kernel(x, wgt, bias, k, act, padded)
+        assert dict(_build.launches) == {"conv5": 1} and not _build.plain_calls
+        if padded:
+            assert not got._base[..., cout:].any()
+        _close(got, want, F32_FWD_TOL)
+        _close(got, simt, F32_FWD_TOL)
+        assert torch.equal(conv5._conv_kernel(x, wgt, bias, k, act, padded), got)
+
+
+def test_conv5_f32_routes_to_the_tensor_cores(cuda):
+    """``conv2d`` on f32 launches the tensor-core body alone; ``body="simt"``
+    the SIMT body alone."""
+    from wcmc_tpu_torch.ops import conv5
+
+    x, wgt, bias = _conv_case(cuda, 2, 30, 30, 39, 100, 5, 82)
+    x = x.float()
+    names = _kernel_names(lambda: conv5.conv2d(x, wgt, bias, 5, "relu"))
+    assert any("conv5_tf32_kernel" in n for n in names), names
+    assert not any("conv5_f32_kernel" in n for n in names), names
+    names = _kernel_names(lambda: conv5._conv_kernel(x, wgt, bias, 5, "relu", body="simt"))
+    assert any("conv5_f32_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("cin,cout,k", [(40, 100, 5), (104, 100, 5), (104, 441, 5), (8, 9, 3),
+                                        (300, 60, 5), (40, 229, 7)])
+def test_conv_tc_plan_is_the_kernels_shared_memory(cuda, cin, cout, k):
+    import ctypes
+
+    from wcmc_tpu_torch.ops import conv5
+
+    fn = _build.library().wcmc_conv5_tf32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    plan = conv5.conv_tc_plan(cin, cout, k)
+    assert fn(k, plan.chunk, plan.n, plan.npass) == plan.total
+
+
+# (ce, c1, cout, acts, moments, cmajor)
+HEAD_TC_CASES = {
+    "kpcn_cmajor": (128, 256, 6, pf.HEAD_ACTS, True, True),
+    "kpcn": (128, 256, 6, pf.HEAD_ACTS, True, False),
+    # KPCN's head with --pnet_out_size 6 (two n8 tiles of Cout), the 64-wide one at 16
+    "kpcn_cout12": (128, 256, 12, pf.HEAD_ACTS, True, True),
+    "pathnet64_cout16": (64, 128, 16, pf.HEAD_ACTS, True, False),
+    "pathnet64": (64, 128, 3, pf.HEAD_ACTS, True, False),
+    "multisteps": (128, 128, 128, pf.LEAKY[:2], True, False),
+    "multisteps_bare": (128, 128, 128, pf.LEAKY[:2], False, False),
+    "padded": (48, 100, 5, pf.HEAD_ACTS, True, True),
+}
+
+
+def _head_bwd_tf32_case(cuda, form, b, s, hw, acts=None):
+    """K5-bwd's tensor-core body on f32 e: weight and bias gradients within
+    F32_GRAD_TOL of max, d(e) and d(ctx) within F32_ROW_L2_TOL in relative L2
+    of the plain f32 version and of the SIMT body on the same inputs; two
+    launches bit for bit; each cotangent absent in turn."""
+    ce, c1, cout, form_acts, moments, cmajor = HEAD_TC_CASES[form]
+    acts = acts or form_acts
+    g = _gen(83)
+    e = torch.randn((b, s, hw, ce), device=cuda, generator=g)
+    ctx = torch.randn((b, hw, ce), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (2 * ce, c1, cout))
+    gout = torch.randn((b, s, cout, hw) if cmajor else (b, s, hw, cout), device=cuda,
+                       generator=g)
+    gsum = torch.randn((b, hw, cout), device=cuda, generator=g) if moments else None
+    gsq = 0.1 * torch.randn((b, hw, cout), device=cuda, generator=g) if moments else None
+    sets = [(gout, gsum, gsq)] + ([(gout, None, None), (None, gsum, gsq)] if moments else [])
+    for gs in sets:
+        _build.reset_counts()
+        got = pf._head_bwd_kernel(e, ctx, *gs, ws, bs, acts, cmajor)
+        assert dict(_build.launches) == {"pathnet_head_bwd": 1} and not _build.plain_calls
+        simt = pf._head_bwd_kernel(e, ctx, *gs, ws, bs, acts, cmajor, body="simt")
+        want = pf._head_bwd_plain(e, ctx, *gs, ws, bs, acts, cmajor)
+        for ref in (want, simt):
+            for a, w in zip(got[2] + got[3], ref[2] + ref[3]):
+                assert a.shape == w.shape
+                _close(a, w, F32_GRAD_TOL)
+            _close_l2(got[0], ref[0], F32_ROW_L2_TOL)
+            _close_l2(got[1], ref[1], F32_ROW_L2_TOL)
+        again = pf._head_bwd_kernel(e, ctx, *gs, ws, bs, acts, cmajor)
+        assert all(torch.equal(a, w) for a, w in zip(
+            [again[0], again[1], *again[2], *again[3]], [got[0], got[1], *got[2], *got[3]]))
+
+
+@pytest.mark.parametrize("form", list(HEAD_TC_CASES))
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 5, 31)])
+def test_pathnet_head_bwd_tf32(cuda, form, b, s, hw):
+    _head_bwd_tf32_case(cuda, form, b, s, hw)
+
+
+@pytest.mark.parametrize("form", list(HEAD_TC_CASES))
+def test_pathnet_head_bwd_tf32_many_tiles(cuda, form):
+    """The same at 512 tiles (several a persistent block: dW1e and dW2 carried
+    across tiles, dW1c added to the block's partial), with linear
+    activations: at 65,536 rows a relu whose recomputed pre-activation lies
+    within rounding of zero takes either side in any two f32 orders of sums
+    (the plain version against an f64 one flips some), and one such row moves
+    a weight gradient by ~1e-3 of its max here; these tolerances are set for
+    that at the training shape's 10^6 rows (``chip_smoke.py``)."""
+    _head_bwd_tf32_case(cuda, form, 2, 8, 4096, acts=("linear", "linear"))
+
+
+# mirrors chip_smoke.py's TF32_F64_FACTOR
+TF32_F64_FACTOR = 4.0
+
+
+def _head_bwd_linear_f64(e, ctx, g, gsum, gsq, ws, bs, cmajor):
+    """K5-bwd with linear activations in f64: (d(e), d(ctx), [dW1, dW2])."""
+    d = torch.float64
+    ce = e.shape[-1]
+    e, ctx = e.to(d), ctx.to(d)
+    (w1, w2), (b1, b2) = [w.to(d) for w in ws], [v.to(d) for v in bs]
+    h1 = e @ w1[:ce] + (ctx @ w1[ce:])[:, None] + b1
+    h2 = h1 @ w2 + b2
+    gz = (g.transpose(2, 3) if cmajor else g).to(d)
+    if gsum is not None:
+        gz = gz + gsum.to(d)[:, None] + 2.0 * h2 * gsq.to(d)[:, None]
+    g1 = gz @ w2.t()
+    gs = g1.sum(dim=1)
+    dw1 = torch.cat([e.reshape(-1, ce).t() @ g1.reshape(-1, g1.shape[-1]),
+                     ctx.reshape(-1, ctx.shape[-1]).t() @ gs.reshape(-1, gs.shape[-1])])
+    dw2 = h1.reshape(-1, h1.shape[-1]).t() @ gz.reshape(-1, gz.shape[-1])
+    return g1 @ w1[:ce].t(), gs @ w1[ce:].t(), [dw1, dw2]
+
+
+@pytest.mark.parametrize("form", list(HEAD_TC_CASES))
+def test_pathnet_head_bwd_tf32_from_f64(cuda, form):
+    """At 512 tiles with linear activations (the arithmetic alone): d(e),
+    d(ctx) (relative L2), dW1 and dW2 (max error of max) each within
+    TF32_F64_FACTOR times the plain f32 version's own distance from f64.  A
+    body that dropped a lo term, or summed the weight gradients into the
+    tensor cores' truncating accumulator, is 6-300 times further."""
+    ce, c1, cout, _, moments, cmajor = HEAD_TC_CASES[form]
+    b, s, hw = 2, 8, 4096
+    g = _gen(85)
+    e = torch.randn((b, s, hw, ce), device=cuda, generator=g)
+    ctx = torch.randn((b, hw, ce), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (2 * ce, c1, cout))
+    cot = (torch.randn((b, s, cout, hw) if cmajor else (b, s, hw, cout), device=cuda, generator=g),
+           torch.randn((b, hw, cout), device=cuda, generator=g) if moments else None,
+           0.1 * torch.randn((b, hw, cout), device=cuda, generator=g) if moments else None)
+    lin = ("linear", "linear")
+    ref = _head_bwd_linear_f64(e, ctx, *cot, ws, bs, cmajor)
+
+    def dist(out):
+        return [((out[i].double() - ref[i]).norm() / ref[i].norm()).item() for i in (0, 1)] + [
+            ((a.double() - w).abs().max() / w.abs().max()).item() for a, w in zip(out[2], ref[2])]
+
+    tc = dist(pf._head_bwd_kernel(e, ctx, *cot, ws, bs, lin, cmajor))
+    plain = dist(pf._head_bwd_plain(e, ctx, *cot, ws, bs, lin, cmajor))
+    assert all(t <= TF32_F64_FACTOR * p for t, p in zip(tc, plain)), (tc, plain)
+
+
+def test_pathnet_head_bwd_f32_routes_to_the_tensor_cores(cuda):
+    """``pathnet_head_bwd`` on f32 launches the tensor-core body alone (and
+    its partials' sum); ``body="simt"`` the SIMT body, and so does a head no
+    tensor-core form holds (a dual PathNet head with 24 outputs), against
+    the plain version as the tensor-core body is."""
+    g = _gen(84)
+    e = torch.randn((1, 2, 64, 64), device=cuda, generator=g)
+    ctx = torch.randn((1, 64, 64), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (128, 128, 3))
+    gout = torch.randn((1, 2, 64, 3), device=cuda, generator=g)
+    names = _kernel_names(lambda: pf.pathnet_head_bwd(e, ctx, gout, None, None, ws, bs))
+    assert any("pathnet_head_bwd_tf32_kernel" in n for n in names), names
+    assert not any("pathnet_head_bwd_f32_kernel" in n for n in names), names
+    names = _kernel_names(lambda: pf._head_bwd_kernel(e, ctx, gout, None, None, ws, bs,
+                                                      pf.HEAD_ACTS, False, body="simt"))
+    assert any("pathnet_head_bwd_f32_kernel" in n for n in names), names
+    e = torch.randn((1, 2, 64, 128), device=cuda, generator=g)
+    ctx = torch.randn((1, 64, 128), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (256, 256, 24))
+    gout = torch.randn((1, 2, 24, 64), device=cuda, generator=g)
+    names = _kernel_names(lambda: pf.pathnet_head_bwd(e, ctx, gout, None, None, ws, bs,
+                                                      cmajor=True))
+    assert any("pathnet_head_bwd_f32_kernel" in n for n in names), names
+    got = pf.pathnet_head_bwd(e, ctx, gout, None, None, ws, bs, cmajor=True)
+    want = pf._head_bwd_plain(e, ctx, gout, None, None, ws, bs, pf.HEAD_ACTS, True)
+    for a, w in zip(got[2] + got[3], want[2] + want[3]):
+        _close(a, w, F32_GRAD_TOL)
+    _close_l2(got[0], want[0], F32_ROW_L2_TOL)
+
+
+@pytest.mark.parametrize("form", pf.HEAD_TC_FORMS)
+def test_head_bwd_tc_plan_is_the_kernels_shared_memory(cuda, form):
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_head_bwd_tf32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    ce, c1, kout = form
+    assert fn(ce, c1, kout) == pf.head_bwd_tc_plan(8, 16384, ce, ce, c1, kout).total

@@ -9,7 +9,8 @@ the CPU (the kernels run only on the card: ``tests/test_torch_kernels_gpu.py``).
   128^3 and [128 | 128] -> 128 -> 128), and their refusals.
 * The routing of the four wrappers on card tensors by dtype: f32 to the f32
   body in any form (Multisteps' head backward with its f32 cotangent, and
-  PathNet's embedding backward with d(x), which the bf16 bodies refuse),
+  PathNet's embedding backward with d(x), which the bf16 bodies refuse; the
+  head backward to its tensor-core body, the SIMT one with ``body="simt"``),
   bf16 to the bf16 bodies as before, and a TypeError for any other dtype.
   Here the launch is intercepted at the kernel lookup (``_build.kernel``),
   which names the C entry point; nothing runs.
@@ -158,7 +159,9 @@ def test_head_routes_by_dtype(launches, form):
         pf._head_fwd_kernel(e, ctx, ws, bs, acts, moments, False, torch.float16)
     gsum = torch.zeros((1, 40, cout)) if moments else None
     assert _entry(pf._head_bwd_kernel, e, ctx, gout, gsum, gsum, ws, bs, acts,
-                  False) == "wcmc_pathnet_head_bwd_f32"
+                  False) == "wcmc_pathnet_head_bwd_tf32"
+    assert _entry(pf._head_bwd_kernel, e, ctx, gout, gsum, gsum, ws, bs, acts, False,
+                  body="simt") == "wcmc_pathnet_head_bwd_f32"
     eb = e.to(torch.bfloat16)
     if acts == pf.LEAKY[:2]:
         # the bf16 Multisteps form reads a bf16 cotangent and refuses an f32 one

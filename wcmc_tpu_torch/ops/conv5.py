@@ -27,11 +27,15 @@ convolution before its bias; this does not, as the reference's
   pitch of Cin rounded up to 8.
 
 The kernel computes bfloat16 (``csrc/conv5.cu``, on ``wgmma``) or float32
-(``csrc/conv5_f32.cu``: a direct SIMT convolution, full f32 fused
-multiply-adds; ``conv_f32_plan`` its tiling, ``pack_weights_f32`` its
-weight order, ``_conv_f32_walk`` its order on the CPU), raises
-``TypeError`` for another dtype and ``ValueError`` for a shape it does not
-take.
+(``csrc/conv5_tf32.cu``: the same implicit GEMM on ``wgmma`` in split TF32,
+each f32 product as lo . hi + hi . lo + hi . hi of its tf32 halves;
+``conv_tc_plan`` its tiling, ``pack_weights_tf32`` its weight order,
+``_conv_tc_walk`` its arithmetic on the CPU), raises ``TypeError`` for
+another dtype and ``ValueError`` for a shape it does not take.  The first
+f32 body (``csrc/conv5_f32.cu``: a direct SIMT convolution, full f32 fused
+multiply-adds; ``conv_f32_plan``, ``pack_weights_f32``, ``_conv_f32_walk``)
+stays as the card tests' reference: ``_conv_kernel(..., body="simt")``
+runs it, and no entry point does.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch.nn.functional as F
 
 from wcmc_tpu_torch.ops import _build
 from wcmc_tpu_torch.ops._pack import PackCache
+from wcmc_tpu_torch.ops._tf32 import mm_tf32x3, split_tf32
 from wcmc_tpu_torch.ops.mlp_fused import _act
 
 # activation codes of the kernel (mlp_act of csrc/mlp.cuh)
@@ -197,8 +202,13 @@ def _require_cuda(x, w, bias):
     return dev
 
 
-def _conv_kernel(x, w, bias, ksize, act, padded=False):
+def _conv_kernel(x, w, bias, ksize, act, padded=False, body="tc"):
+    """K6 on the card.  f32 input runs the tensor-core body (``body="tc"``)
+    or, with ``body="simt"``, the first f32 body (the card tests' and
+    ``chip_smoke.py``'s reference); bf16 input the ``wgmma`` body."""
     _check_args(x, w, bias, ksize, act)
+    if body not in ("tc", "simt"):
+        raise ValueError(f"conv5: no f32 body {body!r}; 'tc' or 'simt'")
     dev = _require_cuda(x, w, bias)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"conv5 kernel computes in bfloat16 or float32, got {x.dtype}")
@@ -212,7 +222,13 @@ def _conv_kernel(x, w, bias, ksize, act, padded=False):
         y = y[..., :cout]
     if b == 0:
         return y
-    if x.dtype == torch.float32:
+    if x.dtype == torch.float32 and body == "tc":
+        plan = conv_tc_plan(cin, cout, ksize)
+        wp = _packed.get((w,), ("tf32", plan.n, plan.chunk, plan.cin_pad),
+                         lambda t: pack_weights_tf32(t, plan.n, plan.chunk, plan.cin_pad))
+        fn = _build.kernel("wcmc_conv5_tf32", *_ARGTYPES)
+        tiling = (plan.n, plan.cin_pad, plan.chunk)
+    elif x.dtype == torch.float32:
         plan = conv_f32_plan(cin, cout, ksize)
         wp = _packed.get((w,), ("f32", plan.cin_pad),
                          lambda t: pack_weights_f32(t, plan.cin_pad))
@@ -344,6 +360,126 @@ def _conv_f32_walk(x, w, bias, ksize, act=None):
                 y[img, y0:y1, x0:x1, n0:n1] = _act(act or "linear",
                                                    acc[..., :n1 - n0] + bias.float()[n0:n1])
     return y
+
+
+# ---------------------------------------------------------------------------
+# K6's tensor-core f32 body (csrc/conv5_tf32.cu): plan, weight order, walk
+# ---------------------------------------------------------------------------
+
+# csrc/conv5_tf32.cu's weight ring, widest chunk and output rows a block (3 warpgroups)
+TC_STAGES, TC_MAX_CHUNK, TC_ROWS = 4, 256, 12
+
+
+class ConvTcPlan(NamedTuple):
+    """How K6's tensor-core f32 body runs a layer: ``n`` output channels a
+    pass (104 or 112), ``rows`` output rows a block (4 a warpgroup),
+    ``npass`` passes, ``cin_pad`` packed weight rows a tap (whole chunks),
+    ``chunk`` input channels staged at once (a multiple of 8, staged at a
+    pitch of ``xpitch`` floats); ``smem`` the block's shared memory as
+    (buffer, bytes) pairs in the kernel's carve order, each a multiple of
+    128 bytes, ``total`` their sum (what ``wcmc_conv5_tf32_smem``
+    returns)."""
+    n: int
+    rows: int
+    npass: int
+    cin_pad: int
+    chunk: int
+    xpitch: int
+    smem: tuple
+    total: int
+
+
+def _tc_xpitch(chunk):
+    """A staged pixel's floats: the chunk rounded up to 8 mod 16."""
+    return chunk if chunk % 16 == 8 else chunk + 8
+
+
+def _tc_smem(ksize, chunk, n, rows, npass):
+    def r(v):
+        return _round_up(v, 128)
+    pix = (rows + ksize - 1) * (TILE_W + ksize - 1)
+    return (("x", r(4 * pix * _tc_xpitch(chunk))), ("w", TC_STAGES * r(64 * n)),
+            ("bias", r(4 * npass * n)), ("full", r(8 * TC_STAGES)),
+            ("released", r(4 * TC_STAGES)), ("slabs", r(8 * TC_MAX_CHUNK // 8)))
+
+
+@functools.lru_cache(maxsize=None)
+def conv_tc_plan(cin: int, cout: int, ksize: int) -> ConvTcPlan:
+    """K6's tensor-core f32 body for a layer: 12-row blocks (3 warpgroups,
+    each thread holding a pass's running sums and a step's partials: 170
+    registers a thread), Cout <= 104 in one pass of 104 channels, wider Cout
+    in passes of 112 (441 in 4); Cin (rounded up to 8) in the fewest equal
+    chunks of whole slabs of 8 whose input tile and weight ring fit (the
+    KPCN's 40 and 104 in one).  ValueError where no chunk of 8 fits."""
+    if cin < 1 or cout < 1 or ksize < 1:
+        raise ValueError(f"conv5 tf32 body: no layer {cin} -> {cout} at {ksize}x{ksize}")
+    n, rows = (104 if cout <= 104 else 112), TC_ROWS
+    npass = -(-cout // n)
+    need = _round_up(cin, 8)
+    for nchunks in range(1, need // 8 + 1):
+        chunk = _round_up(-(-need // nchunks), 8)
+        smem = _tc_smem(ksize, chunk, n, rows, npass)
+        total = sum(m for _, m in smem)
+        if chunk <= TC_MAX_CHUNK and total <= SMEM_LIMIT:
+            return ConvTcPlan(n, rows, npass, nchunks * chunk, chunk, _tc_xpitch(chunk), smem,
+                              total)
+    raise ValueError(f"conv5 tf32 body: a {ksize}x{ksize} window's input tile does not fit "
+                     f"a block's {SMEM_LIMIT} bytes of shared memory")
+
+
+def _k_order():
+    """The input channel of each k of a k8 step, as the kernel's A fragment
+    holds them: k t <- channel 2t, k t + 4 <- channel 2t + 1."""
+    return [2 * k for k in range(4)] + [2 * k + 1 for k in range(4)]
+
+
+def pack_weights_tf32(w, n: int, chunk: int, cin_pad: int):
+    """``w (K, K, Cin, Cout)`` in the order K6's tensor-core body streams it,
+    split into tf32 hi and lo: ``(npass, nchunks, chunk / 8, K * K, 2, n /
+    8, 2, 8, 4)`` = [pass][chunk][k8 slab][tap][hi, lo][n8 group][k half]
+    [8 output channels][4 k], f32 bit patterns with the low 13 bits zero,
+    zero past Cin and Cout.  Within a k8 slab, k runs over the channels in
+    ``_k_order()``; each innermost 8 x 4 block is one K-major core matrix
+    of 128 bytes, and each step (pass, chunk, slab, tap) one contiguous
+    block of 64 n bytes."""
+    k, _, cin, cout = w.shape
+    npass = -(-cout // n)
+    wp = torch.zeros((k, k, cin_pad, npass * n), dtype=torch.float32, device=w.device)
+    wp[:, :, :cin, :cout] = w
+    nch = cin_pad // chunk
+    # tap, chunk, slab, k (channel order), pass, n8, r
+    wp = wp.view(k * k, nch, chunk // 8, 8, npass, n // 8, 8)
+    wp = wp[:, :, :, _k_order()]
+    hi, lo = split_tf32(wp)
+    wp = torch.stack([hi, lo])                         # hl, tap, ch, sl, k, p, j, r
+    wp = wp.view(2, k * k, nch, chunk // 8, 2, 4, npass, n // 8, 8)
+    # -> p, ch, sl, tap, hl, j, kh, r, k4
+    return wp.permute(6, 2, 3, 1, 0, 7, 4, 8, 5).contiguous()
+
+
+def _conv_tc_walk(x, w, bias, ksize, act=None):
+    """A plain walk of K6's tensor-core body on the CPU: each output the
+    split-TF32 sum of its products from zero, step by step in the kernel's
+    (chunk, slab of 8 channels, tap) order, each step's three tf32 products
+    (lo . hi, hi . lo, hi . hi) over its 8 channels added in turn to the f32
+    accumulator; then the bias and the activation.  Returns what
+    ``conv2d_plain`` returns for f32 input."""
+    _check_args(x, w, bias, ksize, act)
+    b, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    ho, wo = h - ksize + 1, wd - ksize + 1
+    plan = conv_tc_plan(cin, cout, ksize)
+    xf = torch.zeros((b, h, wd, plan.cin_pad))
+    xf[..., :cin] = x.float()
+    wf = torch.zeros((ksize, ksize, plan.cin_pad, cout))
+    wf[:, :, :cin] = w.float()
+    acc = torch.zeros((b, ho, wo, cout))
+    for c0 in range(0, plan.cin_pad, 8):      # chunk by chunk, slab by slab
+        for tap in range(ksize * ksize):
+            dy, dx = divmod(tap, ksize)
+            xs = xf[:, dy:dy + ho, dx:dx + wo, c0:c0 + 8]
+            acc = mm_tf32x3(acc, xs, wf[dy, dx, c0:c0 + 8])
+    return _act(act or "linear", acc + bias.float())
 
 
 def _act_grad_mask(act, y, g):

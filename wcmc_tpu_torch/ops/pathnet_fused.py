@@ -62,6 +62,7 @@ import torch
 
 from wcmc_tpu_torch.ops import _build
 from wcmc_tpu_torch.ops._pack import PackCache
+from wcmc_tpu_torch.ops._tf32 import mm_tf32x3, split_tf32
 from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT
 from wcmc_tpu_torch.ops.kernel_apply import H100_SMS, SM_SMEM
 from wcmc_tpu_torch.ops.mlp_fused import (
@@ -1074,14 +1075,24 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor):
+def _head_bwd_kernel(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor, body="tc"):
+    """K5-bwd on the card.  f32 ``e`` runs the tensor-core body
+    (``body="tc"``) where one of its forms holds the head, else the first
+    f32 body, the SIMT one, which takes any head up to 256 wide (a dual
+    PathNet head with more than 8 outputs a branch); ``body="simt"`` runs
+    the SIMT body whatever the head (the card tests' and
+    ``chip_smoke.py``'s reference).  bf16 ``e`` runs the bf16 bodies."""
     dev = _require_cuda("pathnet_head_bwd", e, ctx, *ws, *bs)
     codes = _check_head_card(e, acts)
-    if e.dtype == torch.float32:
-        return _head_bwd_f32_kernel(e, ctx, g, gsum, gsq, ws, bs, codes, cmajor, dev)
+    if body not in ("tc", "simt"):
+        raise ValueError(f"pathnet_head_bwd: no f32 body {body!r}; 'tc' or 'simt'")
     b, s, hw, ce = e.shape
     cc = ctx.shape[-1]
     c1, cout = ws[0].shape[1], ws[1].shape[1]
+    if e.dtype == torch.float32 and body == "tc" and head_tc_form(ce, cc, c1, cout):
+        return _head_bwd_tc_kernel(e, ctx, g, gsum, gsq, ws, bs, codes, cmajor, dev)
+    if e.dtype == torch.float32:
+        return _head_bwd_f32_kernel(e, ctx, g, gsum, gsq, ws, bs, codes, cmajor, dev)
     kout, g_dtype = _head_bwd_form(acts, cout, None if g is None else g.dtype)
     if ce % 16 or cc % 16 or c1 % 16:
         raise ValueError("pathnet_head_bwd kernel needs Ce, Cc, C1 multiples of 16, got "
@@ -1340,6 +1351,265 @@ def _head_bwd_f32_kernel(e, ctx, g, gsum, gsq, ws, bs, codes, cmajor, dev):
     _build.launches["pathnet_head_bwd"] += 1
     dw1, dw2, db1, db2 = torch.split(out, [(ce + cc) * c1, c1 * cout, c1, cout])
     return de, dctx, [dw1.view(ce + cc, c1), dw2.view(c1, cout)], [db1, db2]
+
+
+# ---------------------------------------------------------------------------
+# K5-bwd's tensor-core f32 body (csrc/pathnet_head_bwd_tf32.cu): forms, plan,
+# weight pack, walk and wrapper
+# ---------------------------------------------------------------------------
+
+# (Ce = Cc, C1, Cout padded) of the body's instantiations: KPCN's head and
+# the 64-wide PathNet's, each for Cout up to 8 and up to 16 (what the bf16
+# body takes), Multisteps' update chain
+HEAD_TC_FORMS = ((128, 256, 8), (128, 256, 16), (64, 128, 8), (64, 128, 16), (128, 128, 128))
+HEAD_TC_PIX, HEAD_TC_SAMPLES = 16, 4   # a tile's pixels; a chunk's samples (64 rows)
+# a k8 step of a warp's ring of weight fragments, in floats: 4 n8 tiles x 32
+# lanes x 4; 8 warps
+HEAD_TC_RING_STEP, HEAD_TC_WARPS = 4 * 32 * 4, 8
+
+
+class HeadTcPlan(NamedTuple):
+    """How K5-bwd's tensor-core f32 body runs a head: the instantiation
+    ``form`` (Ce = Cc, C1, Cout padded) its widths are zero-padded to;
+    ``blocks`` persistent blocks (one an SM) over ``tiles`` tiles of 16
+    pixels, each tile its samples in chunks of 4; ``smem`` the block's
+    shared memory as (buffer, bytes) pairs in the kernel's carve order,
+    each a multiple of 128 bytes, ``total`` their sum (what
+    ``wcmc_pathnet_head_bwd_tf32_smem`` returns); ``ring`` the k8 steps
+    each warp's ring of weight fragments holds (three where they fit, else
+    two); ``parts`` the floats of a block's partial (dW1e | dW1c | dW2 |
+    db1 | db2 at the padded widths)."""
+    form: tuple
+    tiles: int
+    blocks: int
+    smem: tuple
+    total: int
+    ring: int
+    parts: int
+
+
+def head_tc_form(ce, cc, c1, cout):
+    """The cheapest instantiation of ``HEAD_TC_FORMS`` that holds the head
+    (by multiply-adds a row at the padded widths), None if none does;
+    ValueError for a width below 1."""
+    if min(ce, cc, c1, cout) < 1:
+        raise ValueError(f"pathnet_head_bwd: widths (Ce, Cc, C1, Cout) {(ce, cc, c1, cout)}")
+    fits = [f for f in HEAD_TC_FORMS if max(ce, cc) <= f[0] and c1 <= f[1] and cout <= f[2]]
+    return min(fits, key=lambda f: f[0] * f[1] + f[1] * f[2]) if fits else None
+
+
+def _tc_pitch(c):
+    return c if c == 8 else c + 8
+
+
+@functools.lru_cache(maxsize=None)
+def head_bwd_tc_plan(b, hw, ce, cc, c1, cout, sms=H100_SMS) -> HeadTcPlan:
+    """K5-bwd's tensor-core body for (b, ., hw) rows of a head [Ce | Cc] ->
+    C1 -> Cout: the form, the grid, and the carve: e twice (the chunk and
+    the next), h1 / g1 and g / gz at 64 rows, the context, ctx . W1c, G,
+    gsum and gsq at 16 pixels, f32, rows at a pitch of the width + 8 floats
+    (8 for a width of 8); then the warps' rings of weight fragments, three
+    k8 steps deep where the block's shared memory holds them, else two.
+    ValueError for a head no form holds."""
+    form = head_tc_form(ce, cc, c1, cout)
+    if form is None:
+        raise ValueError(f"pathnet_head_bwd tf32 body takes heads up to one of {HEAD_TC_FORMS} "
+                         f"(Ce = Cc, C1, Cout), got {(ce, cc, c1, cout)}")
+    kce, kc1, kout = form
+    rows = HEAD_TC_PIX * HEAD_TC_SAMPLES
+    smem = (("e0", rows * _tc_pitch(kce)), ("e1", rows * _tc_pitch(kce)),
+            ("h", rows * _tc_pitch(kc1)), ("g", rows * _tc_pitch(kout)),
+            ("ctx", HEAD_TC_PIX * _tc_pitch(kce)), ("zc", HEAD_TC_PIX * _tc_pitch(kc1)),
+            ("G", HEAD_TC_PIX * _tc_pitch(kc1)), ("gsum", HEAD_TC_PIX * kout),
+            ("gsq", HEAD_TC_PIX * kout))
+    smem = tuple((n, _r128(4 * c)) for n, c in smem)
+    tiles_bytes = sum(m for _, m in smem)
+    ring = 3 if tiles_bytes + _r128(4 * HEAD_TC_WARPS * 3 * HEAD_TC_RING_STEP) <= SMEM_LIMIT \
+        else 2
+    smem += (("ring", _r128(4 * HEAD_TC_WARPS * ring * HEAD_TC_RING_STEP)),)
+    tiles = b * -(-hw // HEAD_TC_PIX)
+    return HeadTcPlan(form, tiles, max(1, min(tiles, sms)), smem, sum(m for _, m in smem), ring,
+                      2 * kce * kc1 + kc1 * kout + kc1 + kout)
+
+
+def pack_b_tf32(w):
+    """A (K, N) matrix, K and N multiples of 8, as the B operand of
+    mma.m16n8k8 in split TF32: ``(N / 8, K / 8, 32, 4)`` = [n8 tile][k8
+    step][lane][hi(b0), hi(b1), lo(b0), lo(b1)], with lane = 4 g + t, b0 =
+    w[8 k + 2t][8 n + g] and b1 = w[8 k + 2t + 1][8 n + g] (k t and k t + 4
+    of the fragment hold channels 2t and 2t + 1, as the kernels' A
+    fragments of row-major tiles do)."""
+    k, n = w.shape
+    hi, lo = split_tf32(w.float().reshape(k // 8, 4, 2, n // 8, 8))   # ks, t, e, jn, g
+    return torch.stack([hi, lo]).permute(4, 1, 5, 2, 0, 3).reshape(n // 8, k // 8, 32, 4)
+
+
+def _pad2(w, k, n):
+    out = torch.zeros((k, n), dtype=torch.float32, device=w.device)
+    out[:w.shape[0], :w.shape[1]] = w
+    return out
+
+
+def pack_head_tf32(w1, w2, b1, b2, ce, form):
+    """The head's parameters as the tensor-core body reads them, at the
+    widths of ``form`` (zero past the head's): ``(wp, b1, b2)``, ``wp`` the
+    packed B operands (``pack_b_tf32``) of W1e, W1c, W2, W2^T, W1e^T and
+    W1c^T, one after the other; ``b1`` and ``b2`` f32."""
+    kce, kc1, kout = form
+    w1 = w1.float()
+    w1e, w1c = _pad2(w1[:ce], kce, kc1), _pad2(w1[ce:], kce, kc1)
+    w2p = _pad2(w2, kc1, kout)
+    mats = (w1e, w1c, w2p, w2p.t(), w1e.t(), w1c.t())
+    wp = torch.cat([pack_b_tf32(m).reshape(-1) for m in mats])
+    b1p = torch.zeros(kc1, dtype=torch.float32, device=w1.device)
+    b1p[:b1.shape[0]] = b1
+    b2p = torch.zeros(kout, dtype=torch.float32, device=w1.device)
+    b2p[:b2.shape[0]] = b2
+    return wp, b1p, b2p
+
+
+def _packed_head_tf32(ws, bs, ce, form):
+    """``pack_head_tf32``, made once per parameter value."""
+    return _packed.get((*ws, *bs), ("tf32", ce, form),
+                       lambda w1, w2, b1, b2: pack_head_tf32(w1, w2, b1, b2, ce, form))
+
+
+def _mm8(acc, a, b):
+    """``acc`` + ``a @ b`` in split TF32, k8 step by k8 step (the kernel's
+    order over K), each step's partial from zero added to ``acc``
+    (``mm_tf32x3``)."""
+    for k0 in range(0, a.shape[-1], 8):
+        acc = mm_tf32x3(acc, a[..., k0:k0 + 8], b[k0:k0 + 8])
+    return acc
+
+
+def _head_bwd_tc_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, sms=H100_SMS):
+    """A plain walk of K5-bwd's tensor-core body on the CPU, f32: the plan's
+    form (widths zero-padded, Cout to 8 or 128), its persistent blocks'
+    tiles of 16 pixels and chunks of 4 samples (64 rows, sample-major, rows
+    past S or HW zero and their gz zero), every product in split TF32 k8
+    step by k8 step (``_mm8``) in the kernel's order, dW1e and dW2 carried
+    through each block's walk, dW1c added to the block's partial tile by
+    tile, the bias sums chunk by chunk, the partials summed in block
+    order.  Returns what ``_head_bwd_plain`` returns for f32 ``e``."""
+    b, s, hw, ce = e.shape
+    cc, (c1, cout) = ctx.shape[-1], ws[1].shape
+    plan = head_bwd_tc_plan(b, hw, ce, cc, c1, cout, sms)
+    kce, kc1, kout = plan.form
+    a1, a2 = acts
+    wp = [_pad2(ws[0][:ce], kce, kc1), _pad2(ws[0][ce:], kce, kc1), _pad2(ws[1], kc1, kout)]
+    w1e, w1c, w2 = wp
+    b1 = torch.zeros(kc1)
+    b1[:c1] = bs[0]
+    b2 = torch.zeros(kout)
+    b2[:cout] = bs[1]
+    ef = torch.zeros((b, s, hw, kce))
+    ef[..., :ce] = e.float()
+    cf = torch.zeros((b, hw, kce))
+    cf[..., :cc] = ctx.float()
+
+    def per_pixel(t):
+        out = torch.zeros((b, hw, kout))
+        if t is not None:
+            out[..., :cout] = t.float()
+        return out
+
+    gf = torch.zeros((b, s, hw, kout))
+    if g is not None:
+        gf[..., :cout] = (g.transpose(2, 3) if cmajor else g).float()
+    gs, gq = per_pixel(gsum), per_pixel(gsq)
+    de = torch.zeros((b, s, hw, kce))
+    dctx = torch.zeros((b, hw, kce))
+    per_image = -(-hw // HEAD_TC_PIX)
+    rows = HEAD_TC_PIX * HEAD_TC_SAMPLES
+    parts = []
+    for blk in range(plan.blocks):
+        dw1e, dw1c = torch.zeros((kce, kc1)), torch.zeros((kce, kc1))
+        dw2, db1, db2 = torch.zeros((kc1, kout)), torch.zeros(kc1), torch.zeros(kout)
+        for t in range(blk, plan.tiles, plan.blocks):
+            bi, p0 = divmod(t, per_image)
+            p0 *= HEAD_TC_PIX
+            pix = torch.arange(p0, p0 + HEAD_TC_PIX)
+            pok = pix < hw
+            pc = pix.clamp(max=hw - 1)
+            cx = torch.where(pok[:, None], cf[bi, pc], 0.0)
+            zc = _mm8(torch.zeros((HEAD_TC_PIX, kc1)), cx, w1c)
+            gs_t = torch.where(pok[:, None], gs[bi, pc], 0.0)
+            gq_t = torch.where(pok[:, None], gq[bi, pc], 0.0)
+            gt = torch.zeros((HEAD_TC_PIX, kc1))
+            for s0 in range(0, s, HEAD_TC_SAMPLES):
+                smp = torch.arange(s0, s0 + HEAD_TC_SAMPLES)
+                ok = ((smp < s)[:, None] & pok[None]).reshape(rows)   # row 16 j + p
+                sc = smp.clamp(max=s - 1)
+                ec = torch.where(ok[:, None], ef[bi][sc][:, pc].reshape(rows, kce), 0.0)
+                gc = torch.where(ok[:, None], gf[bi][sc][:, pc].reshape(rows, kout), 0.0)
+                z = _mm8(torch.zeros((rows, kc1)), ec, w1e)
+                h1 = _act(a1, (z + zc.repeat(HEAD_TC_SAMPLES, 1)) + b1)
+                h2 = _act(a2, _mm8(torch.zeros((rows, kout)), h1, w2) + b2)
+                gg = ((gc + gs_t.repeat(HEAD_TC_SAMPLES, 1))
+                      + 2.0 * h2 * gq_t.repeat(HEAD_TC_SAMPLES, 1))
+                gz = _act_grad(a2, h2, gg)
+                gz = torch.where(ok[:, None] & (torch.arange(kout) < cout)[None], gz, 0.0)
+                db2 = db2 + gz.sum(0)
+                dw2 = _mm8(dw2, h1.t(), gz)
+                g1 = _act_grad(a1, h1, _mm8(torch.zeros((rows, kc1)), gz, w2.t()))
+                db1 = db1 + g1.sum(0)
+                for j in range(HEAD_TC_SAMPLES):
+                    gt = gt + g1[j * HEAD_TC_PIX:(j + 1) * HEAD_TC_PIX]
+                dw1e = _mm8(dw1e, ec.t(), g1)
+                dec = _mm8(torch.zeros((rows, kce)), g1, w1e.t()).reshape(
+                    HEAD_TC_SAMPLES, HEAD_TC_PIX, kce)
+                for j in range(HEAD_TC_SAMPLES):
+                    if s0 + j < s:
+                        de[bi, s0 + j, pix[pok]] = dec[j][pok]
+            dctx[bi, pix[pok]] = _mm8(torch.zeros((HEAD_TC_PIX, kce)), gt, w1c.t())[pok]
+            dw1c = _mm8(dw1c, cx.t(), gt)
+        parts.append(torch.cat([dw1e.reshape(-1), dw1c.reshape(-1), dw2.reshape(-1), db1, db2]))
+    out = torch.zeros_like(parts[0])
+    for part in parts:
+        out = out + part
+    dw1e, dw1c, dw2, db1, db2 = torch.split(out, [kce * kc1, kce * kc1, kc1 * kout, kc1, kout])
+    dw1 = torch.cat([dw1e.view(kce, kc1)[:ce, :c1], dw1c.view(kce, kc1)[:cc, :c1]])
+    return (de[..., :ce], dctx[..., :cc], [dw1, dw2.view(kc1, kout)[:c1, :cout]],
+            [db1[:c1], db2[:cout]])
+
+
+def _head_bwd_tc_kernel(e, ctx, g, gsum, gsq, ws, bs, codes, cmajor, dev):
+    """K5-bwd's tensor-core f32 body (``head_bwd_tc_plan``): the head zero-
+    padded to the plan's form (e and ctx copied only where narrower), the
+    cotangents read as f32 in their layout, None as zero; the weights from
+    ``pack_head_tf32``, packed once per parameter value."""
+    b, s, hw, ce = e.shape
+    cc, (c1, cout) = ctx.shape[-1], ws[1].shape
+    g_shape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
+    if (tuple(ctx.shape) != (b, hw, cc) or tuple(ws[0].shape) != (ce + cc, c1)
+            or (g is not None and tuple(g.shape) != g_shape)
+            or any(m is not None and tuple(m.shape) != (b, hw, cout) for m in (gsum, gsq))):
+        raise ValueError("pathnet_head_bwd: shapes of e, ctx, the weights and the "
+                         "cotangents disagree")
+    idx = dev.index or 0
+    plan = head_bwd_tc_plan(b, hw, ce, cc, c1, cout, sms=_build.sm_count(idx))
+    kce, kc1, kout = plan.form
+    wp, b1, b2 = _packed_head_tf32(ws, bs, ce, plan.form)
+    e = _aligned(_pad_last(e.contiguous(), kce))
+    ctx = _aligned(_pad_last(ctx.float().contiguous(), kce))
+    g, gsum, gsq = (None if t is None else t.float().contiguous() for t in (g, gsum, gsq))
+    de = torch.empty_like(e)
+    dctx = torch.empty((b, hw, kce), dtype=torch.float32, device=dev)
+    parts = torch.empty(plan.blocks * plan.parts, dtype=torch.float32, device=dev)
+    out = torch.empty(plan.parts, dtype=torch.float32, device=dev)
+    P, INT = _build.PTR, _build.INT
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    fn = _build.kernel("wcmc_pathnet_head_bwd_tf32", *([P] * 12), *([INT] * 12), P)
+    _build.check(fn(e.data_ptr(), ctx.data_ptr(), ptr(g), ptr(gsum), ptr(gsq), wp.data_ptr(),
+                    b1.data_ptr(), b2.data_ptr(), de.data_ptr(), dctx.data_ptr(),
+                    parts.data_ptr(), out.data_ptr(), b, s, hw, kce, kc1, kout, cout, *codes,
+                    int(cmajor), plan.blocks, idx, _build.stream_of(dev)), "pathnet_head_bwd")
+    _build.launches["pathnet_head_bwd"] += 1
+    dw1e, dw1c, dw2, db1, db2 = torch.split(out, [kce * kc1, kce * kc1, kc1 * kout, kc1, kout])
+    dw1 = torch.cat([dw1e.view(kce, kc1)[:ce, :c1], dw1c.view(kce, kc1)[:cc, :c1]])
+    return (de[..., :ce], dctx[..., :cc], [dw1, dw2.view(kc1, kout)[:c1, :cout]],
+            [db1[:c1], db2[:cout]])
 
 
 def pathnet_embed_bwd(x, ge, gmean, ws, bs, acts=EMBED_ACTS, compute_dx=False):
