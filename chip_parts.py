@@ -1,14 +1,27 @@
 #!/usr/bin/env python3
 """What bounds the new bodies of K1 (the softmax gather), K2 and K3 (its
 backward), K9 (the weighted gather) and K10-fwd (the fused per-pixel MLP) on
-one NVIDIA card, and of K5-bwd's tensor-core f32 body: each is built again
-from a copy of
-``wcmc_tpu_torch/ops/csrc`` with one part of its work dropped, and every
-variant is timed at the path shapes beside the whole body.
+one NVIDIA card, and of the tensor-core f32 bodies of K5-bwd, K6, K4-bwd
+and K5-fwd: each is built again from a copy of ``wcmc_tpu_torch/ops/csrc``
+with one part of its work dropped, and every variant is timed at the path
+shapes beside the whole body.
 
-    python3 chip_parts.py [k1 k2 k3 k9 k10 k5b]
+    python3 chip_parts.py [k1 k2 k3 k9 k10 k5b k6 k4b k5f]
 
-(the kernels named, all six without arguments).  K5-bwd's f32 body
+(the kernels named, all nine without arguments).  K4-bwd's f32 body
+(``pathnet_embed_bwd_tf32_kernel``) at KPCN's PathNet (8 x 8 spp x 128^2
+rows, 36 -> 128^3, no d(x)) and Multisteps' embedding (95 -> 128^3 leaky,
+d(x)), both cotangents: ``whole``; ``no_rows`` (the recompute's and the
+d(h) products skipped); ``no_dw`` (dW1's and dW2's products skipped);
+``no_dw0`` (dW0^T's products skipped); ``no_load`` (the next chunk's x and
+ge never land); ``no_split``, ``l1_weights`` (every weight fragment read
+from the first k8 step's, which stays in L1) and ``no_step``, as K5-bwd's.
+K5-fwd's f32 body (``pathnet_head_tf32_kernel``) at KPCN's training head
+(8 x 8 spp x 128^2 rows, [128 | 128] -> 256 -> 6, moments, channel-major):
+``whole``; ``no_h1`` (e . W1e's products skipped); ``no_out`` (the output
+product skipped); ``no_store`` (no output leaves shared memory); ``no_load``
+(the next chunk's e never lands); ``no_split``, ``l1_weights``,
+``no_step``.  K5-bwd's f32 body
 (``pathnet_head_bwd_tf32_kernel``) at KPCN's training form (8 x 8 spp x
 128^2 rows, [128 | 128] -> 256 -> 6, channel-major cotangent with moments):
 ``whole``; ``no_z`` (e . W1e's products skipped); ``no_dw1e`` (dW1e's
@@ -50,8 +63,9 @@ memory); ``no_store`` (the gradients never leave shared memory).  K3
 ``whole``; ``no_convert`` (no probability is computed); ``no_taps`` (no tap
 loop); ``no_logits``.  A dropped part leaves wrong outputs; only ``whole`` is
 checked (K1, K2 and K10-fwd bit for bit against their first bodies, K3 within
-1e-5 of its gather body; K9 bit for bit against its first body).  Each line: the variant, the path, the CUDA-event ms and the
-profiler's device ms (``chip_smoke.py``'s ``time_ms`` and ``device_ms``).
+1e-5 of its gather body; K9 bit for bit against its first body; K4-bwd's
+and K5-fwd's bit for bit against the wrapper's launch).  Each line: the
+variant, the path, the CUDA-event ms and the profiler's device ms (``chip_smoke.py``'s ``time_ms`` and ``device_ms``).
 The card's ``nvidia-smi`` name and power limit come first.  Exits non-zero
 without CUDA or if a variant does not build.
 """
@@ -71,7 +85,22 @@ import tempfile
 K1_SRC, K2_SRC, K3_SRC, K9_SRC, K10_SRC = ("gather_softmax.cu", "outer_softmax.cu",
                                            "scatter_softmax.cu", "gather.cu", "mlp_fused.cu")
 K5B_SRC, K6_SRC = "pathnet_head_bwd_tf32.cu", "conv5_tf32.cu"
-KERNELS = ("k1", "k2", "k3", "k9", "k10", "k5b", "k6")
+K4B_SRC, K5F_SRC = "pathnet_embed_bwd_tf32.cu", "pathnet_head_tf32.cu"
+KERNELS = ("k1", "k2", "k3", "k9", "k10", "k5b", "k6", "k4b", "k5f")
+# the tensor-core f32 bodies' shared parts (tf32x3.cuh)
+NO_SPLIT = ("  hi = tf32_rna(a);\n  lo = tf32_rna(a - __uint_as_float(hi));",
+            "  hi = __float_as_uint(a);\n  lo = hi;")
+L1_WEIGHTS = ("next[kAhead - 1][nt] = __ldg(wp + ((size_t)nt * wk8 + ks + kAhead) * 32);",
+              "next[kAhead - 1][nt] = __ldg(wp + (size_t)nt * 32);")
+NO_STEP = ("  float t[4];\n"
+           "  mma_tf32_zero(t, a.lo, b.v[0], b.v[1]);\n"
+           "  mma_tf32(t, a.hi, b.v[2], b.v[3]);\n"
+           "  mma_tf32(t, a.hi, b.v[0], b.v[1]);\n"
+           "#pragma unroll\n"
+           "  for (int i = 0; i < 4; ++i) d[i] += t[i];\n",
+           "  mma_tf32(d, a.lo, b.v[0], b.v[1]);\n"
+           "  mma_tf32(d, a.hi, b.v[2], b.v[3]);\n"
+           "  mma_tf32(d, a.hi, b.v[0], b.v[1]);\n")
 NO_LOGITS = ("for (int ch = lane; 16 * ch <", "for (int ch = 32; 16 * ch <")
 NO_PIXELS = ("      for (int p = warp; p < n; p += kWarps) {\n        // the first body's softmax",
              "      for (int p = warp; p < 0; p += kWarps) {\n        // the first body's softmax")
@@ -122,20 +151,32 @@ VARIANTS = {
         ("mm_rows_w<kRing>(acc, CX, pe, kCe / 8, W + oW1c, kCe / 8, warp * NT0, ring);", ""),
         ("mm_rows_w<kRing>(acc, G, ph, kC1 / 8, W + oW1ct, kC1 / 8, warp * NT7, ring);", ""),
         ("mm_rows_t(acc, CX, pe, m0, G, ph, n0, kHtPix / 8);", "")]),
-    "k5b_no_split": (K5B_SRC, [("  hi = tf32_rna(a);\n  lo = tf32_rna(a - __uint_as_float(hi));",
-                                "  hi = __float_as_uint(a);\n  lo = hi;")]),
+    "k5b_no_split": (K5B_SRC, [NO_SPLIT]),
     "k5b_l1_weights": (K5B_SRC, [("W + ((size_t)(jn0 + nt) * wk8 + ks) * 128 + lane * 4, 16);",
                                   "W + (size_t)nt * 128 + lane * 4, 16);")]),
-    "k5b_no_step": (K5B_SRC, [(
-        "  float t[4];\n"
-        "  mma_tf32_zero(t, a.lo, b.v[0], b.v[1]);\n"
-        "  mma_tf32(t, a.hi, b.v[2], b.v[3]);\n"
-        "  mma_tf32(t, a.hi, b.v[0], b.v[1]);\n"
-        "#pragma unroll\n"
-        "  for (int i = 0; i < 4; ++i) d[i] += t[i];\n",
-        "  mma_tf32(d, a.lo, b.v[0], b.v[1]);\n"
-        "  mma_tf32(d, a.hi, b.v[2], b.v[3]);\n"
-        "  mma_tf32(d, a.hi, b.v[0], b.v[1]);\n")]),
+    "k5b_no_step": (K5B_SRC, [NO_STEP]),
+    "k4b_whole": (K4B_SRC, []),
+    "k4b_no_rows": (K4B_SRC, [("mm_rows_ldg(acc, A + m0 * pa, pa, k8s, Wm, k8s, jn0);", "")]),
+    "k4b_no_dw": (K4B_SRC, [("mm_rows_t(dw2, H2, ph, mw, G3, ph, nw, kEtRows / 8);", ""),
+                            ("mm_rows_t(dw1, H1, ph, mw, H2, ph, nw, kEtRows / 8);", "")]),
+    "k4b_no_dw0": (K4B_SRC, [("mm_rows_t(acc, H1, ph, m0, Xc, px, n0, kEtRows / 8);", "")]),
+    "k4b_no_load": (K4B_SRC, [("        load_x(X[(q + 1) & 1], tn, sn);\n        load_ge(tn, sn);\n",
+                               "")]),
+    "k4b_no_split": (K4B_SRC, [NO_SPLIT]),
+    "k4b_l1_weights": (K4B_SRC, [L1_WEIGHTS]),
+    "k4b_no_step": (K4B_SRC, [NO_STEP]),
+    "k5f_whole": (K5F_SRC, []),
+    "k5f_no_h1": (K5F_SRC, [("mm_rows_ldg<MTh, 4, kAhead>(acc, Ec + m0 * pe, pe, kCe / 8, W, "
+                             "kCe / 8, jn0);", "")]),
+    "k5f_no_out": (K5F_SRC, [("mm_rows_ldg<4, kOut / 8, kAhead>(acc, H + warp * kStepsW * 8, ph, "
+                              "kStepsW, wo,\n                                         kC1 / 8, "
+                              "0);", "")]),
+    "k5f_no_store": (K5F_SRC, [("        if (s >= a.S || p >= a.HW || c >= a.cout) continue;",
+                                "        if (s >= 0) continue;")]),
+    "k5f_no_load": (K5F_SRC, [("        if (tn < tiles) load_e(E[(q + 1) & 1], tn, sn);", "")]),
+    "k5f_no_split": (K5F_SRC, [NO_SPLIT]),
+    "k5f_l1_weights": (K5F_SRC, [L1_WEIGHTS]),
+    "k5f_no_step": (K5F_SRC, [NO_STEP]),
     "k6_whole": (K6_SRC, []),
     "k6_one_sum": (K6_SRC, [
         ("          wgmma_tf32<kN>(part, lo, b_hi, 0);   // the step's own partial, from zero\n"
@@ -329,6 +370,55 @@ def main() -> int:
                     **{k: ((a.double() - w).abs().max() / w.abs().max()).item()
                        for k, a, w in zip(("dw1", "dw2"), got[2], ref[2])}}
 
+        if "k4b" in kernels or "k5f" in kernels:
+            from wcmc_tpu_torch.ops import pathnet_fused as pf
+        if "k4b" in kernels:
+            # KPCN's PathNet (36 -> 128^3, relu relu linear) and Multisteps (95 -> 128^3
+            # leaky, d(x)) over 8 x 8 spp x 128^2 rows, both cotangents
+            k4b_args = {}
+            for path, dims, acts4, dx4 in (("kpcn", (36, 128, 128, 128), (1, 1, 0), False),
+                                           ("sbmc", (95, 128, 128, 128), (2, 2, 2), True)):
+                x4 = torch.randn((8, 8, 128 * 128, dims[0]), device=dev, generator=g)
+                ws4, bs4 = cs.rand_mlp(torch, dev, g, dims)
+                ge4 = torch.randn((8, 8, 128 * 128, 128), device=dev, generator=g)
+                gm4 = torch.randn((8, 128 * 128, 128), device=dev, generator=g)
+                plan4 = pf.embed_bwd_tc_plan(8, 128 * 128, *dims, sms=sms)
+                wp4, bias4 = pf._packed_embed_tf32(ws4, bs4, plan4.form)
+                k4b_args[path] = (x4, ge4, gm4, ws4, bs4, wp4, bias4, plan4, acts4, dx4)
+
+        def k4b(lib, x4, ge4, gm4, ws4, bs4, wp4, bias4, plan4, acts4, dx4):
+            dx = torch.empty_like(x4) if dx4 else None
+            parts = torch.empty(plan4.blocks * plan4.parts, dtype=torch.float32, device=dev)
+            out = torch.empty(plan4.parts, dtype=torch.float32, device=dev)
+            fn = lib.wcmc_pathnet_embed_bwd_tf32
+            fn.argtypes, fn.restype = [P] * 8 + [I] * 11 + [P], I
+            _build.check(fn(x4.data_ptr(), ge4.data_ptr(), gm4.data_ptr(), wp4.data_ptr(),
+                            bias4.data_ptr(), None if dx is None else dx.data_ptr(),
+                            parts.data_ptr(), out.data_ptr(), 8, 8, 128 * 128, x4.shape[-1],
+                            *plan4.form, *acts4, plan4.blocks, 0, stream), "pathnet_embed_bwd")
+            return dx, out
+
+        if "k5f" in kernels:
+            # KPCN's training head: 8 x 8 spp x 128^2 rows, [128 | 128] -> 256 -> 6 with
+            # moments, channel-major f32 output
+            e5f = torch.randn((8, 8, 128 * 128, 128), device=dev, generator=g)
+            ctx5f = torch.randn((8, 128 * 128, 128), device=dev, generator=g)
+            ws5f, bs5f = cs.rand_mlp(torch, dev, g, (256, 256, 6))
+            plan5f = pf.head_fwd_tc_plan(8, 128 * 128, 128, 128, 256, 6, sms=sms)
+            wp5f, b15f, b25f = pf._packed_head_tf32(ws5f, bs5f, 128, plan5f.form)
+
+        def k5f(lib):
+            out = torch.empty((8, 8, 6, 128 * 128), dtype=torch.float32, device=dev)
+            ssum = torch.empty((8, 128 * 128, 6), dtype=torch.float32, device=dev)
+            ssq = torch.empty_like(ssum)
+            fn = lib.wcmc_pathnet_head_tf32
+            fn.argtypes, fn.restype = [P] * 8 + [I] * 13 + [P], I
+            _build.check(fn(e5f.data_ptr(), ctx5f.data_ptr(), wp5f.data_ptr(), b15f.data_ptr(),
+                            b25f.data_ptr(), out.data_ptr(), ssum.data_ptr(), ssq.data_ptr(), 8,
+                            8, 128 * 128, *plan5f.form, 6, 1, 1, 0, 1, plan5f.blocks, 0, stream),
+                         "pathnet_head")
+            return out, ssum, ssq
+
         if "k6" in kernels:
             from wcmc_tpu_torch.ops import conv5
 
@@ -361,6 +451,11 @@ def main() -> int:
                 todo = [("kpcn", lambda lib=lib: k5b(lib), "pathnet_head_bwd", 1)]
             elif kernel == "k6":
                 todo = [("kpcn_fused", lambda lib=lib: k6(lib), "conv5", 1)]
+            elif kernel == "k4b":
+                todo = [(path, lambda lib=lib, a=args: k4b(lib, *a), "pathnet_embed_bwd", 1)
+                        for path, args in k4b_args.items()]
+            elif kernel == "k5f":
+                todo = [("kpcn", lambda lib=lib: k5f(lib), "pathnet_head", 1)]
             elif kernel == "k9":
                 todo = [("sbmc", lambda lib=lib: k9(lib, *k9_args), "gather", 1)]
             else:
@@ -401,6 +496,22 @@ def main() -> int:
                             "simt": cs.rel_l2(torch, conv5._conv_kernel(
                                 x6, w6, b6, 5, "relu", body="simt"), ref6),
                             "cudnn": cs.rel_l2(torch, lib_y.permute(0, 2, 3, 1), ref6)}
+                elif name in ("k4b_whole", "k5f_whole"):
+                    # the same source as the wrapper's library: the same bits
+                    got = call()
+                    if kernel == "k4b":
+                        x4, ge4, gm4, ws4, bs4, *_, dx4 = k4b_args[path]
+                        acts = (pf.EMBED_ACTS if path == "kpcn" else pf.LEAKY)
+                        want = pf._embed_bwd_kernel(x4, ge4, gm4, ws4, bs4, acts, dx4)
+                        kc0, kc = k4b_args[path][7].form
+                        same = torch.equal(got[1][:kc0 * kc].view(kc0, kc)[:x4.shape[-1]],
+                                           want[1][0])
+                    else:
+                        want = pf._head_fwd_kernel(e5f, ctx5f, ws5f, bs5f, pf.HEAD_ACTS, True,
+                                                   True, torch.float32)
+                        same = all(torch.equal(a, w) for a, w in zip(got, want))
+                    if not same:
+                        raise AssertionError(f"{name} at {path} is not the wrapper's bits")
                 elif name.endswith("_whole"):
                     check_whole(torch, cs, ka, mf, kernel, path, call(),
                                 k9_args if kernel == "k9" else shapes.get(path),

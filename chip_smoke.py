@@ -69,18 +69,20 @@ Phases (one JSON line each):
    K above 21: K2 at K = 23 on a KPCN branch ((8, 70, 70, 529) bf16
    logits) and K8 at K = 23 on the SBMC splat ((64, 128, 128, 529) f32),
    each on its first body by the route, against its plain version and
-   itself over two launches.  The f32 bodies of K4 and K5
-   (``csrc/pathnet_f32.cu``; K5-bwd's on the tensor cores in split TF32,
-   ``csrc/pathnet_head_bwd_tf32.cu``) forward and backward in each f32
-   path's forms (KPCN's dual PathNet, its head channel-major and
-   channels-last; the 64-wide PathNet; Multisteps with d(x), its update
-   chain with and without moments), each against its plain f32 version
-   (``F32_FWD_TOL``, ``F32_GRAD_TOL``, ``F32_ROW_L2_TOL``) and itself over
-   two launches; K5-bwd's row also times its first f32 body (SIMT) on the
-   same inputs, held the same way, with both bounds (the tensor cores' tf32
-   rate for three products an f32 one, ``bound_ms``; the CUDA cores' f32
-   rate, ``bound_f32_cuda_ms``), and with linear activations its distances
-   from f64 within ``TF32_F64_FACTOR`` of the plain version's.  The
+   itself over two launches.  The f32 bodies of K4 and K5 (K4-fwd's
+   ``csrc/pathnet_f32.cu``; K4-bwd's, K5-fwd's and K5-bwd's on the tensor
+   cores in split TF32, ``csrc/pathnet_embed_bwd_tf32.cu``,
+   ``csrc/pathnet_head_tf32.cu`` and ``csrc/pathnet_head_bwd_tf32.cu``)
+   forward and backward in each f32 path's forms (KPCN's dual PathNet, its
+   head channel-major and channels-last; the 64-wide PathNet; Multisteps
+   with d(x), its update chain with and without moments), each against its
+   plain f32 version (``F32_FWD_TOL``, ``F32_GRAD_TOL``, ``F32_ROW_L2_TOL``)
+   and itself over two launches; the tensor-core bodies' rows also time
+   their first f32 body (SIMT, ``csrc/pathnet_f32.cu``) on the same inputs,
+   held the same way, with both bounds (the tensor cores' tf32 rate for
+   three products an f32 one, ``bound_ms``; the CUDA cores' f32 rate,
+   ``bound_f32_cuda_ms``), and with linear activations their distances from
+   f64 within ``TF32_F64_FACTOR`` of the plain version's.  The
    f32 body of K10 (``csrc/mlp_f32.cu``) forward and backward at LayerNet's
    32 -> 32^3 leaky chain over 1,048,576 rows (d(x) on) and at 64 -> 64^4
    beside it, and K1, K2 and K3 on f32 logits at K = 13 (``K1_TOL``); the
@@ -147,7 +149,10 @@ Phases (one JSON line each):
    train_lbmc_f32 (K10 forward and backward on their f32 body too, K1, K2
    and K3 on their redesigned bodies): 3 warm-up and 5 timed steps, exact
    launches, no plain call, finite losses, every model changed, two
-   profiled steps on the expected bodies.
+   profiled steps on the expected bodies.  ``python3 chip_smoke.py
+   f32-train [N]`` runs the three f32 train phases alone, N times over (3),
+   each run's cross-check readings on a line (a run off ``F32_XCHECK`` is
+   printed and the script exits non-zero).
 
 6. cli_corpus, train_cli_kpcn, train_cli_lbmc, train_cli_sbmc: the training
    entry points from disk, ``python -m wcmc_tpu_torch.train_kpcn`` (then
@@ -1394,13 +1399,15 @@ def large_k_kernel_phase(torch, ka, dev, k=LARGE_K, kpcn=(8, 70), sbmc=(64, 128)
 # element's gradient moves by its full size).  The same as the card tests'.
 F32_FWD_TOL, F32_GRAD_TOL, F32_ROW_L2_TOL = 1e-4, 5e-3, 1e-3
 F32_SOURCE = "wcmc_tpu_torch/ops/csrc/pathnet_f32.cu"
-# The split-TF32 bodies (K6, K5-bwd) against the exact function: each of
-# their tensor-core outputs within TF32_F64_FACTOR times the plain f32
-# version's own distance from f64 (K6's output in relative L2; K5-bwd with
-# linear activations, no relu to flip: d(e) and d(ctx) in relative L2, dW1
-# and dW2 in max error of max).  A body that dropped a lo term (single
-# TF32, ~2^-11 a product) or summed a long K into the tensor cores'
-# truncating accumulator reads 6-300 times the plain version's distance.
+# The split-TF32 bodies (K6, K4-bwd, K5-fwd, K5-bwd) against the exact
+# function: each of their tensor-core outputs within TF32_F64_FACTOR times
+# the plain f32 version's own distance from f64 (K6's output in relative L2;
+# K4-bwd and K5 with linear activations, no relu to flip: the per-row
+# outputs d(x), the head's output, d(e) and d(ctx) in relative L2, the
+# weight gradients and the moments in max error of max).  A body that
+# dropped a lo term (single TF32, ~2^-11 a product) or summed a long K into
+# the tensor cores' truncating accumulator reads 6-300 times the plain
+# version's distance.
 TF32_F64_FACTOR = 4.0
 
 
@@ -1464,6 +1471,77 @@ def tc_from_f64(torch, got, plain, ref):
     return {"tc": tc, "plain": pl, "factor": TF32_F64_FACTOR, "within_factor": ok}
 
 
+def embed_bwd_f64(torch, x, ge, gmean, ws, bs, acts, compute_dx):
+    """K4-bwd's function in f64 on the card (every product and sum; the relu
+    masks from the f64 activations): (d(x) or None, dWs, dbs)."""
+    from wcmc_tpu_torch.ops.mlp_fused import _act, _act_grad
+
+    d = torch.float64
+    b, s, hw, c0 = x.shape
+    hs = [x.to(d).reshape(-1, c0)]
+    for w, v, a in zip(ws, bs, acts):
+        hs.append(_act(a, hs[-1] @ w.to(d) + v.to(d)))
+    g = torch.zeros((b, s, hw, hs[-1].shape[-1]), dtype=d, device=x.device)
+    if ge is not None:
+        g = g + ge.to(d)
+    if gmean is not None:
+        g = g + gmean.to(d)[:, None] / s
+    g = g.reshape(-1, g.shape[-1])
+    dws, dbs = [], []
+    for i in (2, 1, 0):
+        g = _act_grad(acts[i], hs[i + 1], g)
+        dws.insert(0, hs[i].t() @ g)
+        dbs.insert(0, g.sum(dim=0))
+        g = g @ ws[i].to(d).t()
+    return (g.reshape(b, s, hw, c0) if compute_dx else None), dws, dbs
+
+
+def head_fwd_f64(torch, e, ctx, ws, bs, acts, moments, cmajor):
+    """K5-fwd's function in f64 on the card: [out] or, with ``moments``,
+    [out, sum_s out, sum_s out^2]."""
+    from wcmc_tpu_torch.ops.mlp_fused import _act
+
+    d = torch.float64
+    ce = e.shape[-1]
+    (w1, w2), (b1, b2) = [w.to(d) for w in ws], [v.to(d) for v in bs]
+    h1 = _act(acts[0], e.to(d) @ w1[:ce] + (ctx.to(d) @ w1[ce:])[:, None] + b1)
+    out = _act(acts[1], h1 @ w2 + b2)
+    res = out.transpose(2, 3) if cmajor else out
+    return [res, out.sum(dim=1), (out * out).sum(dim=1)] if moments else [res]
+
+
+def f64_dists(torch, outs, ref, l2):
+    """Each output's distance from the f64 function's: relative L2 for the
+    names in ``l2`` (per-row outputs), else max error of max |ref|; ``outs``
+    and ``ref`` map names to tensors (None skipped)."""
+    return {k: rel_l2(torch, v, ref[k]) if k in l2
+            else ((v.double() - ref[k]).abs().max() / ref[k].abs().max()).item()
+            for k, v in outs.items() if v is not None}
+
+
+def within_f64_factor(torch, got, plain, ref, l2):
+    """The distances from f64 (``f64_dists``) of a split-TF32 body's
+    outputs ``got`` and of the plain version's ``plain``; ``within_factor``
+    whether every tensor-core output but the bias sums is within
+    ``TF32_F64_FACTOR`` of the plain version's distance."""
+    tc, pl = f64_dists(torch, got, ref, l2), f64_dists(torch, plain, ref, l2)
+    ok = all(tc[k] <= TF32_F64_FACTOR * pl[k] for k in tc if not k.startswith("db"))
+    return {"tc": tc, "plain": pl, "factor": TF32_F64_FACTOR, "within_factor": ok}
+
+
+def embed_named(out):
+    """K4-bwd's outputs (d(x) or None, dWs, dbs) by name."""
+    dx, dws, dbs = out
+    return {"dx": dx, **{f"dw{i}": w for i, w in enumerate(dws)},
+            **{f"db{i}": v for i, v in enumerate(dbs)}}
+
+
+def head_named(out):
+    """K5-fwd's outputs (out, or out and its two moments) by name."""
+    out = list(out) if isinstance(out, (list, tuple)) else [out]
+    return dict(zip(("out", "ssum", "ssq"), out))
+
+
 def f32_weight_bytes(ws):
     return sum(4 * w.numel() + 4 * w.shape[1] for w in ws)
 
@@ -1499,6 +1577,9 @@ def f32_embed_rows(torch, pf, dev, g, flush, form, b, s, hw, dims, acts, compute
     def bwd():
         return pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, acts, compute_dx)
 
+    def simt():
+        return pf._embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx, body="simt")
+
     dx, dws, dbs = bwd()
     pdx, pws, pbs = pf._embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx)
     err = max_err(torch, dws + dbs, pws + pbs, F32_GRAD_TOL)
@@ -1512,18 +1593,49 @@ def f32_embed_rows(torch, pf, dev, g, flush, form, b, s, hw, dims, acts, compute
             [*again[1], *again[2]] + ([again[0]] if compute_dx else []),
             [*dws, *dbs] + ([dx] if compute_dx else []))):
         raise AssertionError(f"K4-bwd f32 ({form}): a second launch gave other bits")
-    del again, pdx
+    del again
+    # the SIMT body on the same inputs, held to the plain version the same way
+    sdx, sws, sbs = simt()
+    simt_row = {"source": F32_SOURCE, "max_abs_err": max_err(torch, sws + sbs, pws + pbs,
+                                                             F32_GRAD_TOL),
+                "max_abs_diff_tc": max((a.double() - w.double()).abs().max().item()
+                                       for a, w in zip(sws + sbs, dws + dbs)),
+                "ms": time_ms(torch, simt, 5, flush),
+                "device_ms": device_ms(torch, simt, "pathnet_embed_bwd", flush)}
+    if compute_dx:
+        simt_row["row_rel_l2"] = {"dx": rel_l2(torch, sdx, pdx)}
+        if simt_row["row_rel_l2"]["dx"] > F32_ROW_L2_TOL:
+            raise AssertionError(f"K4-bwd f32 SIMT ({form}) d(x) off by {simt_row}")
+    # each f32 version's distance from the f64 function (relu flips included)
+    ref = embed_named(embed_bwd_f64(torch, x, ge, gmean, ws, bs, acts, compute_dx))
+    f64 = {k: f64_dists(torch, embed_named(out), ref, ("dx",))
+           for k, out in (("tc", (dx, dws, dbs)), ("simt", (sdx, sws, sbs)),
+                          ("plain", (pdx, pws, pbs)))}
+    del pdx, sdx, sws, sbs, ref
+    # with linear activations the arithmetic alone, held to TF32_F64_FACTOR
+    lin = ("linear",) * 3
+    lin_f64 = within_f64_factor(
+        torch, embed_named(pf.pathnet_embed_bwd(x, ge, gmean, ws, bs, lin, compute_dx)),
+        embed_named(pf._embed_bwd_plain(x, ge, gmean, ws, bs, lin, compute_dx)),
+        embed_named(embed_bwd_f64(torch, x, ge, gmean, ws, bs, lin, compute_dx)), ("dx",))
+    if not lin_f64["within_factor"]:
+        raise AssertionError(f"K4-bwd f32 ({form}) with linear activations is further from "
+                             f"f64 than {TF32_F64_FACTOR} times the plain version: {lin_f64}")
     c0, c1, c2, c3 = dims
     fwd_macs = c0 * c1 + c1 * c2 + (c2 * c3 if acts[-1] != "linear" else 0)
     macs = b * s * hw * (fwd_macs + 2 * c2 * c3 + 2 * c1 * c2 + (2 if compute_dx else 1) * c0 * c1)
+    n_bytes = nbytes(x, ge, gmean, dx, *dws, *dbs) + f32_weight_bytes(ws)
     rows.append(kernel_row(
         "pathnet_embed_bwd_f32", "pathnet_embed_bwd", "wcmc_tpu/ops/pathnet_fused.py:188", err,
         time_ms(torch, bwd, 5, flush),
         time_ms(torch, lambda: pf._embed_bwd_plain(x, ge, gmean, ws, bs, acts, compute_dx), 3,
                 flush),
-        bound_ms(nbytes(x, ge, gmean, dx, *dws, *dbs) + f32_weight_bytes(ws),
-                 [(2 * macs, F32_FLOPS)]), dict(shape, compute_dx=compute_dx),
-        source=F32_SOURCE, device_ms=device_ms(torch, bwd, "pathnet_embed_bwd", flush),
+        # split TF32: three tf32 products for each f32 one
+        bound_ms(n_bytes, [(3 * 2 * macs, TF32_FLOPS)]), dict(shape, compute_dx=compute_dx),
+        source="wcmc_tpu_torch/ops/csrc/pathnet_embed_bwd_tf32.cu", body="tc",
+        bound_f32_cuda_ms=bound_ms(n_bytes, [(2 * macs, F32_FLOPS)])[0], simt=simt_row,
+        from_f64=f64, from_f64_linear=lin_f64,
+        device_ms=device_ms(torch, bwd, "pathnet_embed_bwd", flush),
         library_note="no single PyTorch call computes a fused MLP's backward", bit_for_bit=True,
         out_sha1=digest(dx, *dws, *dbs), **extra))
     torch.cuda.synchronize()
@@ -1555,28 +1667,67 @@ def f32_head_rows(torch, pf, dev, g, flush, form, b, s, hw, ce, c1, cout, acts, 
         again = fwd()
         if not all(torch.equal(a, w) for a, w in zip(list(again) if mom else [again], got)):
             raise AssertionError(f"K5-fwd f32 ({form}): a second launch gave other bits")
-        bms, by = bound_ms(nbytes(e, ctx, *got) + f32_weight_bytes(ws), [(2 * macs, F32_FLOPS)])
+        n_bytes = nbytes(e, ctx, *got) + f32_weight_bytes(ws)
+        # split TF32: three tf32 products for each f32 one
+        bms, by = bound_ms(n_bytes, [(3 * 2 * macs, TF32_FLOPS)])
         return {"max_abs_err": err, "out_sha1": digest(*got), "ms": time_ms(torch, fwd, 10, flush),
                 "device_ms": device_ms(torch, fwd, "pathnet_head", flush),
                 "plain_ms": time_ms(torch, lambda: pf._head_plain(e, ctx, ws, bs, acts, mom, cm),
                                     3, flush),
-                "bound_ms": bms, "bound_by": by, "bit_for_bit": True}, got[0]
+                "bound_ms": bms, "bound_by": by,
+                "bound_f32_cuda_ms": bound_ms(n_bytes, [(2 * macs, F32_FLOPS)])[0],
+                "bit_for_bit": True}, got
 
-    main, out = leg(moments, cmajor)
+    main, got = leg(moments, cmajor)
+    out = got[0]
     extra = {}
     if served_leg:
         extra["channels_last"], _ = leg(moments, False)
     if bare_leg:
         extra["without_moments"], bare = leg(False, cmajor)
-        if not torch.equal(bare, out):
+        if not torch.equal(bare[0], out):
             raise AssertionError(f"K5-fwd f32 ({form}): the output without moments is not "
                                  "the one with them")
+        del bare
+
+    # the SIMT body on the same inputs, held to the plain version the same way
+    def simt_fwd():
+        return pf._head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, torch.float32,
+                                   body="simt")
+
+    sgot = simt_fwd()
+    sgot = list(sgot) if moments else [sgot]
+    want = pf._head_plain(e, ctx, ws, bs, acts, moments, cmajor)
+    want = list(want) if moments else [want]
+    extra["simt"] = {"source": F32_SOURCE, "max_abs_err": max_err(torch, sgot, want, F32_FWD_TOL),
+                     "max_abs_diff_tc": max((a.double() - w.double()).abs().max().item()
+                                            for a, w in zip(sgot, got)),
+                     "ms": time_ms(torch, simt_fwd, 10, flush),
+                     "device_ms": device_ms(torch, simt_fwd, "pathnet_head", flush)}
+    # each f32 version's distance from the f64 function (relu flips included)
+    ref = head_named(head_fwd_f64(torch, e, ctx, ws, bs, acts, moments, cmajor))
+    extra["from_f64"] = {k: f64_dists(torch, head_named(v), ref, ("out",))
+                         for k, v in (("tc", got), ("simt", sgot), ("plain", want))}
+    del sgot, want, ref
+    # with linear activations the arithmetic alone, held to TF32_F64_FACTOR
+    lin = ("linear", "linear")
+    lin_f64 = within_f64_factor(
+        torch, head_named(pf.pathnet_head(e, ctx, ws, bs, lin, moments, cmajor)),
+        head_named(pf._head_plain(e, ctx, ws, bs, lin, moments, cmajor)),
+        head_named(head_fwd_f64(torch, e, ctx, ws, bs, lin, moments, cmajor)), ("out",))
+    if not lin_f64["within_factor"]:
+        raise AssertionError(f"K5-fwd f32 ({form}) with linear activations is further from "
+                             f"f64 than {TF32_F64_FACTOR} times the plain version: {lin_f64}")
     # a channel-major head is the train step's form: its launches are the step's
     rows = [kernel_row("pathnet_head_f32", "pathnet_head", "wcmc_tpu/ops/pathnet_fused.py:457",
                        main["max_abs_err"], main["ms"], main["plain_ms"],
-                       (main["bound_ms"], main["bound_by"]), shape, source=F32_SOURCE,
+                       (main["bound_ms"], main["bound_by"]), shape,
+                       source="wcmc_tpu_torch/ops/csrc/pathnet_head_tf32.cu", body="tc",
+                       bound_f32_cuda_ms=main["bound_f32_cuda_ms"], from_f64_linear=lin_f64,
                        device_ms=main["device_ms"], bit_for_bit=True, train_launches=cmajor,
+                       library_note="no single PyTorch call computes a fused MLP head",
                        out_sha1=main["out_sha1"], **extra)]
+    del got
     gout = torch.randn(out.shape, device=dev, generator=g)
     gsum = torch.randn((b, hw, cout), device=dev, generator=g) if moments else None
     gsq = 0.1 * torch.randn((b, hw, cout), device=dev, generator=g) if moments else None
@@ -2046,7 +2197,7 @@ def check_embed_body(kinds, where):
 
 # the kernels whose f32 form runs on the tensor cores (split TF32), by launch
 # counter: their f32 body files under counter_tf32, the SIMT one under counter_f32
-TF32_BODIES = ("conv5", "pathnet_head_bwd")
+TF32_BODIES = ("conv5", "pathnet_head_bwd", "pathnet_embed_bwd", "pathnet_head")
 
 
 def check_f32_bodies(kinds, where, counters):
@@ -2120,8 +2271,9 @@ def device_kind(name):
     ``mlp_fused_tiled``, apart from its wmma body ``mlp_fused``; the f32
     bodies of K4 and K5 by their own names, ``pathnet_embed_f32``,
     ``pathnet_embed_bwd_f32``, ``pathnet_head_f32`` and
-    ``pathnet_head_bwd_f32``, and the tensor-core f32 bodies of K6 and
-    K5-bwd, ``conv5_tf32`` and ``pathnet_head_bwd_tf32``), the library
+    ``pathnet_head_bwd_f32``, and the tensor-core f32 bodies of K6, K4-bwd,
+    K5-fwd and K5-bwd, ``conv5_tf32``, ``pathnet_embed_bwd_tf32``,
+    ``pathnet_head_tf32`` and ``pathnet_head_bwd_tf32``), the library
     convolutions and products,
     copies, or the rest (PyTorch's elementwise, reduction and copy
     kernels)."""
@@ -3662,6 +3814,9 @@ def main() -> int:
         return 3
 
     digests_only = sys.argv[1:] == ["f32-digests"]
+    f32_train_runs = 0
+    if sys.argv[1:2] == ["f32-train"]:
+        f32_train_runs = int(sys.argv[2]) if len(sys.argv) > 2 else 3
     t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3684,6 +3839,21 @@ def main() -> int:
             for key, leg in [("", r), *((k, v) for k, v in r.items() if isinstance(v, dict))]
             if "out_sha1" in leg}}))
         return 0
+    if f32_train_runs:
+        # the three f32 train phases, run after run: their cross-check readings
+        failed = 0
+        for run in range(f32_train_runs):
+            for family in ("kpcn", "sbmc", "lbmc"):
+                try:
+                    record, _ = short_train_phase(torch, dev, family, "f32", smi)
+                    emit({"run": run, "phase": record["phase"], "step_ms": record["step_ms"],
+                          "cpu_f32_check": record["cpu_f32_check"],
+                          "device_ms_per_step_by_kind":
+                              record["profile"]["device_ms_per_step_by_kind"]})
+                except AssertionError as exc:
+                    failed += 1
+                    emit({"run": run, "phase": f"train_{family}_f32", "failed": str(exc)})
+        return 1 if failed else 0
 
     kpcn_rows = kernel_phase(torch, ka, pf, dev)
     bwd_rows = backward_kernel_phase(torch, ka, pf, dev)

@@ -2449,13 +2449,18 @@ def test_conv_f32_plan_is_the_kernels_shared_memory(cuda, k):
 # ---------------------------------------------------------------------------
 
 def _kernel_names(fn):
-    """The device kernels ``fn`` launches, by name, from one profiler pass."""
+    """The device kernels ``fn`` launches, by name, from one profiler pass
+    over two calls after a warm-up call (a profile can lose its first
+    entries, as ``chip_smoke.py``'s profiles of two steps allow for)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
     return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
 
 
@@ -2673,3 +2678,299 @@ def test_head_bwd_tc_plan_is_the_kernels_shared_memory(cuda, form):
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
     ce, c1, kout = form
     assert fn(ce, c1, kout) == pf.head_bwd_tc_plan(8, 16384, ce, ce, c1, kout).total
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core f32 bodies of K4-bwd and K5-fwd (split TF32)
+# ---------------------------------------------------------------------------
+
+# (dims, acts, compute_dx): KPCN's dual PathNet (also with d(x)), the 64-wide
+# PathNet, Multisteps, and a narrow chain zero-padded to the (40, 64) form
+EMBED_TC_CASES = {
+    "kpcn": ((36, 128, 128, 128), pf.EMBED_ACTS, False),
+    "kpcn_dx": ((36, 128, 128, 128), pf.EMBED_ACTS, True),
+    "pathnet64": ((36, 64, 64, 64), pf.EMBED_ACTS, False),
+    "multisteps": ((95, 128, 128, 128), pf.LEAKY, True),
+    "padded": ((20, 50, 30, 60), pf.EMBED_ACTS, True),
+}
+
+
+def _embed_bwd_tf32_case(cuda, form, b, s, hw, acts=None, unaligned=False):
+    """K4-bwd's tensor-core body on f32 x: weight and bias gradients within
+    F32_GRAD_TOL of max, d(x) within F32_ROW_L2_TOL in relative L2 of the
+    plain f32 version and of the SIMT body on the same inputs; two launches
+    bit for bit; each cotangent absent in turn.  ``unaligned``: x's rows
+    start 4 bytes past 16, so they land 4 bytes a copy."""
+    dims, form_acts, compute_dx = EMBED_TC_CASES[form]
+    acts = acts or form_acts
+    g = _gen(86)
+    n = b * s * hw * dims[0]
+    x = torch.randn(n + 1, device=cuda, generator=g)
+    x = (x[1:] if unaligned else x[:n]).view(b, s, hw, dims[0])
+    ws, bs = _rand_mlp(cuda, g, dims)
+    ge = torch.randn((b, s, hw, dims[-1]), device=cuda, generator=g)
+    gmean = torch.randn((b, hw, dims[-1]), device=cuda, generator=g)
+    for gs in ((ge, gmean), (ge, None), (None, gmean)):
+        _build.reset_counts()
+        got = pf._embed_bwd_kernel(x, *gs, ws, bs, acts, compute_dx)
+        assert dict(_build.launches) == {"pathnet_embed_bwd": 1} and not _build.plain_calls
+        simt = pf._embed_bwd_kernel(x, *gs, ws, bs, acts, compute_dx, body="simt")
+        want = pf._embed_bwd_plain(x, *gs, ws, bs, acts, compute_dx)
+        for ref in (want, simt):
+            for a, w in zip(got[1] + got[2], ref[1] + ref[2]):
+                assert a.shape == w.shape
+                _close(a, w, F32_GRAD_TOL)
+            if compute_dx:
+                _close_l2(got[0], ref[0], F32_ROW_L2_TOL)
+            else:
+                assert got[0] is None
+        again = pf._embed_bwd_kernel(x, *gs, ws, bs, acts, compute_dx)
+        assert all(torch.equal(a, w) for a, w in zip(again[1] + again[2], got[1] + got[2]))
+        assert not compute_dx or torch.equal(again[0], got[0])
+
+
+@pytest.mark.parametrize("form", list(EMBED_TC_CASES))
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 5, 31)])
+def test_pathnet_embed_bwd_tf32(cuda, form, b, s, hw):
+    _embed_bwd_tf32_case(cuda, form, b, s, hw)
+
+
+@pytest.mark.parametrize("form", ["kpcn", "multisteps"])
+def test_pathnet_embed_bwd_tf32_unaligned_x(cuda, form):
+    _embed_bwd_tf32_case(cuda, form, 1, 3, 50, unaligned=True)
+
+
+@pytest.mark.parametrize("form", list(EMBED_TC_CASES))
+def test_pathnet_embed_bwd_tf32_many_tiles(cuda, form):
+    """The same at 512 tiles (several a persistent block: dW1 and dW2 carried
+    in registers, dW0^T in shared memory), with linear activations (no relu
+    to flip between two f32 orders of sums)."""
+    _embed_bwd_tf32_case(cuda, form, 2, 8, 4096, acts=("linear",) * 3)
+
+
+def _embed_bwd_linear_f64(x, ge, gmean, ws, compute_dx):
+    """K4-bwd with linear activations in f64: (d(x) or None, [dW0, dW1, dW2])."""
+    d = torch.float64
+    s = x.shape[1]
+    hs = [x.to(d)]
+    for w in ws[:-1]:
+        hs.append(hs[-1] @ w.to(d))
+    g = ge.to(d) + gmean.to(d)[:, None] / s
+    dws = []
+    for h, w in zip(hs[::-1], ws[::-1]):
+        dws.insert(0, h.reshape(-1, h.shape[-1]).t() @ g.reshape(-1, g.shape[-1]))
+        g = g @ w.to(d).t()
+    return (g if compute_dx else None), dws
+
+
+@pytest.mark.parametrize("form", list(EMBED_TC_CASES))
+def test_pathnet_embed_bwd_tf32_from_f64(cuda, form):
+    """At 512 tiles with linear activations (the arithmetic alone): dW0, dW1
+    and dW2 (max error of max) and d(x) (relative L2) each within
+    TF32_F64_FACTOR times the plain f32 version's own distance from f64."""
+    dims, _, compute_dx = EMBED_TC_CASES[form]
+    b, s, hw = 2, 8, 4096
+    g = _gen(87)
+    x = torch.randn((b, s, hw, dims[0]), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, dims)
+    bs = [torch.zeros_like(v) for v in bs]
+    ge = torch.randn((b, s, hw, dims[-1]), device=cuda, generator=g)
+    gmean = torch.randn((b, hw, dims[-1]), device=cuda, generator=g)
+    lin = ("linear",) * 3
+    ref = _embed_bwd_linear_f64(x, ge, gmean, ws, compute_dx)
+
+    def dist(out):
+        d = [((a.double() - w).abs().max() / w.abs().max()).item() for a, w in zip(out[1], ref[1])]
+        if compute_dx:
+            d.append(((out[0].double() - ref[0]).norm() / ref[0].norm()).item())
+        return d
+
+    tc = dist(pf._embed_bwd_kernel(x, ge, gmean, ws, bs, lin, compute_dx))
+    plain = dist(pf._embed_bwd_plain(x, ge, gmean, ws, bs, lin, compute_dx))
+    assert all(t <= TF32_F64_FACTOR * p for t, p in zip(tc, plain)), (tc, plain)
+
+
+def test_pathnet_embed_bwd_f32_routes_to_the_tensor_cores(cuda):
+    """``pathnet_embed_bwd`` on f32 launches the tensor-core body alone (and
+    its partials' sum); ``body="simt"`` the SIMT body, and so does a chain
+    no tensor-core form holds (200 wide), against the plain version as the
+    tensor-core body is."""
+    g = _gen(88)
+    x = torch.randn((1, 2, 64, 36), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (36, 64, 64, 64))
+    ge = torch.randn((1, 2, 64, 64), device=cuda, generator=g)
+    names = _kernel_names(lambda: pf.pathnet_embed_bwd(x, ge, None, ws, bs))
+    assert any("pathnet_embed_bwd_tf32_kernel" in n for n in names), names
+    assert not any("pathnet_embed_bwd_f32_kernel" in n for n in names), names
+    names = _kernel_names(lambda: pf._embed_bwd_kernel(x, ge, None, ws, bs, pf.EMBED_ACTS, False,
+                                                       body="simt"))
+    assert any("pathnet_embed_bwd_f32_kernel" in n for n in names), names
+    ws, bs = _rand_mlp(cuda, g, (36, 200, 64, 64))
+    names = _kernel_names(lambda: pf.pathnet_embed_bwd(x, ge, None, ws, bs))
+    assert any("pathnet_embed_bwd_f32_kernel" in n for n in names), names
+    got = pf.pathnet_embed_bwd(x, ge, None, ws, bs)
+    want = pf._embed_bwd_plain(x, ge, None, ws, bs, pf.EMBED_ACTS)
+    for a, w in zip(got[1] + got[2], want[1] + want[2]):
+        _close(a, w, F32_GRAD_TOL)
+
+
+@pytest.mark.parametrize("form", pf.EMBED_TC_FORMS)
+def test_embed_bwd_tc_plan_is_the_kernels_shared_memory(cuda, form):
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_embed_bwd_tf32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    c0, c = form
+    assert fn(c0, c) == pf.embed_bwd_tc_plan(8, 16384, c0, c, c, c).total
+
+
+# (ce, c1, cout, acts, moments, cmajor, out_dtype)
+HEAD_FWD_TC_CASES = {
+    "kpcn_cmajor": (128, 256, 6, pf.HEAD_ACTS, True, True, torch.float32),
+    "kpcn": (128, 256, 6, pf.HEAD_ACTS, True, False, torch.float32),
+    "kpcn_cout12": (128, 256, 12, pf.HEAD_ACTS, True, True, torch.float32),
+    "pathnet64": (64, 128, 3, pf.HEAD_ACTS, True, False, torch.float32),
+    "pathnet64_cout16": (64, 128, 16, pf.HEAD_ACTS, True, True, torch.float32),
+    "multisteps": (128, 128, 128, pf.LEAKY[:2], True, False, torch.bfloat16),
+    "multisteps_bare": (128, 128, 128, pf.LEAKY[:2], False, False, torch.bfloat16),
+    "multisteps_f32": (128, 128, 128, pf.LEAKY[:2], True, False, torch.float32),
+    "padded": (48, 100, 5, pf.HEAD_ACTS, True, True, torch.float32),
+}
+
+
+def _head_fwd_tf32_case(cuda, form, b, s, hw, acts=None):
+    """K5-fwd's tensor-core body on f32 e: within F32_FWD_TOL of max (a bf16
+    output within K2_BF16_TOL: one rounding) of the plain f32 version and of
+    the SIMT body on the same inputs; two launches bit for bit; the output
+    without moments bit for bit the output with them."""
+    ce, c1, cout, form_acts, moments, cmajor, out_dtype = HEAD_FWD_TC_CASES[form]
+    acts = acts or form_acts
+    g = _gen(89)
+    e = torch.randn((b, s, hw, ce), device=cuda, generator=g)
+    ctx = torch.randn((b, hw, ce), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (2 * ce, c1, cout))
+    _build.reset_counts()
+    got = pf._head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
+    assert dict(_build.launches) == {"pathnet_head": 1} and not _build.plain_calls
+    simt = pf._head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype, body="simt")
+    want = pf._head_plain(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
+    got, simt, want = ((list(t) if moments else [t]) for t in (got, simt, want))
+    assert got[0].dtype == out_dtype
+    tol = F32_FWD_TOL if out_dtype == torch.float32 else K2_BF16_TOL
+    for ref in (want, simt):
+        _close(got[0], ref[0], tol)
+        for a, w in zip(got[1:], ref[1:]):
+            _close(a, w, F32_FWD_TOL)
+    again = pf._head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
+    again = list(again) if moments else [again]
+    assert all(torch.equal(a, w) for a, w in zip(again, got))
+    other = pf._head_fwd_kernel(e, ctx, ws, bs, acts, not moments, cmajor, out_dtype)
+    assert torch.equal(other[0] if not moments else other, got[0])
+
+
+@pytest.mark.parametrize("form", list(HEAD_FWD_TC_CASES))
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 5, 31)])
+def test_pathnet_head_tf32(cuda, form, b, s, hw):
+    _head_fwd_tf32_case(cuda, form, b, s, hw)
+
+
+@pytest.mark.parametrize("form", list(HEAD_FWD_TC_CASES))
+def test_pathnet_head_tf32_many_tiles(cuda, form):
+    _head_fwd_tf32_case(cuda, form, 2, 8, 4096)
+
+
+@pytest.mark.parametrize("form", [f for f, v in HEAD_FWD_TC_CASES.items()
+                                  if v[6] == torch.float32])
+def test_pathnet_head_tf32_from_f64(cuda, form):
+    """At 512 tiles with linear activations (the arithmetic alone): the
+    output (relative L2) and the moments (max error of max) each within
+    TF32_F64_FACTOR times the plain f32 version's own distance from f64."""
+    ce, c1, cout, _, moments, cmajor, _ = HEAD_FWD_TC_CASES[form]
+    b, s, hw = 2, 8, 4096
+    g = _gen(90)
+    e = torch.randn((b, s, hw, ce), device=cuda, generator=g)
+    ctx = torch.randn((b, hw, ce), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (2 * ce, c1, cout))
+    d = torch.float64
+    lin = ("linear", "linear")
+    out = ((e.to(d) @ ws[0][:ce].to(d) + (ctx.to(d) @ ws[0][ce:].to(d))[:, None] + bs[0].to(d))
+           @ ws[1].to(d) + bs[1].to(d))
+    ref = [out.transpose(2, 3) if cmajor else out, out.sum(1), (out * out).sum(1)]
+
+    def dist(got):
+        got = list(got) if moments else [got]
+        return [((got[0].double() - ref[0]).norm() / ref[0].norm()).item()] + [
+            ((a.double() - w).abs().max() / w.abs().max()).item() for a, w in zip(got[1:], ref[1:])]
+
+    tc = dist(pf._head_fwd_kernel(e, ctx, ws, bs, lin, moments, cmajor, torch.float32))
+    plain = dist(pf._head_plain(e, ctx, ws, bs, lin, moments, cmajor))
+    assert all(t <= TF32_F64_FACTOR * p for t, p in zip(tc, plain)), (tc, plain)
+
+
+def test_pathnet_head_f32_routes_to_the_tensor_cores(cuda):
+    """``pathnet_head`` on f32 launches the tensor-core body alone;
+    ``body="simt"`` the SIMT body, and so does a head no tensor-core form
+    holds (a dual PathNet head with 24 outputs), against the plain version
+    as the tensor-core body is."""
+    g = _gen(91)
+    e = torch.randn((1, 2, 64, 64), device=cuda, generator=g)
+    ctx = torch.randn((1, 64, 64), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (128, 128, 3))
+    names = _kernel_names(lambda: pf.pathnet_head(e, ctx, ws, bs))
+    assert any("pathnet_head_tf32_kernel" in n for n in names), names
+    assert not any("pathnet_head_f32_kernel" in n for n in names), names
+    names = _kernel_names(lambda: pf._head_fwd_kernel(e, ctx, ws, bs, pf.HEAD_ACTS, False, False,
+                                                      torch.float32, body="simt"))
+    assert any("pathnet_head_f32_kernel" in n for n in names), names
+    e = torch.randn((1, 2, 64, 128), device=cuda, generator=g)
+    ctx = torch.randn((1, 64, 128), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (256, 256, 24))
+    names = _kernel_names(lambda: pf.pathnet_head(e, ctx, ws, bs, cmajor=True))
+    assert any("pathnet_head_f32_kernel" in n for n in names), names
+    _close(pf.pathnet_head(e, ctx, ws, bs, cmajor=True),
+           pf._head_plain(e, ctx, ws, bs, pf.HEAD_ACTS, cmajor=True), F32_FWD_TOL)
+
+
+@pytest.mark.parametrize("form", pf.HEAD_TC_FORMS)
+def test_head_fwd_tc_plan_is_the_kernels_shared_memory(cuda, form):
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_head_tf32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    ce, c1, kout = form
+    assert fn(ce, c1, kout) == pf.head_fwd_tc_plan(8, 16384, ce, ce, c1, kout).total
+
+
+def test_pathnet_f32_autograd_runs_the_tensor_core_bodies(cuda):
+    """The PathNet's embedding and head through autograd (``_Embed``,
+    ``_Head``) on f32 tensors reach K4-bwd's, K5-fwd's and K5-bwd's
+    tensor-core bodies (K4-fwd its SIMT one), share one weight pack between
+    K5-fwd and K5-bwd, and give gradients within their tolerances of the
+    CPU's."""
+    g = _gen(92)
+    b, s, hw = 2, 3, 40
+    x = torch.randn((b, s, hw, 36), device=cuda, generator=g)
+    ews, ebs = _rand_mlp(cuda, g, (36, 128, 128, 128))
+    hws, hbs = _rand_mlp(cuda, g, (256, 256, 6))
+    params = [t.requires_grad_() for t in ews + ebs + hws + hbs]
+    ctx = torch.randn((b, hw, 128), device=cuda, generator=g).requires_grad_()
+
+    def loss(xx, p, c):
+        e, mean = pf.pathnet_embed(xx, p[:3], p[3:6])
+        out, ssum, ssq = pf.pathnet_head(e, c + mean, p[6:8], p[8:10], moments=True, cmajor=True)
+        return (out ** 2).sum() + ssum.sum() + 0.1 * ssq.sum()
+
+    pf._packed.clear()
+    got = torch.autograd.grad(loss(x, params, ctx), params + [ctx])
+    assert pf._packed.hits >= 1
+    names = _kernel_names(lambda: torch.autograd.grad(loss(x, params, ctx), params + [ctx]))
+    for kernel in ("pathnet_embed_f32_kernel", "pathnet_embed_bwd_tf32_kernel",
+                   "pathnet_head_tf32_kernel", "pathnet_head_bwd_tf32_kernel"):
+        assert any(kernel in n for n in names), (kernel, names)
+    assert not any(k in n for n in names for k in ("pathnet_embed_bwd_f32_kernel",
+                                                   "pathnet_head_f32_kernel",
+                                                   "pathnet_head_bwd_f32_kernel"))
+    cpu = [t.detach().cpu().requires_grad_() for t in params + [ctx]]
+    want = torch.autograd.grad(loss(x.cpu(), cpu[:10], cpu[10]), cpu)
+    for a, w in zip(got, want):
+        _close(a.cpu(), w, F32_GRAD_TOL)

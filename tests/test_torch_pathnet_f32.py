@@ -10,7 +10,8 @@ the CPU (the kernels run only on the card: ``tests/test_torch_kernels_gpu.py``).
 * The routing of the four wrappers on card tensors by dtype: f32 to the f32
   body in any form (Multisteps' head backward with its f32 cotangent, and
   PathNet's embedding backward with d(x), which the bf16 bodies refuse; the
-  head backward to its tensor-core body, the SIMT one with ``body="simt"``),
+  embedding backward, the head forward and the head backward to their
+  tensor-core bodies, the SIMT ones with ``body="simt"``),
   bf16 to the bf16 bodies as before, and a TypeError for any other dtype.
   Here the launch is intercepted at the kernel lookup (``_build.kernel``),
   which names the C entry point; nothing runs.
@@ -126,9 +127,11 @@ def test_embed_routes_by_dtype(launches, form):
     x, ws, bs = _embed_inputs(dims, torch.float32)
     assert _entry(pf._embed_fwd_kernel, x, ws, bs, acts) == "wcmc_pathnet_embed_f32"
     ge = torch.zeros((1, 2, 40, dims[-1]))
-    for dx in (True, False):   # the f32 body takes PathNet's chain with d(x) too
+    for dx in (True, False):   # the f32 bodies take PathNet's chain with d(x) too
         assert _entry(pf._embed_bwd_kernel, x, ge, None, ws, bs, acts,
-                      dx) == "wcmc_pathnet_embed_bwd_f32"
+                      dx) == "wcmc_pathnet_embed_bwd_tf32"
+        assert _entry(pf._embed_bwd_kernel, x, ge, None, ws, bs, acts, dx,
+                      body="simt") == "wcmc_pathnet_embed_bwd_f32"
     xb = x.to(torch.bfloat16)
     assert _entry(pf._embed_fwd_kernel, xb, ws, bs, acts) == "wcmc_pathnet_embed_tiled"
     assert _entry(pf._embed_bwd_kernel, xb, ge, None, ws, bs, acts,
@@ -154,7 +157,9 @@ def test_head_routes_by_dtype(launches, form):
     gout = torch.randn((1, 2, 40, cout), generator=g)   # f32, as the f32 paths pass it
     for out_dtype in (torch.float32, torch.bfloat16):
         assert _entry(pf._head_fwd_kernel, e, ctx, ws, bs, acts, moments, False,
-                      out_dtype) == "wcmc_pathnet_head_f32"
+                      out_dtype) == "wcmc_pathnet_head_tf32"
+        assert _entry(pf._head_fwd_kernel, e, ctx, ws, bs, acts, moments, False,
+                      out_dtype, body="simt") == "wcmc_pathnet_head_f32"
     with pytest.raises(TypeError):
         pf._head_fwd_kernel(e, ctx, ws, bs, acts, moments, False, torch.float16)
     gsum = torch.zeros((1, 40, cout)) if moments else None

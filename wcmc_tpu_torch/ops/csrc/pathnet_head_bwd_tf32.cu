@@ -175,75 +175,6 @@ __device__ inline void mm_rows_w(float (&acc)[MT][NT][4], const float* A, int pa
   cp_async_wait_all();
 }
 
-// acc[mt][nt] += sum_r A[r][m0 + 16 mt + (g, g + 8)] . B[r][n0 + 8 nt + g]
-// over 8 k8s rows for the warp (a weight gradient): A and B row-major in
-// shared memory at pitches pa and pb, read as A^T and B.
-template <int MT, int NT>
-__device__ inline void mm_rows_t(float (&acc)[MT][NT][4], const float* A, int pa, int m0,
-                                 const float* B, int pb, int n0, int k8s) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  for (int ks = 0; ks < k8s; ++ks) {
-    FragB b[NT];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float* bp = B + (8 * ks + t) * pb + n0 + 8 * nt + g;
-      b[nt].set(bp[0], bp[4 * pb]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const float* ap = A + (8 * ks + t) * pa + m0 + 16 * mt + g;
-      FragA a;
-      a.set(ap[0], ap[8], ap[4 * pa], ap[4 * pa + 8]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma3(acc[mt][nt], a, b[nt]);
-    }
-  }
-}
-
-template <int MT, int NT>
-__device__ inline void zero_frags(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
-}
-
-// f(row, col, value) for each accumulator of the warp's MT x NT tiles, rows
-// from m0, columns from n0: (row g, cols 2t, 2t + 1), then row g + 8
-template <int MT, int NT, typename F>
-__device__ inline void each_frag(float (&acc)[MT][NT][4], int m0, int n0, F f) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(m0 + 16 * mt + g + 8 * h, n0 + 8 * nt + 2 * t, acc[mt][nt][2 * h],
-          acc[mt][nt][2 * h + 1]);
-}
-
-// acc from the row-major matrix p (ld floats a row) at the positions
-// each_frag hands them out
-template <int MT, int NT>
-__device__ inline void load_frags(float (&acc)[MT][NT][4], int m0, int n0, const float* p,
-                                  int ld) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 v = *reinterpret_cast<const float2*>(
-            p + (size_t)(m0 + 16 * mt + g + 8 * h) * ld + n0 + 8 * nt + 2 * t);
-        acc[mt][nt][2 * h] = v.x;
-        acc[mt][nt][2 * h + 1] = v.y;
-      }
-}
-
 template <int kCe, int kC1, int kOut>
 __global__ void __launch_bounds__(kThreads, 1) pathnet_head_bwd_tf32_kernel(HeadTc a) {
   constexpr int pe = ht_pitch(kCe), ph = ht_pitch(kC1), pg = ht_pitch(kOut);

@@ -1,5 +1,7 @@
 // Split TF32 ("3xTF32") on the tensor cores, shared by the f32 bodies that
-// run their products there (conv5_tf32.cu, pathnet_head_bwd_tf32.cu).
+// run their products there (conv5_tf32.cu, pathnet_head_bwd_tf32.cu,
+// pathnet_head_tf32.cu, pathnet_embed_bwd_tf32.cu), and the mma.sync
+// fragment helpers of the three PathNet bodies.
 //
 // An f32 value a is split into hi = tf32(a) and lo = tf32(a - hi), each
 // rounded to nearest with ties away from zero (cvt.rna.tf32.f32); a - hi is
@@ -93,6 +95,119 @@ __device__ inline void mma3(float (&d)[4], const FragA& a, const FragB& b) {
   mma_tf32(t, a.hi, b.v[0], b.v[1]);
 #pragma unroll
   for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
+// acc[mt][nt] += A[16 mt + (g, g + 8)][k] . W[k][8 (jn0 + nt) + g] over k8s
+// k8 steps for the warp: A row-major in shared memory at pitch pa from the
+// warp's first row, W packed in fragment order (wk8 k8 steps an n8 tile;
+// ops/pathnet_fused.py's pack_b_tf32).  Each lane reads its B fragments by
+// 16-byte read-only loads (L1, L2) kAhead k8 steps ahead of their products,
+// so no cp.async group of the caller is waited on here.
+template <int MT, int NT, int kAhead = 1>
+__device__ inline void mm_rows_ldg(float (&acc)[MT][NT][4], const float* A, int pa, int k8s,
+                                   const float* __restrict__ W, int wk8, int jn0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const uint4* wp = reinterpret_cast<const uint4*>(W) + (size_t)jn0 * wk8 * 32 + lane;
+  uint4 next[kAhead][NT];
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      next[i][nt] = __ldg(wp + ((size_t)nt * wk8 + (i < k8s ? i : k8s - 1)) * 32);
+  for (int ks = 0; ks < k8s; ++ks) {
+    FragB b[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      b[nt].v[0] = next[0][nt].x, b[nt].v[1] = next[0][nt].y;
+      b[nt].v[2] = next[0][nt].z, b[nt].v[3] = next[0][nt].w;
+#pragma unroll
+      for (int i = 0; i + 1 < kAhead; ++i) next[i][nt] = next[i + 1][nt];
+    }
+    if (ks + kAhead < k8s) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        next[kAhead - 1][nt] = __ldg(wp + ((size_t)nt * wk8 + ks + kAhead) * 32);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* ap = A + (16 * mt + g) * pa + 8 * ks + 2 * t;
+      const float2 v0 = *reinterpret_cast<const float2*>(ap);
+      const float2 v1 = *reinterpret_cast<const float2*>(ap + 8 * pa);
+      FragA a;
+      a.set(v0.x, v1.x, v0.y, v1.y);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma3(acc[mt][nt], a, b[nt]);
+    }
+  }
+}
+
+// acc[mt][nt] += sum_r A[r][m0 + 16 mt + (g, g + 8)] . B[r][n0 + 8 nt + g]
+// over 8 k8s rows for the warp (a weight gradient): A and B row-major in
+// shared memory at pitches pa and pb, read as A^T and B.
+template <int MT, int NT>
+__device__ inline void mm_rows_t(float (&acc)[MT][NT][4], const float* A, int pa, int m0,
+                                 const float* B, int pb, int n0, int k8s) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int ks = 0; ks < k8s; ++ks) {
+    FragB b[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* bp = B + (8 * ks + t) * pb + n0 + 8 * nt + g;
+      b[nt].set(bp[0], bp[4 * pb]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* ap = A + (8 * ks + t) * pa + m0 + 16 * mt + g;
+      FragA a;
+      a.set(ap[0], ap[8], ap[4 * pa], ap[4 * pa + 8]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma3(acc[mt][nt], a, b[nt]);
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ inline void zero_frags(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+}
+
+// f(row, col, value) for each accumulator of the warp's MT x NT tiles, rows
+// from m0, columns from n0: (row g, cols 2t, 2t + 1), then row g + 8
+template <int MT, int NT, typename F>
+__device__ inline void each_frag(float (&acc)[MT][NT][4], int m0, int n0, F f) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(m0 + 16 * mt + g + 8 * h, n0 + 8 * nt + 2 * t, acc[mt][nt][2 * h],
+          acc[mt][nt][2 * h + 1]);
+}
+
+// acc from the row-major matrix p (ld floats a row) at the positions
+// each_frag hands them out
+template <int MT, int NT>
+__device__ inline void load_frags(float (&acc)[MT][NT][4], int m0, int n0, const float* p,
+                                  int ld) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            p + (size_t)(m0 + 16 * mt + g + 8 * h) * ld + n0 + 8 * nt + 2 * t);
+        acc[mt][nt][2 * h] = v.x;
+        acc[mt][nt][2 * h + 1] = v.y;
+      }
 }
 
 }  // namespace wcmc

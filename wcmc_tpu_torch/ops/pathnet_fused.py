@@ -38,11 +38,17 @@ output cotangent, leaky-leaky with Cout <= 128 and a bf16 one) and raise
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels,
 which compute in bfloat16 with f32 accumulation (the bodies above) or in
-float32 (``csrc/pathnet_f32.cu``: one SIMT body for each of the four, the
-layer widths, activations and layouts as arguments, every product a full
-f32 fused multiply-add chain; ``embed_f32_plan`` and ``head_f32_plan``
-give its tiles, grid and shared memory) and raise ``TypeError`` for any
-other dtype.  The plain versions round where the reference's Pallas kernels
+float32 and raise ``TypeError`` for any other dtype.  In float32 K4-bwd,
+K5-fwd and K5-bwd run bodies on the tensor cores in split TF32
+(``csrc/pathnet_embed_bwd_tf32.cu``, ``csrc/pathnet_head_tf32.cu``,
+``csrc/pathnet_head_bwd_tf32.cu``; ``embed_bwd_tc_plan``,
+``head_fwd_tc_plan``, ``head_bwd_tc_plan``) wherever one of their forms
+holds the chain; K4-fwd, and any chain no form holds, run the SIMT bodies
+(``csrc/pathnet_f32.cu``: one for each of the four, the layer widths,
+activations and layouts as arguments, every product a full f32 fused
+multiply-add chain; ``embed_f32_plan`` and ``head_f32_plan`` give its
+tiles, grid and shared memory), which ``body="simt"`` also selects.  The
+plain versions round where the reference's Pallas kernels
 round: forward, after every embedding layer, after every hidden head
 layer, and the last head layer only to the output dtype: its unrounded
 f32 value feeds the moments (the reference's XLA head path rounds the
@@ -196,11 +202,18 @@ def _head_fwd(e, ctx, ws, bs, acts, moments, cmajor, out_dtype):
     return _head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype)
 
 
-def _head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype, wmma=False):
-    """K5-fwd on the body ``head_fwd_plan`` picks, or with ``wmma`` on the
-    wmma body whatever the form (the card tests compare the two)."""
+def _head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype, wmma=False, body="tc"):
+    """K5-fwd on the card.  bf16 ``e`` runs the body ``head_fwd_plan``
+    picks, or with ``wmma`` the wmma body whatever the form (the card tests
+    compare the two).  f32 ``e`` runs the tensor-core body (``body="tc"``)
+    where one of its forms (``HEAD_TC_FORMS``) holds the head, else the
+    first f32 body, the SIMT one, which takes any head up to 256 wide;
+    ``body="simt"`` runs the SIMT body whatever the head (the card tests'
+    and ``chip_smoke.py``'s reference)."""
     dev = _require_cuda("pathnet_head", e, ctx, *ws, *bs)
     codes = _check_head_card(e, acts)
+    if body not in ("tc", "simt"):
+        raise ValueError(f"pathnet_head: no f32 body {body!r}; 'tc' or 'simt'")
     b, s, hw, ce = e.shape
     cc = ctx.shape[-1]
     c1, cout = ws[0].shape[1], ws[1].shape[1]
@@ -208,6 +221,10 @@ def _head_fwd_kernel(e, ctx, ws, bs, acts, moments, cmajor, out_dtype, wmma=Fals
             or tuple(ws[1].shape) != (c1, cout)):
         raise ValueError("pathnet_head: shapes of e, ctx and the weights disagree")
     if e.dtype == torch.float32:
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"pathnet_head kernel writes float32 or bfloat16, got {out_dtype}")
+        if body == "tc" and head_tc_form(ce, cc, c1, cout):
+            return _head_fwd_tc_kernel(e, ctx, ws, bs, codes, moments, cmajor, out_dtype, dev)
         return _head_f32_kernel(e, ctx, ws, bs, codes, moments, cmajor, out_dtype, dev)
     plan = head_fwd_plan(tuple(acts), ce, cc, c1, cout, out_dtype, cmajor)
     ctx = ctx.to(torch.bfloat16).contiguous()
@@ -989,9 +1006,21 @@ def _embed_bwd_walk(x, ge, gmean, ws, bs, acts, compute_dx=False, n_blocks=3):
     return dx, sums[:3], sums[3:]
 
 
-def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx):
+def _embed_bwd_kernel(x, ge, gmean, ws, bs, acts, compute_dx, body="tc"):
+    """K4-bwd on the card.  f32 ``x`` runs the tensor-core body
+    (``body="tc"``) where one of its forms (``EMBED_TC_FORMS``) holds the
+    chain, else the first f32 body, the SIMT one, which takes any chain up
+    to 256 wide; ``body="simt"`` runs the SIMT body whatever the chain (the
+    card tests' and ``chip_smoke.py``'s reference).  bf16 ``x`` runs the
+    bf16 bodies."""
     dev = _require_cuda("pathnet_embed_bwd", x, *ws, *bs)
+    if body not in ("tc", "simt"):
+        raise ValueError(f"pathnet_embed_bwd: no f32 body {body!r}; 'tc' or 'simt'")
     if _card_dtype("pathnet_embed_bwd", x) == torch.float32:
+        widths = [x.shape[-1]] + [w.shape[1] for w in ws]
+        if body == "tc" and len(ws) == 3 and embed_tc_form(*widths):
+            codes = _act_codes("pathnet_embed_bwd", acts, 3)
+            return _embed_bwd_tc_kernel(x, ge, gmean, ws, bs, codes, compute_dx, dev)
         return _embed_bwd_f32_kernel(x, ge, gmean, ws, bs, acts, compute_dx, dev)
     b, s, hw, c0 = x.shape
     codes, with_dx = _embed_bwd_form(acts, compute_dx)
@@ -1610,6 +1639,344 @@ def _head_bwd_tc_kernel(e, ctx, g, gsum, gsq, ws, bs, codes, cmajor, dev):
     dw1 = torch.cat([dw1e.view(kce, kc1)[:ce, :c1], dw1c.view(kce, kc1)[:cc, :c1]])
     return (de[..., :ce], dctx[..., :cc], [dw1, dw2.view(kc1, kout)[:c1, :cout]],
             [db1[:c1], db2[:cout]])
+
+
+# ---------------------------------------------------------------------------
+# K4-bwd's tensor-core f32 body (csrc/pathnet_embed_bwd_tf32.cu): forms, plan,
+# weight pack, walk and wrapper
+# ---------------------------------------------------------------------------
+
+# (C0 padded, hidden width) of the body's instantiations: KPCN's dual
+# PathNet (36 -> 128^3), the 64-wide PathNet (36 -> 64^3), Multisteps (95 ->
+# 128^3)
+EMBED_TC_FORMS = ((40, 128), (40, 64), (96, 128))
+EMBED_TC_PIX, EMBED_TC_SAMPLES = 16, 4   # a tile's pixels; a chunk's samples (64 rows)
+
+
+class EmbedBwdTcPlan(NamedTuple):
+    """How K4-bwd's tensor-core f32 body runs a chain: the instantiation
+    ``form`` (C0 padded, hidden width) its widths are zero-padded to;
+    ``blocks`` persistent blocks (``per_sm`` an SM) over ``tiles`` tiles of
+    16 pixels, each tile its samples in chunks of 4; ``smem`` the block's
+    shared memory as (buffer, bytes) pairs in the kernel's carve order, each
+    a multiple of 128 bytes, ``total`` their sum (what
+    ``wcmc_pathnet_embed_bwd_tf32_smem`` returns); ``parts`` the floats of a
+    block's partial (dW0 | dW1 | dW2 | db0 | db1 | db2 at the padded
+    widths)."""
+    form: tuple
+    tiles: int
+    per_sm: int
+    blocks: int
+    smem: tuple
+    total: int
+    parts: int
+
+
+def embed_tc_form(c0, c1, c2, c3):
+    """The cheapest instantiation of ``EMBED_TC_FORMS`` that holds the chain
+    C0 -> C1 -> C2 -> C3 (by multiply-adds a row at the padded widths), None
+    if none does; ValueError for a width below 1."""
+    if min(c0, c1, c2, c3) < 1:
+        raise ValueError(f"pathnet_embed_bwd: widths {(c0, c1, c2, c3)}")
+    fits = [f for f in EMBED_TC_FORMS if c0 <= f[0] and max(c1, c2, c3) <= f[1]]
+    return min(fits, key=lambda f: f[0] * f[1] + 2 * f[1] * f[1]) if fits else None
+
+
+def _et_pitch(c):
+    """A row pitch of 8 floats past a multiple of 32 (the kernel's et_pitch)."""
+    return c + (40 - c % 32) % 32
+
+
+@functools.lru_cache(maxsize=None)
+def embed_bwd_tc_plan(b, hw, c0, c1, c2, c3, sms=H100_SMS) -> EmbedBwdTcPlan:
+    """K4-bwd's tensor-core body for (b, ., hw) rows of a chain C0 -> C1 ->
+    C2 -> C3: the form, the grid, and the carve: x twice (the chunk and the
+    next), h1 / g1, h2 / g2 and ge / g3 at 64 rows, the tile's gmean at 16
+    pixels, dW0^T (hidden width x C0 padded), f32, rows at a pitch of 8
+    floats past a multiple of 32.  Two blocks an SM for the 64-wide form.
+    ValueError for a chain no form holds."""
+    form = embed_tc_form(c0, c1, c2, c3)
+    if form is None:
+        raise ValueError(f"pathnet_embed_bwd tf32 body takes chains up to one of "
+                         f"{EMBED_TC_FORMS} (C0, widest layer), got {(c0, c1, c2, c3)}")
+    kc0, kc = form
+    rows = EMBED_TC_PIX * EMBED_TC_SAMPLES
+    smem = (("x0", rows * _et_pitch(kc0)), ("x1", rows * _et_pitch(kc0)),
+            ("h1", rows * _et_pitch(kc)), ("h2", rows * _et_pitch(kc)),
+            ("g3", rows * _et_pitch(kc)), ("gmean", EMBED_TC_PIX * _et_pitch(kc)),
+            ("dw0t", kc * _et_pitch(kc0)))
+    smem = tuple((n, _r128(4 * c)) for n, c in smem)
+    total = sum(m for _, m in smem)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"pathnet_embed_bwd tf32 body needs {total} bytes of shared memory")
+    per_sm = min(2 if kc == 64 else 1, SM_SMEM // (total + 1024))
+    tiles = b * -(-hw // EMBED_TC_PIX)
+    return EmbedBwdTcPlan(form, tiles, per_sm, max(1, min(tiles, per_sm * sms)), smem, total,
+                          kc0 * kc + 2 * kc * kc + 3 * kc)
+
+
+def pack_embed_tf32(w0, w1, w2, b0, b1, b2, form):
+    """The embedding's parameters as the tensor-core body reads them, at the
+    widths of ``form`` (zero past the chain's): ``(wp, bias)``, ``wp`` the
+    packed B operands (``pack_b_tf32``) of W0, W1, W2, W2^T, W1^T and W0^T,
+    one after the other; ``bias`` b0 | b1 | b2, f32, each padded to the
+    hidden width."""
+    kc0, kc = form
+    m0, m1, m2 = _pad2(w0.float(), kc0, kc), _pad2(w1.float(), kc, kc), _pad2(w2.float(), kc, kc)
+    wp = torch.cat([pack_b_tf32(m).reshape(-1) for m in (m0, m1, m2, m2.t(), m1.t(), m0.t())])
+    bias = torch.zeros(3 * kc, dtype=torch.float32, device=w0.device)
+    for i, v in enumerate((b0, b1, b2)):
+        bias[i * kc:i * kc + v.shape[0]] = v
+    return wp, bias
+
+
+def _packed_embed_tf32(ws, bs, form):
+    """``pack_embed_tf32``, made once per parameter value."""
+    return _packed.get((*ws, *bs), ("tf32_embed", form),
+                       lambda *p: pack_embed_tf32(*p, form))
+
+
+def _embed_bwd_tc_walk(x, ge, gmean, ws, bs, acts, compute_dx=False, sms=H100_SMS):
+    """A plain walk of K4-bwd's tensor-core body on the CPU, f32: the plan's
+    form (C0 and the layers zero-padded), every product in split TF32 k8 step
+    by k8 step (``_mm8``) in the kernel's order; the per-row chain (the
+    recompute, g3 = a2'(h3, ge + gmean / S), g2, g1, d(x)) is the same
+    arithmetic for every row, so it runs on all rows at once; the weight
+    gradients walk each persistent block's tiles of 16 pixels and chunks of 4
+    samples (64 rows, sample-major, rows past S or HW zero), dW1, dW2 and
+    dW0^T carried through the block's walk, the bias sums chunk by chunk, the
+    partials summed in block order.  Returns what ``_embed_bwd_plain``
+    returns for f32 ``x``."""
+    b, s, hw, c0 = x.shape
+    dims = [c0] + [w.shape[1] for w in ws]
+    plan = embed_bwd_tc_plan(b, hw, *dims, sms)
+    kc0, kc = plan.form
+    a0, a1, a2 = acts
+    m0, m1, m2 = _pad2(ws[0], kc0, kc), _pad2(ws[1], kc, kc), _pad2(ws[2], kc, kc)
+    bias = []
+    for v in bs:
+        p = torch.zeros(kc)
+        p[:v.shape[0]] = v
+        bias.append(p)
+    xf = torch.zeros((b, s, hw, kc0))
+    xf[..., :c0] = x.float()
+    c3 = dims[-1]
+    g = torch.zeros((b, s, hw, kc))
+    if ge is not None:
+        g[..., :c3] = ge.float()
+    if gmean is not None:
+        g[..., :c3] = g[..., :c3] + gmean.float()[:, None] / s
+
+    def mm(a, w):
+        return _mm8(torch.zeros((*a.shape[:-1], w.shape[1])), a, w)
+
+    h1 = _act(a0, mm(xf, m0) + bias[0])
+    h2 = _act(a1, mm(h1, m1) + bias[1])
+    if a2 != "linear":
+        g = _act_grad(a2, _act(a2, mm(h2, m2) + bias[2]), g)
+    g2 = _act_grad(a1, h2, mm(g, m2.t()))
+    g1 = _act_grad(a0, h1, mm(g2, m1.t()))
+    dx = mm(g1, m0.t())[..., :c0] if compute_dx else None
+    per_image = -(-hw // EMBED_TC_PIX)
+    rows = EMBED_TC_PIX * EMBED_TC_SAMPLES
+    parts = []
+    for blk in range(plan.blocks):
+        dw0t, dw1, dw2 = torch.zeros((kc, kc0)), torch.zeros((kc, kc)), torch.zeros((kc, kc))
+        db = [torch.zeros(kc) for _ in range(3)]
+        for t in range(blk, plan.tiles, plan.blocks):
+            bi, p0 = divmod(t, per_image)
+            p0 *= EMBED_TC_PIX
+            pix = torch.arange(p0, p0 + EMBED_TC_PIX)
+            pok = pix < hw
+            pc = pix.clamp(max=hw - 1)
+            for s0 in range(0, s, EMBED_TC_SAMPLES):
+                smp = torch.arange(s0, s0 + EMBED_TC_SAMPLES)
+                ok = ((smp < s)[:, None] & pok[None]).reshape(rows)   # row 16 j + p
+                sc = smp.clamp(max=s - 1)
+
+                def chunk(v):
+                    return torch.where(ok[:, None], v[bi][sc][:, pc].reshape(rows, -1), 0.0)
+
+                xc, h1c, h2c, g3c, g2c, g1c = map(chunk, (xf, h1, h2, g, g2, g1))
+                db[2] = db[2] + g3c.sum(0)
+                dw2 = _mm8(dw2, h2c.t(), g3c)
+                db[1] = db[1] + g2c.sum(0)
+                dw1 = _mm8(dw1, h1c.t(), g2c)
+                db[0] = db[0] + g1c.sum(0)
+                dw0t = _mm8(dw0t, g1c.t(), xc)
+        parts.append(torch.cat([dw0t.t().reshape(-1), dw1.reshape(-1), dw2.reshape(-1), *db]))
+    out = torch.zeros_like(parts[0])
+    for part in parts:
+        out = out + part
+    dw0, dw1, dw2, db0, db1, db2 = torch.split(out, [kc0 * kc, kc * kc, kc * kc, kc, kc, kc])
+    c1, c2 = dims[1:3]
+    return (dx, [dw0.view(kc0, kc)[:c0, :c1], dw1.view(kc, kc)[:c1, :c2],
+                 dw2.view(kc, kc)[:c2, :c3]], [db0[:c1], db1[:c2], db2[:c3]])
+
+
+def _embed_bwd_tc_kernel(x, ge, gmean, ws, bs, codes, compute_dx, dev):
+    """K4-bwd's tensor-core f32 body (``embed_bwd_tc_plan``): x read as it
+    comes (16 bytes a copy where C0 is a multiple of 4 and x 16-byte
+    aligned), the cotangents as f32 zero-padded to the hidden width where
+    narrower, None as zero; the weights from ``pack_embed_tf32``, packed
+    once per parameter value."""
+    b, s, hw, c0 = x.shape
+    dims = _f32_dims("pathnet_embed_bwd", c0, ws)
+    c1, c2, c3 = dims[1:]
+    if ((ge is not None and tuple(ge.shape) != (b, s, hw, c3))
+            or (gmean is not None and tuple(gmean.shape) != (b, hw, c3))):
+        raise ValueError("pathnet_embed_bwd: cotangent shapes do not match the embedding")
+    idx = dev.index or 0
+    plan = embed_bwd_tc_plan(b, hw, *dims, sms=_build.sm_count(idx))
+    kc0, kc = plan.form
+    wp, bias = _packed_embed_tf32(ws, bs, plan.form)
+    x = x.contiguous()
+    ge, gmean = (None if t is None else _aligned(_pad_last(t.float().contiguous(), kc))
+                 for t in (ge, gmean))
+    dx = torch.empty_like(x) if compute_dx else None
+    parts = torch.empty(plan.blocks * plan.parts, dtype=torch.float32, device=dev)
+    out = torch.empty(plan.parts, dtype=torch.float32, device=dev)
+    P, INT = _build.PTR, _build.INT
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    fn = _build.kernel("wcmc_pathnet_embed_bwd_tf32", *([P] * 8), *([INT] * 11), P)
+    _build.check(fn(x.data_ptr(), ptr(ge), ptr(gmean), wp.data_ptr(), bias.data_ptr(), ptr(dx),
+                    parts.data_ptr(), out.data_ptr(), b, s, hw, c0, kc0, kc, *codes, plan.blocks,
+                    idx, _build.stream_of(dev)), "pathnet_embed_bwd")
+    _build.launches["pathnet_embed_bwd"] += 1
+    dw0, dw1, dw2, db0, db1, db2 = torch.split(out, [kc0 * kc, kc * kc, kc * kc, kc, kc, kc])
+    return dx, [dw0.view(kc0, kc)[:c0, :c1], dw1.view(kc, kc)[:c1, :c2],
+                dw2.view(kc, kc)[:c2, :c3]], [db0[:c1], db1[:c2], db2[:c3]]
+
+
+# ---------------------------------------------------------------------------
+# K5-fwd's tensor-core f32 body (csrc/pathnet_head_tf32.cu): plan, walk and
+# wrapper; its forms and weight pack are K5-bwd's (HEAD_TC_FORMS,
+# pack_head_tf32), so a train step's backward finds its forward's pack
+# ---------------------------------------------------------------------------
+
+class HeadFwdTcPlan(NamedTuple):
+    """How K5-fwd's tensor-core f32 body runs a head: the form of
+    ``HEAD_TC_FORMS`` its widths are zero-padded to; ``blocks`` persistent
+    blocks (``per_sm`` an SM) over ``tiles`` tiles of 16 pixels, each tile
+    its samples in chunks of 4; ``smem`` the block's shared memory as
+    (buffer, bytes) pairs in the kernel's carve order, each a multiple of
+    128 bytes, ``total`` their sum (what ``wcmc_pathnet_head_tf32_smem``
+    returns)."""
+    form: tuple
+    tiles: int
+    per_sm: int
+    blocks: int
+    smem: tuple
+    total: int
+
+
+HEAD_FWD_TC_WARPS = 8   # a narrow head's output product is split over them by k8 steps
+
+
+@functools.lru_cache(maxsize=None)
+def head_fwd_tc_plan(b, hw, ce, cc, c1, cout, sms=H100_SMS) -> HeadFwdTcPlan:
+    """K5-fwd's tensor-core body for (b, ., hw) rows of a head [Ce | Cc] ->
+    C1 -> Cout: the form, the grid, and the carve: e twice (the chunk and
+    the next) and h1 at 64 rows, the output at 64 rows (for a narrow head,
+    Cout padded to 8 or 16, the 8 warps' partials of it), the context and
+    ctx . W1c at 16 pixels, f32, rows at a pitch of the width + 8 floats (8
+    for a width of 8).  Two blocks an SM where a 64-wide form's carve lets
+    them.  ValueError for a head no form holds."""
+    form = head_tc_form(ce, cc, c1, cout)
+    if form is None:
+        raise ValueError(f"pathnet_head tf32 body takes heads up to one of {HEAD_TC_FORMS} "
+                         f"(Ce = Cc, C1, Cout), got {(ce, cc, c1, cout)}")
+    kce, kc1, kout = form
+    rows = HEAD_TC_PIX * HEAD_TC_SAMPLES
+    out = HEAD_FWD_TC_WARPS * rows * kout if kout <= 16 else rows * _tc_pitch(kout)
+    smem = (("e0", rows * _tc_pitch(kce)), ("e1", rows * _tc_pitch(kce)),
+            ("h", rows * _tc_pitch(kc1)), ("out", out), ("ctx", HEAD_TC_PIX * _tc_pitch(kce)),
+            ("zc", HEAD_TC_PIX * _tc_pitch(kc1)))
+    smem = tuple((n, _r128(4 * c)) for n, c in smem)
+    total = sum(m for _, m in smem)
+    per_sm = min(2 if kce == 64 else 1, SM_SMEM // (total + 1024))
+    tiles = b * -(-hw // HEAD_TC_PIX)
+    return HeadFwdTcPlan(form, tiles, per_sm, max(1, min(tiles, per_sm * sms)), smem, total)
+
+
+def _head_fwd_tc_walk(e, ctx, ws, bs, acts, moments=False, cmajor=False,
+                      out_dtype=torch.float32):
+    """A plain walk of K5-fwd's tensor-core body on the CPU, f32: the plan's
+    form (widths zero-padded), every product in split TF32 k8 step by k8
+    step (``_mm8``) in the kernel's order, ctx . W1c once per pixel added to
+    each sample's rows before b1; a narrow head's output product (Cout
+    padded to 8 or 16) as the kernel splits it, each warp's C1 / 64 k8
+    steps into its partial from zero and the 8 partials summed in warp
+    order; the moments of the unrounded f32 output summed in sample order.
+    Every row's arithmetic is the same whatever its tile, so the walk takes
+    all rows at once.  Returns what ``_head_plain`` returns for f32 ``e``."""
+    b, s, hw, ce = e.shape
+    cc, (c1, cout) = ctx.shape[-1], ws[1].shape
+    kce, kc1, kout = head_fwd_tc_plan(b, hw, ce, cc, c1, cout).form
+    a1, a2 = acts
+    w1e, w1c = _pad2(ws[0][:ce], kce, kc1), _pad2(ws[0][ce:], kce, kc1)
+    w2 = _pad2(ws[1], kc1, kout)
+    b1 = torch.zeros(kc1)
+    b1[:c1] = bs[0]
+    b2 = torch.zeros(kout)
+    b2[:cout] = bs[1]
+    ef = torch.zeros((b, s, hw, kce))
+    ef[..., :ce] = e.float()
+    cf = torch.zeros((b, hw, kce))
+    cf[..., :cc] = ctx.float()
+    zc = _mm8(torch.zeros((b, hw, kc1)), cf, w1c)
+    h1 = _act(a1, (_mm8(torch.zeros((b, s, hw, kc1)), ef, w1e) + zc[:, None]) + b1)
+    if kout <= 16:
+        z = None
+        k = kc1 // HEAD_FWD_TC_WARPS
+        for w in range(HEAD_FWD_TC_WARPS):
+            part = _mm8(torch.zeros((b, s, hw, kout)), h1[..., w * k:(w + 1) * k],
+                        w2[w * k:(w + 1) * k])
+            z = part if z is None else z + part
+    else:
+        z = _mm8(torch.zeros((b, s, hw, kout)), h1, w2)
+    out = _act(a2, z + b2)[..., :cout]
+    res = out.to(out_dtype)
+    res = res.transpose(2, 3) if cmajor else res
+    if not moments:
+        return res
+    ssum, ssq = torch.zeros((b, hw, cout)), torch.zeros((b, hw, cout))
+    for j in range(s):
+        ssum = ssum + out[:, j]
+        ssq = ssq + out[:, j] * out[:, j]
+    return res, ssum, ssq
+
+
+def _head_fwd_tc_kernel(e, ctx, ws, bs, codes, moments, cmajor, out_dtype, dev):
+    """K5-fwd's tensor-core f32 body (``head_fwd_tc_plan``): the head zero-
+    padded to the plan's form (e and ctx copied only where narrower), the
+    output written as ``out_dtype`` (f32 or bf16) in either layout, the
+    moments of the unrounded f32 output; the weights from
+    ``pack_head_tf32``, packed once per parameter value (the entry K5-bwd
+    reads)."""
+    b, s, hw, ce = e.shape
+    cc, (c1, cout) = ctx.shape[-1], ws[1].shape
+    idx = dev.index or 0
+    plan = head_fwd_tc_plan(b, hw, ce, cc, c1, cout, sms=_build.sm_count(idx))
+    kce, kc1, kout = plan.form
+    wp, b1, b2 = _packed_head_tf32(ws, bs, ce, plan.form)
+    e = _aligned(_pad_last(e.contiguous(), kce))
+    ctx = _aligned(_pad_last(ctx.float().contiguous(), kce))
+    shape = (b, s, cout, hw) if cmajor else (b, s, hw, cout)
+    out = torch.empty(shape, dtype=out_dtype, device=dev)
+    ssum = ssq = None
+    if moments:
+        ssum = torch.empty((b, hw, cout), dtype=torch.float32, device=dev)
+        ssq = torch.empty_like(ssum)
+    P, INT = _build.PTR, _build.INT
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    fn = _build.kernel("wcmc_pathnet_head_tf32", *([P] * 8), *([INT] * 13), P)
+    _build.check(fn(e.data_ptr(), ctx.data_ptr(), wp.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+                    out.data_ptr(), ptr(ssum), ptr(ssq), b, s, hw, kce, kc1, kout, cout, *codes,
+                    int(out_dtype == torch.bfloat16), int(cmajor), plan.blocks, idx,
+                    _build.stream_of(dev)), "pathnet_head")
+    _build.launches["pathnet_head"] += 1
+    return (out, ssum, ssq) if moments else out
 
 
 def pathnet_embed_bwd(x, ge, gmean, ws, bs, acts=EMBED_ACTS, compute_dx=False):
