@@ -1,14 +1,27 @@
 #!/usr/bin/env python3
 """What bounds the new bodies of K1 (the softmax gather), K2 and K3 (its
 backward), K9 (the weighted gather) and K10-fwd (the fused per-pixel MLP) on
-one NVIDIA card, and of the tensor-core f32 bodies of K5-bwd, K6, K4-bwd
-and K5-fwd: each is built again from a copy of ``wcmc_tpu_torch/ops/csrc``
-with one part of its work dropped, and every variant is timed at the path
-shapes beside the whole body.
+one NVIDIA card, and of the tensor-core f32 bodies of K5-bwd, K6, K4-bwd,
+K5-fwd, K4-fwd and K10-bwd: each is built again from a copy of
+``wcmc_tpu_torch/ops/csrc`` with one part of its work dropped, and every
+variant is timed at the path shapes beside the whole body.
 
-    python3 chip_parts.py [k1 k2 k3 k9 k10 k5b k6 k4b k5f]
+    python3 chip_parts.py [k1 k2 k3 k9 k10 k5b k6 k4b k5f k4f k10b]
 
-(the kernels named, all nine without arguments).  K4-bwd's f32 body
+(the kernels named, all eleven without arguments).  K4-fwd's f32 body
+(``pathnet_embed_tf32_kernel``) at KPCN's PathNet (8 x 8 spp x 128^2
+rows, 36 -> 128^3) and Multisteps' embedding (95 -> 128^3 leaky):
+``whole``; ``no_hidden`` (h1's and h2's products skipped); ``no_out`` (e's
+product skipped); ``no_store`` (e never leaves the registers; the mean
+does); ``no_load`` (the next chunk's x never lands); ``no_split``,
+``l1_weights``, ``no_step``, as K5-bwd's; and two trials of the whole body:
+``one_block`` (launch bounds for one block an SM, not two, where C0 is 40)
+and ``ahead1`` (weight fragments one k8 step ahead, not two).  K10-bwd's f32 body
+(``mlp_fused_bwd_tf32_kernel``) at LBMC's shape (1,048,576 rows, 32 ->
+32^3 leaky, d(x)): ``whole``; ``no_rows`` (the chain's row products:
+the recompute, the cotangents and d(x), skipped); ``no_dw`` (dW0's, dW1's
+and dW2's products skipped); ``no_dx`` (d(x) never stored); ``no_load``
+(no slab after the first two lands); ``no_split``, ``no_step``.  K4-bwd's f32 body
 (``pathnet_embed_bwd_tf32_kernel``) at KPCN's PathNet (8 x 8 spp x 128^2
 rows, 36 -> 128^3, no d(x)) and Multisteps' embedding (95 -> 128^3 leaky,
 d(x)), both cotangents: ``whole``; ``no_rows`` (the recompute's and the
@@ -63,8 +76,8 @@ memory); ``no_store`` (the gradients never leave shared memory).  K3
 ``whole``; ``no_convert`` (no probability is computed); ``no_taps`` (no tap
 loop); ``no_logits``.  A dropped part leaves wrong outputs; only ``whole`` is
 checked (K1, K2 and K10-fwd bit for bit against their first bodies, K3 within
-1e-5 of its gather body; K9 bit for bit against its first body; K4-bwd's
-and K5-fwd's bit for bit against the wrapper's launch).  Each line: the
+1e-5 of its gather body; K9 bit for bit against its first body; K4-bwd's,
+K5-fwd's, K4-fwd's and K10-bwd's bit for bit against the wrapper's launch).  Each line: the
 variant, the path, the CUDA-event ms and the profiler's device ms (``chip_smoke.py``'s ``time_ms`` and ``device_ms``).
 The card's ``nvidia-smi`` name and power limit come first.  Exits non-zero
 without CUDA or if a variant does not build.
@@ -86,7 +99,8 @@ K1_SRC, K2_SRC, K3_SRC, K9_SRC, K10_SRC = ("gather_softmax.cu", "outer_softmax.c
                                            "scatter_softmax.cu", "gather.cu", "mlp_fused.cu")
 K5B_SRC, K6_SRC = "pathnet_head_bwd_tf32.cu", "conv5_tf32.cu"
 K4B_SRC, K5F_SRC = "pathnet_embed_bwd_tf32.cu", "pathnet_head_tf32.cu"
-KERNELS = ("k1", "k2", "k3", "k9", "k10", "k5b", "k6", "k4b", "k5f")
+K4F_SRC, K10B_SRC = "pathnet_embed_tf32.cu", "mlp_bwd_tf32.cu"
+KERNELS = ("k1", "k2", "k3", "k9", "k10", "k5b", "k6", "k4b", "k5f", "k4f", "k10b")
 # the tensor-core f32 bodies' shared parts (tf32x3.cuh)
 NO_SPLIT = ("  hi = tf32_rna(a);\n  lo = tf32_rna(a - __uint_as_float(hi));",
             "  hi = __float_as_uint(a);\n  lo = hi;")
@@ -177,6 +191,33 @@ VARIANTS = {
     "k5f_no_split": (K5F_SRC, [NO_SPLIT]),
     "k5f_l1_weights": (K5F_SRC, [L1_WEIGHTS]),
     "k5f_no_step": (K5F_SRC, [NO_STEP]),
+    "k4f_whole": (K4F_SRC, []),
+    "k4f_no_hidden": (K4F_SRC, [("    mm_rows_ldg<4, NT, kAhead>(acc, A, pa, k8s, Wm, k8s, jn0);\n",
+                                 "")]),
+    "k4f_no_out": (K4F_SRC, [("      mm_rows_ldg<4, NT, kAhead>(acc, H2, ph, kC / 8, W + oW2, "
+                              "kC / 8, jn0);\n", "")]),
+    "k4f_no_store": (K4F_SRC, [("              *reinterpret_cast<float2*>(er + c) = "
+                                "make_float2(v0, v1);\n", "")]),
+    "k4f_no_load": (K4F_SRC, [("        if (tn < tiles) load_x(X[(q + 1) & 1], tn, sn);\n", "")]),
+    "k4f_one_block": (K4F_SRC, [("__launch_bounds__(kThreads, kC0 == 40 ? 2 : 1)",
+                                 "__launch_bounds__(kThreads, 1)")]),
+    "k4f_ahead1": (K4F_SRC, [("  constexpr int kAhead = 2;     // weight fragments read ahead",
+                              "  constexpr int kAhead = 1;     // weight fragments read ahead")]),
+    "k4f_no_split": (K4F_SRC, [NO_SPLIT]),
+    "k4f_l1_weights": (K4F_SRC, [L1_WEIGHTS]),
+    "k4f_no_step": (K4F_SRC, [NO_STEP]),
+    "k10b_whole": (K10B_SRC, []),
+    "k10b_no_rows": (K10B_SRC, [("      mma3(out[nt], fa, fb);\n", "")]),
+    "k10b_no_dw": (K10B_SRC, [
+        ("    mm_rows_t<2, 4>(dw[2], H2, kMtPitch, 0, G, kMtPitch, 0, kMtRows / 8);", ""),
+        ("    mm_rows_t<2, 4>(dw[1], H1, kMtPitch, 0, G, kMtPitch, 0, kMtRows / 8);", ""),
+        ("    mm_rows_t<2, 4>(dw[0], X, kMtPitch, 0, G, kMtPitch, 0, kMtRows / 8);", "")]),
+    "k10b_no_dx": (K10B_SRC, [("            *reinterpret_cast<float2*>(d + c) = "
+                               "make_float2(v[j][2 * hh], v[j][2 * hh + 1]);\n", "")]),
+    "k10b_no_load": (K10B_SRC, [("    if (i + kMtStages - 1 < n_mine) fetch(i + kMtStages - 1);\n",
+                                 "")]),
+    "k10b_no_split": (K10B_SRC, [NO_SPLIT]),
+    "k10b_no_step": (K10B_SRC, [NO_STEP]),
     "k6_whole": (K6_SRC, []),
     "k6_one_sum": (K6_SRC, [
         ("          wgmma_tf32<kN>(part, lo, b_hi, 0);   // the step's own partial, from zero\n"
@@ -419,6 +460,54 @@ def main() -> int:
                          "pathnet_head")
             return out, ssum, ssq
 
+        if "k4f" in kernels:
+            from wcmc_tpu_torch.ops import pathnet_fused as pf
+
+            # KPCN's PathNet (36 -> 128^3, relu relu linear) and Multisteps (95 ->
+            # 128^3 leaky) over 8 x 8 spp x 128^2 rows
+            k4f_args = {}
+            for path, dims, acts4 in (("kpcn", (36, 128, 128, 128), pf.EMBED_ACTS),
+                                      ("sbmc", (95, 128, 128, 128), pf.LEAKY)):
+                x4 = torch.randn((8, 8, 128 * 128, dims[0]), device=dev, generator=g)
+                ws4, bs4 = cs.rand_mlp(torch, dev, g, dims)
+                plan4 = pf.embed_fwd_tc_plan(8, 128 * 128, *dims, sms=sms)
+                wp4, bias4 = pf._packed_embed_tf32(ws4, bs4, plan4.form)
+                k4f_args[path] = (x4, ws4, bs4, wp4, bias4, plan4, acts4)
+
+        def k4f(lib, x4, ws4, bs4, wp4, bias4, plan4, acts4):
+            e = torch.empty((8, 8, 128 * 128, 128), dtype=torch.float32, device=dev)
+            mean = torch.empty((8, 128 * 128, 128), dtype=torch.float32, device=dev)
+            fn = lib.wcmc_pathnet_embed_tf32
+            fn.argtypes, fn.restype = [P] * 5 + [I] * 12 + [P], I
+            _build.check(fn(x4.data_ptr(), wp4.data_ptr(), bias4.data_ptr(), e.data_ptr(),
+                            mean.data_ptr(), 8, 8, 128 * 128, x4.shape[-1], 128, *plan4.form,
+                            *(mf.ACTS.index(a) for a in acts4), plan4.blocks, 0, stream),
+                         "pathnet_embed")
+            return e, mean
+
+        if "k10b" in kernels:
+            # LBMC's K10-bwd at f32: 8 patches x 8 spp x 128^2 rows, 32 -> 32^3 leaky, d(x)
+            xb = torch.randn((8 * 8 * 128 * 128, 32), device=dev, generator=g)
+            gb = torch.randn((8 * 8 * 128 * 128, 32), device=dev, generator=g)
+            actsb = ("leaky_relu",) * 3
+            wsb, bsb = cs.rand_mlp(torch, dev, g, (32, 32, 32, 32))
+            planb = mf.mlp_bwd_tc_plan(32, (32, 32, 32), actsb)
+            wpb, biasb = mf.pack_mlp_tf32(*wsb, *bsb)
+
+        def k10b(lib):
+            n = xb.shape[0]
+            grid = planb.grid(n, sms)
+            dx = torch.empty_like(xb)
+            parts = torch.empty(grid * planb.parts, dtype=torch.float32, device=dev)
+            out = torch.empty(planb.parts, dtype=torch.float32, device=dev)
+            fn = lib.wcmc_mlp_fused_bwd_tf32
+            fn.argtypes, fn.restype = [P] * 7 + [L] + [I] * 6 + [P], I
+            _build.check(fn(xb.data_ptr(), gb.data_ptr(), wpb.data_ptr(), biasb.data_ptr(),
+                            dx.data_ptr(), parts.data_ptr(), out.data_ptr(), n, 32,
+                            *(mf.ACTS.index(a) for a in actsb), grid, 0, stream),
+                         "mlp_fused_bwd")
+            return dx, out
+
         if "k6" in kernels:
             from wcmc_tpu_torch.ops import conv5
 
@@ -456,6 +545,11 @@ def main() -> int:
                         for path, args in k4b_args.items()]
             elif kernel == "k5f":
                 todo = [("kpcn", lambda lib=lib: k5f(lib), "pathnet_head", 1)]
+            elif kernel == "k4f":
+                todo = [(path, lambda lib=lib, a=args: k4f(lib, *a), "pathnet_embed", 1)
+                        for path, args in k4f_args.items()]
+            elif kernel == "k10b":
+                todo = [("lbmc", lambda lib=lib: k10b(lib), "mlp_fused_bwd", 1)]
             elif kernel == "k9":
                 todo = [("sbmc", lambda lib=lib: k9(lib, *k9_args), "gather", 1)]
             else:
@@ -510,6 +604,19 @@ def main() -> int:
                         want = pf._head_fwd_kernel(e5f, ctx5f, ws5f, bs5f, pf.HEAD_ACTS, True,
                                                    True, torch.float32)
                         same = all(torch.equal(a, w) for a, w in zip(got, want))
+                    if not same:
+                        raise AssertionError(f"{name} at {path} is not the wrapper's bits")
+                elif name in ("k4f_whole", "k10b_whole"):
+                    # the same source as the wrapper's library: the same bits
+                    got = call()
+                    if kernel == "k4f":
+                        x4, ws4, bs4, *_, acts4 = k4f_args[path]
+                        want = pf._embed_fwd_kernel(x4, ws4, bs4, acts4)
+                        same = all(torch.equal(a, w) for a, w in zip(got, want))
+                    else:
+                        want = mf.mlp_fused_bwd(xb, gb, wsb, bsb, actsb, True)
+                        same = (torch.equal(got[0], want[0])
+                                and torch.equal(got[1][:32 * 32].view(32, 32), want[1][0]))
                     if not same:
                         raise AssertionError(f"{name} at {path} is not the wrapper's bits")
                 elif name.endswith("_whole"):

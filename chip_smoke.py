@@ -69,10 +69,10 @@ Phases (one JSON line each):
    K above 21: K2 at K = 23 on a KPCN branch ((8, 70, 70, 529) bf16
    logits) and K8 at K = 23 on the SBMC splat ((64, 128, 128, 529) f32),
    each on its first body by the route, against its plain version and
-   itself over two launches.  The f32 bodies of K4 and K5 (K4-fwd's
-   ``csrc/pathnet_f32.cu``; K4-bwd's, K5-fwd's and K5-bwd's on the tensor
-   cores in split TF32, ``csrc/pathnet_embed_bwd_tf32.cu``,
-   ``csrc/pathnet_head_tf32.cu`` and ``csrc/pathnet_head_bwd_tf32.cu``)
+   itself over two launches.  The f32 bodies of K4 and K5 (on the tensor
+   cores in split TF32, ``csrc/pathnet_embed_tf32.cu``,
+   ``csrc/pathnet_embed_bwd_tf32.cu``, ``csrc/pathnet_head_tf32.cu`` and
+   ``csrc/pathnet_head_bwd_tf32.cu``)
    forward and backward in each f32 path's forms (KPCN's dual PathNet, its
    head channel-major and channels-last; the 64-wide PathNet; Multisteps
    with d(x), its update chain with and without moments), each against its
@@ -83,9 +83,11 @@ Phases (one JSON line each):
    three products an f32 one, ``bound_ms``; the CUDA cores' f32 rate,
    ``bound_f32_cuda_ms``), and with linear activations their distances from
    f64 within ``TF32_F64_FACTOR`` of the plain version's.  The
-   f32 body of K10 (``csrc/mlp_f32.cu``) forward and backward at LayerNet's
-   32 -> 32^3 leaky chain over 1,048,576 rows (d(x) on) and at 64 -> 64^4
-   beside it, and K1, K2 and K3 on f32 logits at K = 13 (``K1_TOL``); the
+   f32 bodies of K10 forward (``csrc/mlp_f32.cu``) and backward
+   (``csrc/mlp_bwd_tf32.cu``, split TF32, held as K4-bwd's beside its SIMT
+   body) at LayerNet's 32 -> 32^3 leaky chain over 1,048,576 rows (d(x) on)
+   and on the SIMT bodies at 64 -> 64^4 beside it, and K1, K2 and K3 on f32
+   logits at K = 13 (``K1_TOL``); the
    f32 body of K6 (``csrc/conv5_tf32.cu``, split TF32 on ``wgmma``) at the
    four K6 shapes above (``F32_FWD_TOL``), each with cuDNN's f32
    ``F.conv2d`` (TF32 off) + activation as ``library_ms``, its first f32
@@ -93,8 +95,11 @@ Phases (one JSON line each):
    K5-bwd's, its distance from f64 within ``TF32_F64_FACTOR`` of the plain
    version's, and one branch's f32 chain on each body.  Every f32 row
    also two launches bit for bit, with a digest of its outputs
-   (``out_sha1``; ``python3 chip_smoke.py f32-digests`` prints K4's and
-   K5's alone, to hold two trees' f32 bodies to the same bits).
+   (``out_sha1``; ``python3 chip_smoke.py f32-digests`` prints K4's, K5's
+   and LBMC's f32 kernels' alone, to hold two trees' f32 bodies to the same
+   bits; ``f32-digests lbmc`` LBMC's alone, through the public entry points,
+   so a copy of this script beside an older tree's package gives that
+   tree's).
 4. serve, serve_lbmc, serve_sbmc: a synthetic 512x512, 8-spp scene is
    written, preprocessed on the card and denoised through
    ``wcmc_tpu_torch.test_models.main`` — the full-width KPCN (K 21,
@@ -1496,6 +1501,34 @@ def embed_bwd_f64(torch, x, ge, gmean, ws, bs, acts, compute_dx):
     return (g.reshape(b, s, hw, c0) if compute_dx else None), dws, dbs
 
 
+def embed_fwd_f64(torch, x, ws, bs, acts):
+    """K4-fwd's function in f64 on the card: [e, its mean over the samples]."""
+    from wcmc_tpu_torch.ops.mlp_fused import _act
+
+    e = x.to(torch.float64)
+    for w, v, a in zip(ws, bs, acts):
+        e = _act(a, e @ w.to(torch.float64) + v.to(torch.float64))
+    return [e, e.mean(dim=1)]
+
+
+def mlp_bwd_f64(torch, x, g, ws, bs, acts, compute_dx):
+    """K10-bwd's function in f64 on the card (the relu masks from the f64
+    activations): (d(x) or None, dWs, dbs)."""
+    from wcmc_tpu_torch.ops.mlp_fused import _act, _act_grad
+
+    d = torch.float64
+    hs = [x.to(d)]
+    for w, v, a in zip(ws, bs, acts):
+        hs.append(_act(a, hs[-1] @ w.to(d) + v.to(d)))
+    gz, dws, dbs = g.to(d), [], []
+    for i in reversed(range(len(ws))):
+        gz = _act_grad(acts[i], hs[i + 1], gz)
+        dws.insert(0, hs[i].t() @ gz)
+        dbs.insert(0, gz.sum(dim=0))
+        gz = gz @ ws[i].to(d).t()
+    return (gz if compute_dx else None), dws, dbs
+
+
 def head_fwd_f64(torch, e, ctx, ws, bs, acts, moments, cmajor):
     """K5-fwd's function in f64 on the card: [out] or, with ``moments``,
     [out, sum_s out, sum_s out^2]."""
@@ -1556,20 +1589,51 @@ def f32_embed_rows(torch, pf, dev, g, flush, form, b, s, hw, dims, acts, compute
     def fwd():
         return pf.pathnet_embed(x, ws, bs, acts)
 
+    def simt_fwd():
+        return pf._embed_fwd_kernel(x, ws, bs, acts, body="simt")
+
     e, mean = fwd()
-    err = max_err(torch, [e, mean], list(pf._embed_plain(x, ws, bs, acts)), F32_FWD_TOL)
+    plain = pf._embed_plain(x, ws, bs, acts)
+    err = max_err(torch, [e, mean], list(plain), F32_FWD_TOL)
     again = fwd()
     if not (torch.equal(again[0], e) and torch.equal(again[1], mean)):
         raise AssertionError(f"K4-fwd f32 ({form}): a second launch gave other bits")
     del again
+    # the SIMT body on the same inputs, held to the plain version the same way
+    sgot = simt_fwd()
+    simt_row = {"source": F32_SOURCE, "max_abs_err": max_err(torch, sgot, list(plain), F32_FWD_TOL),
+                "max_abs_diff_tc": max((a.double() - w.double()).abs().max().item()
+                                       for a, w in zip(sgot, (e, mean))),
+                "ms": time_ms(torch, simt_fwd, 10, flush),
+                "device_ms": device_ms(torch, simt_fwd, "pathnet_embed", flush)}
+    # each f32 version's distance from the f64 function (relu flips included)
+    ref = dict(zip(("e", "mean"), embed_fwd_f64(torch, x, ws, bs, acts)))
+    f64 = {k: f64_dists(torch, dict(zip(("e", "mean"), out)), ref, ("e",))
+           for k, out in (("tc", (e, mean)), ("simt", sgot), ("plain", plain))}
+    del sgot, plain, ref
+    # with linear activations the arithmetic alone, held to TF32_F64_FACTOR
+    lin = ("linear",) * 3
+    lin_f64 = within_f64_factor(
+        torch, dict(zip(("e", "mean"), pf.pathnet_embed(x, ws, bs, lin))),
+        dict(zip(("e", "mean"), pf._embed_plain(x, ws, bs, lin))),
+        dict(zip(("e", "mean"), embed_fwd_f64(torch, x, ws, bs, lin))), ("e",))
+    if not lin_f64["within_factor"]:
+        raise AssertionError(f"K4-fwd f32 ({form}) with linear activations is further from "
+                             f"f64 than {TF32_F64_FACTOR} times the plain version: {lin_f64}")
     macs = b * s * hw * sum(ci * co for ci, co in zip(dims[:-1], dims[1:]))
+    n_bytes = nbytes(x, e, mean) + f32_weight_bytes(ws)
     rows = [kernel_row(
         "pathnet_embed_f32", "pathnet_embed", "wcmc_tpu/ops/pathnet_fused.py:155", err,
         time_ms(torch, fwd, 10, flush),
         time_ms(torch, lambda: pf._embed_plain(x, ws, bs, acts), 3, flush),
-        bound_ms(nbytes(x, e, mean) + f32_weight_bytes(ws), [(2 * macs, F32_FLOPS)]), shape,
-        source=F32_SOURCE, device_ms=device_ms(torch, fwd, "pathnet_embed", flush),
-        bit_for_bit=True, out_sha1=digest(e, mean))]
+        # split TF32: three tf32 products for each f32 one
+        bound_ms(n_bytes, [(3 * 2 * macs, TF32_FLOPS)]), shape,
+        source="wcmc_tpu_torch/ops/csrc/pathnet_embed_tf32.cu", body="tc",
+        bound_f32_cuda_ms=bound_ms(n_bytes, [(2 * macs, F32_FLOPS)])[0], simt=simt_row,
+        from_f64=f64, from_f64_linear=lin_f64,
+        device_ms=device_ms(torch, fwd, "pathnet_embed", flush),
+        library_note="no single PyTorch call computes a fused MLP", bit_for_bit=True,
+        out_sha1=digest(e, mean))]
     ge = torch.randn(e.shape, device=dev, generator=g)
     gmean = torch.randn(mean.shape, device=dev, generator=g)
     del e, mean
@@ -1833,11 +1897,13 @@ def mlp_f32_macs(n, dims, acts, compute_dx):
     return n * (recompute + sum(layers) + sum(layers[1:]) + (layers[0] if compute_dx else 0))
 
 
-def f32_mlp_legs(torch, mf, dev, g, flush, n, dims, acts):
-    """K10-fwd and K10-bwd (d(x) on) on their f32 body for one form, each
+def f32_mlp_legs(torch, mf, dev, g, flush, n, dims, acts, digests=False):
+    """K10-fwd and K10-bwd (d(x) on) on their f32 bodies for one form, each
     against its plain f32 version (``F32_FWD_TOL``; ``F32_GRAD_TOL`` for dW
     and db, ``F32_ROW_L2_TOL`` for d(x)) and itself over two launches.
-    Returns the forward's and the backward's measurements."""
+    Returns the forward's and the backward's measurements; with ``digests``
+    only their outputs' digests, from the public entry points alone (so an
+    older tree's package gives its own)."""
     x = torch.randn((n, dims[0]), device=dev, generator=g)
     ws, bs = rand_mlp(torch, dev, g, dims)
 
@@ -1845,6 +1911,10 @@ def f32_mlp_legs(torch, mf, dev, g, flush, n, dims, acts):
         return mf.fused_mlp(x, ws, bs, acts)
 
     y = fwd()
+    if digests:
+        cot = torch.randn(y.shape, device=dev, generator=g)
+        dx, dws, dbs = mf.mlp_fused_bwd(x, cot, ws, bs, acts, True)
+        return {"out_sha1": digest(y)}, {"out_sha1": digest(dx, *dws, *dbs)}
     err = max_err(torch, [y], [mf._mlp_fwd_plain(x, ws, bs, acts)], F32_FWD_TOL)
     if not torch.equal(fwd(), y):
         raise AssertionError(f"K10-fwd f32 {dims}: a second launch gave other bits")
@@ -1860,6 +1930,9 @@ def f32_mlp_legs(torch, mf, dev, g, flush, n, dims, acts):
     def bwd():
         return mf.mlp_fused_bwd(x, cot, ws, bs, acts, True)
 
+    def simt():
+        return mf.mlp_fused_bwd(x, cot, ws, bs, acts, True, body="simt")
+
     dx, dws, dbs = bwd()
     pdx, pdws, pdbs = mf._mlp_bwd_plain(x, cot, ws, bs, acts, True)
     err = max_err(torch, dws + dbs, pdws + pdbs, F32_GRAD_TOL)
@@ -1870,48 +1943,96 @@ def f32_mlp_legs(torch, mf, dev, g, flush, n, dims, acts):
     if not all(torch.equal(a, w) for a, w in zip([again[0], *again[1], *again[2]],
                                                  [dx, *dws, *dbs])):
         raise AssertionError(f"K10-bwd f32 {dims}: a second launch gave other bits")
-    del again, pdx
-    bms, by = bound_ms(nbytes(x, cot, dx, *dws, *dbs) + f32_weight_bytes(ws),
-                       [(2 * mlp_f32_macs(n, dims, acts, True), F32_FLOPS)])
+    del again
+    macs = mlp_f32_macs(n, dims, acts, True)
+    n_bytes = nbytes(x, cot, dx, *dws, *dbs) + f32_weight_bytes(ws)
+    tc = mf.mlp_tc_form(dims[0], dims[1:])
+    # split TF32 (LayerNet's chain): three tf32 products for each f32 one
+    bms, by = bound_ms(n_bytes, [(3 * 2 * macs, TF32_FLOPS)] if tc else [(2 * macs, F32_FLOPS)])
     backward = {"max_abs_err": err, "row_rel_l2": row_l2, "ms": time_ms(torch, bwd, 10, flush),
                 "device_ms": device_ms(torch, bwd, "mlp_fused_bwd", flush, per_call=1),
                 "plain_ms": time_ms(torch, lambda: mf._mlp_bwd_plain(x, cot, ws, bs, acts, True),
                                     3, flush),
                 "bound_ms": bms, "bound_by": by, "bit_for_bit": True,
                 "out_sha1": digest(dx, *dws, *dbs)}
+    if tc:
+        backward["body"] = "tc"
+        backward["source"] = "wcmc_tpu_torch/ops/csrc/mlp_bwd_tf32.cu"
+        backward["bound_f32_cuda_ms"] = bound_ms(n_bytes, [(2 * macs, F32_FLOPS)])[0]
+        # the SIMT body on the same inputs, held to the plain version the same way
+        sdx, sdws, sdbs = simt()
+        backward["simt"] = {
+            "source": MLP_F32_SOURCE,
+            "max_abs_err": max_err(torch, sdws + sdbs, pdws + pdbs, F32_GRAD_TOL),
+            "row_rel_l2": {"dx": rel_l2(torch, sdx, pdx)},
+            "max_abs_diff_tc": max((a.double() - w.double()).abs().max().item()
+                                   for a, w in zip(sdws + sdbs, dws + dbs)),
+            "ms": time_ms(torch, simt, 10, flush),
+            "device_ms": device_ms(torch, simt, "mlp_fused_bwd", flush, per_call=1)}
+        if backward["simt"]["row_rel_l2"]["dx"] > F32_ROW_L2_TOL:
+            raise AssertionError(f"K10-bwd f32 SIMT {dims} d(x) off by {backward['simt']}")
+        # each f32 version's distance from the f64 function (relu flips included)
+        ref = embed_named(mlp_bwd_f64(torch, x, cot, ws, bs, acts, True))
+        backward["from_f64"] = {
+            k: f64_dists(torch, embed_named(out), ref, ("dx",))
+            for k, out in (("tc", (dx, dws, dbs)), ("simt", (sdx, sdws, sdbs)),
+                           ("plain", (pdx, pdws, pdbs)))}
+        del sdx, sdws, sdbs, ref
+        # with linear activations the arithmetic alone, held to TF32_F64_FACTOR
+        lin = ("linear",) * 3
+        lin_f64 = within_f64_factor(
+            torch, embed_named(mf.mlp_fused_bwd(x, cot, ws, bs, lin, True)),
+            embed_named(mf._mlp_bwd_plain(x, cot, ws, bs, lin, True)),
+            embed_named(mlp_bwd_f64(torch, x, cot, ws, bs, lin, True)), ("dx",))
+        if not lin_f64["within_factor"]:
+            raise AssertionError(f"K10-bwd f32 {dims} with linear activations is further from "
+                                 f"f64 than {TF32_F64_FACTOR} times the plain version: {lin_f64}")
+        backward["from_f64_linear"] = lin_f64
+    del pdx
     torch.cuda.synchronize()
     return forward, backward
 
 
-def lbmc_f32_kernel_phase(torch, ka, mf, dev, b=8, s=8, p=128):
+def lbmc_f32_kernel_phase(torch, ka, mf, dev, b=8, s=8, p=128, digests=False):
     """The kernels LBMC runs at f32 that no earlier phase holds at f32, at
-    its shapes (8 tiles or patches of 128 px at 8 spp): K10-fwd and K10-bwd
-    on their f32 body (``csrc/mlp_f32.cu``) at LayerNet's 32 -> 32^3 leaky
-    chain over 1,048,576 rows, d(x) on, and at the widest form K10 admits
-    (64 -> 64^4) beside it; K1, K2 and K3 at K = 13 on f32 logits, the
+    its shapes (8 tiles or patches of 128 px at 8 spp): K10-fwd on its f32
+    body (``csrc/mlp_f32.cu``) and K10-bwd on its tensor-core body
+    (``csrc/mlp_bwd_tf32.cu``, also against the SIMT body and f64) at
+    LayerNet's 32 -> 32^3 leaky chain over 1,048,576 rows, d(x) on, and both
+    on the SIMT bodies at the widest form K10 admits (64 -> 64^4) beside it;
+    K1, K2 and K3 at K = 13 on f32 logits, the
     second layer's slice of a channels-last f32 kernel head (``K1_TOL`` each,
     the same f32 math summed in another order), each also two launches bit
-    for bit.  Returns the kernel table's rows (without launches)."""
+    for bit.  Returns the kernel table's rows (without launches); with
+    ``digests`` only each row's name and outputs' digests (``out_sha1``),
+    from the same seeded inputs through the public entry points alone."""
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     n, dims, acts = b * s * p * p, (32, 32, 32, 32), ("leaky_relu",) * 3
     wide = (64, 64, 64, 64, 64), ("relu", "leaky_relu", "relu", "linear")
-    fwd, bwd = f32_mlp_legs(torch, mf, dev, g, flush, n, dims, acts)
-    wfwd, wbwd = f32_mlp_legs(torch, mf, dev, g, flush, n, *wide)
+    fwd, bwd = f32_mlp_legs(torch, mf, dev, g, flush, n, dims, acts, digests)
+    wfwd, wbwd = f32_mlp_legs(torch, mf, dev, g, flush, n, *wide, digests)
     shape = {"x": [n, dims[0]], "dims": list(dims), "acts": list(acts)}
     other = {"dims": list(wide[0]), "acts": list(wide[1])}
     rows = []
-    for name, counter, replaces, leg, wleg, extra in (
+    if digests:
+        rows = [{"name": name, "shape": shape, "out_sha1": leg["out_sha1"],
+                 "other_form": {"out_sha1": wleg["out_sha1"]}}
+                for name, leg, wleg in (("mlp_fused_f32", fwd, wfwd),
+                                        ("mlp_fused_bwd_f32", bwd, wbwd))]
+    for name, counter, replaces, leg, wleg, extra in () if digests else (
             ("mlp_fused_f32", "mlp_fused", "wcmc_tpu/ops/mlp_fused.py:165", fwd, wfwd, {}),
             ("mlp_fused_bwd_f32", "mlp_fused_bwd", "wcmc_tpu/ops/mlp_fused.py:191", bwd, wbwd,
              {"g": [n, dims[-1]], "compute_dx": True})):
         rows.append(kernel_row(
             name, counter, replaces, leg["max_abs_err"], leg["ms"], leg["plain_ms"],
-            (leg["bound_ms"], leg["bound_by"]), dict(shape, **extra), source=MLP_F32_SOURCE,
-            device_ms=leg["device_ms"], bit_for_bit=True, out_sha1=leg["out_sha1"],
+            (leg["bound_ms"], leg["bound_by"]), dict(shape, **extra),
+            source=leg.get("source", MLP_F32_SOURCE), device_ms=leg["device_ms"],
+            bit_for_bit=True, out_sha1=leg["out_sha1"],
             library_note="no single PyTorch call computes a fused MLP or its backward",
-            **({"row_rel_l2": leg["row_rel_l2"]} if "row_rel_l2" in leg else {}),
-            other_form=dict(other, **wleg)))
+            **{k: leg[k] for k in ("row_rel_l2", "body", "bound_f32_cuda_ms", "simt",
+                                   "from_f64", "from_f64_linear") if k in leg},
+            other_form=dict(other, source=MLP_F32_SOURCE, **wleg)))
 
     # K1, K2, K3 at K = 13 on f32 logits, the layer's slice of the kernel head
     k = 13
@@ -1939,6 +2060,9 @@ def lbmc_f32_kernel_phase(torch, ka, mf, dev, b=8, s=8, p=128):
          lambda out: 4 * taps + nbytes(cot, out), 3 + 2 * 3, 2, {"g": [b, p, p, 3]}))
     for name, replaces, run, plain, n_bytes, ops_per_tap, per_call, extra in legs:
         out = run()
+        if digests:
+            rows.append({"name": name, "shape": shape, "out_sha1": digest(out)})
+            continue
         err = max_err(torch, [out], [plain()], K1_TOL)
         if not torch.equal(run(), out):
             raise AssertionError(f"{name} on f32 logits: a second launch gave other bits")
@@ -2197,7 +2321,8 @@ def check_embed_body(kinds, where):
 
 # the kernels whose f32 form runs on the tensor cores (split TF32), by launch
 # counter: their f32 body files under counter_tf32, the SIMT one under counter_f32
-TF32_BODIES = ("conv5", "pathnet_head_bwd", "pathnet_embed_bwd", "pathnet_head")
+TF32_BODIES = ("conv5", "pathnet_head_bwd", "pathnet_embed_bwd", "pathnet_head", "pathnet_embed",
+               "mlp_fused_bwd")
 
 
 def check_f32_bodies(kinds, where, counters):
@@ -2271,9 +2396,11 @@ def device_kind(name):
     ``mlp_fused_tiled``, apart from its wmma body ``mlp_fused``; the f32
     bodies of K4 and K5 by their own names, ``pathnet_embed_f32``,
     ``pathnet_embed_bwd_f32``, ``pathnet_head_f32`` and
-    ``pathnet_head_bwd_f32``, and the tensor-core f32 bodies of K6, K4-bwd,
-    K5-fwd and K5-bwd, ``conv5_tf32``, ``pathnet_embed_bwd_tf32``,
-    ``pathnet_head_tf32`` and ``pathnet_head_bwd_tf32``), the library
+    ``pathnet_head_bwd_f32``, and those of K10, ``mlp_fused_f32`` and
+    ``mlp_fused_bwd_f32``, and the tensor-core f32 bodies of K6, K4, K5 and
+    K10-bwd, ``conv5_tf32``, ``pathnet_embed_tf32``,
+    ``pathnet_embed_bwd_tf32``, ``pathnet_head_tf32``,
+    ``pathnet_head_bwd_tf32`` and ``mlp_fused_bwd_tf32``), the library
     convolutions and products,
     copies, or the rest (PyTorch's elementwise, reduction and copy
     kernels)."""
@@ -3813,7 +3940,7 @@ def main() -> int:
               "from the root of a checkout of the repository", file=sys.stderr)
         return 3
 
-    digests_only = sys.argv[1:] == ["f32-digests"]
+    digests_only = sys.argv[1:2] == ["f32-digests"]
     f32_train_runs = 0
     if sys.argv[1:2] == ["f32-train"]:
         f32_train_runs = int(sys.argv[2]) if len(sys.argv) > 2 else 3
@@ -3831,10 +3958,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": info["seconds"], "library": info["path"],
           "ptxas": parse_ptxas(info["ptxas"])})
     if digests_only:
-        # the f32 bodies of K4 and K5 on this run's seeded inputs, by row and leg
-        rows = f32_kernel_phase(torch, pf, dev)
+        # the f32 bodies of K4 and K5 (skipped with "lbmc"), and LBMC's K10,
+        # K1, K2 and K3 on f32 logits, on this run's seeded inputs, by row and leg
+        rows = {} if sys.argv[2:] == ["lbmc"] else f32_kernel_phase(torch, pf, dev)
+        rows["lbmc"] = lbmc_f32_kernel_phase(torch, ka, mf, dev, digests=True)
         print(json.dumps({"f32_digests": {
-            f"{r['name']} {r['shape']['form']}{'' if leg is r else ' ' + key}": leg["out_sha1"]
+            f"{r['name']} {r['shape'].get('form', 'lbmc')}{'' if leg is r else ' ' + key}":
+                leg["out_sha1"]
             for family in rows.values() for r in family
             for key, leg in [("", r), *((k, v) for k, v in r.items() if isinstance(v, dict))]
             if "out_sha1" in leg}}))

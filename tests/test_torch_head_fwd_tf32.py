@@ -243,9 +243,9 @@ def test_head_fwd_refuses_no_head_the_simt_plan_takes(launches, c1):
 
 
 def test_chip_smoke_checks_the_tensor_core_bodies():
-    """``chip_smoke.py`` files the tensor-core f32 bodies of K4-bwd, K5-fwd
-    and K5-bwd by their own names (K5-fwd's apart from K5-bwd's), and an f32
-    path whose profile shows K4-bwd's or K5-fwd's SIMT body fails."""
+    """``chip_smoke.py`` files the tensor-core f32 bodies of K4, K5 and
+    K10-bwd by their own names (each forward's apart from its backward's),
+    and an f32 path whose profile shows a SIMT body of theirs fails."""
     import importlib.util
     import os
 
@@ -260,18 +260,27 @@ def test_chip_smoke_checks_the_tensor_core_bodies():
              "pathnet_head_bwd_tf32",
              "void wcmc::pathnet_embed_bwd_tf32_kernel<40, 128>(wcmc::EmbedTc)":
              "pathnet_embed_bwd_tf32",
+             "void wcmc::pathnet_embed_tf32_kernel<40, 128>(wcmc::EmbedFwdTc)":
+             "pathnet_embed_tf32",
+             "void wcmc::mlp_fused_bwd_tf32_kernel<2, 2, 2>(wcmc::MlpBwdTcArgs)":
+             "mlp_fused_bwd_tf32",
+             "wcmc::pathnet_embed_f32_kernel(wcmc::EmbedF32)": "pathnet_embed_f32",
+             "wcmc::mlp_fused_bwd_f32_kernel(wcmc::MlpF32)": "mlp_fused_bwd_f32",
              "wcmc::pathnet_embed_bwd_f32_kernel(wcmc::EmbedF32)": "pathnet_embed_bwd_f32",
              "wcmc::pathnet_head_f32_kernel(wcmc::HeadF32)": "pathnet_head_f32"}
     for name, kind in names.items():
         assert cs.device_kind(name) == kind
-    counters = ("pathnet_embed", "pathnet_head", "pathnet_embed_bwd", "pathnet_head_bwd")
-    kinds = {"pathnet_embed_f32": 1.0, "pathnet_head_tf32": 1.0, "pathnet_embed_bwd_tf32": 2.0,
-             "pathnet_head_bwd_tf32": 3.0}
+    counters = ("pathnet_embed", "pathnet_head", "pathnet_embed_bwd", "pathnet_head_bwd",
+                "mlp_fused_bwd")
+    kinds = {"pathnet_embed_tf32": 1.0, "pathnet_head_tf32": 1.0, "pathnet_embed_bwd_tf32": 2.0,
+             "pathnet_head_bwd_tf32": 3.0, "mlp_fused_bwd_tf32": 0.5}
     cs.check_f32_bodies(kinds, "train_kpcn_f32", counters)
-    for simt in ("pathnet_head_f32", "pathnet_embed_bwd_f32"):
+    for simt in ("pathnet_embed_f32", "pathnet_head_f32", "pathnet_embed_bwd_f32",
+                 "mlp_fused_bwd_f32"):
         with pytest.raises(AssertionError):
             cs.check_f32_bodies(dict(kinds, **{simt: 0.5}), "train_kpcn_f32", counters)
-    for tc in ("pathnet_head_tf32", "pathnet_embed_bwd_tf32"):
+    for tc in ("pathnet_embed_tf32", "pathnet_head_tf32", "pathnet_embed_bwd_tf32",
+               "mlp_fused_bwd_tf32"):
         with pytest.raises(AssertionError):
             cs.check_f32_bodies({k: v for k, v in kinds.items() if k != tc}, "train_kpcn_f32",
                                 counters)

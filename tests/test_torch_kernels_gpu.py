@@ -2943,9 +2943,9 @@ def test_head_fwd_tc_plan_is_the_kernels_shared_memory(cuda, form):
 
 def test_pathnet_f32_autograd_runs_the_tensor_core_bodies(cuda):
     """The PathNet's embedding and head through autograd (``_Embed``,
-    ``_Head``) on f32 tensors reach K4-bwd's, K5-fwd's and K5-bwd's
-    tensor-core bodies (K4-fwd its SIMT one), share one weight pack between
-    K5-fwd and K5-bwd, and give gradients within their tolerances of the
+    ``_Head``) on f32 tensors reach the tensor-core bodies of K4 and K5
+    forward and backward, share one weight pack between each forward and
+    its backward, and give gradients within their tolerances of the
     CPU's."""
     g = _gen(92)
     b, s, hw = 2, 3, 40
@@ -2962,15 +2962,224 @@ def test_pathnet_f32_autograd_runs_the_tensor_core_bodies(cuda):
 
     pf._packed.clear()
     got = torch.autograd.grad(loss(x, params, ctx), params + [ctx])
-    assert pf._packed.hits >= 1
+    assert (pf._packed.misses, pf._packed.hits) == (2, 2)
     names = _kernel_names(lambda: torch.autograd.grad(loss(x, params, ctx), params + [ctx]))
-    for kernel in ("pathnet_embed_f32_kernel", "pathnet_embed_bwd_tf32_kernel",
+    for kernel in ("pathnet_embed_tf32_kernel", "pathnet_embed_bwd_tf32_kernel",
                    "pathnet_head_tf32_kernel", "pathnet_head_bwd_tf32_kernel"):
         assert any(kernel in n for n in names), (kernel, names)
-    assert not any(k in n for n in names for k in ("pathnet_embed_bwd_f32_kernel",
+    assert not any(k in n for n in names for k in ("pathnet_embed_f32_kernel",
+                                                   "pathnet_embed_bwd_f32_kernel",
                                                    "pathnet_head_f32_kernel",
                                                    "pathnet_head_bwd_f32_kernel"))
     cpu = [t.detach().cpu().requires_grad_() for t in params + [ctx]]
     want = torch.autograd.grad(loss(x.cpu(), cpu[:10], cpu[10]), cpu)
     for a, w in zip(got, want):
         _close(a.cpu(), w, F32_GRAD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core f32 bodies of K4-fwd and K10-bwd
+# ---------------------------------------------------------------------------
+
+def _embed_fwd_tf32_case(cuda, form, b, s, hw, acts=None, unaligned=False):
+    """K4-fwd's tensor-core body on f32 x: e and the mean within F32_FWD_TOL
+    of max of the plain f32 version and of the SIMT body on the same inputs;
+    two launches bit for bit.  ``unaligned``: x's rows start 4 bytes past 16,
+    so they land 4 bytes a copy."""
+    dims, form_acts, _ = EMBED_TC_CASES[form]
+    acts = acts or form_acts
+    g = _gen(93)
+    n = b * s * hw * dims[0]
+    x = torch.randn(n + 1, device=cuda, generator=g)
+    x = (x[1:] if unaligned else x[:n]).view(b, s, hw, dims[0])
+    ws, bs = _rand_mlp(cuda, g, dims)
+    _build.reset_counts()
+    got = pf._embed_fwd_kernel(x, ws, bs, acts)
+    assert dict(_build.launches) == {"pathnet_embed": 1} and not _build.plain_calls
+    simt = pf._embed_fwd_kernel(x, ws, bs, acts, body="simt")
+    want = pf._embed_plain(x, ws, bs, acts)
+    for ref in (want, simt):
+        for a, w in zip(got, ref):
+            assert a.dtype == torch.float32
+            _close(a, w, F32_FWD_TOL)
+    again = pf._embed_fwd_kernel(x, ws, bs, acts)
+    assert all(torch.equal(a, w) for a, w in zip(again, got))
+
+
+@pytest.mark.parametrize("form", [f for f in EMBED_TC_CASES if f != "kpcn_dx"])
+@pytest.mark.parametrize("b,s,hw", [(2, 3, 100), (1, 5, 31)])
+def test_pathnet_embed_tf32(cuda, form, b, s, hw):
+    _embed_fwd_tf32_case(cuda, form, b, s, hw)
+
+
+@pytest.mark.parametrize("form", ["kpcn", "multisteps"])
+def test_pathnet_embed_tf32_unaligned_x(cuda, form):
+    _embed_fwd_tf32_case(cuda, form, 1, 3, 50, unaligned=True)
+
+
+@pytest.mark.parametrize("form", ["kpcn", "pathnet64", "multisteps"])
+def test_pathnet_embed_tf32_many_tiles(cuda, form):
+    """The same at 512 tiles, several a persistent block."""
+    _embed_fwd_tf32_case(cuda, form, 2, 8, 4096)
+
+
+@pytest.mark.parametrize("form", ["kpcn", "pathnet64", "multisteps"])
+def test_pathnet_embed_tf32_from_f64(cuda, form):
+    """At 512 tiles with linear activations (the arithmetic alone): e
+    (relative L2) and the mean (max error of max) each within
+    TF32_F64_FACTOR times the plain f32 version's own distance from f64."""
+    dims = EMBED_TC_CASES[form][0]
+    g = _gen(94)
+    x = torch.randn((2, 8, 4096, dims[0]), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, dims)
+    lin = ("linear",) * 3
+    e = x.double()
+    for w, v in zip(ws, bs):
+        e = e @ w.double() + v.double()
+    ref = (e, e.mean(dim=1))
+
+    def dist(out):
+        return [((out[0].double() - ref[0]).norm() / ref[0].norm()).item(),
+                ((out[1].double() - ref[1]).abs().max() / ref[1].abs().max()).item()]
+
+    tc = dist(pf._embed_fwd_kernel(x, ws, bs, lin))
+    plain = dist(pf._embed_plain(x, ws, bs, lin))
+    assert all(t <= TF32_F64_FACTOR * p for t, p in zip(tc, plain)), (tc, plain)
+
+
+def test_pathnet_embed_f32_routes_to_the_tensor_cores(cuda):
+    """``pathnet_embed`` on f32 launches the tensor-core body alone;
+    ``body="simt"`` the SIMT body, and so does a chain no tensor-core form
+    holds (200 wide), against the plain version as the tensor-core body
+    is."""
+    g = _gen(95)
+    x = torch.randn((1, 2, 64, 36), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (36, 64, 64, 64))
+    names = _kernel_names(lambda: pf.pathnet_embed(x, ws, bs))
+    assert any("pathnet_embed_tf32_kernel" in n for n in names), names
+    assert not any("pathnet_embed_f32_kernel" in n for n in names), names
+    names = _kernel_names(lambda: pf._embed_fwd_kernel(x, ws, bs, pf.EMBED_ACTS, body="simt"))
+    assert any("pathnet_embed_f32_kernel" in n for n in names), names
+    ws, bs = _rand_mlp(cuda, g, (36, 200, 64, 64))
+    names = _kernel_names(lambda: pf.pathnet_embed(x, ws, bs))
+    assert any("pathnet_embed_f32_kernel" in n for n in names), names
+    for a, w in zip(pf.pathnet_embed(x, ws, bs), pf._embed_plain(x, ws, bs, pf.EMBED_ACTS)):
+        _close(a, w, F32_FWD_TOL)
+
+
+@pytest.mark.parametrize("form", pf.EMBED_TC_FORMS)
+def test_embed_fwd_tc_plan_is_the_kernels_shared_memory(cuda, form):
+    import ctypes
+
+    fn = _build.library().wcmc_pathnet_embed_tf32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    c0, c = form
+    assert fn(c0, c) == pf.embed_fwd_tc_plan(8, 16384, c0, c, c, c).total
+
+
+# (c0, acts): LayerNet's chain, C0 narrower, other activations
+MLP_TC_CASES = {
+    "layernet": (32, LEAKY3),
+    "narrow": (29, ("relu", "leaky_relu", "linear")),
+    "odd": (7, ("linear", "relu", "relu")),
+}
+
+
+def _mlp_bwd_tf32_case(cuda, form, n, compute_dx, unaligned=False):
+    """K10-bwd's tensor-core body on f32 rows: dW and db within F32_GRAD_TOL
+    of max, d(x) within F32_ROW_L2_TOL in relative L2 of the plain f32
+    version and of the SIMT body on the same inputs; two launches bit for
+    bit.  ``unaligned``: x and g start 4 bytes past 16, so they land 4
+    bytes a copy."""
+    c0, acts = MLP_TC_CASES[form]
+    g = _gen(96)
+    x = torch.randn(n * c0 + 1, device=cuda, generator=g)
+    cot = torch.randn(n * 32 + 1, device=cuda, generator=g)
+    x = (x[1:] if unaligned else x[:-1]).view(n, c0)
+    cot = (cot[1:] if unaligned else cot[:-1]).view(n, 32)
+    ws, bs = _rand_mlp(cuda, g, (c0, 32, 32, 32))
+    _build.reset_counts()
+    got = mf.mlp_fused_bwd(x, cot, ws, bs, acts, compute_dx)
+    assert dict(_build.launches) == {"mlp_fused_bwd": 1} and not _build.plain_calls
+    simt = mf.mlp_fused_bwd(x, cot, ws, bs, acts, compute_dx, body="simt")
+    want = mf._mlp_bwd_plain(x, cot, ws, bs, acts, compute_dx)
+    for ref in (want, simt):
+        for a, w in zip(got[1] + got[2], ref[1] + ref[2]):
+            assert a.dtype == torch.float32 and a.shape == w.shape
+            _close(a, w, F32_GRAD_TOL)
+        if compute_dx:
+            _close_l2(got[0], ref[0], F32_ROW_L2_TOL)
+        else:
+            assert got[0] is None
+    again = mf.mlp_fused_bwd(x, cot, ws, bs, acts, compute_dx)
+    assert all(torch.equal(a, w) for a, w in zip(_bwd_outputs(again), _bwd_outputs(got)))
+
+
+@pytest.mark.parametrize("form", list(MLP_TC_CASES))
+@pytest.mark.parametrize("n", [77, 1000, 8 * 8 * 128 * 128])
+@pytest.mark.parametrize("compute_dx", [True, False])
+def test_mlp_fused_bwd_tf32(cuda, form, n, compute_dx):
+    _mlp_bwd_tf32_case(cuda, form, n, compute_dx)
+
+
+@pytest.mark.parametrize("form", ["layernet", "narrow"])
+def test_mlp_fused_bwd_tf32_unaligned_inputs(cuda, form):
+    _mlp_bwd_tf32_case(cuda, form, 3000, True, unaligned=True)
+
+
+def test_mlp_fused_bwd_tf32_from_f64(cuda):
+    """Over 1,048,576 rows with linear activations (the arithmetic alone):
+    dW0..dW2 (max error of max) and d(x) (relative L2) each within
+    TF32_F64_FACTOR times the plain f32 version's own distance from f64."""
+    g = _gen(97)
+    n = 8 * 8 * 128 * 128
+    x = torch.randn((n, 32), device=cuda, generator=g)
+    cot = torch.randn((n, 32), device=cuda, generator=g)
+    ws, bs = _rand_mlp(cuda, g, (32, 32, 32, 32))
+    lin = ("linear",) * 3
+    d = torch.float64
+    hs = [x.to(d)]
+    for w, v in zip(ws[:-1], bs[:-1]):
+        hs.append(hs[-1] @ w.to(d) + v.to(d))
+    gz, ref = cot.to(d), []
+    for h, w in zip(hs[::-1], ws[::-1]):
+        ref.insert(0, h.t() @ gz)
+        gz = gz @ w.to(d).t()
+
+    def dist(out):
+        return [((a.double() - w).abs().max() / w.abs().max()).item()
+                for a, w in zip(out[1], ref)] + [((out[0].double() - gz).norm()
+                                                  / gz.norm()).item()]
+
+    tc = dist(mf.mlp_fused_bwd(x, cot, ws, bs, lin, True))
+    plain = dist(mf._mlp_bwd_plain(x, cot, ws, bs, lin, True))
+    assert all(t <= TF32_F64_FACTOR * p for t, p in zip(tc, plain)), (tc, plain)
+
+
+def test_mlp_fused_bwd_f32_routes_to_the_tensor_cores(cuda):
+    """``mlp_fused_bwd`` on f32 LayerNet rows launches the tensor-core body
+    alone (and its partials' sum); ``body="simt"`` the SIMT body, and so
+    does a chain the tensor-core body does not hold (64 wide); the forward
+    keeps its SIMT body."""
+    x, ws, bs, acts, cot = _mlp_f32_case(cuda, 3000, "layernet", 98)
+    names = _kernel_names(lambda: mf.mlp_fused_bwd(x, cot, ws, bs, acts))
+    assert any("mlp_fused_bwd_tf32_kernel" in n for n in names), names
+    assert not any("mlp_fused_bwd_f32_kernel" in n for n in names), names
+    names = _kernel_names(lambda: mf.mlp_fused_bwd(x, cot, ws, bs, acts, body="simt"))
+    assert any("mlp_fused_bwd_f32_kernel" in n for n in names), names
+    names = _kernel_names(lambda: mf.fused_mlp(x, ws, bs, acts))
+    assert any("mlp_fused_f32_kernel" in n for n in names), names
+    x, ws, bs, acts, cot = _mlp_f32_case(cuda, 3000, "wide4", 99)
+    names = _kernel_names(lambda: mf.mlp_fused_bwd(x, cot, ws, bs, acts))
+    assert any("mlp_fused_bwd_f32_kernel" in n for n in names), names
+    assert not any("mlp_fused_bwd_tf32_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("c0", [32, 29, 1])
+def test_mlp_bwd_tc_plan_is_the_kernels_shared_memory(cuda, c0):
+    import ctypes
+
+    fn = _build.library().wcmc_mlp_fused_bwd_tf32_smem
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    assert fn(c0, 32, 32, 32) == mf.mlp_bwd_tc_plan(c0, (32, 32, 32), LEAKY3).total
+    assert fn(c0, 64, 32, 32) == -1

@@ -12,8 +12,9 @@
   order), against the plain f32 versions at 300 ragged rows: within 1e-5 of
   max |ref| (the same f32 math summed in another order).
 * The routing of ``_mlp_fwd_kernel`` / ``_mlp_bwd_kernel`` on card tensors
-  by dtype: f32 to the f32 entry points in every form, bf16 to the bodies
-  it ran on before, and a TypeError for any other dtype.  The launch is
+  by dtype: f32 to the f32 entry points in every form (LayerNet's backward
+  to the tensor-core body, ``body="simt"`` to the SIMT one), bf16 to the
+  bodies it ran on before, and a TypeError for any other dtype.  The launch is
   intercepted at the kernel lookup (``_build.kernel``), which names the C
   entry point; nothing runs.
 * The port's LBMC f32 forward (LayerNet, its PixelMLP embedding on K10's
@@ -167,15 +168,17 @@ def _entry(fn, *args, **kw):
 def test_mlp_routes_by_dtype(launches, form):
     x, ws, bs, acts, cot = _case(form, 40, 2)
     assert _entry(mf._mlp_fwd_kernel, x, ws, bs, acts) == "wcmc_mlp_fused_f32"
-    for compute_dx in (True, False):
-        assert _entry(mf._mlp_bwd_kernel, x, cot, ws, bs, acts,
-                      compute_dx) == "wcmc_mlp_fused_bwd_f32"
-    with pytest.raises(ValueError):   # f32 rows have one body
+    tiled = form == "layernet"
+    for compute_dx in (True, False):   # LayerNet's backward on the tensor cores
+        assert _entry(mf._mlp_bwd_kernel, x, cot, ws, bs, acts, compute_dx) == \
+            ("wcmc_mlp_fused_bwd_tf32" if tiled else "wcmc_mlp_fused_bwd_f32")
+        assert _entry(mf._mlp_bwd_kernel, x, cot, ws, bs, acts, compute_dx,
+                      body="simt") == "wcmc_mlp_fused_bwd_f32"
+    with pytest.raises(ValueError):   # f32 rows' forward has one body
         mf._mlp_fwd_kernel(x, ws, bs, acts, body="wmma")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):   # no such f32 body
         mf._mlp_bwd_kernel(x, cot, ws, bs, acts, True, body="tiled")
     xb = x.to(torch.bfloat16)
-    tiled = form == "layernet"
     assert _entry(mf._mlp_fwd_kernel, xb, ws, bs, acts) == \
         ("wcmc_mlp_fused_tiled" if tiled else "wcmc_mlp_fused")
     assert _entry(mf._mlp_bwd_kernel, xb, cot, ws, bs, acts, True) == \

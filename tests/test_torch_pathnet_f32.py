@@ -9,9 +9,8 @@ the CPU (the kernels run only on the card: ``tests/test_torch_kernels_gpu.py``).
   128^3 and [128 | 128] -> 128 -> 128), and their refusals.
 * The routing of the four wrappers on card tensors by dtype: f32 to the f32
   body in any form (Multisteps' head backward with its f32 cotangent, and
-  PathNet's embedding backward with d(x), which the bf16 bodies refuse; the
-  embedding backward, the head forward and the head backward to their
-  tensor-core bodies, the SIMT ones with ``body="simt"``),
+  PathNet's embedding backward with d(x), which the bf16 bodies refuse; all
+  four to their tensor-core bodies, the SIMT ones with ``body="simt"``),
   bf16 to the bf16 bodies as before, and a TypeError for any other dtype.
   Here the launch is intercepted at the kernel lookup (``_build.kernel``),
   which names the C entry point; nothing runs.
@@ -125,7 +124,8 @@ def _embed_inputs(dims, dtype, b=1, s=2, hw=40):
 def test_embed_routes_by_dtype(launches, form):
     dims, acts, compute_dx = EMBED_FORMS[form]
     x, ws, bs = _embed_inputs(dims, torch.float32)
-    assert _entry(pf._embed_fwd_kernel, x, ws, bs, acts) == "wcmc_pathnet_embed_f32"
+    assert _entry(pf._embed_fwd_kernel, x, ws, bs, acts) == "wcmc_pathnet_embed_tf32"
+    assert _entry(pf._embed_fwd_kernel, x, ws, bs, acts, body="simt") == "wcmc_pathnet_embed_f32"
     ge = torch.zeros((1, 2, 40, dims[-1]))
     for dx in (True, False):   # the f32 bodies take PathNet's chain with d(x) too
         assert _entry(pf._embed_bwd_kernel, x, ge, None, ws, bs, acts,

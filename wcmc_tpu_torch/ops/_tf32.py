@@ -35,3 +35,24 @@ def mm_tf32x3(acc, a, b):
     part = al @ bh
     part = part + ah @ bl
     return acc + (part + ah @ bh)
+
+
+def mm_k8(acc, a, b):
+    """``acc`` + ``a @ b`` in split TF32, k8 step by k8 step (the kernel's
+    order over K), each step's partial from zero added to ``acc``
+    (``mm_tf32x3``)."""
+    for k0 in range(0, a.shape[-1], 8):
+        acc = mm_tf32x3(acc, a[..., k0:k0 + 8], b[k0:k0 + 8])
+    return acc
+
+
+def pack_b_tf32(w):
+    """A (K, N) matrix, K and N multiples of 8, as the B operand of
+    mma.m16n8k8 in split TF32: ``(N / 8, K / 8, 32, 4)`` = [n8 tile][k8
+    step][lane][hi(b0), hi(b1), lo(b0), lo(b1)], with lane = 4 g + t, b0 =
+    w[8 k + 2t][8 n + g] and b1 = w[8 k + 2t + 1][8 n + g] (k t and k t + 4
+    of the fragment hold channels 2t and 2t + 1, as the kernels' A
+    fragments of row-major tiles do)."""
+    k, n = w.shape
+    hi, lo = split_tf32(w.float().reshape(k // 8, 4, 2, n // 8, 8))   # ks, t, e, jn, g
+    return torch.stack([hi, lo]).permute(4, 1, 5, 2, 0, 3).reshape(n // 8, k // 8, 32, 4)

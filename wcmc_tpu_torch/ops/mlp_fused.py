@@ -21,7 +21,10 @@ The kernels compute in bfloat16 with f32 accumulation (the bodies above)
 or in float32 (``csrc/mlp_f32.cu``: one SIMT body each way, every form the
 bf16 bodies take, full f32 fused multiply-adds with nothing rounded
 between layers; :func:`mlp_f32_plan` states its shared memory and grid,
-``_mlp_f32_walk`` and ``_mlp_bwd_f32_walk`` are its order on the CPU), and
+``_mlp_f32_walk`` and ``_mlp_bwd_f32_walk`` are its order on the CPU; the
+backward of LayerNet's chain runs on the tensor cores in split TF32
+instead, ``csrc/mlp_bwd_tf32.cu``: :func:`mlp_bwd_tc_plan`,
+``pack_mlp_tf32``, ``_mlp_bwd_tc_walk``), and
 raise TypeError for other dtypes and ValueError for more than
 ``MLP_MAX_LAYERS`` layers or widths over ``MLP_MAX_WIDTH``.  The plain
 versions round where the reference's Pallas kernels round: forward, after
@@ -39,6 +42,8 @@ from typing import NamedTuple
 import torch
 
 from wcmc_tpu_torch.ops import _build
+from wcmc_tpu_torch.ops._pack import PackCache
+from wcmc_tpu_torch.ops._tf32 import mm_k8, pack_b_tf32
 
 ACTS = ("linear", "relu", "leaky_relu")   # the kernels' activation codes 0, 1, 2
 MLP_MAX_LAYERS = 4
@@ -598,6 +603,175 @@ def _mlp_bwd_f32_kernel(x, g, ws, bs, acts, dims, codes, compute_dx):
     return dx, dws, list(chunks[nl:])
 
 
+# ---------------------------------------------------------------------------
+# K10-bwd's tensor-core f32 body (csrc/mlp_bwd_tf32.cu): plan, weight pack,
+# walk and wrapper
+# ---------------------------------------------------------------------------
+
+MLP_TC_ROWS = 16       # rows of a slab of the tensor-core f32 body: one m16 tile
+MLP_TC_STAGES = 3      # slabs in flight a warp
+MLP_TC_PITCH = 40      # floats a row of its tiles: 8 past a multiple of 32
+
+
+class MlpBwdTcPlan(NamedTuple):
+    """How K10-bwd's tensor-core f32 body runs LayerNet's chain: C0 padded
+    to ``k0``; each of a block's ``walkers`` warps takes ``rows`` rows at a
+    time, its own slabs, with ``stages`` slabs in flight, and keeps ``parts``
+    f32 partial sums of dW and db; ``smem`` the block's shared memory as
+    (buffer, bytes) pairs in the order the kernel carves them, each a
+    multiple of 128 bytes, ``total`` their sum (what
+    ``wcmc_mlp_fused_bwd_tf32_smem`` returns)."""
+    k0: int
+    rows: int
+    walkers: int
+    stages: int
+    parts: int
+    smem: tuple
+    total: int
+
+    def grid(self, n, sms):
+        """The blocks of a launch over ``n`` rows on a card of ``sms`` SMs:
+        persistent, one a SM (its shared memory allows no second), and no
+        more than the rows need, at least one."""
+        return max(1, min(sms, -(-n // (self.rows * self.walkers))))
+
+
+def mlp_tc_form(c0, widths):
+    """Whether K10-bwd's tensor-core f32 body holds the chain: LayerNet's,
+    three layers of ``MLP_BWD_TILED`` at C0 up to 32."""
+    return tuple(widths) == MLP_BWD_TILED and 1 <= c0 <= MLP_BWD_TILED[0]
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_bwd_tc_plan(c0, widths, acts) -> MlpBwdTcPlan:
+    """K10-bwd's tensor-core f32 body for the chain C0 -> ``widths`` with
+    activations ``acts`` (any of ``ACTS``, d(x) on or off): the six packed
+    weight matrices (W0, W1, W2 and their transposes, split TF32) and the
+    biases, then each of the 8 warps' ring of ``MLP_TC_STAGES`` slabs (an x
+    and a g tile of 16 rows a stage) and its h1 and h2 tiles, f32 at a pitch
+    of 40 floats.  ValueError for another chain."""
+    widths, acts = tuple(widths), tuple(acts)
+    _check_form("mlp_fused_bwd", c0, widths, acts)
+    if not mlp_tc_form(c0, widths):
+        raise ValueError(f"mlp_fused_bwd tf32 body takes {MLP_BWD_TILED} at C0 up to "
+                         f"{MLP_BWD_TILED[0]}, got {c0} -> {widths}")
+    w = MLP_BWD_TILED[0]
+    tile = 4 * MLP_TC_ROWS * MLP_TC_PITCH
+    smem = (("weights", 6 * 2 * 4 * w * w), ("bias", _r128(3 * 4 * w)),
+            ("rings", MLP_BWD_WARPS * MLP_TC_STAGES * 2 * tile),
+            ("hidden", MLP_BWD_WARPS * 2 * tile))
+    return MlpBwdTcPlan(w, MLP_TC_ROWS, MLP_BWD_WARPS, MLP_TC_STAGES, 3 * w * w + 3 * w, smem,
+                        sum(m for _, m in smem))
+
+
+def pack_mlp_tf32(w0, w1, w2, b0, b1, b2):
+    """LayerNet's parameters as the tensor-core body reads them: ``(wp,
+    bias)``, ``wp`` the packed B operands (``pack_b_tf32``) of W0 (its rows
+    zero-padded to 32), W1, W2, W2^T, W1^T and W0^T, one after the other;
+    ``bias`` b0 | b1 | b2, f32."""
+    w = MLP_BWD_TILED[0]
+    m0 = torch.zeros((w, w), dtype=torch.float32, device=w0.device)
+    m0[:w0.shape[0]] = w0
+    m1, m2 = w1.float(), w2.float()
+    wp = torch.cat([pack_b_tf32(m).reshape(-1) for m in (m0, m1, m2, m2.t(), m1.t(), m0.t())])
+    return wp, torch.cat([b0, b1, b2]).float()
+
+
+_packed = PackCache(4)   # LayerNet's pack; a train step has one
+
+
+def _mlp_bwd_tc_walk(x, g, ws, bs, acts, compute_dx=True, n_blocks=3):
+    """A plain walk of K10-bwd's tensor-core body on the CPU, f32, for a
+    card of ``n_blocks`` SMs: every product in split TF32 k8 step by k8 step
+    (``mm_k8``) in the kernel's order, x zero-padded to 32 columns; the chain
+    (the recompute, g3 = a2'(h3, g), g2, g1, d(x)) is the same arithmetic
+    for every row, so it runs on all rows at once; the weight gradients walk
+    each warp's slabs of 16 rows (warp v of the launch takes slabs v, v +
+    walkers, ...), dW carried through the warp's walk, db summed by each of
+    the 8 row lanes over its rows g and g + 8 of each slab and the lanes'
+    sums added by the kernel's shuffle tree; a block's partial is its warps'
+    summed in warp order, and the blocks' are summed in block order.
+    Returns what ``_mlp_bwd_plain`` returns for f32 rows."""
+    n, c0 = x.shape
+    plan = mlp_bwd_tc_plan(c0, tuple(w.shape[1] for w in ws), tuple(acts))
+    k = plan.k0
+    m0 = torch.zeros((k, k))
+    m0[:c0] = ws[0]
+    mats = (m0, ws[1].float(), ws[2].float())
+    bias = [v.float() for v in bs]
+
+    def mm(a, w):
+        return mm_k8(torch.zeros((a.shape[0], w.shape[1])), a, w)
+
+    hs = [torch.zeros((n, k))]
+    hs[0][:, :c0] = x.float()
+    for m, v, a in zip(mats[:2], bias[:2], acts[:2]):
+        hs.append(_act(a, mm(hs[-1], m) + v))
+    gz = g.float()
+    if acts[2] != "linear":
+        gz = _act_grad(acts[2], _act(acts[2], mm(hs[2], mats[2]) + bias[2]), gz)
+    gzs = [None, None, gz]
+    gzs[1] = _act_grad(acts[1], hs[2], mm(gz, mats[2].t()))
+    gzs[0] = _act_grad(acts[0], hs[1], mm(gzs[1], mats[1].t()))
+    dx = mm(gzs[0], m0.t())[:, :c0] if compute_dx else None
+    grid = plan.grid(n, n_blocks)
+    walkers = grid * plan.walkers
+    n_slabs = -(-n // plan.rows)
+    zeros = [torch.zeros((k, k))] * 3 + [torch.zeros(k)] * 3
+    total = zeros
+    for blk in range(grid):
+        block = zeros
+        for warp in range(plan.walkers):
+            dws = [torch.zeros((k, k)) for _ in range(3)]
+            lanes = [torch.zeros((8, k)) for _ in range(3)]   # db by row lane g
+            for j in range(blk * plan.walkers + warp, n_slabs, walkers):
+                r0, r1 = j * plan.rows, min((j + 1) * plan.rows, n)
+                rows = torch.zeros((plan.rows,), dtype=torch.bool)
+                rows[:r1 - r0] = True
+                for i in range(3):
+                    h = torch.zeros((plan.rows, k))
+                    h[:r1 - r0] = hs[i][r0:r1]
+                    z = torch.zeros((plan.rows, k))
+                    z[:r1 - r0] = gzs[i][r0:r1]
+                    dws[i] = mm_k8(dws[i], h.t(), z)
+                    lanes[i] = (lanes[i] + z[:8]) + z[8:]
+            dbs = []
+            for lane in lanes:   # the shuffle tree: lanes g ^ 1, then g ^ 2, then g ^ 4
+                for step in (1, 2, 4):
+                    lane = lane + lane[torch.arange(8) ^ step]
+                dbs.append(lane[0])
+            block = [a + p for a, p in zip(block, dws + dbs)]
+        total = [a + p for a, p in zip(total, block)]
+    return dx, [total[0][:c0], total[1], total[2]], total[3:]
+
+
+def _mlp_bwd_tc_kernel(x, g, ws, bs, acts, dims, codes, compute_dx):
+    """K10-bwd's tensor-core f32 body (``mlp_bwd_tc_plan``) on f32 rows, the
+    cotangent read as f32; the weights from ``pack_mlp_tf32``, packed once
+    per parameter value: ``(dx f32 or None, dWs, dbs)``."""
+    plan = mlp_bwd_tc_plan(dims[0], tuple(dims[1:]), tuple(acts))
+    dev = x.device
+    x, g = x.contiguous(), g.float().contiguous()
+    n, k = x.shape[0], plan.k0
+    dx = torch.empty((n, dims[0]), dtype=torch.float32, device=dev) if compute_dx else None
+    if n == 0:
+        out = torch.zeros(plan.parts, dtype=torch.float32, device=dev)
+    else:
+        wp, bias = _packed.get((*ws, *bs), ("tf32_mlp",), pack_mlp_tf32)
+        idx = dev.index or 0
+        grid = plan.grid(n, _build.sm_count(idx))
+        parts = torch.empty(grid * plan.parts, dtype=torch.float32, device=dev)
+        out = torch.empty(plan.parts, dtype=torch.float32, device=dev)
+        P, INT = _build.PTR, _build.INT
+        fn = _build.kernel("wcmc_mlp_fused_bwd_tf32", *([P] * 7), _build.LONG, *([INT] * 6), P)
+        _build.check(fn(x.data_ptr(), g.data_ptr(), wp.data_ptr(), bias.data_ptr(),
+                        dx.data_ptr() if compute_dx else None, parts.data_ptr(), out.data_ptr(),
+                        n, dims[0], *codes, grid, idx, _build.stream_of(dev)), "mlp_fused_bwd")
+        _build.launches["mlp_fused_bwd"] += 1
+    dw0, dw1, dw2, db0, db1, db2 = torch.split(out, [k * k] * 3 + [k] * 3)
+    return dx, [dw0.view(k, k)[:dims[0]], dw1.view(k, k), dw2.view(k, k)], [db0, db1, db2]
+
+
 def _padded_params(x, ws, bs, codes):
     """bf16 weights with W0's rows zero-padded to a multiple of 16, f32
     biases, and the kernels' layer arguments: the 4 weight and 4 bias
@@ -655,6 +829,12 @@ def _mlp_fwd_kernel(x, ws, bs, acts, body=None):
 
 
 def _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx, body=None):
+    """K10-bwd on the card.  bf16 rows run the body :func:`mlp_bwd_plan`
+    names (``body="wmma"`` forces the wmma body).  f32 rows run the
+    tensor-core body (``body`` None or "tc") where it holds the chain
+    (LayerNet's, :func:`mlp_tc_form`), else the SIMT body, which takes every
+    form; ``body="simt"`` runs the SIMT body whatever the chain (the card
+    tests' and ``chip_smoke.py``'s reference)."""
     dims, codes = _check_card("mlp_fused_bwd", x, ws, bs, acts)
     dev = x.device
     n = x.shape[0]
@@ -662,8 +842,10 @@ def _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx, body=None):
         raise ValueError(f"mlp_fused_bwd: cotangent {tuple(g.shape)} on {g.device} does "
                          f"not match the output ({n}, {dims[-1]}) on {dev}")
     if x.dtype == torch.float32:
-        if body is not None:
-            raise ValueError(f"mlp_fused_bwd: f32 rows have one body, not {body!r}")
+        if body not in (None, "tc", "simt"):
+            raise ValueError(f"mlp_fused_bwd: no f32 body {body!r}; 'tc' or 'simt'")
+        if body != "simt" and mlp_tc_form(dims[0], dims[1:]):
+            return _mlp_bwd_tc_kernel(x, g, ws, bs, acts, dims, codes, compute_dx)
         return _mlp_bwd_f32_kernel(x, g, ws, bs, acts, dims, codes, compute_dx)
     plan = mlp_bwd_plan(dims[0], tuple(dims[1:]), tuple(acts))
     body = body or plan.body
@@ -708,9 +890,9 @@ def _mlp_bwd_kernel(x, g, ws, bs, acts, compute_dx, body=None):
 def mlp_fused_bwd(x, g, ws, bs, acts, compute_dx=True, body=None):
     """Gradients of :func:`fused_mlp` for the output cotangent ``g``:
     ``(dx in x.dtype or None, dWs, dbs)``, dW and db f32.  K10-bwd for
-    CUDA tensors, on the body :func:`mlp_bwd_plan` names (``body="wmma"``
-    forces the wmma body, the card tests' and ``chip_smoke.py``'s
-    reference; f32 rows run the f32 body), the plain version for CPU
+    CUDA tensors, on the body :func:`_mlp_bwd_kernel` picks (``body``
+    selects another: "wmma" for bf16 rows, "simt" for f32 ones, the card
+    tests' and ``chip_smoke.py``'s references), the plain version for CPU
     tensors."""
     if x.device.type == "cpu":
         return _mlp_bwd_plain(x, g, ws, bs, acts, compute_dx)

@@ -38,12 +38,13 @@ output cotangent, leaky-leaky with Cout <= 128 and a bf16 one) and raise
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels,
 which compute in bfloat16 with f32 accumulation (the bodies above) or in
-float32 and raise ``TypeError`` for any other dtype.  In float32 K4-bwd,
-K5-fwd and K5-bwd run bodies on the tensor cores in split TF32
-(``csrc/pathnet_embed_bwd_tf32.cu``, ``csrc/pathnet_head_tf32.cu``,
-``csrc/pathnet_head_bwd_tf32.cu``; ``embed_bwd_tc_plan``,
-``head_fwd_tc_plan``, ``head_bwd_tc_plan``) wherever one of their forms
-holds the chain; K4-fwd, and any chain no form holds, run the SIMT bodies
+float32 and raise ``TypeError`` for any other dtype.  In float32 all four
+run bodies on the tensor cores in split TF32
+(``csrc/pathnet_embed_tf32.cu``, ``csrc/pathnet_embed_bwd_tf32.cu``,
+``csrc/pathnet_head_tf32.cu``, ``csrc/pathnet_head_bwd_tf32.cu``;
+``embed_fwd_tc_plan``, ``embed_bwd_tc_plan``, ``head_fwd_tc_plan``,
+``head_bwd_tc_plan``) wherever one of their forms holds the chain; any
+chain no form holds runs the SIMT bodies
 (``csrc/pathnet_f32.cu``: one for each of the four, the layer widths,
 activations and layouts as arguments, every product a full f32 fused
 multiply-add chain; ``embed_f32_plan`` and ``head_f32_plan`` give its
@@ -68,7 +69,7 @@ import torch
 
 from wcmc_tpu_torch.ops import _build
 from wcmc_tpu_torch.ops._pack import PackCache
-from wcmc_tpu_torch.ops._tf32 import mm_tf32x3, split_tf32
+from wcmc_tpu_torch.ops._tf32 import mm_k8, pack_b_tf32
 from wcmc_tpu_torch.ops.conv5 import SMEM_LIMIT
 from wcmc_tpu_torch.ops.kernel_apply import H100_SMS, SM_SMEM
 from wcmc_tpu_torch.ops.mlp_fused import (
@@ -161,11 +162,22 @@ def _embed_fwd(x, ws, bs, acts):
     return _embed_fwd_kernel(x, ws, bs, acts)
 
 
-def _embed_fwd_kernel(x, ws, bs, acts, rows=False):
-    """K4-fwd on the body ``embed_fwd_plan`` picks, or with ``rows`` on
-    the row-chunk body whatever the form (the card tests compare the two)."""
+def _embed_fwd_kernel(x, ws, bs, acts, rows=False, body="tc"):
+    """K4-fwd on the card.  bf16 ``x`` runs the body ``embed_fwd_plan``
+    picks, or with ``rows`` the row-chunk body whatever the form (the card
+    tests compare the two).  f32 ``x`` runs the tensor-core body
+    (``body="tc"``) where one of its forms (``EMBED_TC_FORMS``) holds the
+    chain, else the first f32 body, the SIMT one, which takes any chain up
+    to 256 wide; ``body="simt"`` runs the SIMT body whatever the chain (the
+    card tests' and ``chip_smoke.py``'s reference)."""
     dev = _require_cuda("pathnet_embed", x, *ws, *bs)
+    if body not in ("tc", "simt"):
+        raise ValueError(f"pathnet_embed: no f32 body {body!r}; 'tc' or 'simt'")
     if _card_dtype("pathnet_embed", x) == torch.float32:
+        widths = [x.shape[-1]] + [w.shape[1] for w in ws]
+        if body == "tc" and len(ws) == 3 and embed_tc_form(*widths):
+            codes = _act_codes("pathnet_embed", acts, 3)
+            return _embed_fwd_tc_kernel(x, ws, bs, codes, dev)
         return _embed_f32_kernel(x, ws, bs, acts, dev)
     dims, codes = _check_embed_card(x, ws, acts)
     b, s, hw, _ = x.shape
@@ -1461,18 +1473,6 @@ def head_bwd_tc_plan(b, hw, ce, cc, c1, cout, sms=H100_SMS) -> HeadTcPlan:
                       2 * kce * kc1 + kc1 * kout + kc1 + kout)
 
 
-def pack_b_tf32(w):
-    """A (K, N) matrix, K and N multiples of 8, as the B operand of
-    mma.m16n8k8 in split TF32: ``(N / 8, K / 8, 32, 4)`` = [n8 tile][k8
-    step][lane][hi(b0), hi(b1), lo(b0), lo(b1)], with lane = 4 g + t, b0 =
-    w[8 k + 2t][8 n + g] and b1 = w[8 k + 2t + 1][8 n + g] (k t and k t + 4
-    of the fragment hold channels 2t and 2t + 1, as the kernels' A
-    fragments of row-major tiles do)."""
-    k, n = w.shape
-    hi, lo = split_tf32(w.float().reshape(k // 8, 4, 2, n // 8, 8))   # ks, t, e, jn, g
-    return torch.stack([hi, lo]).permute(4, 1, 5, 2, 0, 3).reshape(n // 8, k // 8, 32, 4)
-
-
 def _pad2(w, k, n):
     out = torch.zeros((k, n), dtype=torch.float32, device=w.device)
     out[:w.shape[0], :w.shape[1]] = w
@@ -1503,21 +1503,12 @@ def _packed_head_tf32(ws, bs, ce, form):
                        lambda w1, w2, b1, b2: pack_head_tf32(w1, w2, b1, b2, ce, form))
 
 
-def _mm8(acc, a, b):
-    """``acc`` + ``a @ b`` in split TF32, k8 step by k8 step (the kernel's
-    order over K), each step's partial from zero added to ``acc``
-    (``mm_tf32x3``)."""
-    for k0 in range(0, a.shape[-1], 8):
-        acc = mm_tf32x3(acc, a[..., k0:k0 + 8], b[k0:k0 + 8])
-    return acc
-
-
 def _head_bwd_tc_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, sms=H100_SMS):
     """A plain walk of K5-bwd's tensor-core body on the CPU, f32: the plan's
     form (widths zero-padded, Cout to 8 or 128), its persistent blocks'
     tiles of 16 pixels and chunks of 4 samples (64 rows, sample-major, rows
     past S or HW zero and their gz zero), every product in split TF32 k8
-    step by k8 step (``_mm8``) in the kernel's order, dW1e and dW2 carried
+    step by k8 step (``mm_k8``) in the kernel's order, dW1e and dW2 carried
     through each block's walk, dW1c added to the block's partial tile by
     tile, the bias sums chunk by chunk, the partials summed in block
     order.  Returns what ``_head_bwd_plain`` returns for f32 ``e``."""
@@ -1562,7 +1553,7 @@ def _head_bwd_tc_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, sms=H100
             pok = pix < hw
             pc = pix.clamp(max=hw - 1)
             cx = torch.where(pok[:, None], cf[bi, pc], 0.0)
-            zc = _mm8(torch.zeros((HEAD_TC_PIX, kc1)), cx, w1c)
+            zc = mm_k8(torch.zeros((HEAD_TC_PIX, kc1)), cx, w1c)
             gs_t = torch.where(pok[:, None], gs[bi, pc], 0.0)
             gq_t = torch.where(pok[:, None], gq[bi, pc], 0.0)
             gt = torch.zeros((HEAD_TC_PIX, kc1))
@@ -1572,27 +1563,27 @@ def _head_bwd_tc_walk(e, ctx, g, gsum, gsq, ws, bs, acts, cmajor=False, sms=H100
                 sc = smp.clamp(max=s - 1)
                 ec = torch.where(ok[:, None], ef[bi][sc][:, pc].reshape(rows, kce), 0.0)
                 gc = torch.where(ok[:, None], gf[bi][sc][:, pc].reshape(rows, kout), 0.0)
-                z = _mm8(torch.zeros((rows, kc1)), ec, w1e)
+                z = mm_k8(torch.zeros((rows, kc1)), ec, w1e)
                 h1 = _act(a1, (z + zc.repeat(HEAD_TC_SAMPLES, 1)) + b1)
-                h2 = _act(a2, _mm8(torch.zeros((rows, kout)), h1, w2) + b2)
+                h2 = _act(a2, mm_k8(torch.zeros((rows, kout)), h1, w2) + b2)
                 gg = ((gc + gs_t.repeat(HEAD_TC_SAMPLES, 1))
                       + 2.0 * h2 * gq_t.repeat(HEAD_TC_SAMPLES, 1))
                 gz = _act_grad(a2, h2, gg)
                 gz = torch.where(ok[:, None] & (torch.arange(kout) < cout)[None], gz, 0.0)
                 db2 = db2 + gz.sum(0)
-                dw2 = _mm8(dw2, h1.t(), gz)
-                g1 = _act_grad(a1, h1, _mm8(torch.zeros((rows, kc1)), gz, w2.t()))
+                dw2 = mm_k8(dw2, h1.t(), gz)
+                g1 = _act_grad(a1, h1, mm_k8(torch.zeros((rows, kc1)), gz, w2.t()))
                 db1 = db1 + g1.sum(0)
                 for j in range(HEAD_TC_SAMPLES):
                     gt = gt + g1[j * HEAD_TC_PIX:(j + 1) * HEAD_TC_PIX]
-                dw1e = _mm8(dw1e, ec.t(), g1)
-                dec = _mm8(torch.zeros((rows, kce)), g1, w1e.t()).reshape(
+                dw1e = mm_k8(dw1e, ec.t(), g1)
+                dec = mm_k8(torch.zeros((rows, kce)), g1, w1e.t()).reshape(
                     HEAD_TC_SAMPLES, HEAD_TC_PIX, kce)
                 for j in range(HEAD_TC_SAMPLES):
                     if s0 + j < s:
                         de[bi, s0 + j, pix[pok]] = dec[j][pok]
-            dctx[bi, pix[pok]] = _mm8(torch.zeros((HEAD_TC_PIX, kce)), gt, w1c.t())[pok]
-            dw1c = _mm8(dw1c, cx.t(), gt)
+            dctx[bi, pix[pok]] = mm_k8(torch.zeros((HEAD_TC_PIX, kce)), gt, w1c.t())[pok]
+            dw1c = mm_k8(dw1c, cx.t(), gt)
         parts.append(torch.cat([dw1e.reshape(-1), dw1c.reshape(-1), dw2.reshape(-1), db1, db2]))
     out = torch.zeros_like(parts[0])
     for part in parts:
@@ -1739,7 +1730,7 @@ def _packed_embed_tf32(ws, bs, form):
 def _embed_bwd_tc_walk(x, ge, gmean, ws, bs, acts, compute_dx=False, sms=H100_SMS):
     """A plain walk of K4-bwd's tensor-core body on the CPU, f32: the plan's
     form (C0 and the layers zero-padded), every product in split TF32 k8 step
-    by k8 step (``_mm8``) in the kernel's order; the per-row chain (the
+    by k8 step (``mm_k8``) in the kernel's order; the per-row chain (the
     recompute, g3 = a2'(h3, ge + gmean / S), g2, g1, d(x)) is the same
     arithmetic for every row, so it runs on all rows at once; the weight
     gradients walk each persistent block's tiles of 16 pixels and chunks of 4
@@ -1768,7 +1759,7 @@ def _embed_bwd_tc_walk(x, ge, gmean, ws, bs, acts, compute_dx=False, sms=H100_SM
         g[..., :c3] = g[..., :c3] + gmean.float()[:, None] / s
 
     def mm(a, w):
-        return _mm8(torch.zeros((*a.shape[:-1], w.shape[1])), a, w)
+        return mm_k8(torch.zeros((*a.shape[:-1], w.shape[1])), a, w)
 
     h1 = _act(a0, mm(xf, m0) + bias[0])
     h2 = _act(a1, mm(h1, m1) + bias[1])
@@ -1799,11 +1790,11 @@ def _embed_bwd_tc_walk(x, ge, gmean, ws, bs, acts, compute_dx=False, sms=H100_SM
 
                 xc, h1c, h2c, g3c, g2c, g1c = map(chunk, (xf, h1, h2, g, g2, g1))
                 db[2] = db[2] + g3c.sum(0)
-                dw2 = _mm8(dw2, h2c.t(), g3c)
+                dw2 = mm_k8(dw2, h2c.t(), g3c)
                 db[1] = db[1] + g2c.sum(0)
-                dw1 = _mm8(dw1, h1c.t(), g2c)
+                dw1 = mm_k8(dw1, h1c.t(), g2c)
                 db[0] = db[0] + g1c.sum(0)
-                dw0t = _mm8(dw0t, g1c.t(), xc)
+                dw0t = mm_k8(dw0t, g1c.t(), xc)
         parts.append(torch.cat([dw0t.t().reshape(-1), dw1.reshape(-1), dw2.reshape(-1), *db]))
     out = torch.zeros_like(parts[0])
     for part in parts:
@@ -1846,6 +1837,100 @@ def _embed_bwd_tc_kernel(x, ge, gmean, ws, bs, codes, compute_dx, dev):
     dw0, dw1, dw2, db0, db1, db2 = torch.split(out, [kc0 * kc, kc * kc, kc * kc, kc, kc, kc])
     return dx, [dw0.view(kc0, kc)[:c0, :c1], dw1.view(kc, kc)[:c1, :c2],
                 dw2.view(kc, kc)[:c2, :c3]], [db0[:c1], db1[:c2], db2[:c3]]
+
+
+# ---------------------------------------------------------------------------
+# K4-fwd's tensor-core f32 body (csrc/pathnet_embed_tf32.cu): plan, walk and
+# wrapper; its forms and weight pack are K4-bwd's (EMBED_TC_FORMS,
+# pack_embed_tf32), so a train step's backward finds its forward's pack
+# ---------------------------------------------------------------------------
+
+class EmbedFwdTcPlan(NamedTuple):
+    """How K4-fwd's tensor-core f32 body runs a chain: the form of
+    ``EMBED_TC_FORMS`` its widths are zero-padded to; ``blocks`` persistent
+    blocks (``per_sm`` an SM) over ``tiles`` tiles of 16 pixels, each tile
+    its samples in chunks of 4; ``smem`` the block's shared memory as
+    (buffer, bytes) pairs in the kernel's carve order, each a multiple of
+    128 bytes, ``total`` their sum (what ``wcmc_pathnet_embed_tf32_smem``
+    returns)."""
+    form: tuple
+    tiles: int
+    per_sm: int
+    blocks: int
+    smem: tuple
+    total: int
+
+
+@functools.lru_cache(maxsize=None)
+def embed_fwd_tc_plan(b, hw, c0, c1, c2, c3, sms=H100_SMS) -> EmbedFwdTcPlan:
+    """K4-fwd's tensor-core body for (b, ., hw) rows of a chain C0 -> C1 ->
+    C2 -> C3: the form, the grid, and the carve: x twice (the chunk and the
+    next), h1 and h2 at 64 rows, f32, rows at a pitch of 8 floats past a
+    multiple of 32.  Two blocks an SM for the forms of C0 40 (the kernel's
+    launch bounds), one for Multisteps'.  ValueError for a chain no form
+    holds."""
+    form = embed_tc_form(c0, c1, c2, c3)
+    if form is None:
+        raise ValueError(f"pathnet_embed tf32 body takes chains up to one of {EMBED_TC_FORMS} "
+                         f"(C0, widest layer), got {(c0, c1, c2, c3)}")
+    kc0, kc = form
+    rows = EMBED_TC_PIX * EMBED_TC_SAMPLES
+    smem = (("x0", rows * _et_pitch(kc0)), ("x1", rows * _et_pitch(kc0)),
+            ("h1", rows * _et_pitch(kc)), ("h2", rows * _et_pitch(kc)))
+    smem = tuple((n, _r128(4 * c)) for n, c in smem)
+    total = sum(m for _, m in smem)
+    per_sm = min(2 if kc0 == 40 else 1, SM_SMEM // (total + 1024))
+    tiles = b * -(-hw // EMBED_TC_PIX)
+    return EmbedFwdTcPlan(form, tiles, per_sm, max(1, min(tiles, per_sm * sms)), smem, total)
+
+
+def _embed_fwd_tc_walk(x, ws, bs, acts):
+    """A plain walk of K4-fwd's tensor-core body on the CPU, f32: the plan's
+    form (C0 and the layers zero-padded), every product in split TF32 k8
+    step by k8 step (``mm_k8``) in the kernel's order, then the bias and the
+    activation; the mean the unrounded f32 e of the samples summed in sample
+    order from zero and divided once by S.  Every row's arithmetic is the
+    same whatever its tile, so the walk takes all rows at once.  Returns
+    what ``_embed_plain`` returns for f32 ``x``."""
+    b, s, hw, c0 = x.shape
+    dims = [c0] + [w.shape[1] for w in ws]
+    kc0, kc = embed_fwd_tc_plan(b, hw, *dims).form
+    mats = (_pad2(ws[0], kc0, kc), _pad2(ws[1], kc, kc), _pad2(ws[2], kc, kc))
+    h = torch.zeros((b, s, hw, kc0))
+    h[..., :c0] = x.float()
+    for m, v, a in zip(mats, bs, acts):
+        bias = torch.zeros(kc)
+        bias[:v.shape[0]] = v
+        h = _act(a, mm_k8(torch.zeros((b, s, hw, kc)), h, m) + bias)
+    e = h[..., :dims[-1]]
+    total = torch.zeros((b, hw, dims[-1]))
+    for j in range(s):
+        total = total + e[:, j]
+    return e, total / s
+
+
+def _embed_fwd_tc_kernel(x, ws, bs, codes, dev):
+    """K4-fwd's tensor-core f32 body (``embed_fwd_tc_plan``): x read as it
+    comes (16 bytes a copy where C0 is a multiple of 4 and x 16-byte
+    aligned, else 4), e and the mean written at the chain's width; the
+    weights from ``pack_embed_tf32``, packed once per parameter value (the
+    entry K4-bwd reads)."""
+    b, s, hw, c0 = x.shape
+    dims = _f32_dims("pathnet_embed", c0, ws)
+    idx = dev.index or 0
+    plan = embed_fwd_tc_plan(b, hw, *dims, sms=_build.sm_count(idx))
+    kc0, kc = plan.form
+    wp, bias = _packed_embed_tf32(ws, bs, plan.form)
+    x = x.contiguous()
+    e = torch.empty((b, s, hw, dims[-1]), dtype=torch.float32, device=dev)
+    mean = torch.empty((b, hw, dims[-1]), dtype=torch.float32, device=dev)
+    P, INT = _build.PTR, _build.INT
+    fn = _build.kernel("wcmc_pathnet_embed_tf32", *([P] * 5), *([INT] * 12), P)
+    _build.check(fn(x.data_ptr(), wp.data_ptr(), bias.data_ptr(), e.data_ptr(), mean.data_ptr(),
+                    b, s, hw, c0, dims[-1], kc0, kc, *codes, plan.blocks, idx,
+                    _build.stream_of(dev)), "pathnet_embed")
+    _build.launches["pathnet_embed"] += 1
+    return e, mean
 
 
 # ---------------------------------------------------------------------------
@@ -1903,7 +1988,7 @@ def _head_fwd_tc_walk(e, ctx, ws, bs, acts, moments=False, cmajor=False,
                       out_dtype=torch.float32):
     """A plain walk of K5-fwd's tensor-core body on the CPU, f32: the plan's
     form (widths zero-padded), every product in split TF32 k8 step by k8
-    step (``_mm8``) in the kernel's order, ctx . W1c once per pixel added to
+    step (``mm_k8``) in the kernel's order, ctx . W1c once per pixel added to
     each sample's rows before b1; a narrow head's output product (Cout
     padded to 8 or 16) as the kernel splits it, each warp's C1 / 64 k8
     steps into its partial from zero and the 8 partials summed in warp
@@ -1924,17 +2009,17 @@ def _head_fwd_tc_walk(e, ctx, ws, bs, acts, moments=False, cmajor=False,
     ef[..., :ce] = e.float()
     cf = torch.zeros((b, hw, kce))
     cf[..., :cc] = ctx.float()
-    zc = _mm8(torch.zeros((b, hw, kc1)), cf, w1c)
-    h1 = _act(a1, (_mm8(torch.zeros((b, s, hw, kc1)), ef, w1e) + zc[:, None]) + b1)
+    zc = mm_k8(torch.zeros((b, hw, kc1)), cf, w1c)
+    h1 = _act(a1, (mm_k8(torch.zeros((b, s, hw, kc1)), ef, w1e) + zc[:, None]) + b1)
     if kout <= 16:
         z = None
         k = kc1 // HEAD_FWD_TC_WARPS
         for w in range(HEAD_FWD_TC_WARPS):
-            part = _mm8(torch.zeros((b, s, hw, kout)), h1[..., w * k:(w + 1) * k],
+            part = mm_k8(torch.zeros((b, s, hw, kout)), h1[..., w * k:(w + 1) * k],
                         w2[w * k:(w + 1) * k])
             z = part if z is None else z + part
     else:
-        z = _mm8(torch.zeros((b, s, hw, kout)), h1, w2)
+        z = mm_k8(torch.zeros((b, s, hw, kout)), h1, w2)
     out = _act(a2, z + b2)[..., :cout]
     res = out.to(out_dtype)
     res = res.transpose(2, 3) if cmajor else res
